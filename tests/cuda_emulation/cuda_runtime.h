@@ -1,0 +1,50 @@
+// A CPU stand-in for the part of the CUDA runtime that the port's kernels
+// use, so that tests/test_torch_kernels_emulated.py can compile
+// ceres_tpu_torch/csrc/*.cu with a host C++ compiler and run them. Blocks
+// run one after another; the threads of a block run as std::threads, with
+// __syncthreads as a barrier that exited threads drop out of, and
+// __shared__ arrays as function-local statics, shared by the block that is
+// running. It checks what the kernels compute, not how fast or how the
+// card schedules them.
+#pragma once
+#include <math.h>
+#include <cmath>
+#include <thread>
+#include <barrier>
+#include <vector>
+struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
+struct uint3e { unsigned x, y, z; };
+inline thread_local uint3e threadIdx;
+inline thread_local uint3e blockIdx;
+inline thread_local dim3 blockDim;
+inline thread_local dim3 gridDim;
+inline thread_local std::barrier<>* ct_emu_barrier;
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__ static
+typedef void* cudaStream_t;
+inline int cudaGetLastError() { return 0; }
+inline void __syncthreads() { ct_emu_barrier->arrive_and_wait(); }
+template <typename... KArgs, typename... Args>
+void ct_emu_launch(void (*k)(KArgs...), int grid, int block, Args... args) {
+  for (int b = 0; b < grid; ++b) {
+    std::barrier<> bar(block);
+    std::vector<std::thread> ts;
+    for (int t = 0; t < block; ++t)
+      ts.emplace_back([&, t] {
+        threadIdx = {(unsigned)t, 0, 0};
+        blockIdx = {(unsigned)b, 0, 0};
+        blockDim = dim3(block);
+        gridDim = dim3(grid);
+        ct_emu_barrier = &bar;
+        k(args...);
+        bar.arrive_and_drop();
+      });
+    for (auto& th : ts) th.join();
+  }
+}
+#define CT_LAUNCH(kernel, grid, block, stream, ...) \
+  ct_emu_launch(kernel, (int)(grid), (int)(block), __VA_ARGS__)
