@@ -16,11 +16,12 @@
 // Replaces the Pallas kernel schur_assembly in mode="dense"
 // (ceres_tpu/ops/pallas_kernels.py:1281, pallas_call at :1546).
 //
-// What bounds it on an H100: at BAL-16, operations and bytes about
-// equally. The row, camera and pair products are ~240 Mflop, ~7 us at the
-// card's 34 TFLOP/s in float64; the inputs, plans and outputs are ~23 MB,
-// ~7 us at 3.35 TB/s. This first version is far from either bound: see
-// the pair blocks below.
+// What bounds it on an H100: bytes. At BAL-16 the function reads J, the
+// scales, K, u and the row maps and writes AtA, FtF and U: ~20 MB in
+// float64, ~6 us at 3.35 TB/s. Its arithmetic, each symmetric product
+// counted once, is ~140 Mflop, ~2 us at the card's 67 TFLOP/s (float64
+// on the tensor cores, float32 outside them). This first version is far
+// from that bound: see the pair blocks below.
 // Design: pass 1, one thread per row, computes Y_b and keeps it in a
 // (27, B) workspace. Pass 2 runs two kinds of blocks in one launch. Camera
 // blocks take a chunk of one camera's rows (common.cuh camera plan) and

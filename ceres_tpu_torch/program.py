@@ -5,9 +5,10 @@ Layout, as in the JAX package:
  - the state vector x is family-major and block-contiguous; a family is
    one ParameterBlockArray, so gathering a family is a reshape;
  - the tangent vector equals the state (the slice is Euclidean);
- - residual blocks of one batched add form one *kind*; with
-   `sort_rows=True` a kind's rows are sorted by its largest family's block
-   ids (for BAL: by point), so per-point sums are contiguous segments.
+ - residual blocks of one batched add form one *kind*; a kind's rows are
+   sorted by its largest family's block ids (for BAL: by point), so
+   per-point sums are contiguous segments (the JAX package's
+   `sort_rows=True`, which is what its fused path uses).
 
 `_eval_core` is the plain evaluation: the cost function's own residual,
 differentiated by torch.func. The fused path evaluates through the
@@ -67,17 +68,31 @@ class Kind:
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless asked otherwise."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                               "to run the plain PyTorch versions")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
 class CompiledProgram:
-    """Static evaluation plan of a Problem snapshot on one device."""
+    """Static evaluation plan of a Problem snapshot on one device: CUDA
+    unless the caller passes device="cpu"."""
 
     def __init__(self, problem: Problem, compute_dtype: str = "float64",
-                 sort_rows: bool = False, device="cpu"):
+                 device=None):
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
         self.problem = problem
         self.compute_dtype = _DTYPES[compute_dtype]
-        self.sort_rows = sort_rows
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.fixed_cost = 0.0
         self._build()
 
@@ -132,8 +147,8 @@ class CompiledProgram:
 
     def _sort_perm(self, slots):
         """Rows ordered by the largest variable family's block ids (None
-        when already sorted or sorting is off)."""
-        if not self.sort_rows or not slots:
+        when already sorted)."""
+        if not slots:
             return None
         best = max(slots, key=lambda s: s.family.count)
         pos = best.pos_in_family

@@ -17,24 +17,10 @@ import torch
 
 from .options import Options
 from .problem import Problem
-from .program import CompiledProgram
+from .program import CompiledProgram, resolve_device
 from .solvers.fused_lm import build_fused_minimizer
 from .summary import Summary
 from .types import LinearSolverType, PreconditionerType, TerminationType, not_ported
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless asked otherwise."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                               "to run the plain PyTorch versions")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def _pick_linear_solver(options: Options, program: CompiledProgram,
@@ -95,8 +81,7 @@ def solve(options: Options, problem: Problem, summary: Optional[Summary] = None,
                            else "cpu")
     summary.num_devices = 1
 
-    program = CompiledProgram(problem, options.evaluation_dtype, sort_rows=True,
-                              device=dev)
+    program = CompiledProgram(problem, options.evaluation_dtype, device=dev)
     summary.fixed_cost = program.fixed_cost
     summary.num_parameters_reduced = program.state_size
     summary.num_effective_parameters_reduced = program.tangent_size

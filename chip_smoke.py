@@ -24,8 +24,9 @@ import torch
 GOLDEN_COST = 51931.10068031216
 GOLDEN_ROWS = 17
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-# peak rates outside the tensor cores (NVIDIA H100 SXM data sheet)
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# peak rate of each type (NVIDIA H100 SXM data sheet, dense): float32
+# outside the tensor cores, float64 on them (FP64 tensor-core DMMA)
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 REL_LIMIT = {torch.float64: 1e-11, torch.float32: 1e-4}
 
 KERNELS = [
@@ -139,7 +140,7 @@ def main():
     checks, inputs = {}, {}
     for dtn in ("float64", "float32"):
         problem = bal.build_problem_batched(b16)[0]
-        prog = CompiledProgram(problem, dtn, sort_rows=True, device=dev)
+        prog = CompiledProgram(problem, dtn, device=dev)
         _, e_fams = _pick_linear_solver(opts, prog, Summary())
         ops = DenseSchurStepOps(prog, opts, e_fams)
         plan, q, dt = ops.flat.plan, ops._jt_qual, prog.compute_dtype
@@ -287,13 +288,13 @@ def main():
                 "ms" + suffix: ms, "plain_ms" + suffix: plain_ms,
                 "bound_ms" + suffix: max(t_bytes, t_ops),
                 "bound_by" + suffix: "bytes" if t_bytes >= t_ops else "operations",
-                "bytes" + suffix: byts, "flops" + suffix: flops,
                 "library_ms" + suffix: None,
             })
             log("time", f"{name} {dtn}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"bound {max(t_bytes, t_ops):.4f} ms by "
-                f"{'bytes' if t_bytes >= t_ops else 'operations'}; "
-                f"library call: none ({NO_LIBRARY_CALL[name]})")
+                f"{'bytes' if t_bytes >= t_ops else 'operations'} (counted, not "
+                f"measured: {byts} bytes -> {t_bytes:.4f} ms, {flops} flops -> "
+                f"{t_ops:.4f} ms); library call: none ({NO_LIBRARY_CALL[name]})")
         entry["launches_f32"] = solves["float32"]["launches"][name]
         rows.append(entry)
     kn_time = sum(r["ms"] * r["launches"] for r in rows) / max(
@@ -310,36 +311,36 @@ def main():
 
 
 def work(name, args, plan):
-    """(bytes, flops) of one call: every input read once, every output
-    written once, and the arithmetic the function needs on these inputs."""
+    """(bytes, flops) that the function itself needs on these inputs: each
+    input read once and each output written once, where the inputs are the
+    tensors and the row -> camera / point maps (cam_idx, pt_idx), not the
+    design's own plans or workspaces; and the arithmetic, taking each
+    symmetric product once."""
     B, P, C = plan.B, plan.P, plan.C
+    idx = nbytes(plan.cam_idx, plan.pt_idx)
     if name == "eval_fused":
         cams, pts, obs = args[:3]
         es = cams.element_size()
-        byts = nbytes(cams, pts, obs, plan.cam_idx, plan.pt_idx) + es * 26 * B + 8
+        byts = nbytes(cams, pts, obs) + idx + es * 26 * B + 8
         return byts, 330 * B  # rotation with its 3 derivatives, projection, J
     if name == "post_eval_fused":
         JT, rT = args[:2]
         es = JT.element_size()
-        byts = (nbytes(JT, rT, plan.pt_start, plan.cam_rows, plan.cam_chunk_start,
-                       plan.cam_chunk_first) + es * (15 * P + 18 * C))
-        return byts, (60 + 72) * B
+        byts = nbytes(JT, rT) + idx + es * (15 * P + 18 * C)
+        # g_e, sqn_e, E'E (6 of 9), g_f, sqn_f per row
+        return byts, (12 + 12 + 24 + 36 + 36) * B
     if name == "schur_assembly":
         JT, sc, sp, K, u = args[:5]
         es = JT.element_size()
-        NP = plan.pair_a.shape[0]
-        byts = (nbytes(JT, sc, sp, K, u, plan.cam_idx, plan.pt_idx, plan.cam_rows,
-                       plan.cam_chunk_start, plan.cam_chunk_first, plan.pair_a,
-                       plan.pair_b, plan.pair_chunk_start, plan.pair_chunk_first)
-                + es * ((9 * C) ** 2 + 81 * C + 9 * C))
-        # W and Y per row; FtF and U per row; Y_a'Y_b per pair
-        return byts, (294 + 378) * B + 486 * NP
+        byts = nbytes(JT, sc, sp, K, u) + idx + es * ((9 * C) ** 2 + 81 * C + 9 * C)
+        NP = plan.pair_a.shape[0]  # ordered pairs of rows of one point, a == b too
+        # per row: scaling 24, W 108, Y 162, FtF (45 of 81) 180, U 54;
+        # Y_a'Y_b once per unordered pair a != b, 45 of 81 entries for a == b
+        return byts, 528 * B + 486 * (NP - B) // 2 + 270 * B
     JT, xc, xp = args[:3]
     es = JT.element_size()
-    byts = (nbytes(JT, xc, xp, plan.cam_idx, plan.pt_idx, plan.pt_start,
-                   plan.cam_rows, plan.cam_chunk_start, plan.cam_chunk_first)
-            + es * (9 * C + 3 * P))
-    return byts, 96 * B
+    byts = nbytes(JT, xc, xp) + idx + es * (9 * C + 3 * P)
+    return byts, 96 * B  # jv, J_f'jv, J_e'jv per row
 
 
 if __name__ == "__main__":

@@ -41,7 +41,7 @@ def test_kernel_matches_plain_on_card(card, name, dtype):
     output's largest entry: 1e-11 in float64, 1e-4 in float32 (by the
     working dtype; the cost is a float64 sum in both)."""
     prog = CompiledProgram(tbal.build_problem_batched(small_bal())[0], dtype,
-                           sort_rows=True, device=card)
+                           device=card)
     opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR)
     ops = DenseSchurStepOps(prog, opts, [1])
     plan, q, dt = ops.flat.plan, ops._jt_qual, prog.compute_dtype
@@ -83,7 +83,7 @@ def test_schur_assembly_beyond_shared_memory_on_card(card):
                                         visibility=0.04, seed=6),
                      0.01, 0.05, 0.05, seed=1)
     prog = CompiledProgram(tbal.build_problem_batched(b)[0], "float64",
-                           sort_rows=True, device=card)
+                           device=card)
     opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR)
     ops = DenseSchurStepOps(prog, opts, [1])
     plan = ops.flat.plan

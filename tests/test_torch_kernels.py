@@ -25,7 +25,7 @@ def setup():
     cost, r, g, J = (np.asarray(a) for a in jprog.evaluate_dense(jprog.initial_state()))
     prog = CompiledProgram(tbal.build_problem_batched(tbal.from_arrays(
         b.cameras, b.points, b.camera_index, b.point_index, b.observations))[0],
-        "float64", sort_rows=True)
+        "float64", device="cpu")
     opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR)
     ops = DenseSchurStepOps(prog, opts, [1])
     x = prog.initial_state()

@@ -61,7 +61,7 @@ def _inputs(dtype, num_cameras, num_points):
                                         num_points=num_points,
                                         visibility=3.0 / num_cameras, seed=4),
                      0.01, 0.05, 0.05, seed=1)
-    prog = CompiledProgram(tbal.build_problem_batched(b)[0], dtype, sort_rows=True)
+    prog = CompiledProgram(tbal.build_problem_batched(b)[0], dtype, device="cpu")
     opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR)
     ops = DenseSchurStepOps(prog, opts, [1])
     plan, q, dt = ops.flat.plan, ops._jt_qual, prog.compute_dtype

@@ -91,7 +91,7 @@ def test_plain_evaluation_matches_jax_program(dtype, tol):
     o_ref = jprog._eval_core(jprog.initial_state(), True, False, need_grad=False)
     prog = CompiledProgram(tbal.build_problem_batched(tbal.from_arrays(
         b.cameras, b.points, b.camera_index, b.point_index, b.observations))[0],
-        dtype, sort_rows=True)
+        dtype, device="cpu")
     o = prog._eval_core(prog.initial_state())
     pairs = [(o["residuals"], o_ref["residuals"])] + list(
         zip(o["block_jacs"][0], o_ref["block_jacs"][0]))

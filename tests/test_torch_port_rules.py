@@ -60,6 +60,17 @@ def test_solve_without_cpu_request_raises_when_no_card(monkeypatch):
         ctt.solve(opts, problem, device="cuda")
 
 
+def test_compiled_program_without_cpu_request_raises_when_no_card(monkeypatch):
+    from ceres_tpu_torch.program import CompiledProgram
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    b = tbal.synthetic_bal(num_cameras=3, num_points=20, visibility=0.6, seed=2)
+    problem = tbal.build_problem_batched(b)[0]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CompiledProgram(problem)
+    assert CompiledProgram(problem, device="cpu").device == torch.device("cpu")
+
+
 def test_kernel_wrapper_given_cuda_tensors_does_not_run_the_plain_version(
         monkeypatch):
     """Fake CUDA tensors stand in for a card: the wrapper goes to its kernel
