@@ -5,8 +5,9 @@ Camera: 9 parameters, angle-axis rotation (3), translation (3), focal f,
 radial distortion k1, k2. BAL convention: P = R X + t, p = -P / P_z,
 predicted = f (1 + k1 r^2 + k2 r^4) p.
 
-`synthetic_bal` and `perturb` draw the same numbers from the same seeds as
-the JAX package (numpy's default_rng in the same order); the clean
+`synthetic_bal`, `synthetic_bal_large` and `perturb` draw the same numbers
+from the same seeds as the JAX package (numpy's default_rng in the same
+order); the clean
 observations come from the float64 torch residual, so they agree with the
 JAX arrays to rounding, not bit for bit.
 """
@@ -130,12 +131,54 @@ def synthetic_bal(num_cameras=16, num_points=500, visibility=0.3, noise=1.0,
     cam_idx = cam_idx.astype(np.int32)
     pt_idx = pt_idx.astype(np.int32)
 
-    cams_t = torch.as_tensor(cameras[cam_idx], dtype=torch.float64)
-    pts_t = torch.as_tensor(points[pt_idx], dtype=torch.float64)
+    obs = _clean_observations(cameras, points, cam_idx, pt_idx)
+    obs += noise * rng.standard_normal((len(cam_idx), 2))
+    return BALProblem(cameras, points, cam_idx, pt_idx, obs)
+
+
+def _clean_observations(cameras, points, cam_idx, pt_idx, chunk=1 << 20):
+    """The noise-free projections of every observation, float64 on the
+    CPU, `chunk` rows at a time."""
     zero = torch.zeros(2, dtype=torch.float64)
-    obs_clean = torch.func.vmap(
-        lambda c, p: snavely_reprojection_residual(c, p, zero))(cams_t, pts_t)
-    obs = obs_clean.numpy() + noise * rng.standard_normal((len(cam_idx), 2))
+    f = torch.func.vmap(lambda c, p: snavely_reprojection_residual(c, p, zero))
+    B = cam_idx.shape[0]
+    obs = np.empty((B, 2))
+    for s in range(0, B, chunk):
+        e = min(s + chunk, B)
+        obs[s:e] = f(torch.as_tensor(cameras[cam_idx[s:e]]),
+                     torch.as_tensor(points[pt_idx[s:e]])).numpy()
+    return obs
+
+
+def synthetic_bal_large(num_cameras=13696, num_points=1_000_000, mean_track=4.4,
+                        cam_window=60, noise=1.0, seed=0) -> BALProblem:
+    """Venice/Final-scale synthetic BA instance (the JAX package's BASELINE
+    config 4 shape, ceres_tpu/models/bal.py:307) built without the (P, C)
+    visibility matrix of synthetic_bal: each point draws a track length
+    (geometric, at least 2) and samples its cameras from a window around an
+    anchor camera, points ordered along the camera trajectory. O(B)
+    memory; rows come sorted by point."""
+    rng = np.random.default_rng(seed)
+    C, P = num_cameras, num_points
+    cameras = np.zeros((C, 9))
+    cameras[:, :3] = rng.standard_normal((C, 3)) * 0.1
+    angles = np.linspace(0, 2 * np.pi, C, endpoint=False)
+    cameras[:, 3] = 0.5 * np.cos(angles)
+    cameras[:, 4] = 0.5 * np.sin(angles)
+    cameras[:, 5] = 10.0 + rng.uniform(-0.5, 0.5, C)
+    cameras[:, 6] = 500.0 + rng.uniform(-25, 25, C)
+    cameras[:, 7] = rng.uniform(-1e-7, 1e-7, C)
+    cameras[:, 8] = rng.uniform(-1e-13, 1e-13, C)
+    points = rng.standard_normal((P, 3)) * 2.0
+
+    track = 2 + rng.geometric(1.0 / max(mean_track - 1.0, 1.0), P) - 1
+    pt_idx = np.repeat(np.arange(P, dtype=np.int32), track)
+    anchor = (pt_idx.astype(np.float64) / P * C).astype(np.int64)
+    cam_idx = np.clip(
+        anchor + rng.integers(-cam_window, cam_window + 1, pt_idx.shape[0]),
+        0, C - 1).astype(np.int32)
+    obs = _clean_observations(cameras, points, cam_idx, pt_idx)
+    obs += noise * rng.standard_normal((cam_idx.shape[0], 2))
     return BALProblem(cameras, points, cam_idx, pt_idx, obs)
 
 

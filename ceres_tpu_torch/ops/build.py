@@ -124,6 +124,9 @@ _SIGNATURES = {
                           _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "ct_normal_matvec": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                          _P, _P, _P],
+    "ct_isc_matvec": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
+                      _P, _P, _P],
+    "ct_schur_jacobi": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -1,5 +1,5 @@
-"""The four kernels of the dense-Schur jt-mode path (counterpart of
-ceres_tpu/ops/pallas_kernels.py).
+"""The six kernels of the dense- and iterative-Schur jt-mode paths
+(counterpart of ceres_tpu/ops/pallas_kernels.py).
 
 Each wrapper takes tensors on one device. On the CPU it runs the kernel's
 plain PyTorch version; on a CUDA device it launches the hand-written CUDA
@@ -13,6 +13,8 @@ camera and te = 3 point tangent columns. J travels transposed, as JT
 (24, B) (layout in csrc/common.cuh), residuals as rT (2, B). The `plan`
 argument is a flatops.RowPlan: rows sorted by point, the point segments,
 the camera chunk plan and, for schur_assembly, the point-pair plan.
+Every size and offset a kernel computes from B, P or C is 64-bit where
+it can pass 2^31 (24 * B passes it at B = 90M rows).
 """
 from __future__ import annotations
 
@@ -256,17 +258,19 @@ def schur_assembly(JT, sc, sp, K, u, plan):
     _check(u, "u", dt, (P, TE), dev)
     _check_plan(plan, dev)
     i32 = torch.int32
-    NP = plan.pair_a.shape[0]
-    _check(plan.pair_a, "plan.pair_a", i32, (NP,), dev)
-    _check(plan.pair_b, "plan.pair_b", i32, (NP,), dev)
-    _check(plan.pair_chunk_start, "plan.pair_chunk_start", i32,
-           (plan.n_pair_chunks + 1,), dev)
-    _check(plan.pair_chunk_first, "plan.pair_chunk_first", i32, (C * C + 1,), dev)
+    pairs = plan.ensure_pairs()
+    NP = pairs.pair_a.shape[0]
+    n_pair_chunks = pairs.pair_chunk_start.shape[0] - 1
+    _check(pairs.pair_a, "plan.pair_a", i32, (NP,), dev)
+    _check(pairs.pair_b, "plan.pair_b", i32, (NP,), dev)
+    _check(pairs.pair_chunk_start, "plan.pair_chunk_start", i32,
+           (n_pair_chunks + 1,), dev)
+    _check(pairs.pair_chunk_first, "plan.pair_chunk_first", i32, (C * C + 1,), dev)
     t_full = C * TF
     Y = torch.empty((TE * TF, B), dtype=dt, device=dev)
     cam_partial = torch.empty((max(1, plan.n_cam_chunks), TF * TF + TF),
                               dtype=dt, device=dev)
-    pair_partial = torch.empty((max(1, plan.n_pair_chunks), TF * TF), dtype=dt,
+    pair_partial = torch.empty((max(1, n_pair_chunks), TF * TF), dtype=dt,
                                device=dev)
     ata = torch.empty((t_full, t_full), dtype=dt, device=dev)
     ftf = torch.empty((C, TF * TF), dtype=dt, device=dev)
@@ -274,9 +278,9 @@ def schur_assembly(JT, sc, sp, K, u, plan):
     _launch(fn, _ptr(JT), B, P, C,
             _ptr(plan.cam_idx), _ptr(plan.pt_idx), _ptr(sc), _ptr(sp), _ptr(K),
             _ptr(u), _ptr(plan.cam_rows), _ptr(plan.cam_chunk_start),
-            plan.n_cam_chunks, _ptr(plan.cam_chunk_first), _ptr(plan.pair_a),
-            _ptr(plan.pair_b), _ptr(plan.pair_chunk_start), plan.n_pair_chunks,
-            _ptr(plan.pair_chunk_first), _ptr(Y), _ptr(cam_partial),
+            plan.n_cam_chunks, _ptr(plan.cam_chunk_first), _ptr(pairs.pair_a),
+            _ptr(pairs.pair_b), _ptr(pairs.pair_chunk_start), n_pair_chunks,
+            _ptr(pairs.pair_chunk_first), _ptr(Y), _ptr(cam_partial),
             _ptr(pair_partial), _ptr(ata), _ptr(ftf), _ptr(U), _stream(dev))
     schur_assembly.launches += 1
     return ata, ftf, U
@@ -324,7 +328,98 @@ def normal_matvec(JT, xc, xp, plan):
     return cam_out, pt_out
 
 
-KERNELS = (eval_fused, post_eval_fused, schur_assembly, normal_matvec)
+# --------------------------------------------------------------------------
+# 4b. implicit_schur_matvec, mode="isc" (pallas_kernels.py:781, :1716)
+# --------------------------------------------------------------------------
+
+
+def isc_matvec_plain(JT, z, minv, plan, emit_u=False):
+    Jf, Je = _split_jt(JT)
+    cam = plan.cam_idx.long()
+    pt = plan.pt_idx.long()
+    fz = torch.einsum("bia,ba->bi", Jf, z[cam])
+    etfz = _point_sum(plan, torch.einsum("bik,bi->bk", Je, fz))
+    u = (minv.reshape(-1, TE, TE) @ etfz.unsqueeze(2)).squeeze(2)
+    q = fz - torch.einsum("bik,bk->bi", Je, u[pt])
+    cam_out = _camera_sum(plan, torch.einsum("bia,bi->ba", Jf, q))
+    return cam_out, (u if emit_u else None)
+
+
+def isc_matvec(JT, z, minv, plan, emit_u=False):
+    """The implicit Schur product without its D_f^2 term,
+    S z = F'(F z - E M^{-1} E'F z), for z (C, 9) and per-point M^{-1}
+    blocks minv (P, 9) row-major -> (cam (C, 9), u (P, 3) = M^{-1} E'F z
+    when emit_u, else None)."""
+    dev = JT.device
+    if _on_cpu(JT):
+        isc_matvec.plain_calls += 1
+        return isc_matvec_plain(JT, z, minv, plan, emit_u)
+    dt = _dtype_of(JT)
+    fn = _entry("ct_isc_matvec", dt)
+    B, P, C = plan.B, plan.P, plan.C
+    _check(JT, "JT", dt, (LANES, B), dev)
+    _check(z, "z", dt, (C, TF), dev)
+    _check(minv, "minv", dt, (P, TE * TE), dev)
+    _check_plan(plan, dev)
+    q = torch.empty((R, B), dtype=dt, device=dev)
+    u = torch.empty((P, TE) if emit_u else (1, TE), dtype=dt, device=dev)
+    cam_partial = torch.empty((max(1, plan.n_cam_chunks), TF), dtype=dt,
+                              device=dev)
+    cam_out = torch.empty((C, TF), dtype=dt, device=dev)
+    _launch(fn, _ptr(JT), B, P, C,
+            _ptr(plan.cam_idx), _ptr(plan.pt_start), _ptr(plan.cam_rows),
+            _ptr(plan.cam_chunk_start), plan.n_cam_chunks,
+            _ptr(plan.cam_chunk_first), _ptr(z), _ptr(minv), int(bool(emit_u)),
+            _ptr(q), _ptr(u), _ptr(cam_partial), _ptr(cam_out), _stream(dev))
+    isc_matvec.launches += 1
+    return cam_out, (u if emit_u else None)
+
+
+# --------------------------------------------------------------------------
+# 3b / 5. block-diag(S): schur_assembly, mode="schur_jacobi"
+# (pallas_kernels.py:1281) and sj_assembly_windowed (pallas_kernels.py:2682)
+# --------------------------------------------------------------------------
+
+
+def schur_jacobi_blocks_plain(JT, se, minv, plan):
+    Jf, Je = _split_jt(JT)
+    pt = plan.pt_idx.long()
+    ftf = torch.einsum("bia,bic->bac", Jf, Jf)
+    W = se[pt][:, :, None] * torch.einsum("bik,bia->bka", Je, Jf)  # (B, 3, 9)
+    Y = minv.reshape(-1, TE, TE)[pt] @ W
+    corr = torch.einsum("bka,bkc->bac", W, Y)
+    return _camera_sum(plan, (ftf - corr).reshape(-1, TF * TF))
+
+
+def schur_jacobi_blocks(JT, se, minv, plan):
+    """The camera blocks of the Schur complement without scales and D_f^2:
+    (C, 81) row-major, block c = sum over the rows of camera c of
+    J_f'J_f - W' M^{-1}[pt] W with W = diag(se[pt]) J_e'J_f (3 x 9); se
+    (P, 3) point scales, minv (P, 9) row-major symmetric blocks (the
+    kernel forms each block's upper triangle and mirrors it)."""
+    dev = JT.device
+    if _on_cpu(JT):
+        schur_jacobi_blocks.plain_calls += 1
+        return schur_jacobi_blocks_plain(JT, se, minv, plan)
+    dt = _dtype_of(JT)
+    fn = _entry("ct_schur_jacobi", dt)
+    B, P, C = plan.B, plan.P, plan.C
+    _check(JT, "JT", dt, (LANES, B), dev)
+    _check(se, "se", dt, (P, TE), dev)
+    _check(minv, "minv", dt, (P, TE * TE), dev)
+    _check_plan(plan, dev)
+    cam_partial = torch.empty((max(1, plan.n_cam_chunks), TF * TF), dtype=dt,
+                              device=dev)
+    out = torch.empty((C, TF * TF), dtype=dt, device=dev)
+    _launch(fn, _ptr(JT), B, P, C, _ptr(plan.pt_idx), _ptr(se), _ptr(minv),
+            _ptr(plan.cam_rows), _ptr(plan.cam_chunk_start), plan.n_cam_chunks,
+            _ptr(plan.cam_chunk_first), _ptr(cam_partial), _ptr(out), _stream(dev))
+    schur_jacobi_blocks.launches += 1
+    return out
+
+
+KERNELS = (eval_fused, post_eval_fused, schur_assembly, normal_matvec,
+           isc_matvec, schur_jacobi_blocks)
 
 
 def reset_counts() -> None:

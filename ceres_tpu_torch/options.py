@@ -18,6 +18,13 @@ from .types import (
 )
 
 
+# The preconditioners of the ITERATIVE_SCHUR path; JACOBI runs as
+# SCHUR_JACOBI, as in the JAX fused loop (fused_lm.py:237-239).
+_ITERATIVE_PRECONDITIONERS = (PreconditionerType.SCHUR_JACOBI,
+                              PreconditionerType.JACOBI,
+                              PreconditionerType.IDENTITY)
+
+
 @dataclasses.dataclass
 class Options:
     minimizer_type: MinimizerType = MinimizerType.TRUST_REGION
@@ -51,7 +58,14 @@ class Options:
     # Linear solver
     linear_solver_type: LinearSolverType = LinearSolverType.SPARSE_NORMAL_CHOLESKY
     preconditioner_type: PreconditionerType = PreconditionerType.JACOBI
+    use_explicit_schur_complement: bool = False
     use_mixed_precision_solves: bool = False
+    max_num_refinement_iterations: int = 0
+    min_linear_solver_iterations: int = 0
+    max_linear_solver_iterations: int = 500
+    use_spse_initialization: bool = False
+    max_num_spse_iterations: int = 5
+    eta: float = 1e-1
     use_inner_iterations: bool = False
     linear_solver_ordering: object = None
     minimizer_progress_to_stdout: bool = False
@@ -73,6 +87,7 @@ class Options:
             "min_relative_decrease",
             "min_lm_diagonal",
             "max_lm_diagonal",
+            "eta",
         ]:
             if getattr(self, name) <= 0:
                 return False, f"Options::{name} must be > 0"
@@ -83,6 +98,9 @@ class Options:
             return False, "min_trust_region_radius > max_trust_region_radius"
         if self.min_lm_diagonal > self.max_lm_diagonal:
             return False, "min_lm_diagonal > max_lm_diagonal"
+        if self.use_mixed_precision_solves and self.linear_solver_type in (
+                LinearSolverType.ITERATIVE_SCHUR, LinearSolverType.CGNR):
+            return False, "mixed precision solves not supported with iterative solvers"
         return True, ""
 
     def check_supported(self) -> None:
@@ -93,10 +111,17 @@ class Options:
                 != TrustRegionStrategyType.LEVENBERG_MARQUARDT):
             raise not_ported(
                 f"trust_region_strategy_type={self.trust_region_strategy_type}", 6)
-        if self.linear_solver_type == LinearSolverType.ITERATIVE_SCHUR:
-            raise not_ported("linear_solver_type=ITERATIVE_SCHUR", 2)
-        if self.linear_solver_type != LinearSolverType.DENSE_SCHUR:
+        if self.linear_solver_type not in (LinearSolverType.DENSE_SCHUR,
+                                           LinearSolverType.ITERATIVE_SCHUR):
             raise not_ported(f"linear_solver_type={self.linear_solver_type}", 6)
+        if self.linear_solver_type == LinearSolverType.ITERATIVE_SCHUR:
+            if self.preconditioner_type not in _ITERATIVE_PRECONDITIONERS:
+                raise not_ported(
+                    f"preconditioner_type={self.preconditioner_type}", 6)
+            if self.use_spse_initialization:
+                raise not_ported("use_spse_initialization", 6)
+            if self.use_explicit_schur_complement:
+                raise not_ported("use_explicit_schur_complement", 6)
         if self.evaluation_dtype == "mixed" or self.use_mixed_precision_solves:
             raise not_ported("mixed-precision evaluation or solves", 5)
         if self.fused_loop.upper() == "NEVER":

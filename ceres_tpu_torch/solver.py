@@ -3,9 +3,10 @@
 
 `solve` runs on the CUDA device unless the caller passes device="cpu", in
 which case every kernel runs its plain PyTorch version. With no CUDA
-device and no device="cpu", it raises. The slice's configuration is a
-DENSE_SCHUR Levenberg-Marquardt solve in the fused-loop form; anything
-else raises NotImplementedError naming the later slice (types.not_ported).
+device and no device="cpu", it raises. The port runs a DENSE_SCHUR or an
+ITERATIVE_SCHUR (SCHUR_JACOBI, JACOBI or IDENTITY preconditioner)
+Levenberg-Marquardt solve in the fused-loop form; anything else raises
+NotImplementedError naming the later slice (types.not_ported).
 """
 from __future__ import annotations
 
@@ -25,19 +26,31 @@ from .types import LinearSolverType, PreconditionerType, TerminationType, not_po
 
 def _pick_linear_solver(options: Options, program: CompiledProgram,
                         summary: Summary):
-    """SetupLinearSolver for DENSE_SCHUR (trust_region_preprocessor.cc):
-    returns (tier, e_families)."""
+    """SetupLinearSolver for DENSE_SCHUR and ITERATIVE_SCHUR
+    (trust_region_preprocessor.cc): returns (tier, e_families)."""
     from .utils import ordering as ordering_mod
 
-    if options.linear_solver_type != LinearSolverType.DENSE_SCHUR:
-        raise not_ported(f"linear_solver_type={options.linear_solver_type}", 6)
+    given = options.linear_solver_type
+    tier = {LinearSolverType.DENSE_SCHUR: "schur_dense",
+            LinearSolverType.ITERATIVE_SCHUR: "schur_iterative"}.get(given)
+    if tier is None:
+        raise not_ported(f"linear_solver_type={given}", 6)
     e_fams = ordering_mod.eligible_e_sets(program)
     if not e_fams:
-        # the DENSE_QR fallback for a problem without e-blocks
-        raise not_ported("DENSE_SCHUR without eliminable blocks (DENSE_QR)", 6)
+        # the DENSE_QR / CGNR fallback for a problem without e-blocks
+        raise not_ported(f"{given} without eliminable blocks", 6)
     summary.schur_structure_given = summary.schur_structure_used = (
         _schur_structure_string(program, e_fams))
-    return "schur_dense", e_fams
+    return tier, e_fams
+
+
+def _preconditioner_used(options: Options) -> PreconditionerType:
+    """As the JAX solver reports it (solver.py:310): the given type for an
+    iterative solver, IDENTITY for an exact one. The iterative-Schur step
+    runs JACOBI as SCHUR_JACOBI (fused_lm.py:237-239)."""
+    if options.linear_solver_type == LinearSolverType.ITERATIVE_SCHUR:
+        return options.preconditioner_type
+    return PreconditionerType.IDENTITY
 
 
 def _schur_structure_string(program, e_fams) -> str:
@@ -97,7 +110,7 @@ def solve(options: Options, problem: Problem, summary: Optional[Summary] = None,
 
     tier, e_fams = _pick_linear_solver(options, program, summary)
     summary.linear_solver_type_used = options.linear_solver_type
-    summary.preconditioner_type_used = PreconditionerType.IDENTITY
+    summary.preconditioner_type_used = _preconditioner_used(options)
     fused = build_fused_minimizer(program, options, tier, e_families=e_fams)
     summary.preprocessor_time_in_seconds = time.monotonic() - t_start
 

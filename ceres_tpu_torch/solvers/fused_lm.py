@@ -1,5 +1,5 @@
 """Fused trust-region minimizer, Levenberg-Marquardt with the dense-Schur
-step (counterpart of ceres_tpu/solvers/fused_lm.py).
+or the iterative-Schur step (counterpart of ceres_tpu/solvers/fused_lm.py).
 
 The JAX loop runs the whole iteration, evaluate -> LM diagonal -> linear
 step -> candidate -> accept/reject -> radius update -> tolerance checks, in
@@ -13,9 +13,10 @@ gradient and column norms) runs before the decision, and is dropped if
 the step is rejected. Semantics kept from the JAX body: LM diagonal
 clamping, model-cost validity, non-monotonic step evaluation, the radius
 rules, the invalid-step bound, the gradient/function/parameter/radius
-tolerances and the termination taxonomy. Every sync is counted in
-`Summary.num_host_syncs`. A loop that stays on the device is ROADMAP.md
-port slice 4.
+tolerances and the termination taxonomy. The iterative-Schur step adds
+one sync per CG iteration (solvers/linear/cg.py). Every sync is counted
+in `Summary.num_host_syncs`. A loop that stays on the device is
+ROADMAP.md port slice 4.
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ from ..ops import kernels as kn
 from ..ops import partition as pt
 from ..options import Options
 from ..summary import IterationSummary, Summary
-from ..types import TerminationType
+from ..types import PreconditionerType, TerminationType, not_ported
+from .linear.cg import conjugate_gradients
 from .linear.dense import reduced_solve
 
 _DBL_MAX = float(np.finfo(np.float64).max)
@@ -88,13 +90,11 @@ class JTForm(NamedTuple):
     rt: torch.Tensor
 
 
-class DenseSchurStepOps:
-    """Exact dense-Schur LM step on the jt-mode kernel path: eliminate the
-    points in closed form through per-point K = L^{-1}, assemble the
-    reduced camera system with schur_assembly, solve it, back-substitute
-    with normal_matvec (fused_lm.py:891-975)."""
+class _JTStepOps:
+    """What both Schur steps share: the e/f partition, the row plan and
+    the fused jt-mode evaluation and post-evaluation."""
 
-    def __init__(self, program, options: Options, e_families):
+    def __init__(self, program, e_families):
         self.program = program
         self.pm = pt.build_partition(bsr.build_meta(program), e_families)
         self.flat = fo.FlatSchurOps(self.pm, program)
@@ -111,6 +111,17 @@ class DenseSchurStepOps:
         g = pt.combine(self.pm, g_e, g_f)
         sqn = pt.combine(self.pm, sqn_e, sqn_f)
         return g, sqn, (ete,)
+
+
+class DenseSchurStepOps(_JTStepOps):
+    """Exact dense-Schur LM step on the jt-mode kernel path: eliminate the
+    points in closed form through per-point K = L^{-1}, assemble the
+    reduced camera system with schur_assembly, solve it, back-substitute
+    with normal_matvec (fused_lm.py:891-975)."""
+
+    def __init__(self, program, options: Options, e_families):
+        super().__init__(program, e_families)
+        self.flat.plan.ensure_pairs()
 
     def _scaled_K(self, ete, se, d2e):
         """Per-point K = L^{-1} of scaled E'E + D_e^2, (P, 9) rows."""
@@ -140,8 +151,9 @@ class DenseSchurStepOps:
         u_vec = self._kmatvec(K, pt.extract_e(pm, b))
         return b, se, sf, pt.extract_f(pm, D2_c), K, u_vec
 
-    def compute_step(self, vrep: JTForm, aux, g, scale_c, D2_c):
-        """(step, model cost change) of (J_s'J_s + D^2) y = -J_s'r."""
+    def compute_step(self, vrep: JTForm, aux, g, scale_c, D2_c, fetch):
+        """(step, model cost change, linear iterations = 1) of
+        (J_s'J_s + D^2) y = -J_s'r."""
         pm, fl = self.pm, self.flat
         P, C, te, tf = fl.P, fl.C, kn.TE, kn.TF
         b, se, sf, d2f, K, u_vec = self.schur_inputs(aux, g, scale_c, D2_c)
@@ -155,7 +167,7 @@ class DenseSchurStepOps:
         rhs = pt.extract_f(pm, b) - U
         z = reduced_solve(S, rhs)
         # implicit back substitution: y_e = K'(u - K E_s'F_s z)
-        normal = fl.make_kernel_suite_raw(vrep.jt, se, sf)
+        normal = fl.make_kernel_suite_raw(vrep.jt, se, sf)[2]
         _, ptv = normal(z, torch.zeros((P, te), dtype=z.dtype, device=z.device))
         Az = self._kmatvec(K, ptv.reshape(-1))
         y_e = self._kmatvec(K, u_vec - Az, transpose=True)
@@ -163,7 +175,76 @@ class DenseSchurStepOps:
         # exact-solve identity: -m(d) = -1/2 g_s'd + 1/2 d'D^2 d
         g_dot = torch.dot(b, step)
         d2_dot = torch.dot(D2_c * step, step)
-        return step, -0.5 * g_dot + 0.5 * d2_dot
+        return step, -0.5 * g_dot + 0.5 * d2_dot, 1
+
+
+class IterativeSchurStepOps(_JTStepOps):
+    """Implicit-Schur PCG (iterative_schur_complement_solver.cc:64) on the
+    jt-mode kernel path, in its scale-folded form (fused_lm.py:219-583):
+    the rhs and the model cost change through normal_matvec, S z through
+    isc_matvec once per CG iteration, the SCHUR_JACOBI preconditioner
+    through schur_jacobi_blocks once per LM iteration, and the point
+    back-substitution from isc_matvec's u."""
+
+    def __init__(self, program, options: Options, e_families):
+        super().__init__(program, e_families)
+        prec = options.preconditioner_type
+        if prec == PreconditionerType.JACOBI:
+            prec = PreconditionerType.SCHUR_JACOBI
+        if prec not in (PreconditionerType.SCHUR_JACOBI, PreconditionerType.IDENTITY):
+            raise not_ported(f"ITERATIVE_SCHUR with preconditioner {prec}", 6)
+        self.precond = prec
+        self.eta = options.eta
+        self.min_li = options.min_linear_solver_iterations
+        self.max_li = options.max_linear_solver_iterations
+
+    def compute_step(self, vrep: JTForm, aux, g, scale_c, D2_c, fetch):
+        """(step, model cost change, CG iterations) of
+        (J_s'J_s + D^2) y = -J_s'r by PCG on the Schur complement."""
+        pm, fl = self.pm, self.flat
+        P, te, tf = fl.P, kn.TE, kn.TF
+        (ete,) = aux
+        se = pt.extract_e(pm, scale_c)
+        sf = pt.extract_f(pm, scale_c)
+        d2f = pt.extract_f(pm, D2_c)
+        minv_e = fo.scaled_block_inverses(ete, se, pt.extract_e(pm, D2_c), te)
+        matvec, jacobi_blocks, normal, fold_minv = fl.make_kernel_suite_raw(
+            vrep.jt, se, sf)
+        minv0 = fold_minv(minv_e)
+
+        # rhs = F_s'(b - E_s Minv E_s'b): F_s'E_s u0 is the camera output
+        # of the normal product at [0; u0]
+        etb = se * pt.extract_e(pm, g)
+        u0 = fo.apply_inverse_rows(minv_e, etb, te)
+        camF, _ = normal(torch.zeros_like(d2f), u0.reshape(P, te))
+        rhs = sf * pt.extract_f(pm, g) - camF
+
+        def lhs(z):
+            return matvec(z, minv0)[0] + d2f * z
+
+        precond = None
+        if self.precond == PreconditionerType.SCHUR_JACOBI:
+            inv_f = jacobi_blocks(minv_e, d2f)
+
+            def precond(v):
+                return fo.apply_inverse_rows(inv_f, v, tf)
+
+        res = conjugate_gradients(
+            lhs, rhs, torch.zeros_like(rhs), precond,
+            min_num_iterations=self.min_li, max_num_iterations=self.max_li,
+            residual_reset_period=10, r_tolerance=-1.0, q_tolerance=self.eta,
+            fetch=fetch)
+        z = res.x
+        # back substitution: y_e = Minv (E_s'b - E_s'F_s z) = u0 - u(z)
+        _, u_fin = matvec(z, minv0, emit_u=True)
+        y_e = u0 - u_fin
+        step = -pt.combine(pm, y_e, z)
+        # mr'r = step'(scale g), mr'mr = step'H_s step through one normal pass
+        ye_rows = (-y_e).reshape(P, te)
+        camH, ptH = normal(-z, ye_rows)
+        mr_r = torch.dot(step, scale_c * g)
+        mr_mr = torch.dot(-z, camH) + torch.sum(ye_rows * ptH)
+        return step, -(mr_r + 0.5 * mr_mr), res.num_iterations
 
 
 def _grad_norms(x, g):
@@ -233,7 +314,9 @@ class FusedTrustRegionMinimizer:
             # -- LM step (levenberg_marquardt_strategy.cc:69-120) -----------
             diag = torch.clamp(scale * scale * sqn, min_d, max_d)
             D2_c = (diag / radius).to(cdt)
-            step, mcc_c = ops.compute_step(vrep, aux, g, scale_c, D2_c)
+            step, mcc_c, lin_iters = ops.compute_step(
+                vrep, aux, g, scale_c, D2_c,
+                lambda *sc: self._fetch(summary, *sc))
             mcc_t = mcc_c.to(torch.float64)
             valid_t = torch.isfinite(step).all() & (mcc_t > 0.0)
             cand_x = x + step.to(torch.float64) * scale
@@ -304,7 +387,7 @@ class FusedTrustRegionMinimizer:
                 gradient_norm=gnorm, gradient_max_norm=gmax,
                 step_norm=step_norm if valid else 0.0,
                 relative_decrease=rel_dec if valid else 0.0,
-                trust_region_radius=radius_new, linear_solver_iterations=1,
+                trust_region_radius=radius_new, linear_solver_iterations=lin_iters,
                 step_is_valid=valid, step_is_successful=success))
             radius, decrease_factor = radius_new, decrease_new
             any_success = any_success or success
@@ -366,10 +449,14 @@ class FusedTrustRegionMinimizer:
             summary.termination_type = TerminationType.NO_CONVERGENCE
 
 
+_STEP_OPS = {"schur_dense": DenseSchurStepOps,
+             "schur_iterative": IterativeSchurStepOps}
+
+
 def build_fused_minimizer(program, options: Options, tier: str, e_families=None):
-    """Factory for the fused minimizer of a linear-solver tier; the slice
-    has the dense-Schur tier only."""
-    if tier != "schur_dense":
+    """Factory for the fused minimizer of a linear-solver tier: the dense-
+    and the iterative-Schur tiers."""
+    if tier not in _STEP_OPS:
         raise NotImplementedError(f"fused tier {tier!r} is not ported")
-    ops = DenseSchurStepOps(program, options, e_families)
+    ops = _STEP_OPS[tier](program, options, e_families)
     return FusedTrustRegionMinimizer(program, options, ops)

@@ -1,8 +1,10 @@
 """IterationSummary and Summary (counterpart of ceres_tpu/summary.py).
 
-Same fields and report for what the slice fills, plus `num_host_syncs`:
-the loop of this slice waits for the device once per iteration (and once
-before the first), and counts each wait here.
+Same fields and report for what the port fills, plus `num_host_syncs`:
+the LM loop waits for the device once per iteration (and once before the
+first), the iterative-Schur step once more per CG iteration, and each
+wait is counted here. `linear_solver_iterations` of a row is its CG
+iteration count (1 for the dense-Schur step).
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Public enums of the slice (counterpart of ceres_tpu/types.py).
 
-Only the enums that the BAL DENSE_SCHUR Levenberg-Marquardt path reads.
+Only the enums that the BAL DENSE_SCHUR and ITERATIVE_SCHUR
+Levenberg-Marquardt paths read.
 Names and members match the JAX package, so options written for one
 package read the same in the other.
 """
@@ -64,11 +65,11 @@ class TerminationType(_StrEnum):
 # Later slices of the port, as ROADMAP.md numbers them. Features outside
 # this slice raise NotImplementedError naming the slice that brings them.
 LATER_SLICES = {
-    2: "ITERATIVE_SCHUR with SCHUR_JACOBI (the Venice shape)",
     3: "robust losses and manifolds inside eval_fused",
     4: "a device-resident LM loop (CUDA graphs)",
     5: 'evaluation_dtype="mixed" and mixed-precision solves',
-    6: "the remaining linear solvers, minimizers and modeling API",
+    6: "the remaining linear solvers, preconditioners, minimizers and modeling API",
+    7: "generic programs on the non-jt flat path (kernels 6-9)",
 }
 
 

@@ -1,16 +1,20 @@
 """Smoke run of ceres_tpu_torch on one NVIDIA GPU: builds the CUDA kernels
 from the sources, holds each kernel against its plain PyTorch version at
-BAL-16's real inputs, solves BAL-16 through the public `solve()` in float64
-(the golden gate) and float32, counts what the solves launched, and times
-the kernels and the LM iteration.
+the real inputs of BAL-16 and of the Venice shape (13,696 cameras, 1M
+points, ~4.4M observations), drives the public `solve()` on every path
+the port runs (BAL-16 DENSE_SCHUR and ITERATIVE_SCHUR in float64 and
+float32, the Venice shape with ITERATIVE_SCHUR in both, and a 2,048-camera
+Venice-shaped instance on the card against the same solve on the CPU),
+counts what each solve launched, and times the kernels and the solves.
 
     python3 chip_smoke.py
 
 Exits nonzero on any failure, and before printing any result when no CUDA
 device is available. Its last line is {"ok": true, "device": {...}}; the
-line before it lists every kernel with its launches, error and times.
-Imports nothing of jax and nothing of ceres_tpu.
+line before it lists every ported TPU kernel with its launches, error and
+times. Imports nothing of jax and nothing of ceres_tpu.
 """
+import gc
 import json
 import statistics
 import subprocess
@@ -28,20 +32,58 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # outside the tensor cores, float64 on them (FP64 tensor-core DMMA)
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 REL_LIMIT = {torch.float64: 1e-11, torch.float32: 1e-4}
+TAG = {"float64": "f64", "float32": "f32"}
+# bench.py:308-311 (bench_large_c, the JAX package's BASELINE config 4)
+VENICE = dict(num_cameras=13696, num_points=1_000_000, mean_track=4.4,
+              cam_window=60, seed=0)
+VENICE_PERTURB = dict(rotation_sigma=0.01, translation_sigma=0.1,
+                      point_sigma=0.1, seed=1)
+VENICE_LM_ITERATIONS = 5
+# past the JAX package's 1024-camera window threshold, small for the CPU
+SMALL_VENICE = dict(VENICE, num_cameras=2048, num_points=30_000)
+SMALL_VENICE_LM_ITERATIONS = 5
 
-KERNELS = [
-    ("eval_fused", "ceres_tpu/ops/pallas_kernels.py:2066"),
-    ("post_eval_fused", "ceres_tpu/ops/pallas_kernels.py:1780"),
-    ("schur_assembly", "ceres_tpu/ops/pallas_kernels.py:1281"),
-    ("normal_matvec", "ceres_tpu/ops/pallas_kernels.py:781"),
+# one row per TPU kernel: (row, wrapper, source, replaces)
+ROWS = [
+    ("1", "eval_fused", "eval_fused", "ceres_tpu/ops/pallas_kernels.py:2066"),
+    ("2", "post_eval_fused", "post_eval_fused",
+     "ceres_tpu/ops/pallas_kernels.py:1780"),
+    ("3", "schur_assembly", "schur_assembly",
+     "ceres_tpu/ops/pallas_kernels.py:1281 (mode=dense)"),
+    ("3b", "schur_jacobi_blocks", "schur_jacobi",
+     "ceres_tpu/ops/pallas_kernels.py:1281 (mode=schur_jacobi)"),
+    ("4", "normal_matvec", "normal_matvec",
+     "ceres_tpu/ops/pallas_kernels.py:781 (mode=normal, via normal_matvec :1759)"),
+    ("4b", "isc_matvec", "isc_matvec",
+     "ceres_tpu/ops/pallas_kernels.py:781 (mode=isc, via isc_matvec :1716)"),
+    ("5", "schur_jacobi_blocks", "schur_jacobi",
+     "ceres_tpu/ops/pallas_kernels.py:2682 (sj_assembly_windowed)"),
 ]
+# the shape of each row's main numbers, and the path its launches come from
+ROW_SHAPE = {"1": "bal16", "2": "bal16", "3": "bal16", "3b": "bal16",
+             "4": "bal16", "4b": "bal16", "5": "venice"}
+ROW_PATH = {"1": "bal16_dense_f64", "2": "bal16_dense_f64",
+            "3": "bal16_dense_f64", "4": "bal16_dense_f64",
+            "3b": "bal16_iterative_f64", "4b": "bal16_iterative_f64",
+            "5": "venice_iterative_f32"}
 # why no single PyTorch call computes each kernel's function
 NO_LIBRARY_CALL = {
     "eval_fused": "no PyTorch call evaluates a residual and its Jacobian",
     "post_eval_fused": "five reductions (g, column norms, E'E) in one pass",
     "schur_assembly": "no call forms the Schur complement of a block-sparse J",
     "normal_matvec": "(J'J)x of a sparse J needs two products, J x then J'(Jx)",
+    "isc_matvec": "no call forms S z of a block-sparse J (two sparse products "
+                  "and a per-point 3x3 solve between them)",
+    "schur_jacobi_blocks": "no call forms block-diag(S) of a block-sparse J",
 }
+DENSE_PATH = ("eval_fused", "post_eval_fused", "schur_assembly", "normal_matvec")
+ITERATIVE_PATH = ("eval_fused", "post_eval_fused", "normal_matvec", "isc_matvec",
+                  "schur_jacobi_blocks")
+# the kernel checks: case -> wrapper
+CASES = {"eval_fused": "eval_fused", "post_eval_fused": "post_eval_fused",
+         "schur_assembly": "schur_assembly", "normal_matvec": "normal_matvec",
+         "isc_matvec": "isc_matvec", "isc_matvec_no_u": "isc_matvec",
+         "schur_jacobi_blocks": "schur_jacobi_blocks"}
 
 
 class SmokeFailure(Exception):
@@ -77,7 +119,7 @@ def time_cuda(fn, n):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(2e9 * (n * host_s * 1.5 + 2e-3)))
+    torch.cuda._sleep(int(2e9 * min(n * host_s * 1.5 + 2e-3, 2.0)))
     start.record()
     for _ in range(n):
         fn()
@@ -86,21 +128,40 @@ def time_cuda(fn, n):
     return start.elapsed_time(end) / n
 
 
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
 def rel_err(ref, out):
-    """max over outputs of max|out - ref| / max|ref|, and max|out - ref|."""
-    rel, mabs = 0.0, 0.0
-    for a, b in zip(ref, out):
+    """max over outputs of max|out - ref| / max|ref|, max|out - ref|, and
+    each output's max|out - ref| / max|ref|."""
+    rels, mabs = [], 0.0
+    for a, b in zip(as_tuple(ref), as_tuple(out)):
+        if a is None:
+            check(b is None, "an output the plain version leaves out came back")
+            continue
         check(a.shape == b.shape, f"shape {tuple(b.shape)} != {tuple(a.shape)}")
         err = (a.double() - b.double()).abs().max().item()
         scale = a.double().abs().max().item()
         check(np.isfinite(err), "non-finite kernel output")
-        rel = max(rel, err / max(scale, 1e-300))
+        rels.append(err / max(scale, 1e-300))
         mabs = max(mabs, err)
-    return rel, mabs
+    return max(rels), mabs, rels
+
+
+def upcast(args):
+    """The arguments with every float32 tensor in float64."""
+    return tuple(a.double() if isinstance(a, torch.Tensor) and a.dtype == torch.float32
+                 else a for a in args)
 
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def counts(kn):
+    return ({k.__name__: k.launches for k in kn.KERNELS},
+            {k.__name__: k.plain_calls for k in kn.KERNELS})
 
 
 def main():
@@ -110,16 +171,25 @@ def main():
     import ceres_tpu_torch as ctt
     from ceres_tpu_torch.models import bal
     from ceres_tpu_torch.ops import build
+    from ceres_tpu_torch.ops import flatops as fo
     from ceres_tpu_torch.ops import kernels as kn
+    from ceres_tpu_torch.ops import partition as pt
     from ceres_tpu_torch.program import CompiledProgram
     from ceres_tpu_torch.solver import _pick_linear_solver
-    from ceres_tpu_torch.solvers.fused_lm import DenseSchurStepOps, JTForm
+    from ceres_tpu_torch.solvers.fused_lm import (
+        DenseSchurStepOps,
+        IterativeSchurStepOps,
+        JTForm,
+    )
     from ceres_tpu_torch.summary import Summary
 
+    t_start = time.monotonic()
     dev = torch.device("cuda", 0)
     card = card_line()
     log("card", f"{card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"matmul allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    IS = ctt.LinearSolverType.ITERATIVE_SCHUR
+    DS = ctt.LinearSolverType.DENSE_SCHUR
 
     # -- build ----------------------------------------------------------------
     info = build.build()
@@ -131,18 +201,17 @@ def main():
                 log(f"ptxas {src}", line.strip())
     build.load()
 
-    # -- BAL-16 and the kernels against their plain versions ------------------
-    b16 = bal.bal16()
-    log("bal16", f"cameras {b16.num_cameras}, points {b16.num_points}, "
-        f"observations {b16.num_observations}")
-    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR)
-    rng = np.random.default_rng(7)
-    checks, inputs = {}, {}
-    for dtn in ("float64", "float32"):
-        problem = bal.build_problem_batched(b16)[0]
-        prog = CompiledProgram(problem, dtn, device=dev)
+    def copy_problem(b):
+        return bal.build_problem_batched(bal.from_arrays(
+            b.cameras, b.points, b.camera_index, b.point_index, b.observations))[0]
+
+    def kernel_inputs(prog, opts, dense, rng):
+        """Each case's arguments at this program's real first-iteration
+        inputs: J and r of the initial state, the Jacobi scales, an LM
+        diagonal at radius 1e4, M^{-1} of the scaled point blocks."""
         _, e_fams = _pick_linear_solver(opts, prog, Summary())
-        ops = DenseSchurStepOps(prog, opts, e_fams)
+        ops = (DenseSchurStepOps if dense else IterativeSchurStepOps)(
+            prog, opts, e_fams)
         plan, q, dt = ops.flat.plan, ops._jt_qual, prog.compute_dtype
         x0 = prog.initial_state()
         cams = prog.family_table(x0, q.fam_f).to(dt).contiguous()
@@ -154,7 +223,10 @@ def main():
         sqn64 = sqn.to(torch.float64)
         scale_c = (1.0 / (1.0 + torch.sqrt(sqn64))).to(dt)
         D2_c = (torch.clamp(scale_c.double() ** 2 * sqn64, 1e-6, 1e32) / 1e4).to(dt)
-        _, se, sf, _, K, u_vec = ops.schur_inputs(aux, g, scale_c, D2_c)
+        se = pt.extract_e(ops.pm, scale_c)
+        sf = pt.extract_f(ops.pm, scale_c)
+        minv = fo.scaled_block_inverses(aux[0], se, pt.extract_e(ops.pm, D2_c), 3)
+        minv_folded = ops.flat.make_kernel_suite_raw(JT, se, sf)[3](minv)
         xc = (sf * torch.as_tensor(rng.standard_normal(C * 9), device=dev)
               .to(dt)).reshape(C, 9).contiguous()
         xp = (se * torch.as_tensor(rng.standard_normal(P * 3), device=dev)
@@ -162,145 +234,318 @@ def main():
         args = {
             "eval_fused": (cams, pts, obs, plan, q.rows_fn),
             "post_eval_fused": (JT, rT, plan),
-            "schur_assembly": (JT, sf.reshape(C, 9).contiguous(),
-                               se.reshape(P, 3).contiguous(), K.contiguous(),
-                               u_vec.reshape(P, 3).contiguous(), plan),
             "normal_matvec": (JT, xc, xp, plan),
+            "isc_matvec": (JT, xc, minv_folded, plan, True),
+            "isc_matvec_no_u": (JT, xc, minv_folded, plan, False),
+            "schur_jacobi_blocks": (JT, se.reshape(P, 3).contiguous(),
+                                    minv.contiguous(), plan),
         }
-        inputs[dtn] = args
-        for name, _ in KERNELS:
+        if dense:
+            _, se_d, sf_d, _, K, u_vec = ops.schur_inputs(aux, g, scale_c, D2_c)
+            args["schur_assembly"] = (JT, sf_d.reshape(C, 9).contiguous(),
+                                      se_d.reshape(P, 3).contiguous(),
+                                      K.contiguous(), u_vec.reshape(P, 3).contiguous(),
+                                      plan)
+        return args
+
+    checks, timings = {}, {}
+
+    def check_and_time(shape, dtn, args, n_kernel, n_plain):
+        for case, args_c in args.items():
+            name = CASES[case]
             wrapper = getattr(kn, name)
             plain = getattr(kn, name + "_plain")
-            ref = plain(*args[name])
+            out = wrapper(*args_c)
             torch.cuda.synchronize()
-            out = wrapper(*args[name])
+            dt = args_c[0].dtype
+            if dt == torch.float64:
+                ref = plain(*args_c)
+                rel, mabs, per_out = rel_err(ref, out)
+                limits = [REL_LIMIT[dt]] * len(per_out)
+                log("check", f"{case} {shape} {dtn}: max over outputs of "
+                    f"max_abs_err/max_abs = {rel:.3e} (limit {limits[0]:.0e}; each "
+                    f"output {', '.join(f'{v:.3e}' for v in per_out)}), "
+                    f"max_abs_err {mabs:.3e}")
+            else:
+                # float32: against the plain version in float64 on the same
+                # inputs; the limit is 1e-4 of the largest value, or 4x the
+                # float32 plain version's own error where rounding in an
+                # ill-conditioned point block (M^{-1} of u) makes that larger
+                ref = plain(*upcast(args_c))
+                rel, mabs, per_out = rel_err(ref, out)
+                _, _, per_plain = rel_err(ref, plain(*args_c))
+                limits = [max(REL_LIMIT[dt], 4 * v) for v in per_plain]
+                log("check", f"{case} {shape} {dtn}: against the float64 plain "
+                    f"version, per output max_abs_err/max_abs "
+                    f"{', '.join(f'{v:.3e}' for v in per_out)}; the float32 plain "
+                    f"version's own {', '.join(f'{v:.3e}' for v in per_plain)}; "
+                    f"limits {', '.join(f'{v:.1e}' for v in limits)}; "
+                    f"max_abs_err {mabs:.3e}")
+            check(all(v <= lim for v, lim in zip(per_out, limits)),
+                  f"{case} {shape} {dtn} disagrees with its plain version")
+            del ref, out
+            ms = time_cuda(lambda: wrapper(*args_c), n_kernel)
+            plain_ms = time_cuda(lambda: plain(*args_c), n_plain)
+            plan = next(a for a in args_c if isinstance(a, fo.RowPlan))
+            byts, flops = work(case, args_c, plan)
+            t_bytes = byts / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS[dt] * 1e3
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            checks[(case, shape, dtn)] = (rel, mabs)
+            timings[(case, shape, dtn)] = dict(ms=ms, plain_ms=plain_ms,
+                                               bound_ms=max(t_bytes, t_ops),
+                                               bound_by=bound_by)
+            log("time", f"{case} {shape} {dtn}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms by {bound_by} "
+                f"(counted, not measured: {byts} bytes -> {t_bytes:.4f} ms, "
+                f"{flops} flops -> {t_ops:.4f} ms); library call: none "
+                f"({NO_LIBRARY_CALL[name]}); {card}")
             torch.cuda.synchronize()
-            rel, mabs = rel_err(ref, out)
-            limit = REL_LIMIT[dt]
-            log("check", f"{name} {dtn}: max over outputs of max_abs_err/max_abs "
-                f"= {rel:.3e} (limit {limit:.0e}), max_abs_err {mabs:.3e}")
-            check(rel <= limit, f"{name} {dtn} disagrees with its plain version")
-            checks[(name, dtn)] = (rel, mabs, plan)
 
-    # -- the main path: solve() on BAL-16 --------------------------------------
-    solves = {}
+    # -- BAL-16: every kernel against its plain version ----------------------
+    b16 = bal.bal16()
+    log("bal16", f"cameras {b16.num_cameras}, points {b16.num_points}, "
+        f"observations {b16.num_observations}")
+    rng = np.random.default_rng(7)
     for dtn in ("float64", "float32"):
-        problem = bal.build_problem_batched(bal.bal16())[0]
-        o = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
-                        evaluation_dtype=dtn)
+        prog = CompiledProgram(bal.build_problem_batched(bal.bal16())[0], dtn,
+                               device=dev)
+        args = kernel_inputs(prog, ctt.Options(linear_solver_type=DS), True, rng)
+        check_and_time("bal16", dtn, args, 100, 10)
+        del prog, args
+
+    paths = {}
+
+    def drive(path, opts, problem, device=None):
+        """One main-path run with the counts set to 0 just before it and
+        read just after."""
         kn.reset_counts()
-        s = ctt.solve(o, problem)
+        torch.cuda.reset_peak_memory_stats()
+        s = ctt.solve(opts, problem, device=device)
         torch.cuda.synchronize()
-        launches = {n: getattr(kn, n).launches for n, _ in KERNELS}
-        plain_calls = {n: getattr(kn, n).plain_calls for n, _ in KERNELS}
+        launches, plain_calls = counts(kn)
         n_it = len(s.iterations) - 1
-        gap = (s.final_cost - GOLDEN_COST) / GOLDEN_COST
+        cg = [r.linear_solver_iterations for r in s.iterations]
         res = {"iterations": n_it, "summary_rows": len(s.iterations),
                "termination": str(s.termination_type), "message": s.message,
                "initial_cost": s.initial_cost, "final_cost": s.final_cost,
-               "gap_to_golden": gap, "host_syncs": s.num_host_syncs,
+               "host_syncs": s.num_host_syncs,
                "host_syncs_per_iteration": s.num_host_syncs / max(n_it, 1),
+               "linear_solver_iterations": cg,
+               "preprocessor_s": s.preprocessor_time_in_seconds,
+               "minimizer_s": s.minimizer_time_in_seconds,
+               "ms_per_iteration": 1e3 * s.minimizer_time_in_seconds / max(n_it, 1),
+               "peak_device_bytes": torch.cuda.max_memory_allocated(),
                "launches": launches, "plain_calls": plain_calls}
-        log(f"solve {dtn}", json.dumps(res))
-        check(all(v == 0 for v in plain_calls.values()),
-              f"{dtn} solve ran a plain version on the card")
-        check(n_it >= 1 and all(v >= n_it for v in launches.values()),
-              f"{dtn} solve: a kernel launched fewer than once per iteration")
+        log(f"solve {path}", json.dumps(res) + f"; {card}")
+        if device is None:
+            check(all(v == 0 for v in plain_calls.values()),
+                  f"{path}: a plain version ran on the card")
+            kernels = ITERATIVE_PATH if opts.linear_solver_type == IS else DENSE_PATH
+            check(n_it >= 1 and all(launches[k] >= n_it for k in kernels),
+                  f"{path}: a kernel of the path launched fewer than once per "
+                  f"iteration: {launches}")
+            if opts.linear_solver_type == IS:
+                check(launches["isc_matvec"] >= sum(cg),
+                      f"{path}: isc_matvec launched fewer times than CG iterated")
+                check(launches["schur_assembly"] == 0,
+                      f"{path}: the dense assembly ran on the iterative path")
+        paths[path] = res
+        return s, res
+
+    # -- BAL-16 DENSE_SCHUR (slice 1's gates) ---------------------------------
+    for dtn in ("float64", "float32"):
+        s, res = drive("bal16_dense_" + TAG[dtn],
+                       ctt.Options(linear_solver_type=DS, evaluation_dtype=dtn),
+                       bal.build_problem_batched(bal.bal16())[0])
+        gap = (s.final_cost - GOLDEN_COST) / GOLDEN_COST
+        res["gap_to_golden"] = gap
         if dtn == "float64":
             check(s.termination_type == ctt.TerminationType.CONVERGENCE,
                   "float64 solve did not converge")
             check(abs(gap) <= 1e-6, f"float64 final cost off golden by {gap:.3e}")
-            log("solve float64", f"summary rows {len(s.iterations)} "
+            log("solve bal16_dense_f64", f"summary rows {len(s.iterations)} "
                 f"(golden {GOLDEN_ROWS}), relative gap {gap:.3e} (limit 1e-6)")
         else:
             check(abs(gap) <= 1e-5, f"float32 final cost off golden by {gap:.3e}")
-            log("solve float32", f"relative gap to the float64 golden {gap:.3e} "
-                "(limit 1e-5)")
-        solves[dtn] = res
+            log("solve bal16_dense_f32", f"relative gap to the float64 golden "
+                f"{gap:.3e} (limit 1e-5)")
 
-    # -- ms per LM iteration, median of 5 solves ---------------------------
+    # -- BAL-16 ITERATIVE_SCHUR + SCHUR_JACOBI (tests/test_bal_golden.py) ----
     for dtn in ("float64", "float32"):
+        path = "bal16_iterative_" + TAG[dtn]
+        opts = ctt.Options(linear_solver_type=IS,
+                           preconditioner_type=ctt.PreconditionerType.SCHUR_JACOBI,
+                           evaluation_dtype=dtn, max_num_iterations=30,
+                           max_linear_solver_iterations=100)
+        s, res = drive(path, opts, bal.build_problem_batched(bal.bal16())[0])
+        gap = (s.final_cost - GOLDEN_COST) / GOLDEN_COST
+        res["gap_to_golden"] = gap
+        check(s.is_solution_usable(), f"{path}: solution not usable: {s.message}")
+        check(s.final_cost <= GOLDEN_COST * (1 + 1e-4),
+              f"{path}: final cost {s.final_cost} above golden x (1 + 1e-4)")
+        log(f"solve {path}", f"final cost {s.final_cost!r}, relative gap to the "
+            f"float64 DENSE_SCHUR golden {gap:.3e} (gate: <= 1e-4)")
+
+    # -- ms per LM iteration on BAL-16, median of 5 solves --------------------
+    for path, opts in (
+            ("bal16_dense_f64", ctt.Options(linear_solver_type=DS)),
+            ("bal16_dense_f32", ctt.Options(linear_solver_type=DS,
+                                            evaluation_dtype="float32")),
+            ("bal16_iterative_f64", ctt.Options(
+                linear_solver_type=IS, max_num_iterations=30,
+                max_linear_solver_iterations=100)),
+            ("bal16_iterative_f32", ctt.Options(
+                linear_solver_type=IS, evaluation_dtype="float32",
+                max_num_iterations=30, max_linear_solver_iterations=100))):
         per_it = []
         for _ in range(5):
-            problem = bal.build_problem_batched(bal.bal16())[0]
-            s = ctt.solve(ctt.Options(
-                linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
-                evaluation_dtype=dtn), problem)
+            s = ctt.solve(opts, bal.build_problem_batched(bal.bal16())[0])
             torch.cuda.synchronize()
             per_it.append(1e3 * s.minimizer_time_in_seconds / (len(s.iterations) - 1))
-        solves[dtn]["ms_per_iteration_runs"] = per_it
-        solves[dtn]["ms_per_iteration_median"] = statistics.median(per_it)
-        log(f"solve {dtn}", "ms per LM iteration (minimizer time / iterations) "
+        paths[path]["ms_per_iteration_runs"] = per_it
+        paths[path]["ms_per_iteration_median"] = statistics.median(per_it)
+        log(f"solve {path}", "ms per LM iteration (minimizer time / iterations) "
             f"over 5 solves: median {statistics.median(per_it):.4f}, runs "
-            + ", ".join(f"{v:.4f}" for v in per_it))
+            + ", ".join(f"{v:.4f}" for v in per_it) + f"; {card}")
 
-    # -- device busy share over one float64 solve -------------------------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    # -- device busy share over one BAL-16 solve of each path -----------------
+    for path, opts in (("bal16_dense_f64", ctt.Options(linear_solver_type=DS)),
+                       ("bal16_iterative_f64", ctt.Options(
+                           linear_solver_type=IS, max_num_iterations=30,
+                           max_linear_solver_iterations=100))):
+        paths[path]["profile"] = profile_solve(
+            lambda: ctt.solve(opts, bal.build_problem_batched(bal.bal16())[0]))
+        log(f"profile {path}", json.dumps(paths[path]["profile"]) + f"; {card}")
 
-    problem = bal.build_problem_batched(bal.bal16())[0]
-    o64 = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR)
-    ctt.solve(o64, problem)  # warm
-    problem = bal.build_problem_batched(bal.bal16())[0]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        s = ctt.solve(o64, problem)
-        torch.cuda.synchronize()
-    busy_us, n_ops, by_name = 0.0, 0, {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            busy_us += evt.device_time_total
-            n_ops += 1
-            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.device_time_total
-    n_it = len(s.iterations) - 1
-    wall_ms = 1e3 * s.minimizer_time_in_seconds
-    profile_res = {"minimizer_ms": wall_ms, "iterations": n_it}
-    if busy_us > 0:
-        profile_res.update(device_busy_ms=busy_us / 1e3,
-                           device_busy_share=busy_us / 1e3 / wall_ms,
-                           device_ops_per_iteration=n_ops / max(n_it, 1),
-                           top_device_ms_per_iteration={
-                               k[:80]: v / 1e3 / max(n_it, 1) for k, v in
-                               sorted(by_name.items(), key=lambda kv: -kv[1])[:10]})
-    else:
-        profile_res["device_busy_share"] = "not measured"
-    log("profile float64", json.dumps(profile_res))
+    # -- the Venice shape ------------------------------------------------------
+    t0 = time.monotonic()
+    venice = bal.perturb(bal.synthetic_bal_large(**VENICE), **VENICE_PERTURB)
+    log("venice", f"cameras {venice.num_cameras}, points {venice.num_points}, "
+        f"observations {venice.num_observations}; generated in "
+        f"{time.monotonic() - t0:.2f} s on the host")
+    for dtn in ("float32", "float64"):
+        prog = CompiledProgram(copy_problem(venice), dtn, device=dev)
+        args = kernel_inputs(prog, ctt.Options(linear_solver_type=IS), False, rng)
+        check_and_time("venice", dtn, args, 20, 3)
+        del prog, args
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    # -- kernel times -----------------------------------------------------
+    for dtn in ("float32", "float64"):
+        path = "venice_iterative_" + TAG[dtn]
+        opts = ctt.Options(linear_solver_type=IS, evaluation_dtype=dtn,
+                           max_num_iterations=VENICE_LM_ITERATIONS)
+        s, res = drive(path, opts, copy_problem(venice))
+        costs = [r.cost for r in s.iterations]
+        check(all(np.isfinite(c) for c in costs), f"{path}: a cost is not finite")
+        accepted = [s.iterations[0].cost] + [
+            r.cost for r in s.iterations[1:] if r.step_is_successful]
+        check(len(accepted) >= 2 and all(b < a for a, b in zip(accepted, accepted[1:])),
+              f"{path}: the cost did not decrease over successful steps: {accepted}")
+        cg = sum(res["linear_solver_iterations"])
+        res["cg_iterations_per_lm_iteration"] = cg / max(res["iterations"], 1)
+        # the solve repeats bit for bit, so two more runs time the same work
+        minimizer_s = [res["minimizer_s"]]
+        for _ in range(2):
+            s2 = ctt.solve(opts, copy_problem(venice))
+            torch.cuda.synchronize()
+            check(s2.final_cost == s.final_cost, f"{path}: a repeated solve differs")
+            minimizer_s.append(s2.minimizer_time_in_seconds)
+        med_s = statistics.median(minimizer_s)
+        res["ms_per_iteration_runs"] = [1e3 * v / res["iterations"] for v in minimizer_s]
+        res["ms_per_iteration_median"] = 1e3 * med_s / res["iterations"]
+        res["minimizer_ms_per_cg_iteration"] = 1e3 * med_s / max(cg, 1)
+        log(f"solve {path}", f"CG iterations per LM iteration "
+            f"{res['linear_solver_iterations'][1:]}, ms per LM iteration over 3 "
+            f"solves: median {res['ms_per_iteration_median']:.3f}, runs "
+            + ", ".join(f"{v:.3f}" for v in res["ms_per_iteration_runs"])
+            + f"; {res['minimizer_ms_per_cg_iteration']:.4f} ms of minimizer time "
+            f"per CG iteration (median), {res['host_syncs_per_iteration']:.2f} "
+            f"host syncs per LM iteration, time to first iteration "
+            f"{res['preprocessor_s']:.3f} s, peak device memory "
+            f"{res['peak_device_bytes'] / 2**30:.3f} GiB; costs {costs}; {card}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    opts = ctt.Options(linear_solver_type=IS, evaluation_dtype="float32",
+                       max_num_iterations=2)
+    paths["venice_iterative_f32"]["profile"] = profile_solve(
+        lambda: ctt.solve(opts, copy_problem(venice)))
+    log("profile venice_iterative_f32 (2 LM iterations)",
+        json.dumps(paths["venice_iterative_f32"]["profile"]) + f"; {card}")
+    del venice
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 2,048 cameras: the card against the CPU --------------------------------
+    small = bal.perturb(bal.synthetic_bal_large(**SMALL_VENICE), **VENICE_PERTURB)
+    opts = ctt.Options(linear_solver_type=IS,
+                       max_num_iterations=SMALL_VENICE_LM_ITERATIONS)
+    s_card, _ = drive("c2048_iterative_f64", opts, copy_problem(small))
+    t0 = time.monotonic()
+    s_cpu = ctt.solve(opts, copy_problem(small), device="cpu")
+    cpu_s = time.monotonic() - t0
+    # How far rounding alone moves each row: the same CPU solve from
+    # cameras one ulp away. A long CG amplifies a rounding-level change in
+    # S z far past 1e-9, and the card sums in another order than the CPU;
+    # so a row's limit is 1e-9, or 4x the CPU's own one-ulp sensitivity
+    # where that is larger.
+    ulp = bal.from_arrays(np.nextafter(small.cameras, np.inf), small.points,
+                          small.camera_index, small.point_index, small.observations)
+    s_ulp = ctt.solve(opts, copy_problem(ulp), device="cpu")
+    rows_card = [(r.linear_solver_iterations, r.cost) for r in s_card.iterations]
+    rows_cpu = [(r.linear_solver_iterations, r.cost) for r in s_cpu.iterations]
+    rows_ulp = [(r.linear_solver_iterations, r.cost) for r in s_ulp.iterations]
+    gaps = [abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(rows_card, rows_cpu)]
+    sens = [abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(rows_ulp, rows_cpu)]
+    limits = [max(1e-9, 4 * v) for v in sens]
+    log("c2048 card vs cpu", f"observations {small.num_observations}; card rows "
+        f"{rows_card}; cpu rows {rows_cpu} (cpu solve {cpu_s:.1f} s); relative cost "
+        f"gap per row {', '.join(f'{g:.3e}' for g in gaps)}; the CPU's one-ulp "
+        f"sensitivity per row {', '.join(f'{g:.3e}' for g in sens)} (CG counts "
+        f"{[n for n, _ in rows_ulp]}); limits {', '.join(f'{g:.1e}' for g in limits)}; "
+        f"{card}")
+    check(len(rows_card) == len(rows_cpu) == len(rows_ulp),
+          "c2048: card and CPU row counts differ")
+    check([a[0] for a in rows_card] == [b[0] for b in rows_cpu],
+          "c2048: card and CPU CG counts differ")
+    check(all(g <= lim for g, lim in zip(gaps, limits)),
+          f"c2048: card and CPU costs differ: {gaps}")
+    paths["c2048_iterative_f64"]["cpu_rows"] = rows_cpu
+    paths["c2048_iterative_f64"]["relative_cost_gaps_to_cpu"] = gaps
+    paths["c2048_iterative_f64"]["cpu_one_ulp_sensitivity"] = sens
+
+    # -- the kernels line ------------------------------------------------------
     rows = []
-    for name, replaces in KERNELS:
-        entry = {"name": name, "route": "cuda",
-                 "source": f"ceres_tpu_torch/csrc/{name}.cu", "replaces": replaces,
-                 "launches": solves["float64"]["launches"][name]}
-        for dtn, suffix in (("float64", ""), ("float32", "_f32")):
-            args = inputs[dtn]
-            wrapper = getattr(kn, name)
-            plain = getattr(kn, name + "_plain")
-            rel, mabs, plan = checks[(name, dtn)]
-            ms = time_cuda(lambda: wrapper(*args[name]), 100)
-            plain_ms = time_cuda(lambda: plain(*args[name]), 10)
-            byts, flops = work(name, args[name], plan)
-            dt = args[name][0].dtype
-            t_bytes = byts / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS[dt] * 1e3
-            entry.update({
-                "max_abs_err" + suffix: mabs, "rel_err" + suffix: rel,
-                "ms" + suffix: ms, "plain_ms" + suffix: plain_ms,
-                "bound_ms" + suffix: max(t_bytes, t_ops),
-                "bound_by" + suffix: "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms" + suffix: None,
-            })
-            log("time", f"{name} {dtn}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {max(t_bytes, t_ops):.4f} ms by "
-                f"{'bytes' if t_bytes >= t_ops else 'operations'} (counted, not "
-                f"measured: {byts} bytes -> {t_bytes:.4f} ms, {flops} flops -> "
-                f"{t_ops:.4f} ms); library call: none ({NO_LIBRARY_CALL[name]})")
-        entry["launches_f32"] = solves["float32"]["launches"][name]
+    for row, name, src, replaces in ROWS:
+        shape = ROW_SHAPE[row]
+        case = name
+        entry = {"row": row, "name": name, "route": "cuda",
+                 "source": f"ceres_tpu_torch/csrc/{src}.cu", "replaces": replaces,
+                 "shape": shape, "launches": paths[ROW_PATH[row]]["launches"][name],
+                 "launches_by_path": {p: r["launches"][name] for p, r in paths.items()}}
+        variants = [(shape, "float64", ""), (shape, "float32", "_f32")]
+        if row in ("1", "2", "4", "4b"):  # also run at the Venice shape
+            variants += [("venice", "float64", "_venice"),
+                         ("venice", "float32", "_venice_f32")]
+        for shp, dtn, suffix in variants:
+            rel, mabs = checks[(case, shp, dtn)]
+            entry.update({"max_abs_err" + suffix: mabs, "rel_err" + suffix: rel})
+            entry.update({k + suffix: v for k, v in timings[(case, shp, dtn)].items()})
+            entry["library_ms" + suffix] = None
         rows.append(entry)
-    kn_time = sum(r["ms"] * r["launches"] for r in rows) / max(
-        solves["float64"]["iterations"], 1)
-    log("solve float64", f"the kernels' device time per iteration {kn_time:.4f} ms "
-        f"of the median {solves['float64']['ms_per_iteration_median']:.4f} ms")
+    per_path_kernel_ms = {}
+    for path, res in paths.items():
+        if path.startswith("c2048"):
+            continue
+        shp = "venice" if path.startswith("venice") else "bal16"
+        dtn = "float32" if path.endswith("f32") else "float64"
+        per_path_kernel_ms[path] = sum(
+            timings[(k, shp, dtn)]["ms"] * n for k, n in res["launches"].items()
+            if (k, shp, dtn) in timings) / max(res["iterations"], 1)
+    log("kernels", "device time of the kernels per LM iteration (kernel ms x "
+        "launches / iterations): " + json.dumps(per_path_kernel_ms) + f"; {card}")
+    log("total", f"chip_smoke ran {time.monotonic() - t_start:.1f} s")
 
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -310,7 +555,45 @@ def main():
     return 0
 
 
-def work(name, args, plan):
+def profile_solve(run):
+    """Device busy share of one solve under torch.profiler: the sum of
+    the device time of the CUDA events of the minimizer (from its first
+    eval_fused launch on; the set-up's copies to the card come before)
+    over the minimizer's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s = run()
+        torch.cuda.synchronize()
+    busy_us, n_ops, by_name = 0.0, 0, {}
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    t0 = min((e.time_range.start for e in dev_events
+              if "eval_fused_kernel" in e.name), default=0)
+    for evt in dev_events:
+        if evt.time_range.start >= t0:
+            busy_us += evt.device_time_total
+            n_ops += 1
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.device_time_total
+    n_it = len(s.iterations) - 1
+    wall_ms = 1e3 * s.minimizer_time_in_seconds
+    res = {"minimizer_ms": wall_ms, "iterations": n_it,
+           "cg_iterations": sum(r.linear_solver_iterations for r in s.iterations)}
+    if busy_us > 0:
+        res.update(device_busy_ms=busy_us / 1e3,
+                   device_busy_share=busy_us / 1e3 / wall_ms,
+                   device_ops_per_iteration=n_ops / max(n_it, 1),
+                   top_device_ms_per_iteration={
+                       k[:80]: v / 1e3 / max(n_it, 1) for k, v in
+                       sorted(by_name.items(), key=lambda kv: -kv[1])[:10]})
+    else:
+        res["device_busy_share"] = "not measured"
+    return res
+
+
+def work(case, args, plan):
     """(bytes, flops) that the function itself needs on these inputs: each
     input read once and each output written once, where the inputs are the
     tensors and the row -> camera / point maps (cam_idx, pt_idx), not the
@@ -318,25 +601,40 @@ def work(name, args, plan):
     symmetric product once."""
     B, P, C = plan.B, plan.P, plan.C
     idx = nbytes(plan.cam_idx, plan.pt_idx)
-    if name == "eval_fused":
+    if case == "eval_fused":
         cams, pts, obs = args[:3]
         es = cams.element_size()
         byts = nbytes(cams, pts, obs) + idx + es * 26 * B + 8
         return byts, 330 * B  # rotation with its 3 derivatives, projection, J
-    if name == "post_eval_fused":
+    if case == "post_eval_fused":
         JT, rT = args[:2]
         es = JT.element_size()
         byts = nbytes(JT, rT) + idx + es * (15 * P + 18 * C)
         # g_e, sqn_e, E'E (6 of 9), g_f, sqn_f per row
         return byts, (12 + 12 + 24 + 36 + 36) * B
-    if name == "schur_assembly":
+    if case == "schur_assembly":
         JT, sc, sp, K, u = args[:5]
         es = JT.element_size()
         byts = nbytes(JT, sc, sp, K, u) + idx + es * ((9 * C) ** 2 + 81 * C + 9 * C)
-        NP = plan.pair_a.shape[0]  # ordered pairs of rows of one point, a == b too
+        NP = plan.ensure_pairs().pair_a.shape[0]  # ordered row pairs of a point, a == b too
         # per row: scaling 24, W 108, Y 162, FtF (45 of 81) 180, U 54;
         # Y_a'Y_b once per unordered pair a != b, 45 of 81 entries for a == b
         return byts, 528 * B + 486 * (NP - B) // 2 + 270 * B
+    if case.startswith("isc_matvec"):
+        JT, z, minv = args[:3]
+        emit_u = args[4]
+        es = JT.element_size()
+        byts = nbytes(JT, z, minv) + idx + es * (9 * C + (3 * P if emit_u else 0))
+        # per row: F z 36, E'fz 12, E u 12, q 2, F'q 36; per point M^{-1} e 15
+        return byts, 98 * B + 15 * P
+    if case == "schur_jacobi_blocks":
+        JT, se, minv = args[:3]
+        es = JT.element_size()
+        byts = nbytes(JT, se, minv) + idx + es * 81 * C
+        # per row: W 81 + scale 27, Y = M^{-1} W 135, and on the 45 entries
+        # of the upper triangle J_f'J_f 135, W'Y 225, the difference and
+        # the sum 90
+        return byts, 693 * B
     JT, xc, xp = args[:3]
     es = JT.element_size()
     byts = nbytes(JT, xc, xp) + idx + es * (9 * C + 3 * P)

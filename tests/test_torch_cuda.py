@@ -11,9 +11,15 @@ import torch
 
 import ceres_tpu_torch as ctt
 from ceres_tpu_torch.models import bal as tbal
+from ceres_tpu_torch.ops import flatops as fo
 from ceres_tpu_torch.ops import kernels as kn
+from ceres_tpu_torch.ops import partition as pt
 from ceres_tpu_torch.program import CompiledProgram
-from ceres_tpu_torch.solvers.fused_lm import DenseSchurStepOps, JTForm
+from ceres_tpu_torch.solvers.fused_lm import (
+    DenseSchurStepOps,
+    IterativeSchurStepOps,
+    JTForm,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -113,10 +119,79 @@ def test_solve_on_card_matches_cpu(card):
     kn.reset_counts()
     out = ctt.solve(opts, tbal.build_problem_batched(tbal.from_arrays(*arrays))[0])
     n_it = len(out.iterations) - 1
-    assert all(k.launches >= n_it and k.plain_calls == 0 for k in kn.KERNELS)
+    assert all(k.launches >= n_it and k.plain_calls == 0 for k in
+               (kn.eval_fused, kn.post_eval_fused, kn.schur_assembly,
+                kn.normal_matvec))
     assert out.termination_type == ref.termination_type
     assert len(out.iterations) == len(ref.iterations)
     for a, c in zip(ref.iterations, out.iterations):
         assert c.cost == pytest.approx(a.cost, rel=1e-9)
         assert c.trust_region_radius == pytest.approx(a.trust_region_radius, rel=1e-9)
     assert np.isfinite(out.final_cost)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("name", ["isc_matvec", "isc_matvec_no_u",
+                                  "schur_jacobi_blocks"])
+def test_iterative_kernel_matches_plain_on_card(card, name, dtype):
+    """The iterative-Schur kernels at a Venice-shaped instance of 300
+    cameras (more cameras than a block has threads) against their plain
+    versions on the same card inputs: 1e-11 in float64, 1e-4 in float32,
+    relative to each output's largest entry."""
+    b = tbal.synthetic_bal_large(num_cameras=300, num_points=5000, cam_window=20,
+                                 seed=2)
+    prog = CompiledProgram(tbal.build_problem_batched(b)[0], dtype, device=card)
+    ops = IterativeSchurStepOps(
+        prog, ctt.Options(linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR),
+        [1])
+    plan = ops.flat.plan
+    _, vrep = ops.evaluate(prog.initial_state())
+    _, sqn, (ete,) = ops.post_eval(vrep)
+    scale = (1.0 / (1.0 + torch.sqrt(sqn.double()))).to(prog.compute_dtype)
+    se = pt.extract_e(ops.pm, scale)
+    P, C = plan.P, plan.C
+    minv = fo.scaled_block_inverses(ete, se, torch.ones_like(se), 3)
+    z = torch.ones((C, 9), dtype=prog.compute_dtype, device=card)
+    args = {"isc_matvec": (vrep.jt, z, minv, plan, True),
+            "isc_matvec_no_u": (vrep.jt, z, minv, plan, False),
+            "schur_jacobi_blocks": (vrep.jt, se.reshape(P, 3).contiguous(), minv,
+                                    plan)}[name]
+    name = name.replace("_no_u", "")
+    wrapper, plain = getattr(kn, name), getattr(kn, name + "_plain")
+    kn.reset_counts()
+    out = wrapper(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    assert wrapper.launches == 1 and wrapper.plain_calls == 0
+    if isinstance(out, torch.Tensor):
+        out, ref = (out,), (ref,)
+    for o, r in zip(out, ref):
+        if r is None:
+            assert o is None
+            continue
+        err = (o.double() - r.double()).abs().max().item()
+        assert err <= REL_LIMIT[prog.compute_dtype] * r.double().abs().max().item()
+
+
+def test_iterative_solve_on_card_matches_cpu(card):
+    """ITERATIVE_SCHUR + SCHUR_JACOBI on the card and on the CPU: the same
+    rows and CG counts, costs and radii to 1e-9 relative; the five kernels
+    of the path launch, the dense assembly does not."""
+    b = small_bal()
+    arrays = (b.cameras, b.points, b.camera_index, b.point_index, b.observations)
+    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR)
+    ref = ctt.solve(opts, tbal.build_problem_batched(tbal.from_arrays(*arrays))[0],
+                    device="cpu")
+    kn.reset_counts()
+    out = ctt.solve(opts, tbal.build_problem_batched(tbal.from_arrays(*arrays))[0])
+    n_it = len(out.iterations) - 1
+    assert kn.schur_assembly.launches == 0
+    for k in (kn.eval_fused, kn.post_eval_fused, kn.normal_matvec, kn.isc_matvec,
+              kn.schur_jacobi_blocks):
+        assert k.launches >= n_it and k.plain_calls == 0, k.__name__
+    assert ([r.linear_solver_iterations for r in out.iterations]
+            == [r.linear_solver_iterations for r in ref.iterations])
+    assert out.termination_type == ref.termination_type
+    for a, c in zip(ref.iterations, out.iterations):
+        assert c.cost == pytest.approx(a.cost, rel=1e-9)
+        assert c.trust_region_radius == pytest.approx(a.trust_region_radius, rel=1e-9)

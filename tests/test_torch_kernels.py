@@ -135,13 +135,14 @@ def test_row_plan_covers_every_row_and_pair(setup):
         for k in range(cf[c], cf[c + 1]):
             assert 0 < cs[k + 1] - cs[k] <= kn.CHUNK
             assert np.all(cam[rows[cs[k]:cs[k + 1]]] == c)
-    a = plan.pair_a.long().numpy()
-    bb = plan.pair_b.long().numpy()
+    pairs = plan.ensure_pairs()
+    a = pairs.pair_a.long().numpy()
+    bb = pairs.pair_b.long().numpy()
     counts = np.bincount(pt, minlength=plan.P)
     assert a.shape[0] == int(np.sum(counts ** 2))
     assert np.all(pt[a] == pt[bb])
-    pcs = plan.pair_chunk_start.long().numpy()
-    pcf = plan.pair_chunk_first.long().numpy()
+    pcs = pairs.pair_chunk_start.long().numpy()
+    pcf = pairs.pair_chunk_first.long().numpy()
     for key in range(plan.C * plan.C):
         for k in range(pcf[key], pcf[key + 1]):
             seg = slice(pcs[k], pcs[k + 1])

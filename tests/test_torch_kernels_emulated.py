@@ -1,4 +1,4 @@
-"""The CUDA sources of the port's four kernels, compiled with the host C++
+"""The CUDA sources of the port's six kernels, compiled with the host C++
 compiler against a CPU stand-in for the CUDA runtime
 (tests/cuda_emulation/cuda_runtime.h), run through the wrappers' own
 kernel path and held against the plain versions. This checks what the
@@ -76,30 +76,49 @@ def _inputs(dtype, num_cameras, num_points):
 
     P, C = plan.P, plan.C
     K = torch.tril(rand(P, 3, 3)).reshape(P, 9).contiguous()
+    A = rand(P, 3, 3)
+    minv = (A @ A.transpose(1, 2)).reshape(P, 9).contiguous()  # symmetric
     return {
         "eval_fused": (cams, pts, prog.kinds[0].data, plan, q.rows_fn),
         "post_eval_fused": (JT, rT, plan),
         "schur_assembly": (JT, rand(C, 9), rand(P, 3), K, rand(P, 3), plan),
         "normal_matvec": (JT, rand(C, 9), rand(P, 3), plan),
+        "isc_matvec": (JT, rand(C, 9), rand(P, 9), plan, True),
+        "isc_matvec_no_u": (JT, rand(C, 9), rand(P, 9), plan, False),
+        "schur_jacobi_blocks": (JT, rand(P, 3), minv, plan),
     }
 
 
-@pytest.mark.parametrize("dtype,num_cameras,num_points", [
-    ("float64", 5, 80), ("float32", 5, 80), ("float64", 12, 300)])
-@pytest.mark.parametrize("name", ["eval_fused", "post_eval_fused",
-                                  "schur_assembly", "normal_matvec"])
+_SIZES = [("float64", 5, 80), ("float32", 5, 80), ("float64", 12, 300)]
+# more cameras than a block has threads: the finalize passes span blocks
+_MANY_CAMERAS = ("float32", 140, 500)
+_DENSE_PATH = ["eval_fused", "post_eval_fused", "schur_assembly", "normal_matvec"]
+_ITERATIVE_ONLY = ["isc_matvec", "isc_matvec_no_u", "schur_jacobi_blocks"]
+
+
+@pytest.mark.parametrize("name,dtype,num_cameras,num_points", [
+    (n, *size) for size in _SIZES for n in _DENSE_PATH + _ITERATIVE_ONLY] + [
+    (n, *_MANY_CAMERAS) for n in _ITERATIVE_ONLY + ["post_eval_fused",
+                                                    "normal_matvec"]])
 def test_emulated_kernel_matches_plain(kernel_path, name, dtype, num_cameras,
                                        num_points):
     """Relative to each output's largest entry: 1e-12 in float64 (sums in
     another order), 1e-5 in float32. The 12-camera problem has 144 camera
-    pairs and about 75 rows per camera, so more than one chunk each."""
+    pairs and about 75 rows per camera, so more than one chunk each; the
+    140-camera one has more cameras than a block has threads."""
     args = _inputs(dtype, num_cameras, num_points)[name]
+    name = name.replace("_no_u", "")
     wrapper, plain = getattr(kn, name), getattr(kn, name + "_plain")
     kn.reset_counts()
     out = kernel_path(wrapper, *args)
     ref = plain(*args)
     assert wrapper.launches == 1 and wrapper.plain_calls == 0
+    if isinstance(out, torch.Tensor):
+        out, ref = (out,), (ref,)
     for o, r in zip(out, ref):
+        if r is None:
+            assert o is None
+            continue
         assert o.shape == r.shape
         err = (o.double() - r.double()).abs().max().item()
         assert err <= LIMIT[r.dtype] * r.double().abs().max().item()

@@ -105,20 +105,41 @@ def test_plain_evaluation_matches_jax_program(dtype, tol):
 def test_options_validation_matches_jax():
     for kw in [dict(max_num_iterations=-1), dict(min_lm_diagonal=0.0),
                dict(evaluation_dtype="float16"),
-               dict(min_trust_region_radius=1e20, max_trust_region_radius=1e10)]:
-        ok_ref, _ = ct.Options(**kw).is_valid()
-        ok, _ = ctt.Options(**kw).is_valid()
+               dict(min_trust_region_radius=1e20, max_trust_region_radius=1e10),
+               dict(eta=0.0), dict(use_mixed_precision_solves=True,
+                                   linear_solver_type="ITERATIVE_SCHUR")]:
+        ok_ref, _ = ct.Options(**_enums(ct, kw)).is_valid()
+        ok, _ = ctt.Options(**_enums(ctt, kw)).is_valid()
         assert ok == ok_ref is False
     assert ctt.Options().is_valid() == (True, "")
 
 
+def _enums(pkg, kw):
+    """kw with a linear solver named by string made that package's enum."""
+    if "linear_solver_type" in kw:
+        kw = dict(kw, linear_solver_type=pkg.LinearSolverType.parse(
+            kw["linear_solver_type"]))
+    return kw
+
+
+_IS = ctt.LinearSolverType.ITERATIVE_SCHUR
+_PT = ctt.PreconditionerType
+
+
 @pytest.mark.parametrize("kw,slice_no", [
-    (dict(linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR), 2),
+    (dict(linear_solver_type=_IS,
+          preconditioner_type=_PT.SCHUR_POWER_SERIES_EXPANSION), 6),
     (dict(linear_solver_type=ctt.LinearSolverType.CGNR), 6),
     (dict(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
           evaluation_dtype="mixed"), 5),
     (dict(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
           fused_loop="NEVER"), 6),
+    (dict(linear_solver_type=_IS, preconditioner_type=_PT.CLUSTER_JACOBI), 6),
+    (dict(linear_solver_type=_IS, preconditioner_type=_PT.CLUSTER_TRIDIAGONAL), 6),
+    (dict(linear_solver_type=_IS, preconditioner_type=_PT.SUBSET), 6),
+    (dict(linear_solver_type=_IS, use_spse_initialization=True), 6),
+    (dict(linear_solver_type=_IS, use_explicit_schur_complement=True), 6),
+    (dict(linear_solver_type=_IS, evaluation_dtype="mixed"), 5),
 ])
 def test_unported_options_raise_naming_the_slice(kw, slice_no):
     problem = tbal.build_problem_batched(tbal.from_arrays(*_arrays(small_bal())))[0]

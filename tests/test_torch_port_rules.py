@@ -103,6 +103,12 @@ def test_kernel_wrapper_given_cuda_tensors_does_not_run_the_plain_version(
         with pytest.raises(RuntimeError, match="nvcc not found"):
             kn.eval_fused(torch.zeros(C, 9, **f64), torch.zeros(P, 3, **f64),
                           torch.zeros(B, 2, **f64), plan, tbal.snavely_residual_rows)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            kn.isc_matvec(JT, torch.zeros(C, 9, **f64), torch.zeros(P, 9, **f64),
+                          plan, True)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            kn.schur_jacobi_blocks(JT, torch.zeros(P, 3, **f64),
+                                   torch.zeros(P, 9, **f64), plan)
     assert all(k.plain_calls == 0 and k.launches == 0 for k in kn.KERNELS)
 
 
