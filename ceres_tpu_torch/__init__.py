@@ -1,9 +1,11 @@
 """ceres_tpu_torch: the PyTorch and CUDA port of ceres_tpu for an NVIDIA H100.
 
-This slice runs the public `solve()` on a BAL bundle-adjustment problem
-with DENSE_SCHUR and Levenberg-Marquardt, in the fused-loop form, through
-four hand-written CUDA kernels (ops/kernels.py, csrc/). It imports torch
-and numpy only: nothing of jax and nothing of ceres_tpu.
+The port runs the public `solve()` with Levenberg-Marquardt and
+DENSE_SCHUR or ITERATIVE_SCHUR, in the fused-loop form, through
+hand-written CUDA kernels (ops/kernels.py, csrc/): on the fused jt path
+for BAL bundle adjustment (models/bal.py), on the flat path for other
+programs such as the libmv bundle adjuster (models/libmv.py). It imports
+torch and numpy only: nothing of jax and nothing of ceres_tpu.
 """
 from .cost_function import AutoDiffCostFunction, CostFunction
 from .loss import LossFunction, TrivialLoss

@@ -31,7 +31,9 @@ class CostFunction:
 
         res = f(*params)
         jacs = jacfwd(f, argnums=tuple(range(len(params))))(*params)
-        return res, list(jacs)
+        # forward mode promotes the tangent of a 0-d float32 tensor times a
+        # Python float to float64; the Jacobian keeps the residual's dtype
+        return res, [J.to(res.dtype) for J in jacs]
 
     def batched_residuals_and_jacobians(self, params, data=None):
         """Every block of a kind at once: params[i] (B, size_i), data

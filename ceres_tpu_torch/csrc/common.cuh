@@ -40,9 +40,9 @@ template <typename T>
 __global__ void camera_finalize_kernel(const T* __restrict__ partial,
                                        const int* __restrict__ cf, int C,
                                        int L, T* __restrict__ out) {
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= C * L) return;
-  int c = idx / L, l = idx % L;
+  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)C * L) return;
+  int c = (int)(idx / L), l = (int)(idx % L);
   T acc = T(0);
   for (int k = cf[c]; k < cf[c + 1]; ++k) acc += partial[(long long)k * L + l];
   out[idx] = acc;

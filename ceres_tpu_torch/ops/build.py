@@ -127,6 +127,10 @@ _SIGNATURES = {
     "ct_isc_matvec": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
                       _P, _P, _P],
     "ct_schur_jacobi": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "ct_segment_block_sum": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
+    "ct_unsorted_segment_sum": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P],
+    "ct_segment_block_expand": [_P, _I, _I, _P, _I, _P, _P],
+    "ct_segment_spread_sum": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

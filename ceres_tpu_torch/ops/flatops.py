@@ -1,29 +1,42 @@
-"""The jt-mode Schur operations over flat tensors (counterpart of
-ceres_tpu/ops/flatops.py, for the parts the dense and iterative Schur
-paths use).
+"""The Schur operations over flat tensors (counterpart of
+ceres_tpu/ops/flatops.py), in its two halves.
 
-The JAX module plans 128-lane row tiles, gather bases, camera windows and
-streamed mask planes to satisfy TPU alignment; none of that carries over.
-What the CUDA kernels need instead is the row plan (`RowPlan`): rows
-sorted by point with the point segments, and a camera plan (the rows
-ordered by camera, cut into chunks that never cross a camera). Only the
-dense Schur assembly also needs the point-pair plan, which holds every
-ordered pair of rows of one point and a C*C-entry chunk index: it is built
-on request (`RowPlan.ensure_pairs`), never for the iterative path, whose
-camera count can make it gigabytes. The plan is structure-constant, built
-once per compiled program with numpy and moved to the device.
+The jt half (`JTSchurOps`) serves the programs the fused jt-mode path
+takes: one kind of a residual with `residual_rows` over one camera and one
+point family (BAL). The JAX module plans 128-lane row tiles, gather bases,
+camera windows and streamed mask planes to satisfy TPU alignment; none of
+that carries over. What its CUDA kernels need instead is the row plan
+(`RowPlan`): rows sorted by point with the point segments, and a camera
+plan (the rows ordered by camera, cut into chunks that never cross a
+camera). Only the dense Schur assembly also needs the point-pair plan,
+which holds every ordered pair of rows of one point and a C*C-entry chunk
+index: it is built on request (`RowPlan.ensure_pairs`), never for the
+iterative path, whose camera count can make it gigabytes.
+
+The flat half (`FlatSchurOps`) serves every other program (the libmv
+bundle adjuster, costs without `residual_rows`, several kinds or e/f
+families): products and reductions over per-(kind, slot) Jacobian blocks
+flattened to (B, r*t), one `SlotPlanFlat` per slot. The JAX module's 0/1
+selector matmuls are an MXU device; here they are reshapes and batched
+products on (B, r, t) views. Its reductions take two tiers, not five:
+sorted ids go to segment_block_sum (kernel 6), unsorted ids to
+unsorted_segment_sum (kernel 9), at every family size and in both dtypes,
+through a `SegmentPlan`; every gather goes to segment_block_expand
+(kernel 7).
+
+Every plan is structure-constant, built once per compiled program with
+numpy and moved to the device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import kernels as kn
 from . import partition as pt
-from ..types import not_ported
 
 
 # --------------------------------------------------------------------------
@@ -69,7 +82,13 @@ def _chunks(keys_sorted: np.ndarray, num_keys: int, chunk: int):
     """Chunk offsets over a key-sorted list: each key's run is cut into
     pieces of at most `chunk` items. Returns (chunk_start (n+1,),
     chunk_first (num_keys+1,)), int64."""
-    counts = np.bincount(keys_sorted, minlength=num_keys).astype(np.int64)
+    return _chunks_of_counts(np.bincount(keys_sorted, minlength=num_keys), chunk)
+
+
+def _chunks_of_counts(counts: np.ndarray, chunk: int):
+    """_chunks from the number of items of each key."""
+    counts = np.asarray(counts, np.int64)
+    num_keys = counts.shape[0]
     per_key = -(-counts // chunk)
     chunk_first = np.concatenate([[0], np.cumsum(per_key)])
     key_start = np.concatenate([[0], np.cumsum(counts)])
@@ -77,7 +96,7 @@ def _chunks(keys_sorted: np.ndarray, num_keys: int, chunk: int):
     owner = np.repeat(np.arange(num_keys, dtype=np.int64), per_key)
     j = np.arange(n, dtype=np.int64) - chunk_first[owner]
     starts = key_start[owner] + j * chunk
-    chunk_start = np.concatenate([starts, [len(keys_sorted)]])
+    chunk_start = np.concatenate([starts, [key_start[-1]]])
     return chunk_start, chunk_first
 
 
@@ -156,12 +175,19 @@ def _chol3(M: torch.Tensor):
 
 def chol_inv_lower_flat(M: torch.Tensor, t: int) -> torch.Tensor:
     """K = L^{-1} (lower triangular, upper entries zero) of SPD blocks
-    stored as (N, t*t) row-major rows; closed form for t = 3."""
-    if t != 3:
-        raise ValueError("the closed form takes 3x3 blocks")
-    K11, K21, K22, K31, K32, K33 = _chol3(M)
-    z = torch.zeros_like(K11)
-    return torch.stack([K11, z, z, K21, K22, z, K31, K32, K33], dim=1).to(M.dtype)
+    stored as (N, t*t) row-major rows; closed form for t = 3, a batched
+    Cholesky and triangular solve otherwise (flatops.py:215-221). A block
+    that is not positive definite comes out NaN, without a host sync."""
+    if t == 3:
+        K11, K21, K22, K31, K32, K33 = _chol3(M)
+        z = torch.zeros_like(K11)
+        return torch.stack([K11, z, z, K21, K22, z, K31, K32, K33],
+                           dim=1).to(M.dtype)
+    N = M.shape[0]
+    L, info = torch.linalg.cholesky_ex(M.reshape(N, t, t))
+    L = torch.where((info == 0)[:, None, None], L, torch.full_like(L, float("nan")))
+    eye = torch.eye(t, dtype=M.dtype, device=M.device).expand(N, t, t)
+    return torch.linalg.solve_triangular(L, eye, upper=False).reshape(N, t * t)
 
 
 def spd_inverse_flat(M: torch.Tensor, t: int) -> torch.Tensor:
@@ -188,21 +214,36 @@ def spd_inverse_flat(M: torch.Tensor, t: int) -> torch.Tensor:
     return (K.transpose(1, 2) @ K).reshape(N, t * t)
 
 
-def scaled_block_inverses(blocks: torch.Tensor, scale: torch.Tensor,
-                          D2: torch.Tensor, t: int) -> torch.Tensor:
-    """Inverses of S_b (J'J)_b S_b + diag(D2)_b per block (flatops.py:633):
-    blocks (N, t*t), scale and D2 (N*t,) in the partition layout."""
+def small_matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B for batches of small blocks, A (N, a, k) and B (N, k, b), as k
+    elementwise outer products: cuBLAS takes several times longer over a
+    batch of blocks this small than their bytes need."""
+    out = A[:, :, 0, None] * B[:, None, 0, :]
+    for i in range(1, A.shape[2]):
+        out = out + A[:, :, i, None] * B[:, None, i, :]
+    return out
+
+
+def scaled_blocks(blocks: torch.Tensor, scale: torch.Tensor, D2: torch.Tensor,
+                  t: int) -> torch.Tensor:
+    """S_b (J'J)_b S_b + diag(D2)_b per block: blocks (N, t*t), scale and
+    D2 (N*t,) in the partition layout."""
     N = blocks.shape[0]
     s = scale.reshape(N, t)
     M = blocks * (s[:, :, None] * s[:, None, :]).reshape(N, t * t)
-    M = M + torch.diag_embed(D2.reshape(N, t)).reshape(N, t * t)
-    return spd_inverse_flat(M, t)
+    return M + torch.diag_embed(D2.reshape(N, t)).reshape(N, t * t)
+
+
+def scaled_block_inverses(blocks: torch.Tensor, scale: torch.Tensor,
+                          D2: torch.Tensor, t: int) -> torch.Tensor:
+    """Inverses of S_b (J'J)_b S_b + diag(D2)_b per block (flatops.py:633)."""
+    return spd_inverse_flat(scaled_blocks(blocks, scale, D2, t), t)
 
 
 def apply_inverse_rows(inv: torch.Tensor, v: torch.Tensor, t: int) -> torch.Tensor:
     """x = blockdiag^{-1} v from inverse blocks (N, t*t) (flatops.py:648)."""
     N = inv.shape[0]
-    return (inv.reshape(N, t, t) @ v.reshape(N, t, 1)).reshape(-1)
+    return small_matmul(inv.reshape(N, t, t), v.reshape(N, t, 1)).reshape(-1)
 
 
 class JTQual(NamedTuple):
@@ -213,29 +254,51 @@ class JTQual(NamedTuple):
     rows_fn: object
 
 
-class FlatSchurOps:
-    """The e/f partition of a one-kind, two-slot program (BA: cameras f,
-    points e) with rows sorted by point, and its kernel plan. The row plan
-    built here plays the part of the JAX `eval_invariants` (flatops.py:901):
-    the structure-constant tensors the kernels read, built once; the
-    observations stay in the program's kind data."""
+def jt_refusal(pm: pt.PartitionedMeta, program) -> Optional[str]:
+    """Why the fused jt-mode path does not take this program, or None
+    when it does: one kind of two slots, one point (e) and one camera (f)
+    family of the kernels' sizes, rows sorted by point, a cost with
+    `residual_rows` and (B, 2) observations (the JAX qualification of
+    flatops.py:685-710 and :842, without its float32 condition: the
+    kernels take both dtypes). Every other program takes the flat path."""
+    kinds = pm.base.kinds
+    if len(kinds) != 1 or len(kinds[0].slots) != 2:
+        return "not one residual kind of two slots"
+    if len(pm.e_fams) != 1 or len(pm.f_fams) != 1:
+        return "more than one e or f family"
+    kind, pkind = kinds[0], program.kinds[0]
+    fe = pm.base.families[pm.e_family_indices[0]]
+    ff = pm.base.families[pm.f_family_indices[0]]
+    if (kind.r, ff.t, fe.t) != (kn.R, kn.TF, kn.TE):
+        return f"residual/camera/point sizes {(kind.r, ff.t, fe.t)}"
+    e_ids = next(s.block_ids for s in kind.slots
+                 if s.family_index == pm.e_family_indices[0])
+    if np.any(e_ids[1:] < e_ids[:-1]):
+        return "rows not sorted by point"
+    if getattr(pkind.cost, "residual_rows", None) is None:
+        return "a cost without residual_rows"
+    if pkind.data is None or tuple(pkind.data.shape) != (pkind.B, kn.R):
+        return "observation data other than (B, 2)"
+    return None
+
+
+class JTSchurOps:
+    """The e/f partition of a program the jt path takes (BA: cameras f,
+    points e, `jt_refusal` is None), and its kernel plan. The row plan
+    built here plays the part of the JAX `eval_invariants`
+    (flatops.py:901): the structure-constant tensors the kernels read,
+    built once; the observations stay in the program's kind data."""
 
     def __init__(self, pm: pt.PartitionedMeta, program):
+        why = jt_refusal(pm, program)
+        if why is not None:
+            raise ValueError(f"the jt path does not take this program: {why}")
         self.pm = pm
-        kinds = pm.base.kinds
-        if len(kinds) != 1 or len(kinds[0].slots) != 2:
-            raise not_ported("programs other than one two-slot residual kind", 7)
-        if len(pm.e_fams) != 1 or len(pm.f_fams) != 1:
-            raise not_ported("more than one e or f family", 7)
-        kind = kinds[0]
+        kind = pm.base.kinds[0]
         e_fi, f_fi = pm.e_family_indices[0], pm.f_family_indices[0]
         self.se = next(i for i, s in enumerate(kind.slots) if s.family_index == e_fi)
         self.sf = next(i for i, s in enumerate(kind.slots) if s.family_index == f_fi)
         fe, ff = pm.base.families[e_fi], pm.base.families[f_fi]
-        if (kind.r, ff.t, fe.t) != (kn.R, kn.TF, kn.TE):
-            raise not_ported(
-                f"residual/camera/point sizes {(kind.r, ff.t, fe.t)} "
-                f"(the kernels take {(kn.R, kn.TF, kn.TE)})", 7)
         pt_local = kind.slots[self.se].block_ids - fe.block_id_offset
         cam_local = kind.slots[self.sf].block_ids - ff.block_id_offset
         self.P, self.C = fe.num_var, ff.num_var
@@ -245,18 +308,11 @@ class FlatSchurOps:
     # -- evaluation (pallas_kernels.eval_fused) ----------------------------
 
     def eval_kernel_qual(self, program) -> JTQual:
-        """The fused evaluation takes one kind whose cost carries a
-        row-vectorized residual and a (B, 2) observation array (the
-        program has already refused robust losses and manifolds)."""
+        """The fused evaluation's residual and families (the program has
+        already refused robust losses and manifolds)."""
         kind = program.kinds[0]
-        rows_fn = getattr(kind.cost, "residual_rows", None)
-        if rows_fn is None:
-            raise not_ported("costs without residual_rows in the fused path", 7)
-        if kind.data is None or tuple(kind.data.shape) != (kind.B, kn.R):
-            raise not_ported("observation data other than (B, 2)", 7)
-        fam_f = kind.slots[self.sf].family
-        fam_e = kind.slots[self.se].family
-        return JTQual(fam_f, fam_e, rows_fn)
+        return JTQual(kind.slots[self.sf].family, kind.slots[self.se].family,
+                      kind.cost.residual_rows)
 
     def eval_fused_x(self, program, q: JTQual, x: torch.Tensor):
         """Fused evaluation at state x: (cost f64 0-d, rT (2, B), JT (24, B))."""
@@ -327,3 +383,236 @@ class FlatSchurOps:
             return (sf_rows * cam).reshape(-1), ptv * se_rows
 
         return matvec, jacobi_blocks, normal, fold_minv
+
+
+# --------------------------------------------------------------------------
+# The flat half: per-(kind, slot) plans and the products over them
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SegmentPlan:
+    """The reduction plan of one slot's row -> block ids, for
+    segment_block_sum (sorted ids, kernel 6) and unsorted_segment_sum
+    (kernel 9). Level 0 takes the rows in key order (through `order` when
+    the ids are unsorted) and cuts each key's run into chunks of at most
+    CHUNK rows. While a key still owns more than CHUNK chunks, the next
+    level cuts that key's chunk partials again into chunks of at most
+    CHUNK, so that a key holding every row (the shared intrinsics block)
+    is summed in a fixed tree, never by one thread. `key_first` indexes
+    each key's chunks of the last level, which the finalize pass sums in
+    order."""
+
+    ids: torch.Tensor  # (B,) int32 block id of each row, in [0, num_keys)
+    num_keys: int
+    order: Optional[torch.Tensor]  # (B,) int32 rows by key (stable); None if sorted
+    level_starts: Tuple[torch.Tensor, ...]  # per level (n_l + 1,) int32 chunk offsets
+    key_first: torch.Tensor  # (num_keys + 1,) int32 first last-level chunk of each key
+    seg_start: Optional[torch.Tensor]  # sorted ids: (num_keys + 1,) int32 row offsets
+
+    @property
+    def B(self) -> int:
+        return self.ids.shape[0]
+
+    @property
+    def level_sizes(self) -> Tuple[int, ...]:
+        return tuple(int(s.shape[0]) - 1 for s in self.level_starts)
+
+
+def build_segment_plan(ids, num_keys: int, device) -> SegmentPlan:
+    ids = np.asarray(ids, np.int64)
+    if ids.size and (ids.min() < 0 or ids.max() >= num_keys):
+        raise ValueError("a segment id is out of range")
+    counts = np.bincount(ids, minlength=num_keys)
+    srt = bool(np.all(ids[1:] >= ids[:-1]))
+    order = None if srt else _dev_i32(np.argsort(ids, kind="stable"), device)
+    seg_start = (_dev_i32(np.concatenate([[0], np.cumsum(counts)]), device)
+                 if srt else None)
+    starts = []
+    per_key = counts
+    while True:
+        chunk_start, chunk_first = _chunks_of_counts(per_key, kn.CHUNK)
+        starts.append(_dev_i32(chunk_start, device))
+        per_key = np.diff(chunk_first)
+        if per_key.max(initial=0) <= kn.CHUNK:
+            break
+    return SegmentPlan(_dev_i32(ids, device), num_keys, order, tuple(starts),
+                       _dev_i32(chunk_first, device), seg_start)
+
+
+class SlotPlanFlat(NamedTuple):
+    """One (kind, slot) entry of a flat-ops plan (flatops.py:271)."""
+
+    s: int  # slot index within the kind
+    fi: int  # family index within the partition's fams list
+    off: int  # family tangent offset (partition-local)
+    nv: int  # variable blocks in the family
+    t: int  # tangent width
+    local: torch.Tensor  # (B,) int32 local block ids (sentinel == nv)
+    srt: bool  # ids nondecreasing over the rows
+    seg: SegmentPlan  # the reduction plan over nv + 1 keys
+
+
+class _FlatOpsBase:
+    """Plan building and the products over flattened Jacobian blocks
+    (flatops.py:305). Plan entries are SlotPlanFlat against a `fams`
+    layout list [(off, nv, t, bid_off)]. The JAX class's contiguity check
+    (`supported`) holds by construction here: every family is one
+    parameter block array, so a block's tangent indices are contiguous."""
+
+    def __init__(self, kinds, device):
+        self.kinds = kinds  # bsr.KindMeta: row_offset, B, r per kind
+        self.device = device
+
+    def _build(self, slot_info):
+        """slot_info: (k, s, fi, off, nv, t, block ids (B,) local to the
+        family, sentinel >= nv) for every participating slot."""
+        plans: List[List[SlotPlanFlat]] = [[] for _ in self.kinds]
+        for (k, s, fi, off, nv, t, bid) in slot_info:
+            local = np.minimum(np.maximum(np.asarray(bid, np.int64), 0), nv)
+            seg = build_segment_plan(local, nv + 1, self.device)
+            plans[k].append(SlotPlanFlat(s, fi, off, nv, t, seg.ids,
+                                         seg.order is None, seg))
+        return plans
+
+    @staticmethod
+    def _reduce_rows(table, pe: SlotPlanFlat, contrib):
+        """table + the segment sum of contrib (B, w) by pe's block ids:
+        kernel 6 for sorted ids, kernel 9 otherwise (flatops.py:359)."""
+        reduce = kn.segment_block_sum if pe.srt else kn.unsorted_segment_sum
+        return table + reduce(contrib.contiguous(), pe.seg)
+
+    @staticmethod
+    def _expand(rows, pe: SlotPlanFlat):
+        """(B, w): row b is rows[local[b]] of a per-block table (nv, w),
+        zero for the sentinel (kernel 7)."""
+        table = torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])
+        return kn.segment_block_expand(table, pe.local)
+
+    def _gather(self, v, pe: SlotPlanFlat):
+        """(B, t): each row's block of a partition-layout vector
+        (flatops.py:458)."""
+        return self._expand(v[pe.off:pe.off + pe.nv * pe.t].reshape(pe.nv, pe.t), pe)
+
+    def _jac(self, vflat, k, pe: SlotPlanFlat):
+        kind = self.kinds[k]
+        return vflat[k][pe.s].reshape(kind.B, kind.r, pe.t)
+
+    def _rows(self, u, k):
+        kind = self.kinds[k]
+        return u[kind.row_offset:kind.row_offset + kind.B * kind.r].reshape(
+            kind.B, kind.r)
+
+    def _right(self, plans, vflat, v):
+        """J x over the plans' columns, for x in partition layout."""
+        outs = []
+        for k, kind in enumerate(self.kinds):
+            acc = v.new_zeros((kind.B, kind.r))
+            for pe in plans[k]:
+                acc = acc + torch.sum(self._jac(vflat, k, pe)
+                                      * self._gather(v, pe)[:, None, :], dim=2)
+            outs.append(acc.reshape(-1))
+        return torch.cat(outs)
+
+    def _left(self, plans, fams, vflat, u):
+        """J'u over the plans' columns, in partition layout."""
+        tables = [u.new_zeros((nv + 1, t)) for (_, nv, t, _) in fams]
+        for k in range(len(self.kinds)):
+            if not plans[k]:
+                continue
+            rows = self._rows(u, k)
+            for pe in plans[k]:
+                contrib = torch.sum(self._jac(vflat, k, pe) * rows[:, :, None], dim=1)
+                tables[pe.fi] = self._reduce_rows(tables[pe.fi], pe, contrib)
+        return _concat([tab[:nv].reshape(-1) for tab, (_, nv, _, _) in zip(tables, fams)],
+                       u)
+
+    def fused_post_eval(self, plans, fams, vflat, u):
+        """ONE segment reduction per (kind, slot) of the concatenated
+        gradient J'u, squared column norms diag(J'J) and J'J diagonal
+        blocks (flatops.py:539). Returns (g, sqn, [blocks (nv, t*t)]) in
+        this partition's layout."""
+        tables = [u.new_zeros((nv + 1, 2 * t + t * t)) for (_, nv, t, _) in fams]
+        for k in range(len(self.kinds)):
+            if not plans[k]:
+                continue
+            rows = self._rows(u, k)
+            for pe in plans[k]:
+                contrib = self.post_contrib(self._jac(vflat, k, pe), rows)
+                tables[pe.fi] = self._reduce_rows(tables[pe.fi], pe, contrib)
+        g = _concat([tab[:nv, :t].reshape(-1)
+                     for tab, (_, nv, t, _) in zip(tables, fams)], u)
+        sqn = _concat([tab[:nv, t:2 * t].reshape(-1)
+                       for tab, (_, nv, t, _) in zip(tables, fams)], u)
+        return g, sqn, [tab[:nv, 2 * t:] for tab, (_, nv, t, _) in zip(tables, fams)]
+
+    @staticmethod
+    def post_contrib(J, rows):
+        """(B, 2t + t*t) per row: J'u, diag(J'J) and the J'J block, for
+        J (B, r, t) and residual rows (B, r)."""
+        return torch.cat([torch.sum(J * rows[:, :, None], dim=1),
+                          torch.sum(J * J, dim=1),
+                          small_matmul(J.transpose(1, 2), J).reshape(J.shape[0], -1)],
+                         dim=1)
+
+    @staticmethod
+    def scaled_blocks(fams, blocks, scale, D2):
+        """S_b (J'J)_b S_b + diag(D2)_b per family."""
+        return [scaled_blocks(blk, scale[off:off + nv * t], D2[off:off + nv * t], t)
+                for (off, nv, t, _), blk in zip(fams, blocks)]
+
+    @staticmethod
+    def scaled_block_inverses(fams, blocks, scale, D2):
+        """Their inverses (flatops.py:633)."""
+        return [spd_inverse_flat(M, t) for M, (_, _, t, _) in zip(
+            _FlatOpsBase.scaled_blocks(fams, blocks, scale, D2), fams)]
+
+    @staticmethod
+    def apply_inverse_rows(fams, invs, v):
+        """x = blockdiag^{-1} v per family (flatops.py:648)."""
+        return _concat([apply_inverse_rows(M, v[off:off + nv * t], t)
+                        for (off, nv, t, _), M in zip(fams, invs)], v)
+
+
+def _concat(parts, like):
+    return torch.cat(parts) if parts else like.new_zeros((0,))
+
+
+class FlatSchurOps(_FlatOpsBase):
+    """Flattened products over the e/f partition (flatops.py:744): the
+    path of every program that `jt_refusal` turns away."""
+
+    def __init__(self, pm: pt.PartitionedMeta, program):
+        super().__init__(pm.base.kinds, program.device)
+        self.pm = pm
+        self.plans_e = self._build(self._slots(pm.e_family_indices, pm.e_fams))
+        self.plans_f = self._build(self._slots(pm.f_family_indices, pm.f_fams))
+
+    def _slots(self, part_list, fams):
+        part_list = list(part_list)
+        for k, kind in enumerate(self.pm.base.kinds):
+            for s, slot in enumerate(kind.slots):
+                if slot.family_index not in part_list:
+                    continue
+                fi = part_list.index(slot.family_index)
+                off, nv, t, _ = fams[fi]
+                bid_off = self.pm.base.families[slot.family_index].block_id_offset
+                yield k, s, fi, off, nv, t, slot.block_ids - bid_off
+
+    def right_f(self, vflat, z):
+        return self._right(self.plans_f, vflat, z)
+
+    def right_e(self, vflat, y):
+        return self._right(self.plans_e, vflat, y)
+
+    def left_f(self, vflat, u):
+        return self._left(self.plans_f, self.pm.f_fams, vflat, u)
+
+    def left_e(self, vflat, u):
+        return self._left(self.plans_e, self.pm.e_fams, vflat, u)
+
+    def fused_post_eval_e(self, vflat, u):
+        return self.fused_post_eval(self.plans_e, self.pm.e_fams, vflat, u)
+
+    def fused_post_eval_f(self, vflat, u):
+        return self.fused_post_eval(self.plans_f, self.pm.f_fams, vflat, u)

@@ -1,5 +1,5 @@
-"""The six kernels of the dense- and iterative-Schur jt-mode paths
-(counterpart of ceres_tpu/ops/pallas_kernels.py).
+"""The kernels of the ported Schur paths (counterpart of
+ceres_tpu/ops/pallas_kernels.py).
 
 Each wrapper takes tensors on one device. On the CPU it runs the kernel's
 plain PyTorch version; on a CUDA device it launches the hand-written CUDA
@@ -8,11 +8,18 @@ there is no fallback from one to the other. Each wrapper carries two plain
 integers: `launches`, counted where the CUDA kernel is launched, and
 `plain_calls`, counted where the plain version runs.
 
-Shapes are those of the Snavely BA path: r = 2 residual rows, tf = 9
-camera and te = 3 point tangent columns. J travels transposed, as JT
-(24, B) (layout in csrc/common.cuh), residuals as rT (2, B). The `plan`
-argument is a flatops.RowPlan: rows sorted by point, the point segments,
-the camera chunk plan and, for schur_assembly, the point-pair plan.
+The jt-mode kernels (1-5) take the shapes of the Snavely BA path: r = 2
+residual rows, tf = 9 camera and te = 3 point tangent columns. J travels
+transposed, as JT (24, B) (layout in csrc/common.cuh), residuals as rT
+(2, B). Their `plan` argument is a flatops.RowPlan: rows sorted by point,
+the point segments, the camera chunk plan and, for schur_assembly, the
+point-pair plan.
+
+The flat-path kernels (6-9) take any width: segment sums of (B, w) rows
+by block id through a flatops.SegmentPlan (6 sorted, 9 unsorted), the
+gather of block rows back to the rows (7), and the spread sum that
+assembles the dense-Schur A (8).
+
 Every size and offset a kernel computes from B, P or C is 64-bit where
 it can pass 2^31 (24 * B passes it at B = 90M rows).
 """
@@ -418,8 +425,149 @@ def schur_jacobi_blocks(JT, se, minv, plan):
     return out
 
 
+# --------------------------------------------------------------------------
+# 6 / 9. segment_block_sum (pallas_kernels.py:228) and windowed_segment_sum
+# (pallas_kernels.py:2563)
+# --------------------------------------------------------------------------
+
+
+def segment_block_sum_plain(contrib, plan):
+    out = contrib.new_zeros((plan.num_keys, contrib.shape[1]))
+    return out.index_add_(0, plan.ids.long(), contrib)
+
+
+def _segment_sum(fn_name, contrib, plan, sorted_ids):
+    dev = contrib.device
+    dt = _dtype_of(contrib)
+    fn = _entry(fn_name, dt)
+    if contrib.dim() != 2:
+        raise ValueError("contrib must be (B, w)")
+    if (plan.order is None) != sorted_ids:
+        raise ValueError("sorted ids go to segment_block_sum, unsorted ids to "
+                         "unsorted_segment_sum")
+    B, w = plan.B, contrib.shape[1]
+    K = plan.num_keys
+    i32 = torch.int32
+    _check(contrib, "contrib", dt, (B, w), dev)
+    _check(plan.key_first, "plan.key_first", i32, (K + 1,), dev)
+    sizes = plan.level_sizes
+    for lv, (st, n) in enumerate(zip(plan.level_starts, sizes)):
+        _check(st, f"plan.level_starts[{lv}]", i32, (n + 1,), dev)
+    order = ()
+    if not sorted_ids:
+        _check(plan.order, "plan.order", i32, (B,), dev)
+        order = (_ptr(plan.order),)
+    work = torch.empty((max(1, sum(sizes)), w), dtype=dt, device=dev)
+    out = torch.empty((K, w), dtype=dt, device=dev)
+    starts = (ctypes.c_void_p * len(sizes))(*[st.data_ptr() for st in plan.level_starts])
+    counts = (ctypes.c_int * len(sizes))(*sizes)
+    _launch(fn, _ptr(contrib), B, w, *order, len(sizes),
+            ctypes.cast(starts, ctypes.c_void_p), ctypes.cast(counts, ctypes.c_void_p),
+            _ptr(plan.key_first), K, _ptr(work), _ptr(out), _stream(dev))
+    return out
+
+
+def segment_block_sum(contrib, plan):
+    """out (K, w), out[k] = sum of the rows of contrib (B, w) whose id is
+    k, for ids sorted (plan.order is None); K = plan.num_keys."""
+    if _on_cpu(contrib):
+        segment_block_sum.plain_calls += 1
+        return segment_block_sum_plain(contrib, plan)
+    out = _segment_sum("ct_segment_block_sum", contrib, plan, True)
+    segment_block_sum.launches += 1
+    return out
+
+
+unsorted_segment_sum_plain = segment_block_sum_plain
+
+
+def unsorted_segment_sum(contrib, plan):
+    """segment_block_sum for ids in any order, through the plan's stable
+    order of the rows by id (replaces windowed_segment_sum, whose fixed
+    row tiles and id windows are a VMEM device)."""
+    if _on_cpu(contrib):
+        unsorted_segment_sum.plain_calls += 1
+        return unsorted_segment_sum_plain(contrib, plan)
+    out = _segment_sum("ct_unsorted_segment_sum", contrib, plan, False)
+    unsorted_segment_sum.launches += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# 7. segment_block_expand (pallas_kernels.py:354)
+# --------------------------------------------------------------------------
+
+
+def segment_block_expand_plain(vals, ids):
+    return torch.index_select(vals, 0, ids)
+
+
+def segment_block_expand(vals, ids):
+    """out (N, t), out[i] = vals[ids[i]] for a table vals (K, t) and ids
+    (N,) int32 in any order."""
+    dev = vals.device
+    if _on_cpu(vals):
+        segment_block_expand.plain_calls += 1
+        return segment_block_expand_plain(vals, ids)
+    dt = _dtype_of(vals)
+    fn = _entry("ct_segment_block_expand", dt)
+    if vals.dim() != 2 or ids.dim() != 1:
+        raise ValueError("vals must be (K, t) and ids (N,)")
+    K, t = vals.shape
+    N = ids.shape[0]
+    _check(vals, "vals", dt, (K, t), dev)
+    _check(ids, "ids", torch.int32, (N,), dev)
+    out = torch.empty((N, t), dtype=dt, device=dev)
+    _launch(fn, _ptr(vals), K, t, _ptr(ids), N, _ptr(out), _stream(dev))
+    segment_block_expand.launches += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# 8. segment_spread_sum without Jc (pallas_kernels.py:462)
+# --------------------------------------------------------------------------
+
+
+def segment_spread_sum_plain(Y, cam_ids, pt_start, C, te, tf):
+    P = pt_start.shape[0] - 1
+    n = int(pt_start[-1])
+    pt = torch.repeat_interleave(torch.arange(P, device=Y.device),
+                                 pt_start[1:] - pt_start[:-1])
+    A = Y.new_zeros((P, C + 1, te, tf))  # column C takes the sentinel cameras
+    A.index_put_((pt, torch.clamp(cam_ids[:n].long(), max=C)),
+                 Y[:n].reshape(n, te, tf), accumulate=True)
+    return A[:, :C].permute(0, 2, 1, 3).reshape(P, te * C * tf)
+
+
+def segment_spread_sum(Y, cam_ids, pt_start, C, te, tf):
+    """The dense-Schur A of one camera-side slot: out (P, te*C*tf) with
+    out[p, i*C*tf + c*tf + j] = sum over the rows b of point p of
+    Y[b, i*tf + j] [cam_ids[b] == c]. Y (B, te*tf) and cam_ids (B,) int32
+    have their rows sorted by point; the rows of point p are
+    pt_start[p] .. pt_start[p+1] (pt_start (P+1,) int32; rows past
+    pt_start[P] belong to no point); a camera id outside [0, C) adds
+    nothing."""
+    dev = Y.device
+    if _on_cpu(Y):
+        segment_spread_sum.plain_calls += 1
+        return segment_spread_sum_plain(Y, cam_ids, pt_start, C, te, tf)
+    dt = _dtype_of(Y)
+    fn = _entry("ct_segment_spread_sum", dt)
+    B = Y.shape[0]
+    P = pt_start.shape[0] - 1
+    _check(Y, "Y", dt, (B, te * tf), dev)
+    _check(cam_ids, "cam_ids", torch.int32, (B,), dev)
+    _check(pt_start, "pt_start", torch.int32, (P + 1,), dev)
+    out = torch.empty((P, te * C * tf), dtype=dt, device=dev)
+    _launch(fn, _ptr(Y), _ptr(cam_ids), _ptr(pt_start), P, C, te, tf, _ptr(out),
+            _stream(dev))
+    segment_spread_sum.launches += 1
+    return out
+
+
 KERNELS = (eval_fused, post_eval_fused, schur_assembly, normal_matvec,
-           isc_matvec, schur_jacobi_blocks)
+           isc_matvec, schur_jacobi_blocks, segment_block_sum,
+           segment_block_expand, segment_spread_sum, unsorted_segment_sum)
 
 
 def reset_counts() -> None:

@@ -21,6 +21,10 @@ class PartitionedMeta:
     e_fams: Tuple[Tuple[int, int, int, int], ...]
     f_fams: Tuple[Tuple[int, int, int, int], ...]
 
+    @property
+    def f_size(self) -> int:
+        return sum(nv * t for _, nv, t, _ in self.f_fams)
+
 
 def build_partition(meta: bsr.BlockJacobianMeta,
                     e_family_indices: Sequence[int]) -> PartitionedMeta:

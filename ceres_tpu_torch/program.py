@@ -11,8 +11,9 @@ Layout, as in the JAX package:
    `sort_rows=True`, which is what its fused path uses).
 
 `_eval_core` is the plain evaluation: the cost function's own residual,
-differentiated by torch.func. The fused path evaluates through the
-eval_fused kernel instead (ops/flatops.py).
+differentiated by torch.func; the flat Schur path evaluates through it.
+The jt path evaluates through the eval_fused kernel instead
+(ops/flatops.py).
 """
 from __future__ import annotations
 
@@ -66,6 +67,8 @@ class Kind:
 
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
+# rows per batched evaluation in _eval_core
+EVAL_CHUNK_ROWS = 1 << 20
 
 
 def resolve_device(device=None) -> torch.device:
@@ -94,6 +97,7 @@ class CompiledProgram:
         self.compute_dtype = _DTYPES[compute_dtype]
         self.device = resolve_device(device)
         self.fixed_cost = 0.0
+        self._index = {}
         self._build()
 
     def _build(self):
@@ -180,18 +184,36 @@ class CompiledProgram:
 
     # ------------------------------------------------------------- evaluation
 
+    def _slot_index(self, k: int, s: int) -> torch.Tensor:
+        """The device copy of a slot's block rows, made on first use."""
+        key = (k, s)
+        if key not in self._index:
+            self._index[key] = torch.as_tensor(self.kinds[k].slots[s].pos_in_family,
+                                               device=self.device)
+        return self._index[key]
+
     def _eval_core(self, x: torch.Tensor):
         """Plain evaluation: {"cost": f64 scalar, "residuals": (N,),
-        "block_jacs": [kind][slot] (B, r, t)} in the compute dtype."""
+        "block_jacs": [kind][slot] (B, r, t)} in the compute dtype. Rows
+        are evaluated EVAL_CHUNK_ROWS at a time, which bounds the memory
+        of the batched forward-mode Jacobian and changes no value."""
         xc = x.to(self.compute_dtype)
         total = torch.zeros((), dtype=torch.float64, device=x.device)
         res_chunks, block_jacs = [], []
-        for kind in self.kinds:
-            params = tuple(
-                self.family_table(xc, s.family)[torch.as_tensor(
-                    s.pos_in_family, device=x.device)]
-                for s in kind.slots)
-            res, jacs = kind.cost.batched_residuals_and_jacobians(params, kind.data)
+        for k, kind in enumerate(self.kinds):
+            tables = [self.family_table(xc, s.family) for s in kind.slots]
+            parts = []
+            for a in range(0, kind.B, EVAL_CHUNK_ROWS):
+                rows = slice(a, min(a + EVAL_CHUNK_ROWS, kind.B))
+                params = tuple(tab[self._slot_index(k, s)[rows]]
+                               for s, tab in enumerate(tables))
+                data = None if kind.data is None else kind.data[rows]
+                parts.append(kind.cost.batched_residuals_and_jacobians(params, data))
+            if len(parts) == 1:
+                res, jacs = parts[0]
+            else:
+                res = torch.cat([p[0] for p in parts])
+                jacs = [torch.cat([p[1][s] for p in parts]) for s in range(len(tables))]
             block_jacs.append(list(jacs))
             total = total + 0.5 * torch.sum((res * res).to(torch.float64))
             res_chunks.append(res.reshape(-1))

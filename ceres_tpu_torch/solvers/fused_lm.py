@@ -1,6 +1,14 @@
 """Fused trust-region minimizer, Levenberg-Marquardt with the dense-Schur
 or the iterative-Schur step (counterpart of ceres_tpu/solvers/fused_lm.py).
 
+Each step has two forms, as the JAX classes do: the jt form
+(`DenseSchurStepOps`, `IterativeSchurStepOps`) for the programs the fused
+jt-mode kernels take (BAL), and the flat form (`FlatDenseSchurStepOps`,
+`FlatIterativeSchurStepOps`) for every other program (the libmv bundle
+adjuster): a plain evaluation, flattened Jacobian blocks and the flat
+products of ops/flatops.FlatSchurOps. `build_fused_minimizer` routes by
+`flatops.jt_refusal`.
+
 The JAX loop runs the whole iteration, evaluate -> LM diagonal -> linear
 step -> candidate -> accept/reject -> radius update -> tolerance checks, in
 one `lax.while_loop` and fetches to the host once per minimize. Here each
@@ -90,6 +98,36 @@ class JTForm(NamedTuple):
     rt: torch.Tensor
 
 
+class FlatForm(NamedTuple):
+    """Evaluation result on the flat path: vflat[k][s] (B, r*t) Jacobian
+    blocks of each kind and slot, r (N,) the residuals of every kind."""
+
+    vflat: tuple
+    r: torch.Tensor
+
+
+def _iterative_options(ops, options: Options) -> None:
+    """The ITERATIVE_SCHUR step's options; JACOBI runs as SCHUR_JACOBI
+    (fused_lm.py:237-239)."""
+    prec = options.preconditioner_type
+    if prec == PreconditionerType.JACOBI:
+        prec = PreconditionerType.SCHUR_JACOBI
+    if prec not in (PreconditionerType.SCHUR_JACOBI, PreconditionerType.IDENTITY):
+        raise not_ported(f"ITERATIVE_SCHUR with preconditioner {prec}", 6)
+    ops.precond = prec
+    ops.eta = options.eta
+    ops.min_li = options.min_linear_solver_iterations
+    ops.max_li = options.max_linear_solver_iterations
+
+
+def _cg(ops, lhs, rhs, precond, fetch):
+    return conjugate_gradients(
+        lhs, rhs, torch.zeros_like(rhs), precond,
+        min_num_iterations=ops.min_li, max_num_iterations=ops.max_li,
+        residual_reset_period=10, r_tolerance=-1.0, q_tolerance=ops.eta,
+        fetch=fetch)
+
+
 class _JTStepOps:
     """What both Schur steps share: the e/f partition, the row plan and
     the fused jt-mode evaluation and post-evaluation."""
@@ -97,7 +135,7 @@ class _JTStepOps:
     def __init__(self, program, e_families):
         self.program = program
         self.pm = pt.build_partition(bsr.build_meta(program), e_families)
-        self.flat = fo.FlatSchurOps(self.pm, program)
+        self.flat = fo.JTSchurOps(self.pm, program)
         self._jt_qual = self.flat.eval_kernel_qual(program)
 
     def evaluate(self, x):
@@ -125,11 +163,7 @@ class DenseSchurStepOps(_JTStepOps):
 
     def _scaled_K(self, ete, se, d2e):
         """Per-point K = L^{-1} of scaled E'E + D_e^2, (P, 9) rows."""
-        P, te = self.flat.P, kn.TE
-        s = se.reshape(P, te)
-        M = ete * (s[:, :, None] * s[:, None, :]).reshape(P, te * te)
-        M = M + torch.diag_embed(d2e.reshape(P, te)).reshape(P, te * te)
-        return fo.chol_inv_lower_flat(M, te)
+        return fo.chol_inv_lower_flat(fo.scaled_blocks(ete, se, d2e, kn.TE), kn.TE)
 
     def _kmatvec(self, K, v, transpose=False):
         """Blockwise K v (or K' v) over the point layout."""
@@ -188,15 +222,7 @@ class IterativeSchurStepOps(_JTStepOps):
 
     def __init__(self, program, options: Options, e_families):
         super().__init__(program, e_families)
-        prec = options.preconditioner_type
-        if prec == PreconditionerType.JACOBI:
-            prec = PreconditionerType.SCHUR_JACOBI
-        if prec not in (PreconditionerType.SCHUR_JACOBI, PreconditionerType.IDENTITY):
-            raise not_ported(f"ITERATIVE_SCHUR with preconditioner {prec}", 6)
-        self.precond = prec
-        self.eta = options.eta
-        self.min_li = options.min_linear_solver_iterations
-        self.max_li = options.max_linear_solver_iterations
+        _iterative_options(self, options)
 
     def compute_step(self, vrep: JTForm, aux, g, scale_c, D2_c, fetch):
         """(step, model cost change, CG iterations) of
@@ -229,11 +255,7 @@ class IterativeSchurStepOps(_JTStepOps):
             def precond(v):
                 return fo.apply_inverse_rows(inv_f, v, tf)
 
-        res = conjugate_gradients(
-            lhs, rhs, torch.zeros_like(rhs), precond,
-            min_num_iterations=self.min_li, max_num_iterations=self.max_li,
-            residual_reset_period=10, r_tolerance=-1.0, q_tolerance=self.eta,
-            fetch=fetch)
+        res = _cg(self, lhs, rhs, precond, fetch)
         z = res.x
         # back substitution: y_e = Minv (E_s'b - E_s'F_s z) = u0 - u(z)
         _, u_fin = matvec(z, minv0, emit_u=True)
@@ -245,6 +267,222 @@ class IterativeSchurStepOps(_JTStepOps):
         mr_r = torch.dot(step, scale_c * g)
         mr_mr = torch.dot(-z, camH) + torch.sum(ye_rows * ptH)
         return step, -(mr_r + 0.5 * mr_mr), res.num_iterations
+
+
+class _FlatStepOps:
+    """What both flat Schur steps share: the e/f partition, the flat plans,
+    the plain evaluation with its blocks flattened (fused_lm.py:305-307)
+    and the flat post-evaluation (fused_lm.py:347-352)."""
+
+    def __init__(self, program, e_families):
+        self.program = program
+        self.pm = pt.build_partition(bsr.build_meta(program), e_families)
+        self.flat = fo.FlatSchurOps(self.pm, program)
+
+    def evaluate(self, x):
+        """(cost f64 0-d, FlatForm) at state x."""
+        o = self.program._eval_core(x)
+        vflat = tuple(tuple(J.reshape(J.shape[0], -1) for J in jacs)
+                      for jacs in o["block_jacs"])
+        return o["cost"], FlatForm(vflat, o["residuals"])
+
+    def post_eval(self, vrep: FlatForm):
+        """(gradient J'r, column norms diag(J'J), aux = ([E'E blocks per
+        e family], [F'F blocks per f family]))."""
+        fl, pm = self.flat, self.pm
+        g_e, sqn_e, ete = fl.fused_post_eval_e(vrep.vflat, vrep.r)
+        g_f, sqn_f, ftf = fl.fused_post_eval_f(vrep.vflat, vrep.r)
+        return pt.combine(pm, g_e, g_f), pt.combine(pm, sqn_e, sqn_f), (ete, ftf)
+
+    def _scaled_jac(self, vflat, k, p, scale):
+        """(B, r, t) block of slot p with each row's column scales."""
+        return self.flat._jac(vflat, k, p) * self.flat._gather(scale, p)[:, None, :]
+
+
+class FlatIterativeSchurStepOps(_FlatStepOps):
+    """Implicit-Schur PCG on the flat path (fused_lm.py:453-583 without
+    the kernel suite): S z through the product chain of right/left
+    products, SCHUR_JACOBI from the carried F'F blocks less the
+    per-observation W' M^{-1} W (fused_lm.py:354-409)."""
+
+    def __init__(self, program, options: Options, e_families):
+        super().__init__(program, e_families)
+        _iterative_options(self, options)
+
+    def _schur_jacobi_inverses(self, vflat, ftf, minv_e, se, sf, d2f):
+        fl = self.flat
+        tables = [torch.cat([M, M.new_zeros((1, M.shape[1]))])
+                  for M in fl.scaled_blocks(self.pm.f_fams, ftf, sf, d2f)]
+        for k, kind in enumerate(fl.kinds):
+            if not fl.plans_e[k] or not fl.plans_f[k]:
+                continue
+            pe = fl.plans_e[k][0]
+            Je = self._scaled_jac(vflat, k, pe, se)
+            minv_rows = fl._expand(minv_e[pe.fi], pe).reshape(kind.B, pe.t, pe.t)
+            for pf in fl.plans_f[k]:
+                W = fo.small_matmul(Je.transpose(1, 2), self._scaled_jac(vflat, k, pf, sf))
+                corr = fo.small_matmul(W.transpose(1, 2), fo.small_matmul(minv_rows, W))
+                tables[pf.fi] = fl._reduce_rows(tables[pf.fi], pf,
+                                                -corr.reshape(kind.B, -1))
+        return [fo.spd_inverse_flat(tab[:nv], t)
+                for tab, (_, nv, t, _) in zip(tables, self.pm.f_fams)]
+
+    def compute_step(self, vrep: FlatForm, aux, g, scale_c, D2_c, fetch):
+        """(step, model cost change, CG iterations) of
+        (J_s'J_s + D^2) y = -J_s'r by PCG on the Schur complement."""
+        fl, pm = self.flat, self.pm
+        vflat, r = vrep
+        ete, ftf = aux
+        se = pt.extract_e(pm, scale_c)
+        sf = pt.extract_f(pm, scale_c)
+        d2f = pt.extract_f(pm, D2_c)
+        minv_e = fl.scaled_block_inverses(pm.e_fams, ete, se, pt.extract_e(pm, D2_c))
+
+        def minv(v):
+            return fl.apply_inverse_rows(pm.e_fams, minv_e, v)
+
+        # rhs = F_s'(r - E_s Minv E_s'r) (implicit_schur_complement.cc:49)
+        etb = se * pt.extract_e(pm, g)
+        rhs = sf * fl.left_f(vflat, r - fl.right_e(vflat, se * minv(etb)))
+
+        def lhs(z):
+            fz = fl.right_f(vflat, sf * z)
+            etfz = se * fl.left_e(vflat, fz)
+            e_part = fl.right_e(vflat, se * minv(etfz))
+            return sf * fl.left_f(vflat, fz - e_part) + d2f * z
+
+        precond = None
+        if self.precond == PreconditionerType.SCHUR_JACOBI:
+            inv_f = self._schur_jacobi_inverses(vflat, ftf, minv_e, se, sf, d2f)
+
+            def precond(v):
+                return fl.apply_inverse_rows(pm.f_fams, inv_f, v)
+
+        res = _cg(self, lhs, rhs, precond, fetch)
+        z = res.x
+        # back substitution: y_e = Minv (E_s'b - E_s'F_s z)
+        y_e = minv(etb - se * fl.left_e(vflat, fl.right_f(vflat, sf * z)))
+        step = -pt.combine(pm, y_e, z)
+        mr = fl.right_e(vflat, se * (-y_e)) + fl.right_f(vflat, sf * (-z))
+        return step, -torch.dot(mr, r + mr / 2.0), res.num_iterations
+
+
+class FlatDenseSchurStepOps(_FlatStepOps):
+    """Exact dense-Schur LM step on the flat path (fused_lm.py:601-1027,
+    without the one-kernel assembly): eliminate the e-blocks through
+    per-block K = L^{-1}, assemble A = K W densely (segment_spread_sum on
+    rows sorted by the e-block) and S = scaled F'F + D_f^2 + the cross
+    terms of two f-blocks of one residual - A'A, solve the reduced
+    system, back-substitute through A."""
+
+    def __init__(self, program, options: Options, e_families):
+        super().__init__(program, e_families)
+
+    def _scaled_K(self, ete, se, d2e):
+        """Per e family K = L^{-1} of scaled E'E + D_e^2, (nv, t*t)."""
+        return [fo.chol_inv_lower_flat(M, t) for M, (_, _, t, _) in zip(
+            self.flat.scaled_blocks(self.pm.e_fams, ete, se, d2e), self.pm.e_fams)]
+
+    def _kmatvec(self, K_e, v, transpose=False):
+        """Blockwise K v (or K' v) over the e-partition layout."""
+        outs = []
+        for (off, nv, t, _), K in zip(self.pm.e_fams, K_e):
+            Kb = K.reshape(nv, t, t)
+            if transpose:
+                Kb = Kb.transpose(1, 2)
+            outs.append(fo.small_matmul(Kb, v[off:off + nv * t].reshape(nv, t, 1))
+                        .reshape(-1))
+        return torch.cat(outs) if outs else v
+
+    @staticmethod
+    def _spread(W, p, f_size):
+        """(B, ti*f_size): W (B, ti, tj) in the column window of each row's
+        block of slot p, zero for the sentinel (fused_lm.py:586)."""
+        B, ti, tj = W.shape
+        block = torch.clamp(p.local.long(), max=p.nv - 1)
+        cols = p.off + block[:, None] * tj + torch.arange(tj, device=W.device)
+        valid = (p.local < p.nv).to(W.dtype)[:, None, None]
+        T = W.new_zeros((B, ti, f_size))
+        T.scatter_(2, cols[:, None, :].expand(B, ti, tj), W * valid)
+        return T.reshape(B, ti * f_size)
+
+    def eliminated_rows(self, vflat, K_e, se, sf):
+        """(pe, pf, Y (B, te, tf) = K_p W_b with W_b = J_e,s' J_f,s) for
+        each (kind, f-slot) of a kind with an e-slot: the rows of A."""
+        fl = self.flat
+        for k, kind in enumerate(fl.kinds):
+            if not fl.plans_e[k] or not fl.plans_f[k]:
+                continue
+            pe = fl.plans_e[k][0]
+            Je = self._scaled_jac(vflat, k, pe, se)
+            K_rows = fl._expand(K_e[pe.fi], pe).reshape(kind.B, pe.t, pe.t)
+            for pf in fl.plans_f[k]:
+                W = fo.small_matmul(Je.transpose(1, 2), self._scaled_jac(vflat, k, pf, sf))
+                yield pe, pf, fo.small_matmul(K_rows, W)
+
+    def _assemble(self, vrep: FlatForm, aux, scale_c, D2_c):
+        """(K_e, A (e_size, f_size), S (f_size, f_size)) of the
+        eliminated system (fused_lm.py:667-816)."""
+        fl, pm = self.flat, self.pm
+        vflat = vrep.vflat
+        ete, ftf = aux
+        se = pt.extract_e(pm, scale_c)
+        sf = pt.extract_f(pm, scale_c)
+        f_size = pm.f_size
+        K_e = self._scaled_K(ete, se, pt.extract_e(pm, D2_c))
+
+        # A = K W: one spread sum per (kind, f-slot)
+        tables = [scale_c.new_zeros((nv, t, f_size)) for (_, nv, t, _) in pm.e_fams]
+        for pe, pf, Y in self.eliminated_rows(vflat, K_e, se, sf):
+            te = pe.t
+            if pe.srt:
+                Afam = kn.segment_spread_sum(
+                    Y.reshape(Y.shape[0], -1), pf.local, pe.seg.seg_start[:pe.nv + 1],
+                    pf.nv, te, pf.t)
+                tables[pe.fi][:, :, pf.off:pf.off + pf.nv * pf.t] += Afam.reshape(
+                    pe.nv, te, pf.nv * pf.t)
+            else:
+                rows = fl._reduce_rows(scale_c.new_zeros((pe.nv + 1, te * f_size)), pe,
+                                       self._spread(Y, pf, f_size))
+                tables[pe.fi] += rows[:pe.nv].reshape(pe.nv, te, f_size)
+        A = torch.cat([tab.reshape(-1, f_size) for tab in tables])
+
+        # S = scaled F'F + diag(D_f^2) on the diagonal blocks, plus the
+        # cross terms of two distinct f-blocks of one residual, - A'A
+        S = scale_c.new_zeros((f_size, f_size))
+        for (off, nv, t, _), M in zip(pm.f_fams, fl.scaled_blocks(
+                pm.f_fams, ftf, sf, pt.extract_f(pm, D2_c))):
+            eye = torch.eye(nv, dtype=M.dtype, device=M.device)
+            S[off:off + nv * t, off:off + nv * t] = torch.einsum(
+                "cij,cd->cidj", M.reshape(nv, t, t), eye).reshape(nv * t, nv * t)
+        for k, kind in enumerate(fl.kinds):
+            fs = fl.plans_f[k]
+            for p1 in fs:
+                for p2 in fs:
+                    if p1 is p2:
+                        continue
+                    W12 = fo.small_matmul(self._scaled_jac(vflat, k, p1, sf).transpose(1, 2),
+                                          self._scaled_jac(vflat, k, p2, sf))
+                    if p1.fi == p2.fi:  # the same block twice: the diagonal term
+                        W12 = W12 * (p1.local != p2.local).to(W12.dtype)[:, None, None]
+                    rows = fl._reduce_rows(
+                        scale_c.new_zeros((p1.nv + 1, p1.t * f_size)), p1,
+                        self._spread(W12, p2, f_size))
+                    S[p1.off:p1.off + p1.nv * p1.t] += rows[:p1.nv].reshape(-1, f_size)
+        return K_e, A, S - A.T @ A
+
+    def compute_step(self, vrep: FlatForm, aux, g, scale_c, D2_c, fetch):
+        """(step, model cost change, linear iterations = 1) of
+        (J_s'J_s + D^2) y = -J_s'r (fused_lm.py:818-854, :1017-1027)."""
+        pm = self.pm
+        K_e, A, S = self._assemble(vrep, aux, scale_c, D2_c)
+        b = scale_c * g
+        u_b = self._kmatvec(K_e, pt.extract_e(pm, b))
+        z = reduced_solve(S, pt.extract_f(pm, b) - A.T @ u_b)
+        y_e = self._kmatvec(K_e, u_b - A @ z, transpose=True)
+        step = -pt.combine(pm, y_e, z)
+        # exact-solve identity: -m(d) = -1/2 g_s'd + 1/2 d'D^2 d
+        return step, -0.5 * torch.dot(b, step) + 0.5 * torch.dot(D2_c * step, step), 1
 
 
 def _grad_norms(x, g):
@@ -449,14 +687,18 @@ class FusedTrustRegionMinimizer:
             summary.termination_type = TerminationType.NO_CONVERGENCE
 
 
-_STEP_OPS = {"schur_dense": DenseSchurStepOps,
-             "schur_iterative": IterativeSchurStepOps}
+# tier -> (jt step, flat step)
+_STEP_OPS = {"schur_dense": (DenseSchurStepOps, FlatDenseSchurStepOps),
+             "schur_iterative": (IterativeSchurStepOps, FlatIterativeSchurStepOps)}
 
 
 def build_fused_minimizer(program, options: Options, tier: str, e_families=None):
-    """Factory for the fused minimizer of a linear-solver tier: the dense-
-    and the iterative-Schur tiers."""
+    """Factory for the fused minimizer of a linear-solver tier, the dense-
+    or the iterative-Schur one: its jt step for a program the jt path
+    takes, its flat step for any other."""
     if tier not in _STEP_OPS:
         raise NotImplementedError(f"fused tier {tier!r} is not ported")
-    ops = _STEP_OPS[tier](program, options, e_families)
-    return FusedTrustRegionMinimizer(program, options, ops)
+    jt_ops, flat_ops = _STEP_OPS[tier]
+    pm = pt.build_partition(bsr.build_meta(program), e_families)
+    cls = jt_ops if fo.jt_refusal(pm, program) is None else flat_ops
+    return FusedTrustRegionMinimizer(program, options, cls(program, options, e_families))

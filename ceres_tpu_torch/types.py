@@ -1,6 +1,6 @@
 """Public enums of the slice (counterpart of ceres_tpu/types.py).
 
-Only the enums that the BAL DENSE_SCHUR and ITERATIVE_SCHUR
+Only the enums that the DENSE_SCHUR and ITERATIVE_SCHUR
 Levenberg-Marquardt paths read.
 Names and members match the JAX package, so options written for one
 package read the same in the other.
@@ -69,7 +69,6 @@ LATER_SLICES = {
     4: "a device-resident LM loop (CUDA graphs)",
     5: 'evaluation_dtype="mixed" and mixed-precision solves',
     6: "the remaining linear solvers, preconditioners, minimizers and modeling API",
-    7: "generic programs on the non-jt flat path (kernels 6-9)",
 }
 
 

@@ -1,11 +1,15 @@
 """Smoke run of ceres_tpu_torch on one NVIDIA GPU: builds the CUDA kernels
 from the sources, holds each kernel against its plain PyTorch version at
-the real inputs of BAL-16 and of the Venice shape (13,696 cameras, 1M
-points, ~4.4M observations), drives the public `solve()` on every path
-the port runs (BAL-16 DENSE_SCHUR and ITERATIVE_SCHUR in float64 and
-float32, the Venice shape with ITERATIVE_SCHUR in both, and a 2,048-camera
-Venice-shaped instance on the card against the same solve on the CPU),
-counts what each solve launched, and times the kernels and the solves.
+the real inputs of BAL-16, of the Venice shape (13,696 cameras, 1M points,
+~4.4M observations) and of the libmv bundle adjuster's model on both
+geometries, drives the public `solve()` on every path the port runs (the
+jt path: BAL-16 DENSE_SCHUR and ITERATIVE_SCHUR in float64 and float32,
+the Venice shape with ITERATIVE_SCHUR in both, a 2,048-camera
+Venice-shaped instance on the card against the same solve on the CPU; the
+flat path: libmv16 DENSE_SCHUR and ITERATIVE_SCHUR in both dtypes against
+the JAX package's answer, libmv16 on the card against the CPU, and
+libmv-Venice with ITERATIVE_SCHUR in both), counts what each solve
+launched, and times the kernels and the solves.
 
     python3 chip_smoke.py
 
@@ -27,6 +31,15 @@ import torch
 # bench_golden.json, "bal16_dense_schur_f64": BAL-16 DENSE_SCHUR in float64
 GOLDEN_COST = 51931.10068031216
 GOLDEN_ROWS = 17
+# scripts/libmv16_golden.py: the JAX package's libmv16 DENSE_SCHUR solve in
+# float64 (its ITERATIVE_SCHUR + SCHUR_JACOBI solve: 51910.1670875214, 31 rows)
+LIBMV16_GOLDEN_COST = 51910.428095046474
+LIBMV16_GOLDEN_ROWS = 22
+# ITERATIVE_SCHUR card against CPU on libmv16 holds the first 20 LM
+# iterations: in its last ten, costs move by ~1e-7 per row, and which CG
+# count (15 or 17) a row's eta-forced CG takes changes with the rounding
+# of the sums (card, CPU and a one-ulp CPU twin each took another set)
+LIBMV16_CARD_VS_CPU_ITERATIONS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # peak rate of each type (NVIDIA H100 SXM data sheet, dense): float32
 # outside the tensor cores, float64 on them (FP64 tensor-core DMMA)
@@ -58,14 +71,30 @@ ROWS = [
      "ceres_tpu/ops/pallas_kernels.py:781 (mode=isc, via isc_matvec :1716)"),
     ("5", "schur_jacobi_blocks", "schur_jacobi",
      "ceres_tpu/ops/pallas_kernels.py:2682 (sj_assembly_windowed)"),
+    ("6", "segment_block_sum", "segment_sum",
+     "ceres_tpu/ops/pallas_kernels.py:228 (and jt_u_sorted :2513)"),
+    ("7", "segment_block_expand", "segment_expand",
+     "ceres_tpu/ops/pallas_kernels.py:354"),
+    ("8", "segment_spread_sum", "segment_spread",
+     "ceres_tpu/ops/pallas_kernels.py:462 (without Jc)"),
+    ("9", "unsorted_segment_sum", "segment_sum",
+     "ceres_tpu/ops/pallas_kernels.py:2563 (windowed_segment_sum)"),
 ]
 # the shape of each row's main numbers, and the path its launches come from
 ROW_SHAPE = {"1": "bal16", "2": "bal16", "3": "bal16", "3b": "bal16",
-             "4": "bal16", "4b": "bal16", "5": "venice"}
+             "4": "bal16", "4b": "bal16", "5": "venice", "6": "libmv16",
+             "7": "libmv16", "8": "libmv16", "9": "libmv16"}
 ROW_PATH = {"1": "bal16_dense_f64", "2": "bal16_dense_f64",
             "3": "bal16_dense_f64", "4": "bal16_dense_f64",
             "3b": "bal16_iterative_f64", "4b": "bal16_iterative_f64",
-            "5": "venice_iterative_f32"}
+            "5": "venice_iterative_f32", "6": "libmv16_dense_f64",
+            "7": "libmv16_dense_f64", "8": "libmv16_dense_f64",
+            "9": "libmv16_dense_f64"}
+# a row's other shapes, and its further cases (case, key suffix)
+ROW_VARIANTS = {"1": ["venice"], "2": ["venice"], "4": ["venice"],
+                "4b": ["venice"], "6": ["libmv_venice"], "7": ["libmv_venice"],
+                "9": ["libmv_venice"]}
+ROW_CASES = {"6": [("segment_block_sum_one_key", "_one_key")]}
 # why no single PyTorch call computes each kernel's function
 NO_LIBRARY_CALL = {
     "eval_fused": "no PyTorch call evaluates a residual and its Jacobian",
@@ -79,11 +108,78 @@ NO_LIBRARY_CALL = {
 DENSE_PATH = ("eval_fused", "post_eval_fused", "schur_assembly", "normal_matvec")
 ITERATIVE_PATH = ("eval_fused", "post_eval_fused", "normal_matvec", "isc_matvec",
                   "schur_jacobi_blocks")
+FLAT_DENSE_PATH = ("segment_block_sum", "segment_block_expand", "segment_spread_sum",
+                   "unsorted_segment_sum")
+FLAT_ITERATIVE_PATH = ("segment_block_sum", "segment_block_expand",
+                       "unsorted_segment_sum")
 # the kernel checks: case -> wrapper
 CASES = {"eval_fused": "eval_fused", "post_eval_fused": "post_eval_fused",
          "schur_assembly": "schur_assembly", "normal_matvec": "normal_matvec",
          "isc_matvec": "isc_matvec", "isc_matvec_no_u": "isc_matvec",
-         "schur_jacobi_blocks": "schur_jacobi_blocks"}
+         "schur_jacobi_blocks": "schur_jacobi_blocks",
+         "segment_block_sum": "segment_block_sum",
+         "segment_block_sum_one_key": "segment_block_sum",
+         "unsorted_segment_sum": "unsorted_segment_sum",
+         "segment_block_expand": "segment_block_expand",
+         "segment_spread_sum": "segment_spread_sum"}
+
+
+def libmv_instance(truth, start, seed=1):
+    """The libmv bundle adjuster's model (ceres_tpu_torch.models.libmv) on
+    a BAL geometry: cameras truth.cameras[:, :6] (angle-axis, t), one
+    shared intrinsics block [mean focal, 0, ...], markers the libmv
+    projection of the true cameras and points in float64 plus N(0, 1)
+    noise from default_rng(seed); the solve starts from start's cameras
+    and points. Returns a LibmvProblem of image-space markers."""
+    from ceres_tpu_torch.models import libmv
+
+    intr = np.zeros(libmv.INTRINSICS_SIZE)
+    intr[0] = truth.cameras[:, 6].mean()
+    cams = truth.cameras[:, :6]
+    it = torch.as_tensor(intr)
+    zero = torch.zeros(2, dtype=torch.float64)
+    project = torch.func.vmap(
+        lambda c, p: libmv.libmv_reprojection_residual(c, p, it, zero))
+    B = truth.num_observations
+    markers = np.empty((B, 2))
+    for a in range(0, B, 1 << 20):
+        rows = slice(a, min(a + (1 << 20), B))
+        markers[rows] = project(torch.as_tensor(cams[truth.camera_index[rows]]),
+                                torch.as_tensor(truth.points[truth.point_index[rows]])).numpy()
+    markers += np.random.default_rng(seed).standard_normal((B, 2))
+    return libmv.LibmvProblem(
+        is_image_space=True, intrinsics=intr, cameras=start.cameras[:, :6].copy(),
+        camera_images=np.arange(truth.num_cameras), points=start.points.copy(),
+        point_tracks=np.arange(truth.num_points),
+        marker_cam=truth.camera_index.astype(np.int64),
+        marker_pt=truth.point_index.astype(np.int64), markers=markers)
+
+
+def libmv16():
+    """libmv16: the BAL-16 geometry (bench.py:119-127) as a libmv problem:
+    16 cameras, 22,106 points, 84,218 markers."""
+    from ceres_tpu_torch.models import bal
+
+    b = bal.synthetic_bal(num_cameras=16, num_points=22106,
+                          visibility=83718 / (16 * 22106), noise=1.0, seed=0)
+    return libmv_instance(b, bal.perturb(b, 0.02, 0.2, 0.2, seed=1))
+
+
+def libmv_venice():
+    """libmv-Venice: the Venice shape as a libmv problem: 13,696 cameras,
+    1M points, 4,397,236 markers, one shared camera model."""
+    from ceres_tpu_torch.models import bal
+
+    b = bal.synthetic_bal_large(**VENICE)
+    return libmv_instance(b, bal.perturb(b, **VENICE_PERTURB))
+
+
+def fresh(lp):
+    """A copy of a LibmvProblem whose arrays a solve may write into."""
+    import dataclasses
+
+    return dataclasses.replace(lp, cameras=lp.cameras.copy(), points=lp.points.copy(),
+                               intrinsics=lp.intrinsics.copy())
 
 
 class SmokeFailure(Exception):
@@ -169,7 +265,7 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     import ceres_tpu_torch as ctt
-    from ceres_tpu_torch.models import bal
+    from ceres_tpu_torch.models import bal, libmv
     from ceres_tpu_torch.ops import build
     from ceres_tpu_torch.ops import flatops as fo
     from ceres_tpu_torch.ops import kernels as kn
@@ -178,6 +274,8 @@ def main():
     from ceres_tpu_torch.solver import _pick_linear_solver
     from ceres_tpu_torch.solvers.fused_lm import (
         DenseSchurStepOps,
+        FlatDenseSchurStepOps,
+        FlatIterativeSchurStepOps,
         IterativeSchurStepOps,
         JTForm,
     )
@@ -248,6 +346,48 @@ def main():
                                       plan)
         return args
 
+    def flat_kernel_inputs(prog, opts, dense):
+        """The flat path's kernel cases at this libmv program's real
+        first-iteration inputs: the post-evaluation sums of the point side
+        (sorted, w = 15), of the intrinsics (one key holding every row,
+        w = 80) and of the cameras (unsorted, w = 48); the gather of the
+        camera scales; with `dense`, the spread sum of the cameras' A rows
+        at Jacobi scales and an LM diagonal at radius 1e4."""
+        _, e_fams = _pick_linear_solver(opts, prog, Summary())
+        ops = (FlatDenseSchurStepOps if dense else FlatIterativeSchurStepOps)(
+            prog, opts, e_fams)
+        fl, pm = ops.flat, ops.pm
+        pe = fl.plans_e[0][0]
+        pcam, pintr = sorted(fl.plans_f[0], key=lambda p: -p.nv)
+        _, vrep = ops.evaluate(prog.initial_state())
+        rows = fl._rows(vrep.r, 0)
+        g, sqn, aux = ops.post_eval(vrep)
+        dt = prog.compute_dtype
+        sqn64 = sqn.to(torch.float64)
+        scale_c = (1.0 / (1.0 + torch.sqrt(sqn64))).to(dt)
+        sf = pt.extract_f(pm, scale_c)
+        args = {
+            "segment_block_sum": (
+                fl.post_contrib(fl._jac(vrep.vflat, 0, pe), rows), pe.seg),
+            "segment_block_sum_one_key": (
+                fl.post_contrib(fl._jac(vrep.vflat, 0, pintr), rows), pintr.seg),
+            "unsorted_segment_sum": (
+                fl.post_contrib(fl._jac(vrep.vflat, 0, pcam), rows), pcam.seg),
+            "segment_block_expand": (
+                torch.cat([sf[pcam.off:pcam.off + pcam.nv * pcam.t].reshape(
+                    pcam.nv, pcam.t), sf.new_zeros((1, pcam.t))]), pcam.local),
+        }
+        if dense:
+            D2_c = (torch.clamp(scale_c.double() ** 2 * sqn64, 1e-6, 1e32) / 1e4).to(dt)
+            se = pt.extract_e(pm, scale_c)
+            K_e = ops._scaled_K(aux[0], se, pt.extract_e(pm, D2_c))
+            for p_e, p_f, Y in ops.eliminated_rows(vrep.vflat, K_e, se, sf):
+                if p_f is pcam:
+                    args["segment_spread_sum"] = (
+                        Y.reshape(Y.shape[0], -1).contiguous(), p_f.local,
+                        p_e.seg.seg_start[:p_e.nv + 1], p_f.nv, p_e.t, p_f.t)
+        return args
+
     checks, timings = {}, {}
 
     def check_and_time(shape, dtn, args, n_kernel, n_plain):
@@ -286,20 +426,25 @@ def main():
             del ref, out
             ms = time_cuda(lambda: wrapper(*args_c), n_kernel)
             plain_ms = time_cuda(lambda: plain(*args_c), n_plain)
-            plan = next(a for a in args_c if isinstance(a, fo.RowPlan))
-            byts, flops = work(case, args_c, plan)
+            lib = library_call(name, args_c)
+            if lib is not None:
+                lib_ms = time_cuda(lib, n_kernel)
+                lib_text = f"{lib_ms:.4f} ms ({LIBRARY_CALL[name]})"
+            else:
+                lib_ms = None
+                lib_text = f"none ({NO_LIBRARY_CALL[name]})"
+            byts, flops = work(case, args_c)
             t_bytes = byts / HBM_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_FLOPS[dt] * 1e3
             bound_by = "bytes" if t_bytes >= t_ops else "operations"
             checks[(case, shape, dtn)] = (rel, mabs)
             timings[(case, shape, dtn)] = dict(ms=ms, plain_ms=plain_ms,
                                                bound_ms=max(t_bytes, t_ops),
-                                               bound_by=bound_by)
+                                               bound_by=bound_by, library_ms=lib_ms)
             log("time", f"{case} {shape} {dtn}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms by {bound_by} "
                 f"(counted, not measured: {byts} bytes -> {t_bytes:.4f} ms, "
-                f"{flops} flops -> {t_ops:.4f} ms); library call: none "
-                f"({NO_LIBRARY_CALL[name]}); {card}")
+                f"{flops} flops -> {t_ops:.4f} ms); library call: {lib_text}; {card}")
             torch.cuda.synchronize()
 
     # -- BAL-16: every kernel against its plain version ----------------------
@@ -316,9 +461,9 @@ def main():
 
     paths = {}
 
-    def drive(path, opts, problem, device=None):
+    def drive(path, opts, problem, device=None, flat=False):
         """One main-path run with the counts set to 0 just before it and
-        read just after."""
+        read just after; `flat` for a program of the flat path."""
         kn.reset_counts()
         torch.cuda.reset_peak_memory_stats()
         s = ctt.solve(opts, problem, device=device)
@@ -341,17 +486,103 @@ def main():
         if device is None:
             check(all(v == 0 for v in plain_calls.values()),
                   f"{path}: a plain version ran on the card")
-            kernels = ITERATIVE_PATH if opts.linear_solver_type == IS else DENSE_PATH
+            if flat:
+                kernels = (FLAT_ITERATIVE_PATH if opts.linear_solver_type == IS
+                           else FLAT_DENSE_PATH)
+                others = set(launches) - set(kernels)
+            else:
+                kernels = ITERATIVE_PATH if opts.linear_solver_type == IS else DENSE_PATH
+                others = set(FLAT_DENSE_PATH)
             check(n_it >= 1 and all(launches[k] >= n_it for k in kernels),
                   f"{path}: a kernel of the path launched fewer than once per "
                   f"iteration: {launches}")
-            if opts.linear_solver_type == IS:
+            check(all(launches[k] == 0 for k in others),
+                  f"{path}: a kernel of the other path launched: {launches}")
+            if opts.linear_solver_type == IS and not flat:
                 check(launches["isc_matvec"] >= sum(cg),
                       f"{path}: isc_matvec launched fewer times than CG iterated")
                 check(launches["schur_assembly"] == 0,
                       f"{path}: the dense assembly ran on the iterative path")
         paths[path] = res
         return s, res
+
+    def large_solves(path, opts, problem_fn, flat=False):
+        """A solve at the Venice shape through drive, its gates (every cost
+        finite, falling over successful steps) and two more solves, which
+        must repeat it bit for bit and time the same work."""
+        s, res = drive(path, opts, problem_fn(), flat=flat)
+        costs = [r.cost for r in s.iterations]
+        check(all(np.isfinite(c) for c in costs), f"{path}: a cost is not finite")
+        accepted = [s.iterations[0].cost] + [
+            r.cost for r in s.iterations[1:] if r.step_is_successful]
+        check(len(accepted) >= 2 and all(b < a for a, b in zip(accepted, accepted[1:])),
+              f"{path}: the cost did not decrease over successful steps: {accepted}")
+        cg = sum(res["linear_solver_iterations"])
+        res["cg_iterations_per_lm_iteration"] = cg / max(res["iterations"], 1)
+        minimizer_s = [res["minimizer_s"]]
+        for _ in range(2):
+            s2 = ctt.solve(opts, problem_fn())
+            torch.cuda.synchronize()
+            check(s2.final_cost == s.final_cost, f"{path}: a repeated solve differs")
+            minimizer_s.append(s2.minimizer_time_in_seconds)
+        med_s = statistics.median(minimizer_s)
+        res["ms_per_iteration_runs"] = [1e3 * v / res["iterations"] for v in minimizer_s]
+        res["ms_per_iteration_median"] = 1e3 * med_s / res["iterations"]
+        res["minimizer_ms_per_cg_iteration"] = 1e3 * med_s / max(cg, 1)
+        log(f"solve {path}", f"CG iterations per LM iteration "
+            f"{res['linear_solver_iterations'][1:]}, ms per LM iteration over 3 "
+            f"solves: median {res['ms_per_iteration_median']:.3f}, runs "
+            + ", ".join(f"{v:.3f}" for v in res["ms_per_iteration_runs"])
+            + f"; {res['minimizer_ms_per_cg_iteration']:.4f} ms of minimizer time "
+            f"per CG iteration (median), {res['host_syncs_per_iteration']:.2f} "
+            f"host syncs per LM iteration, time to first iteration "
+            f"{res['preprocessor_s']:.3f} s, peak device memory "
+            f"{res['peak_device_bytes'] / 2**30:.3f} GiB; costs {costs}; {card}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def card_against_cpu(path, opts, problem_fn, ulp_problem_fn, flat=False):
+        """The same float64 solve on the card (through drive) and on the
+        CPU: the same rows and CG counts, and each row's cost within 1e-9,
+        or 4x the CPU's own one-ulp sensitivity where that is larger. That
+        sensitivity is how far rounding alone moves each row: the same CPU
+        solve from cameras one ulp away. A long CG amplifies a
+        rounding-level change in S z far past 1e-9, and the card sums in
+        another order than the CPU. Where rounding alone changes a row's
+        CG count (the one-ulp solve's count differs from the CPU's), the
+        card's may be either."""
+        s_card, _ = drive(path, opts, problem_fn(), flat=flat)
+        t0 = time.monotonic()
+        s_cpu = ctt.solve(opts, problem_fn(), device="cpu")
+        cpu_s = time.monotonic() - t0
+        s_ulp = ctt.solve(opts, ulp_problem_fn(), device="cpu")
+        rows_card = [(r.linear_solver_iterations, r.cost) for r in s_card.iterations]
+        rows_cpu = [(r.linear_solver_iterations, r.cost) for r in s_cpu.iterations]
+        rows_ulp = [(r.linear_solver_iterations, r.cost) for r in s_ulp.iterations]
+        gaps = [abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(rows_card, rows_cpu)]
+        sens = [abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(rows_ulp, rows_cpu)]
+        limits = [max(1e-9, 4 * v) for v in sens]
+        log(f"{path} card vs cpu", f"card rows {rows_card}; cpu rows {rows_cpu} (cpu "
+            f"solve {cpu_s:.1f} s); relative cost gap per row "
+            f"{', '.join(f'{g:.3e}' for g in gaps)}; the CPU's one-ulp sensitivity per "
+            f"row {', '.join(f'{g:.3e}' for g in sens)} (CG counts "
+            f"{[n for n, _ in rows_ulp]}); limits {', '.join(f'{g:.1e}' for g in limits)}; "
+            f"{card}")
+        check(len(rows_card) == len(rows_cpu) == len(rows_ulp),
+              f"{path}: card and CPU row counts differ")
+        loose = [i for i, (b, u) in enumerate(zip(rows_cpu, rows_ulp)) if b[0] != u[0]]
+        check(all(a[0] == b[0] or (i in loose and a[0] == u[0]) for i, (a, b, u)
+                  in enumerate(zip(rows_card, rows_cpu, rows_ulp))),
+              f"{path}: card and CPU CG counts differ (rows whose count rounding "
+              f"alone changes: {loose})")
+        check(all(g <= lim for g, lim in zip(gaps, limits)),
+              f"{path}: card and CPU costs differ: {gaps}")
+        paths[path]["cpu_rows"] = rows_cpu
+        paths[path]["relative_cost_gaps_to_cpu"] = gaps
+        paths[path]["cpu_one_ulp_sensitivity"] = sens
+        paths[path]["rows_whose_cg_count_rounding_changes"] = loose
+        log(f"{path} card vs cpu", f"rows whose CG count the one-ulp CPU solve "
+            f"changes: {loose}; card CG counts {[a[0] for a in rows_card]}")
 
     # -- BAL-16 DENSE_SCHUR (slice 1's gates) ---------------------------------
     for dtn in ("float64", "float32"):
@@ -418,6 +649,84 @@ def main():
             lambda: ctt.solve(opts, bal.build_problem_batched(bal.bal16())[0]))
         log(f"profile {path}", json.dumps(paths[path]["profile"]) + f"; {card}")
 
+    # -- libmv16: the flat path's kernels against their plain versions -------
+    lp16 = libmv16()
+    log("libmv16", f"cameras {lp16.cameras.shape[0]}, points {lp16.points.shape[0]}, "
+        f"markers {lp16.markers.shape[0]}, one shared intrinsics block")
+    for dtn in ("float64", "float32"):
+        prog = CompiledProgram(libmv.build_problem(fresh(lp16))[0], dtn, device=dev)
+        args = flat_kernel_inputs(prog, ctt.Options(linear_solver_type=DS), True)
+        check_and_time("libmv16", dtn, args, 100, 10)
+        del prog, args
+
+    # -- libmv16 DENSE_SCHUR against the JAX package's answer -----------------
+    for dtn in ("float64", "float32"):
+        path = "libmv16_dense_" + TAG[dtn]
+        s, res = drive(path, ctt.Options(linear_solver_type=DS, evaluation_dtype=dtn),
+                       libmv.build_problem(fresh(lp16))[0], flat=True)
+        gap = (s.final_cost - LIBMV16_GOLDEN_COST) / LIBMV16_GOLDEN_COST
+        res["gap_to_golden"] = gap
+        if dtn == "float64":
+            check(s.termination_type == ctt.TerminationType.CONVERGENCE,
+                  f"{path}: did not converge")
+            check(abs(gap) <= 1e-6, f"{path}: final cost off golden by {gap:.3e}")
+            check(len(s.iterations) == LIBMV16_GOLDEN_ROWS,
+                  f"{path}: {len(s.iterations)} rows, golden {LIBMV16_GOLDEN_ROWS}")
+        else:
+            check(abs(gap) <= 1e-5, f"{path}: final cost off golden by {gap:.3e}")
+        log(f"solve {path}", f"final cost {s.final_cost!r}, summary rows "
+            f"{len(s.iterations)} (golden {LIBMV16_GOLDEN_ROWS}), relative gap to the "
+            f"float64 golden {gap:.3e} (limit {1e-6 if dtn == 'float64' else 1e-5:.0e})")
+
+    # -- libmv16 ITERATIVE_SCHUR + SCHUR_JACOBI --------------------------------
+    for dtn in ("float64", "float32"):
+        path = "libmv16_iterative_" + TAG[dtn]
+        opts = ctt.Options(linear_solver_type=IS, evaluation_dtype=dtn,
+                           preconditioner_type=ctt.PreconditionerType.SCHUR_JACOBI)
+        s, res = drive(path, opts, libmv.build_problem(fresh(lp16))[0], flat=True)
+        gap = (s.final_cost - LIBMV16_GOLDEN_COST) / LIBMV16_GOLDEN_COST
+        res["gap_to_golden"] = gap
+        check(s.is_solution_usable(), f"{path}: solution not usable: {s.message}")
+        check(s.final_cost <= LIBMV16_GOLDEN_COST * (1 + 1e-4),
+              f"{path}: final cost {s.final_cost} above golden x (1 + 1e-4)")
+        log(f"solve {path}", f"final cost {s.final_cost!r} in {len(s.iterations)} rows, "
+            f"relative gap to the float64 DENSE_SCHUR golden {gap:.3e} (gate: <= 1e-4)")
+
+    for path, opts in (
+            ("libmv16_dense_f64", ctt.Options(linear_solver_type=DS)),
+            ("libmv16_dense_f32", ctt.Options(linear_solver_type=DS,
+                                              evaluation_dtype="float32")),
+            ("libmv16_iterative_f64", ctt.Options(linear_solver_type=IS)),
+            ("libmv16_iterative_f32", ctt.Options(linear_solver_type=IS,
+                                                  evaluation_dtype="float32"))):
+        per_it = []
+        for _ in range(3):
+            s = ctt.solve(opts, libmv.build_problem(fresh(lp16))[0])
+            torch.cuda.synchronize()
+            per_it.append(1e3 * s.minimizer_time_in_seconds / (len(s.iterations) - 1))
+        paths[path]["ms_per_iteration_runs"] = per_it
+        paths[path]["ms_per_iteration_median"] = statistics.median(per_it)
+        log(f"solve {path}", "ms per LM iteration over 3 solves: median "
+            f"{statistics.median(per_it):.4f}, runs " + ", ".join(f"{v:.4f}" for v in per_it)
+            + f"; time to first iteration {paths[path]['preprocessor_s']:.3f} s, peak "
+            f"device memory {paths[path]['peak_device_bytes'] / 2**30:.3f} GiB; {card}")
+    for path, opts in (("libmv16_dense_f64", ctt.Options(linear_solver_type=DS)),
+                       ("libmv16_iterative_f64", ctt.Options(linear_solver_type=IS))):
+        paths[path]["profile"] = profile_solve(
+            lambda: ctt.solve(opts, libmv.build_problem(fresh(lp16))[0]),
+            anchor="chunk_sum_kernel")
+        log(f"profile {path}", json.dumps(paths[path]["profile"]) + f"; {card}")
+
+    # -- libmv16: the card against the CPU --------------------------------------
+    ulp16 = fresh(lp16)
+    ulp16.cameras = np.nextafter(lp16.cameras, np.inf)
+    for path, opts in (
+            ("libmv16_dense_card_vs_cpu", ctt.Options(linear_solver_type=DS)),
+            ("libmv16_iterative_card_vs_cpu", ctt.Options(
+                linear_solver_type=IS, max_num_iterations=LIBMV16_CARD_VS_CPU_ITERATIONS))):
+        card_against_cpu(path, opts, lambda: libmv.build_problem(fresh(lp16))[0],
+                         lambda: libmv.build_problem(fresh(ulp16))[0], flat=True)
+
     # -- the Venice shape ------------------------------------------------------
     t0 = time.monotonic()
     venice = bal.perturb(bal.synthetic_bal_large(**VENICE), **VENICE_PERTURB)
@@ -433,40 +742,9 @@ def main():
         torch.cuda.empty_cache()
 
     for dtn in ("float32", "float64"):
-        path = "venice_iterative_" + TAG[dtn]
         opts = ctt.Options(linear_solver_type=IS, evaluation_dtype=dtn,
                            max_num_iterations=VENICE_LM_ITERATIONS)
-        s, res = drive(path, opts, copy_problem(venice))
-        costs = [r.cost for r in s.iterations]
-        check(all(np.isfinite(c) for c in costs), f"{path}: a cost is not finite")
-        accepted = [s.iterations[0].cost] + [
-            r.cost for r in s.iterations[1:] if r.step_is_successful]
-        check(len(accepted) >= 2 and all(b < a for a, b in zip(accepted, accepted[1:])),
-              f"{path}: the cost did not decrease over successful steps: {accepted}")
-        cg = sum(res["linear_solver_iterations"])
-        res["cg_iterations_per_lm_iteration"] = cg / max(res["iterations"], 1)
-        # the solve repeats bit for bit, so two more runs time the same work
-        minimizer_s = [res["minimizer_s"]]
-        for _ in range(2):
-            s2 = ctt.solve(opts, copy_problem(venice))
-            torch.cuda.synchronize()
-            check(s2.final_cost == s.final_cost, f"{path}: a repeated solve differs")
-            minimizer_s.append(s2.minimizer_time_in_seconds)
-        med_s = statistics.median(minimizer_s)
-        res["ms_per_iteration_runs"] = [1e3 * v / res["iterations"] for v in minimizer_s]
-        res["ms_per_iteration_median"] = 1e3 * med_s / res["iterations"]
-        res["minimizer_ms_per_cg_iteration"] = 1e3 * med_s / max(cg, 1)
-        log(f"solve {path}", f"CG iterations per LM iteration "
-            f"{res['linear_solver_iterations'][1:]}, ms per LM iteration over 3 "
-            f"solves: median {res['ms_per_iteration_median']:.3f}, runs "
-            + ", ".join(f"{v:.3f}" for v in res["ms_per_iteration_runs"])
-            + f"; {res['minimizer_ms_per_cg_iteration']:.4f} ms of minimizer time "
-            f"per CG iteration (median), {res['host_syncs_per_iteration']:.2f} "
-            f"host syncs per LM iteration, time to first iteration "
-            f"{res['preprocessor_s']:.3f} s, peak device memory "
-            f"{res['peak_device_bytes'] / 2**30:.3f} GiB; costs {costs}; {card}")
-        gc.collect()
-        torch.cuda.empty_cache()
+        large_solves("venice_iterative_" + TAG[dtn], opts, lambda: copy_problem(venice))
     opts = ctt.Options(linear_solver_type=IS, evaluation_dtype="float32",
                        max_num_iterations=2)
     paths["venice_iterative_f32"]["profile"] = profile_solve(
@@ -477,68 +755,68 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- libmv-Venice: the flat path at the large end ----------------------------
+    t0 = time.monotonic()
+    lpv = libmv_venice()
+    log("libmv_venice", f"cameras {lpv.cameras.shape[0]}, points {lpv.points.shape[0]}, "
+        f"markers {lpv.markers.shape[0]}; generated in {time.monotonic() - t0:.2f} s "
+        f"on the host")
+    for dtn in ("float32", "float64"):
+        prog = CompiledProgram(libmv.build_problem(fresh(lpv))[0], dtn, device=dev)
+        args = flat_kernel_inputs(prog, ctt.Options(linear_solver_type=IS), False)
+        check_and_time("libmv_venice", dtn, args, 20, 3)
+        del prog, args
+        gc.collect()
+        torch.cuda.empty_cache()
+    for dtn in ("float32", "float64"):
+        opts = ctt.Options(linear_solver_type=IS, evaluation_dtype=dtn,
+                           max_num_iterations=VENICE_LM_ITERATIONS)
+        large_solves("libmv_venice_iterative_" + TAG[dtn], opts,
+                     lambda: libmv.build_problem(fresh(lpv))[0], flat=True)
+    opts = ctt.Options(linear_solver_type=IS, evaluation_dtype="float32",
+                       max_num_iterations=2)
+    paths["libmv_venice_iterative_f32"]["profile"] = profile_solve(
+        lambda: ctt.solve(opts, libmv.build_problem(fresh(lpv))[0]),
+        anchor="chunk_sum_kernel")
+    log("profile libmv_venice_iterative_f32 (2 LM iterations)",
+        json.dumps(paths["libmv_venice_iterative_f32"]["profile"]) + f"; {card}")
+    del lpv
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- 2,048 cameras: the card against the CPU --------------------------------
     small = bal.perturb(bal.synthetic_bal_large(**SMALL_VENICE), **VENICE_PERTURB)
-    opts = ctt.Options(linear_solver_type=IS,
-                       max_num_iterations=SMALL_VENICE_LM_ITERATIONS)
-    s_card, _ = drive("c2048_iterative_f64", opts, copy_problem(small))
-    t0 = time.monotonic()
-    s_cpu = ctt.solve(opts, copy_problem(small), device="cpu")
-    cpu_s = time.monotonic() - t0
-    # How far rounding alone moves each row: the same CPU solve from
-    # cameras one ulp away. A long CG amplifies a rounding-level change in
-    # S z far past 1e-9, and the card sums in another order than the CPU;
-    # so a row's limit is 1e-9, or 4x the CPU's own one-ulp sensitivity
-    # where that is larger.
     ulp = bal.from_arrays(np.nextafter(small.cameras, np.inf), small.points,
                           small.camera_index, small.point_index, small.observations)
-    s_ulp = ctt.solve(opts, copy_problem(ulp), device="cpu")
-    rows_card = [(r.linear_solver_iterations, r.cost) for r in s_card.iterations]
-    rows_cpu = [(r.linear_solver_iterations, r.cost) for r in s_cpu.iterations]
-    rows_ulp = [(r.linear_solver_iterations, r.cost) for r in s_ulp.iterations]
-    gaps = [abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(rows_card, rows_cpu)]
-    sens = [abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(rows_ulp, rows_cpu)]
-    limits = [max(1e-9, 4 * v) for v in sens]
-    log("c2048 card vs cpu", f"observations {small.num_observations}; card rows "
-        f"{rows_card}; cpu rows {rows_cpu} (cpu solve {cpu_s:.1f} s); relative cost "
-        f"gap per row {', '.join(f'{g:.3e}' for g in gaps)}; the CPU's one-ulp "
-        f"sensitivity per row {', '.join(f'{g:.3e}' for g in sens)} (CG counts "
-        f"{[n for n, _ in rows_ulp]}); limits {', '.join(f'{g:.1e}' for g in limits)}; "
-        f"{card}")
-    check(len(rows_card) == len(rows_cpu) == len(rows_ulp),
-          "c2048: card and CPU row counts differ")
-    check([a[0] for a in rows_card] == [b[0] for b in rows_cpu],
-          "c2048: card and CPU CG counts differ")
-    check(all(g <= lim for g, lim in zip(gaps, limits)),
-          f"c2048: card and CPU costs differ: {gaps}")
-    paths["c2048_iterative_f64"]["cpu_rows"] = rows_cpu
-    paths["c2048_iterative_f64"]["relative_cost_gaps_to_cpu"] = gaps
-    paths["c2048_iterative_f64"]["cpu_one_ulp_sensitivity"] = sens
+    card_against_cpu("c2048_iterative_f64",
+                     ctt.Options(linear_solver_type=IS,
+                                 max_num_iterations=SMALL_VENICE_LM_ITERATIONS),
+                     lambda: copy_problem(small), lambda: copy_problem(ulp))
 
     # -- the kernels line ------------------------------------------------------
     rows = []
     for row, name, src, replaces in ROWS:
         shape = ROW_SHAPE[row]
-        case = name
         entry = {"row": row, "name": name, "route": "cuda",
                  "source": f"ceres_tpu_torch/csrc/{src}.cu", "replaces": replaces,
                  "shape": shape, "launches": paths[ROW_PATH[row]]["launches"][name],
                  "launches_by_path": {p: r["launches"][name] for p, r in paths.items()}}
-        variants = [(shape, "float64", ""), (shape, "float32", "_f32")]
-        if row in ("1", "2", "4", "4b"):  # also run at the Venice shape
-            variants += [("venice", "float64", "_venice"),
-                         ("venice", "float32", "_venice_f32")]
-        for shp, dtn, suffix in variants:
-            rel, mabs = checks[(case, shp, dtn)]
-            entry.update({"max_abs_err" + suffix: mabs, "rel_err" + suffix: rel})
-            entry.update({k + suffix: v for k, v in timings[(case, shp, dtn)].items()})
-            entry["library_ms" + suffix] = None
+        for case, tag in [(name, "")] + ROW_CASES.get(row, []):
+            for shp in [shape] + ROW_VARIANTS.get(row, []):
+                for dtn in ("float64", "float32"):
+                    suffix = (tag + ("" if shp == shape else "_" + shp.split("_")[-1])
+                              + ("_f32" if dtn == "float32" else ""))
+                    rel, mabs = checks[(case, shp, dtn)]
+                    entry.update({"max_abs_err" + suffix: mabs, "rel_err" + suffix: rel})
+                    entry.update({k + suffix: v
+                                  for k, v in timings[(case, shp, dtn)].items()})
         rows.append(entry)
     per_path_kernel_ms = {}
     for path, res in paths.items():
-        if path.startswith("c2048"):
+        if path.startswith("c2048") or path.endswith("card_vs_cpu"):
             continue
-        shp = "venice" if path.startswith("venice") else "bal16"
+        shp = next(p for p in ("libmv_venice", "libmv16", "venice", "bal16")
+                   if path.startswith(p))
         dtn = "float32" if path.endswith("f32") else "float64"
         per_path_kernel_ms[path] = sum(
             timings[(k, shp, dtn)]["ms"] * n for k, n in res["launches"].items()
@@ -555,11 +833,46 @@ def main():
     return 0
 
 
-def profile_solve(run):
+# the one PyTorch call that computes each flat-path kernel's function
+LIBRARY_CALL = {
+    "segment_block_sum": "Tensor.index_add on a zero table",
+    "unsorted_segment_sum": "Tensor.index_add on a zero table",
+    "segment_block_expand": "torch.index_select",
+    "segment_spread_sum": "Tensor.index_put(accumulate=True) on a zero (P, C, te, tf) "
+                          "table, without the permute to (P, te, C, tf)",
+}
+
+
+def library_call(name, args):
+    """A zero-argument function making that one call on the case's inputs
+    (its index tensors made beforehand), or None."""
+    if name in ("segment_block_sum", "unsorted_segment_sum"):
+        contrib, plan = args
+        zero = contrib.new_zeros((plan.num_keys, contrib.shape[1]))
+        return lambda: zero.index_add(0, plan.ids, contrib)
+    if name == "segment_block_expand":
+        vals, ids = args
+        return lambda: torch.index_select(vals, 0, ids)
+    if name == "segment_spread_sum":
+        Y, cam, pt_start, C, te, tf = args
+        P = pt_start.shape[0] - 1
+        n = int(pt_start[-1])
+        pt = torch.repeat_interleave(torch.arange(P, device=Y.device),
+                                     pt_start[1:] - pt_start[:-1])
+        index = (pt, torch.clamp(cam[:n].long(), max=C))
+        zero = Y.new_zeros((P, C + 1, te, tf))
+        values = Y[:n].reshape(n, te, tf)
+        return lambda: zero.index_put(index, values, accumulate=True)
+    return None
+
+
+def profile_solve(run, anchor="eval_fused_kernel"):
     """Device busy share of one solve under torch.profiler: the sum of
-    the device time of the CUDA events of the minimizer (from its first
-    eval_fused launch on; the set-up's copies to the card come before)
-    over the minimizer's wall time."""
+    the device time of the CUDA events of the minimizer (from the first
+    launch of the kernel named `anchor` on: the set-up's copies to the
+    card come before; on the flat path the anchor, its first segment sum,
+    comes after the first plain evaluation) over the minimizer's wall
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -571,7 +884,7 @@ def profile_solve(run):
     busy_us, n_ops, by_name = 0.0, 0, {}
     dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     t0 = min((e.time_range.start for e in dev_events
-              if "eval_fused_kernel" in e.name), default=0)
+              if anchor in e.name), default=0)
     for evt in dev_events:
         if evt.time_range.start >= t0:
             busy_us += evt.device_time_total
@@ -582,23 +895,40 @@ def profile_solve(run):
     res = {"minimizer_ms": wall_ms, "iterations": n_it,
            "cg_iterations": sum(r.linear_solver_iterations for r in s.iterations)}
     if busy_us > 0:
+        # names cut to 80 characters, the device time of names that share
+        # those summed (PyTorch's elementwise kernels differ only later)
+        top = {}
+        for k, v in by_name.items():
+            top[k[:80]] = top.get(k[:80], 0.0) + v / 1e3 / max(n_it, 1)
         res.update(device_busy_ms=busy_us / 1e3,
                    device_busy_share=busy_us / 1e3 / wall_ms,
                    device_ops_per_iteration=n_ops / max(n_it, 1),
-                   top_device_ms_per_iteration={
-                       k[:80]: v / 1e3 / max(n_it, 1) for k, v in
-                       sorted(by_name.items(), key=lambda kv: -kv[1])[:10]})
+                   top_device_ms_per_iteration=dict(
+                       sorted(top.items(), key=lambda kv: -kv[1])[:10]))
     else:
         res["device_busy_share"] = "not measured"
     return res
 
 
-def work(case, args, plan):
+def work(case, args):
     """(bytes, flops) that the function itself needs on these inputs: each
     input read once and each output written once, where the inputs are the
-    tensors and the row -> camera / point maps (cam_idx, pt_idx), not the
-    design's own plans or workspaces; and the arithmetic, taking each
-    symmetric product once."""
+    tensors and the row -> camera / point / block maps (cam_idx, pt_idx,
+    a segment plan's ids), not the design's own plans or workspaces; and
+    the arithmetic, taking each symmetric product once."""
+    if CASES[case] in ("segment_block_sum", "unsorted_segment_sum"):
+        contrib, plan = args
+        out = contrib.element_size() * plan.num_keys * contrib.shape[1]
+        return nbytes(contrib, plan.ids) + out, contrib.numel()  # one add per value
+    if case == "segment_block_expand":
+        vals, ids = args
+        return nbytes(vals, ids) + vals.element_size() * ids.numel() * vals.shape[1], 0
+    if case == "segment_spread_sum":
+        Y, cam, pt_start, C, te, tf = args
+        P = pt_start.shape[0] - 1
+        # Y, the row -> camera and row -> point maps, the (P, te*C*tf) A
+        return nbytes(Y, cam) + 4 * Y.shape[0] + Y.element_size() * P * te * C * tf, Y.numel()
+    plan = next(a for a in args if hasattr(a, "cam_idx"))
     B, P, C = plan.B, plan.P, plan.C
     idx = nbytes(plan.cam_idx, plan.pt_idx)
     if case == "eval_fused":

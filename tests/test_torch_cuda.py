@@ -195,3 +195,92 @@ def test_iterative_solve_on_card_matches_cpu(card):
     for a, c in zip(ref.iterations, out.iterations):
         assert c.cost == pytest.approx(a.cost, rel=1e-9)
         assert c.trust_region_radius == pytest.approx(a.trust_region_radius, rel=1e-9)
+
+
+def small_libmv():
+    """tests/test_torch_libmv.py's problem: 5 cameras, 120 points."""
+    import chip_smoke
+
+    b = tbal.synthetic_bal(num_cameras=5, num_points=120, visibility=1.0, seed=0)
+    return chip_smoke.libmv_instance(b, tbal.perturb(b, 0.02, 0.2, 0.2, seed=1))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("name", ["segment_block_sum", "segment_block_sum_one_key",
+                                  "unsorted_segment_sum", "segment_block_expand",
+                                  "segment_spread_sum"])
+def test_flat_kernel_matches_plain_on_card(card, name, dtype):
+    """The flat path's kernels at a libmv program's first-iteration inputs
+    (the post-evaluation sums of the points, of the one intrinsics block
+    and of the cameras; the camera-scale gather; the cameras' A rows)
+    against their plain versions on the same card inputs: 1e-11 in
+    float64, 1e-4 in float32, relative to the largest entry."""
+    from ceres_tpu_torch.models import libmv
+    from ceres_tpu_torch.solvers.fused_lm import FlatDenseSchurStepOps
+
+    prog = CompiledProgram(libmv.build_problem(small_libmv())[0], dtype, device=card)
+    ops = FlatDenseSchurStepOps(
+        prog, ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR), [1])
+    fl = ops.flat
+    pe = fl.plans_e[0][0]
+    pcam, pintr = sorted(fl.plans_f[0], key=lambda p: -p.nv)
+    _, vrep = ops.evaluate(prog.initial_state())
+    rows = fl._rows(vrep.r, 0)
+    if name == "segment_block_expand":
+        vals = torch.ones((pcam.nv + 1, 6), dtype=prog.compute_dtype, device=card)
+        args = (vals.cumsum(0), pcam.local)
+    elif name == "segment_spread_sum":
+        _, _, (ete, _) = ops.post_eval(vrep)
+        ones = torch.ones(pe.nv * pe.t, dtype=prog.compute_dtype, device=card)
+        K_e = ops._scaled_K(ete, ones, ones)
+        sf = torch.ones(ops.pm.f_size, dtype=prog.compute_dtype, device=card)
+        Y = next(Y for p_e, p_f, Y in ops.eliminated_rows(vrep.vflat, K_e, ones, sf)
+                 if p_f is pcam)
+        args = (Y.reshape(Y.shape[0], -1).contiguous(), pcam.local,
+                pe.seg.seg_start[:pe.nv + 1], pcam.nv, 3, 6)
+    else:
+        p = {"segment_block_sum": pe, "segment_block_sum_one_key": pintr,
+             "unsorted_segment_sum": pcam}[name]
+        args = (fl.post_contrib(fl._jac(vrep.vflat, 0, p), rows), p.seg)
+    name = name.replace("_one_key", "")
+    wrapper, plain = getattr(kn, name), getattr(kn, name + "_plain")
+    kn.reset_counts()
+    out = wrapper(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    assert wrapper.launches == 1 and wrapper.plain_calls == 0
+    err = (out.double() - ref.double()).abs().max().item()
+    assert err <= REL_LIMIT[prog.compute_dtype] * ref.double().abs().max().item()
+
+
+@pytest.mark.parametrize("solver", ["DENSE_SCHUR", "ITERATIVE_SCHUR"])
+def test_libmv_solve_on_card_matches_cpu(card, solver):
+    """The flat path on the card (its four kernels) and on the CPU (plain
+    versions), float64: the same rows and CG counts, each row's cost
+    within 1e-9, or 4x the CPU's own one-ulp sensitivity where that is
+    larger (chip_smoke.py's card_against_cpu: an eta-forced CG that ends
+    in a rejected step can amplify rounding past 1e-9; the card sums in
+    another order than the CPU)."""
+    import chip_smoke
+    from ceres_tpu_torch.models import libmv
+
+    lp = small_libmv()
+    ulp = chip_smoke.fresh(lp)
+    ulp.cameras = np.nextafter(lp.cameras, np.inf)
+    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType[solver])
+    ref = ctt.solve(opts, libmv.build_problem(chip_smoke.fresh(lp))[0], device="cpu")
+    twin = ctt.solve(opts, libmv.build_problem(ulp)[0], device="cpu")
+    kn.reset_counts()
+    out = ctt.solve(opts, libmv.build_problem(chip_smoke.fresh(lp))[0])
+    n_it = len(out.iterations) - 1
+    flat = ["segment_block_sum", "segment_block_expand", "unsorted_segment_sum"]
+    if solver == "DENSE_SCHUR":
+        flat.append("segment_spread_sum")
+    for k in kn.KERNELS:
+        assert k.plain_calls == 0, k.__name__
+        assert (k.launches >= n_it) if k.__name__ in flat else k.launches == 0, k.__name__
+    assert ([r.linear_solver_iterations for r in out.iterations]
+            == [r.linear_solver_iterations for r in ref.iterations])
+    for a, c, u in zip(ref.iterations, out.iterations, twin.iterations):
+        sens = abs(u.cost - a.cost) / abs(a.cost)
+        assert c.cost == pytest.approx(a.cost, rel=max(1e-9, 4 * sens))

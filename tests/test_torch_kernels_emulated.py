@@ -1,10 +1,10 @@
-"""The CUDA sources of the port's six kernels, compiled with the host C++
+"""The CUDA sources of the port's kernels, compiled with the host C++
 compiler against a CPU stand-in for the CUDA runtime
 (tests/cuda_emulation/cuda_runtime.h), run through the wrappers' own
 kernel path and held against the plain versions. This checks what the
-kernels compute (indexing, the camera and pair plans, the partial sums)
-without a card; it does not replace the check on the card, where nvcc
-builds them (tests/test_torch_cuda.py, chip_smoke.py)."""
+kernels compute (indexing, the camera, pair and segment plans, the
+partial sums) without a card; it does not replace the check on the
+card, where nvcc builds them (tests/test_torch_cuda.py, chip_smoke.py)."""
 import ctypes
 import pathlib
 import shutil
@@ -122,3 +122,53 @@ def test_emulated_kernel_matches_plain(kernel_path, name, dtype, num_cameras,
         assert o.shape == r.shape
         err = (o.double() - r.double()).abs().max().item()
         assert err <= LIMIT[r.dtype] * r.double().abs().max().item()
+
+
+def _flat_inputs(name, dtype):
+    """Inputs of the flat path's kernels: widths 3 to 15, blocks without
+    rows, the sentinel id (key 100), and one block holding 4,200 rows (two
+    levels of chunks). The emulation starts a thread per CUDA thread, so
+    the shapes stay small."""
+    from ceres_tpu_torch.ops import flatops as fo
+
+    dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
+    rng = np.random.default_rng(len(name))
+    n, K = 1200, 101
+    if name == "segment_block_sum_one_block":
+        n, ids, w = 4200, np.zeros(4200, np.int64), 3
+    elif name == "unsorted_segment_sum":
+        ids, w = rng.integers(0, K, n), 6
+    else:
+        ids, w = np.sort(rng.integers(0, K, n)), 15
+    x = torch.as_tensor(rng.standard_normal((n, w))).to(dt)
+    plan = fo.build_segment_plan(ids, K, "cpu")
+    if name.startswith("segment_block_sum") or name == "unsorted_segment_sum":
+        return (x, plan)
+    if name == "segment_block_expand":
+        vals = torch.as_tensor(rng.standard_normal((K, 9))).to(dt)
+        return (vals, plan.ids)
+    C, te, tf = 16, 3, 6
+    cam = rng.integers(0, C + 1, n).astype(np.int32)  # C: a constant camera
+    Y = torch.as_tensor(rng.standard_normal((n, te * tf))).to(dt)
+    return (Y, torch.as_tensor(cam), plan.seg_start[:K], C, te, tf)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("name", ["segment_block_sum", "segment_block_sum_one_block",
+                                  "unsorted_segment_sum", "segment_block_expand",
+                                  "segment_spread_sum"])
+def test_emulated_flat_kernel_matches_plain(kernel_path, name, dtype):
+    """The flat path's kernels, relative to the largest entry: 1e-12 in
+    float64, 1e-5 in float32 (sums in another order); the gather
+    exactly."""
+    args = _flat_inputs(name, dtype)
+    name = name.replace("_one_block", "")
+    wrapper, plain = getattr(kn, name), getattr(kn, name + "_plain")
+    kn.reset_counts()
+    out = kernel_path(wrapper, *args)
+    ref = plain(*args)
+    assert wrapper.launches == 1 and wrapper.plain_calls == 0
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    err = (out.double() - ref.double()).abs().max().item()
+    limit = 0.0 if name == "segment_block_expand" else LIMIT[ref.dtype]
+    assert err <= limit * ref.double().abs().max().item()

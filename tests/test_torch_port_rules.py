@@ -21,7 +21,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 def test_import_loads_no_jax_and_no_ceres_tpu():
     code = (
         "import sys, ceres_tpu_torch, ceres_tpu_torch.solver, "
-        "ceres_tpu_torch.models.bal, ceres_tpu_torch.ops.build\n"
+        "ceres_tpu_torch.models.bal, ceres_tpu_torch.models.libmv, "
+        "ceres_tpu_torch.ops.build\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'ceres_tpu' or m.startswith('ceres_tpu.')]\n"
         "print(bad)\n"
@@ -58,6 +59,19 @@ def test_solve_without_cpu_request_raises_when_no_card(monkeypatch):
         ctt.solve(opts, problem)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ctt.solve(opts, problem, device="cuda")
+
+
+def test_libmv_solve_without_cpu_request_raises_when_no_card(monkeypatch):
+    """The flat path's entry point too: no card and no device="cpu"."""
+    import chip_smoke
+    from ceres_tpu_torch.models import libmv
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    b = tbal.synthetic_bal(num_cameras=3, num_points=20, visibility=0.6, seed=2)
+    problem = libmv.build_problem(chip_smoke.libmv_instance(b, b))[0]
+    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ctt.solve(opts, problem)
 
 
 def test_compiled_program_without_cpu_request_raises_when_no_card(monkeypatch):
@@ -109,6 +123,20 @@ def test_kernel_wrapper_given_cuda_tensors_does_not_run_the_plain_version(
         with pytest.raises(RuntimeError, match="nvcc not found"):
             kn.schur_jacobi_blocks(JT, torch.zeros(P, 3, **f64),
                                    torch.zeros(P, 9, **f64), plan)
+        seg = type("SegmentPlan", (), dict(
+            B=B, num_keys=P + 1, ids=torch.zeros(B, **i32),
+            level_starts=(torch.zeros(2, **i32),), level_sizes=(1,),
+            key_first=torch.zeros(P + 2, **i32), seg_start=torch.zeros(P + 2, **i32)))
+        for wrapper, order in ((kn.segment_block_sum, None),
+                               (kn.unsorted_segment_sum, torch.zeros(B, **i32))):
+            seg.order = order
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                wrapper(torch.zeros(B, 15, **f64), seg)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            kn.segment_block_expand(torch.zeros(P + 1, 6, **f64), torch.zeros(B, **i32))
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            kn.segment_spread_sum(torch.zeros(B, 18, **f64), torch.zeros(B, **i32),
+                                  torch.zeros(P + 1, **i32), C, 3, 6)
     assert all(k.plain_calls == 0 and k.launches == 0 for k in kn.KERNELS)
 
 
