@@ -18,7 +18,8 @@ point-pair plan.
 The flat-path kernels (6-9) take any width: segment sums of (B, w) rows
 by block id through a flatops.SegmentPlan (6 sorted, 9 unsorted), the
 gather of block rows back to the rows (7), and the spread sum that
-assembles the dense-Schur A (8).
+assembles the dense-Schur A (8), with the camera Gram blocks F'F when
+given the camera Jacobian rows (8J, parallel/sharded_ba.py's pipeline).
 
 Every size and offset a kernel computes from B, P or C is 64-bit where
 it can pass 2^31 (24 * B passes it at B = 90M rows).
@@ -524,8 +525,17 @@ def segment_block_expand(vals, ids):
 
 
 # --------------------------------------------------------------------------
-# 8. segment_spread_sum without Jc (pallas_kernels.py:462)
+# 8 / 8J. segment_spread_sum without and with Jc (pallas_kernels.py:462;
+# the Jc form's pallas_call at :734)
 # --------------------------------------------------------------------------
+
+SPREAD_MAX_ROW_WIDTH = 32  # r*tf of one Jc row; kMaxRowWidth in segment_spread.cu
+
+
+def _sentinel_cams(cam_ids, C):
+    """cam_ids as int64 with every id outside [0, C) set to C."""
+    cam = cam_ids.long()
+    return torch.where((cam >= 0) & (cam < C), cam, C)
 
 
 def segment_spread_sum_plain(Y, cam_ids, pt_start, C, te, tf):
@@ -534,30 +544,40 @@ def segment_spread_sum_plain(Y, cam_ids, pt_start, C, te, tf):
     pt = torch.repeat_interleave(torch.arange(P, device=Y.device),
                                  pt_start[1:] - pt_start[:-1])
     A = Y.new_zeros((P, C + 1, te, tf))  # column C takes the sentinel cameras
-    A.index_put_((pt, torch.clamp(cam_ids[:n].long(), max=C)),
-                 Y[:n].reshape(n, te, tf), accumulate=True)
+    A.index_put_((pt, _sentinel_cams(cam_ids[:n], C)), Y[:n].reshape(n, te, tf),
+                 accumulate=True)
     return A[:, :C].permute(0, 2, 1, 3).reshape(P, te * C * tf)
 
 
-def segment_spread_sum(Y, cam_ids, pt_start, C, te, tf):
+def _check_spread(Y, cam_ids, pt_start, te, tf):
+    dt = _dtype_of(Y)
+    B = Y.shape[0]
+    P = pt_start.shape[0] - 1
+    _check(Y, "Y", dt, (B, te * tf), Y.device)
+    _check(cam_ids, "cam_ids", torch.int32, (B,), Y.device)
+    _check(pt_start, "pt_start", torch.int32, (P + 1,), Y.device)
+    return dt, B, P
+
+
+def segment_spread_sum(Y, cam_ids, pt_start, C, te, tf, Jc=None, r=2, plan=None):
     """The dense-Schur A of one camera-side slot: out (P, te*C*tf) with
     out[p, i*C*tf + c*tf + j] = sum over the rows b of point p of
     Y[b, i*tf + j] [cam_ids[b] == c]. Y (B, te*tf) and cam_ids (B,) int32
     have their rows sorted by point; the rows of point p are
     pt_start[p] .. pt_start[p+1] (pt_start (P+1,) int32; rows past
     pt_start[P] belong to no point); a camera id outside [0, C) adds
-    nothing."""
-    dev = Y.device
+    nothing.
+
+    With Jc (B, r*tf), the scaled camera Jacobian rows, returns (A, ftf)
+    from kernel 8J instead (segment_spread_ftf, counted there)."""
+    if Jc is not None:
+        return segment_spread_ftf(Y, cam_ids, pt_start, C, te, tf, Jc, r, plan)
     if _on_cpu(Y):
         segment_spread_sum.plain_calls += 1
         return segment_spread_sum_plain(Y, cam_ids, pt_start, C, te, tf)
-    dt = _dtype_of(Y)
+    dev = Y.device
+    dt, B, P = _check_spread(Y, cam_ids, pt_start, te, tf)
     fn = _entry("ct_segment_spread_sum", dt)
-    B = Y.shape[0]
-    P = pt_start.shape[0] - 1
-    _check(Y, "Y", dt, (B, te * tf), dev)
-    _check(cam_ids, "cam_ids", torch.int32, (B,), dev)
-    _check(pt_start, "pt_start", torch.int32, (P + 1,), dev)
     out = torch.empty((P, te * C * tf), dtype=dt, device=dev)
     _launch(fn, _ptr(Y), _ptr(cam_ids), _ptr(pt_start), P, C, te, tf, _ptr(out),
             _stream(dev))
@@ -565,9 +585,54 @@ def segment_spread_sum(Y, cam_ids, pt_start, C, te, tf):
     return out
 
 
+def segment_spread_ftf_plain(Y, cam_ids, pt_start, C, te, tf, Jc, r, plan=None):
+    """Takes the kernel's arguments, so that the two are called alike; the
+    camera chunk plan is the kernel's own and not needed here."""
+    Jq = Jc.reshape(-1, r, tf)
+    outer = torch.einsum("bqi,bqj->bij", Jq, Jq).reshape(-1, tf * tf)
+    ftf = Y.new_zeros((C + 1, tf * tf)).index_add_(0, _sentinel_cams(cam_ids, C), outer)
+    return segment_spread_sum_plain(Y, cam_ids, pt_start, C, te, tf), ftf[:C]
+
+
+def segment_spread_ftf(Y, cam_ids, pt_start, C, te, tf, Jc, r, plan):
+    """Kernel 8J: segment_spread_sum's A and, in the same pass, the camera
+    Gram blocks ftf (C, tf*tf), ftf[c, i*tf + j] = sum over every row b
+    with cam_ids[b] == c of sum_{q<r} Jc[b, q*tf + i] Jc[b, q*tf + j], for
+    Jc (B, r*tf), the scaled camera Jacobian rows. Returns (A, ftf). The
+    kernel sums the blocks through `plan`'s camera plan (a flatops.RowPlan
+    over these rows: cam_rows, cam_chunk_start, cam_chunk_first), which the
+    plain version does not need."""
+    if _on_cpu(Y):
+        segment_spread_ftf.plain_calls += 1
+        return segment_spread_ftf_plain(Y, cam_ids, pt_start, C, te, tf, Jc, r, plan)
+    dev = Y.device
+    dt, B, P = _check_spread(Y, cam_ids, pt_start, te, tf)
+    fn = _entry("ct_segment_spread_ftf", dt)
+    if r * tf > SPREAD_MAX_ROW_WIDTH:
+        raise ValueError(f"the spread kernel takes Jc rows of at most "
+                         f"{SPREAD_MAX_ROW_WIDTH} values, not r*tf = {r * tf}")
+    if plan is None:
+        raise ValueError("the Jc form needs the camera plan of a flatops.RowPlan")
+    i32 = torch.int32
+    n_chunks = plan.n_cam_chunks
+    _check(Jc, "Jc", dt, (B, r * tf), dev)
+    _check(plan.cam_rows, "plan.cam_rows", i32, (B,), dev)
+    _check(plan.cam_chunk_start, "plan.cam_chunk_start", i32, (n_chunks + 1,), dev)
+    _check(plan.cam_chunk_first, "plan.cam_chunk_first", i32, (C + 1,), dev)
+    out = torch.empty((P, te * C * tf), dtype=dt, device=dev)
+    cam_partial = torch.empty((max(1, n_chunks), tf * tf), dtype=dt, device=dev)
+    ftf = torch.empty((C, tf * tf), dtype=dt, device=dev)
+    _launch(fn, _ptr(Y), _ptr(cam_ids), _ptr(pt_start), P, C, te, tf, _ptr(out),
+            _ptr(Jc), r, _ptr(plan.cam_rows), _ptr(plan.cam_chunk_start), n_chunks,
+            _ptr(plan.cam_chunk_first), _ptr(cam_partial), _ptr(ftf), _stream(dev))
+    segment_spread_ftf.launches += 1
+    return out, ftf
+
+
 KERNELS = (eval_fused, post_eval_fused, schur_assembly, normal_matvec,
            isc_matvec, schur_jacobi_blocks, segment_block_sum,
-           segment_block_expand, segment_spread_sum, unsorted_segment_sum)
+           segment_block_expand, segment_spread_sum, segment_spread_ftf,
+           unsorted_segment_sum)
 
 
 def reset_counts() -> None:

@@ -69,6 +69,8 @@ LATER_SLICES = {
     4: "a device-resident LM loop (CUDA graphs)",
     5: 'evaluation_dtype="mixed" and mixed-precision solves',
     6: "the remaining linear solvers, preconditioners, minimizers and modeling API",
+    9: "multi-device: the mesh half of parallel/sharded_ba.py, parallel/mesh.py "
+       "and parallel/sharded_program.py",
 }
 
 

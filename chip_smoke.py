@@ -8,8 +8,11 @@ the Venice shape with ITERATIVE_SCHUR in both, a 2,048-camera
 Venice-shaped instance on the card against the same solve on the CPU; the
 flat path: libmv16 DENSE_SCHUR and ITERATIVE_SCHUR in both dtypes against
 the JAX package's answer, libmv16 on the card against the CPU, and
-libmv-Venice with ITERATIVE_SCHUR in both), counts what each solve
-launched, and times the kernels and the solves.
+libmv-Venice with ITERATIVE_SCHUR in both), drives the specialized BAL-16
+pipeline of parallel/sharded_ba.py (lm_step_schur_k and lm_step_schur_v2_k,
+k = 20, both dtypes, against the JAX package's costs, with no host sync
+inside a call, and on the card against the CPU), counts what each run
+launched, and times the kernels, the solves and the pipeline.
 
     python3 chip_smoke.py
 
@@ -40,6 +43,14 @@ LIBMV16_GOLDEN_ROWS = 22
 # count (15 or 17) a row's eta-forced CG takes changes with the rounding
 # of the sums (card, CPU and a one-ulp CPU twin each took another set)
 LIBMV16_CARD_VS_CPU_ITERATIONS = 20
+# scripts/specialized16_golden.py: the JAX package's lm_step_schur_k on
+# BAL-16 (rows sorted by point, radius 1e4) in float64, the cost after 5,
+# 10, 15 and 20 LM iterations
+SPECIALIZED16_GOLDEN = (53008.80829035682, 51931.09314041564, 51931.09254649271,
+                        51931.09250709464)
+# the same in float32 with the default flags: it stalls from iteration 5 on
+SPECIALIZED16_JAX_F32 = 52991.1328125
+SPECIALIZED_K = 20  # LM iterations per call, as bench.py:147
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # peak rate of each type (NVIDIA H100 SXM data sheet, dense): float32
 # outside the tensor cores, float64 on them (FP64 tensor-core DMMA)
@@ -77,19 +88,22 @@ ROWS = [
      "ceres_tpu/ops/pallas_kernels.py:354"),
     ("8", "segment_spread_sum", "segment_spread",
      "ceres_tpu/ops/pallas_kernels.py:462 (without Jc)"),
+    ("8J", "segment_spread_ftf", "segment_spread",
+     "ceres_tpu/ops/pallas_kernels.py:462 (with Jc, pallas_call :734)"),
     ("9", "unsorted_segment_sum", "segment_sum",
      "ceres_tpu/ops/pallas_kernels.py:2563 (windowed_segment_sum)"),
 ]
 # the shape of each row's main numbers, and the path its launches come from
 ROW_SHAPE = {"1": "bal16", "2": "bal16", "3": "bal16", "3b": "bal16",
              "4": "bal16", "4b": "bal16", "5": "venice", "6": "libmv16",
-             "7": "libmv16", "8": "libmv16", "9": "libmv16"}
+             "7": "libmv16", "8": "libmv16", "8J": "bal16_specialized",
+             "9": "libmv16"}
 ROW_PATH = {"1": "bal16_dense_f64", "2": "bal16_dense_f64",
             "3": "bal16_dense_f64", "4": "bal16_dense_f64",
             "3b": "bal16_iterative_f64", "4b": "bal16_iterative_f64",
             "5": "venice_iterative_f32", "6": "libmv16_dense_f64",
             "7": "libmv16_dense_f64", "8": "libmv16_dense_f64",
-            "9": "libmv16_dense_f64"}
+            "8J": "specialized_v1_f64", "9": "libmv16_dense_f64"}
 # a row's other shapes, and its further cases (case, key suffix)
 ROW_VARIANTS = {"1": ["venice"], "2": ["venice"], "4": ["venice"],
                 "4b": ["venice"], "6": ["libmv_venice"], "7": ["libmv_venice"],
@@ -104,6 +118,8 @@ NO_LIBRARY_CALL = {
     "isc_matvec": "no call forms S z of a block-sparse J (two sparse products "
                   "and a per-point 3x3 solve between them)",
     "schur_jacobi_blocks": "no call forms block-diag(S) of a block-sparse J",
+    "segment_spread_ftf": "no call forms the dense-Schur A and the camera Gram "
+                          "blocks F'F together (index_put forms A alone)",
 }
 DENSE_PATH = ("eval_fused", "post_eval_fused", "schur_assembly", "normal_matvec")
 ITERATIVE_PATH = ("eval_fused", "post_eval_fused", "normal_matvec", "isc_matvec",
@@ -112,6 +128,20 @@ FLAT_DENSE_PATH = ("segment_block_sum", "segment_block_expand", "segment_spread_
                    "unsorted_segment_sum")
 FLAT_ITERATIVE_PATH = ("segment_block_sum", "segment_block_expand",
                        "unsorted_segment_sum")
+# the kernel calls of the specialized pipeline, in the order of a k-call's
+# first iteration, each with its launches in a k-call, a * k + b: v1 gathers
+# the points at each of its k + 1 evaluations (7), sums the point rows (6),
+# gathers [K | sp] to the rows (7) and spreads A with F'F (8J) once an
+# iteration; v2 gathers at each evaluation (7), sums [E'r | diag | E'E]
+# (6), assembles (3) and sums E_s'F_s z (6) once an iteration; every other
+# kernel launches no time. Each case is checked and timed at the inputs the
+# first iteration gives it (v2's point gather is v1's: the same points).
+SPECIALIZED_CASES = {
+    "v1": (("segment_block_expand_pts", 1, 1), ("segment_block_sum_v1", 1, 0),
+           ("segment_block_expand_v1", 1, 0), ("segment_spread_ftf", 1, 0)),
+    "v2": (("segment_block_expand_pts", 1, 1), ("segment_block_sum_v2", 1, 0),
+           ("schur_assembly_v2", 1, 0), ("segment_block_sum_v2_etfz", 1, 0)),
+}
 # the kernel checks: case -> wrapper
 CASES = {"eval_fused": "eval_fused", "post_eval_fused": "post_eval_fused",
          "schur_assembly": "schur_assembly", "normal_matvec": "normal_matvec",
@@ -121,7 +151,22 @@ CASES = {"eval_fused": "eval_fused", "post_eval_fused": "post_eval_fused",
          "segment_block_sum_one_key": "segment_block_sum",
          "unsorted_segment_sum": "unsorted_segment_sum",
          "segment_block_expand": "segment_block_expand",
-         "segment_spread_sum": "segment_spread_sum"}
+         "segment_spread_sum": "segment_spread_sum",
+         "segment_spread_ftf": "segment_spread_ftf",
+         "segment_block_expand_pts": "segment_block_expand",
+         "segment_block_sum_v1": "segment_block_sum",
+         "segment_block_expand_v1": "segment_block_expand",
+         "segment_block_sum_v2": "segment_block_sum",
+         "schur_assembly_v2": "schur_assembly",
+         "segment_block_sum_v2_etfz": "segment_block_sum"}
+
+
+def specialized_launches(pipeline, k):
+    """The exact launches of each wrapper in one k-call."""
+    want = {}
+    for case, a, b in SPECIALIZED_CASES[pipeline]:
+        want[CASES[case]] = want.get(CASES[case], 0) + a * k + b
+    return want
 
 
 def libmv_instance(truth, start, seed=1):
@@ -260,6 +305,37 @@ def counts(kn):
             {k.__name__: k.plain_calls for k in kn.KERNELS})
 
 
+def first_iteration_args(pipeline, run, start):
+    """{case: arguments} of the kernel calls of the pipeline's first
+    iteration (SPECIALIZED_CASES), caught from a call of one iteration
+    in which each wrapper is replaced by a recorder that answers
+    through the plain version. `run(state, k)` makes a k-call."""
+    from ceres_tpu_torch.ops import kernels as kn
+
+    cases = SPECIALIZED_CASES[pipeline]
+    names = {CASES[c] for c, _, _ in cases}
+    saved = {n: getattr(kn, n) for n in names}
+    seen = []
+
+    def recorder(name):
+        def call(*args):
+            seen.append((name, args))
+            return getattr(kn, name + "_plain")(*args)
+        return call
+
+    try:
+        for n in names:
+            setattr(kn, n, recorder(n))
+        run(start, 1)
+    finally:
+        for n, fn in saved.items():
+            setattr(kn, n, fn)
+    check([n for n, _ in seen[:len(cases)]] == [CASES[c] for c, _, _ in cases],
+          f"{pipeline}: first iteration's kernel calls "
+          f"{[n for n, _ in seen]}, expected {[c for c, _, _ in cases]} first")
+    return {c: args for (c, _, _), (_, args) in zip(cases, seen)}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -285,7 +361,12 @@ def main():
     dev = torch.device("cuda", 0)
     card = card_line()
     log("card", f"{card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
-        f"matmul allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+        f"matmul allow_tf32={torch.backends.cuda.matmul.allow_tf32}, float32 matmul "
+        f"precision {torch.get_float32_matmul_precision()!r}")
+    # the JAX package takes its float32 products at Precision.HIGHEST
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matmuls would run in TF32")
     IS = ctt.LinearSolverType.ITERATIVE_SCHUR
     DS = ctt.LinearSolverType.DENSE_SCHUR
 
@@ -584,6 +665,9 @@ def main():
         log(f"{path} card vs cpu", f"rows whose CG count the one-ulp CPU solve "
             f"changes: {loose}; card CG counts {[a[0] for a in rows_card]}")
 
+    # -- the specialized pipeline (parallel/sharded_ba.py, bench.py:131) ------
+    specialized_phase(dev, card, b16, paths, check_and_time)
+
     # -- BAL-16 DENSE_SCHUR (slice 1's gates) ---------------------------------
     for dtn in ("float64", "float32"):
         s, res = drive("bal16_dense_" + TAG[dtn],
@@ -794,6 +878,7 @@ def main():
                      lambda: copy_problem(small), lambda: copy_problem(ulp))
 
     # -- the kernels line ------------------------------------------------------
+    K = SPECIALIZED_K
     rows = []
     for row, name, src, replaces in ROWS:
         shape = ROW_SHAPE[row]
@@ -810,17 +895,33 @@ def main():
                     entry.update({"max_abs_err" + suffix: mabs, "rel_err" + suffix: rel})
                     entry.update({k + suffix: v
                                   for k, v in timings[(case, shp, dtn)].items()})
+        # the row's calls on the specialized pipeline, at their own inputs
+        for case in dict.fromkeys(c for cs in SPECIALIZED_CASES.values()
+                                  for c, _, _ in cs if CASES[c] == name and c != name):
+            for dtn in ("float64", "float32"):
+                suffix = ("_spec" + case[len(name):]
+                          + ("_f32" if dtn == "float32" else ""))
+                rel, mabs = checks[(case, "bal16_specialized", dtn)]
+                entry.update({"max_abs_err" + suffix: mabs, "rel_err" + suffix: rel})
+                entry.update({k + suffix: v for k, v in
+                              timings[(case, "bal16_specialized", dtn)].items()})
         rows.append(entry)
     per_path_kernel_ms = {}
     for path, res in paths.items():
         if path.startswith("c2048") or path.endswith("card_vs_cpu"):
             continue
+        dtn = "float32" if path.endswith("f32") else "float64"
+        if path.startswith("specialized"):
+            # each call at its own inputs; drive_k held the launches exact
+            per_path_kernel_ms[path] = sum(
+                timings[(case, "bal16_specialized", dtn)]["ms"] * (a * K + b)
+                for case, a, b in SPECIALIZED_CASES[path.split("_")[1]]) / K
+            continue
         shp = next(p for p in ("libmv_venice", "libmv16", "venice", "bal16")
                    if path.startswith(p))
-        dtn = "float32" if path.endswith("f32") else "float64"
         per_path_kernel_ms[path] = sum(
             timings[(k, shp, dtn)]["ms"] * n for k, n in res["launches"].items()
-            if (k, shp, dtn) in timings) / max(res["iterations"], 1)
+            if n) / max(res["iterations"], 1)
     log("kernels", "device time of the kernels per LM iteration (kernel ms x "
         "launches / iterations): " + json.dumps(per_path_kernel_ms) + f"; {card}")
     log("total", f"chip_smoke ran {time.monotonic() - t_start:.1f} s")
@@ -831,6 +932,215 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def specialized_phase(dev, card, b16, paths, check_and_time):
+    """The specialized pipeline (parallel/sharded_ba.py; the JAX package's
+    bench.py:131) on BAL-16: kernel 8J against its plain version at the
+    first iteration's inputs; v1 and v2 in float64 against the JAX
+    package's costs and in float32 (also with PRECISE_SCHUR_SOLVE), one
+    k = 20 call of each driven with exact launch counts and no host sync
+    inside; their times; v1 on the card against the CPU."""
+    from ceres_tpu_torch.models import bal
+    from ceres_tpu_torch.ops import kernels as kn
+    from ceres_tpu_torch.parallel import sharded_ba as sb
+
+    K = SPECIALIZED_K
+    golden = SPECIALIZED16_GOLDEN
+
+    def spec_setup(b, dt, device=dev, asm=False):
+        """BAL-16's rows sorted by point (bench.py:136-146 without the
+        TPU's balanced point order), their plan, the start state."""
+        ci, pi, obs = sb.observations_by_point(b.camera_index, b.point_index,
+                                               b.observations, dt, device)
+        build_plan = sb.build_asm_plan if asm else sb.build_point_plan
+        plan = build_plan(ci, pi, b.num_points, b.num_cameras, device)
+        return sb.state_from_arrays(b.cameras, b.points, 1e4, dt, device), ci, pi, obs, plan
+
+    def v1_call(setup):
+        _, ci, pi, obs, plan = setup
+        return lambda st, k: sb.lm_step_schur_k(st.cams, st.pts, ci, pi, obs, st.radius,
+                                                k=k, plan=plan)
+
+    def v2_call(setup):
+        _, ci, pi, obs, plan = setup
+        obs_T = obs.T.contiguous()
+        return lambda st, k: sb.lm_step_schur_v2_k(st.cams, st.pts, ci, pi, obs_T,
+                                                   st.radius, plan, k=k)
+
+    def drive_k(path, pipeline, run, start):
+        """One k-call with the counts set to 0 just before it and read just
+        after, under torch.cuda.set_sync_debug_mode("error"): a host sync
+        inside the call raises. The cost read after it is the call's one
+        sync. Exact launch counts (specialized_launches). Then a call of
+        one iteration behind queued device work, which must outlast it."""
+        torch.cuda.synchronize()
+        kn.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            st = run(start, K)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        cost = float(st.cost)
+        wall_s = time.perf_counter() - t0
+        launches, plain_calls = counts(kn)
+        want = specialized_launches(pipeline, K)
+        peak = torch.cuda.max_memory_allocated()
+
+        def behind_queued_work(k):
+            """(returned before ~3 s of device work queued ahead of it ended,
+            host seconds) of a k-call: the call returns first only if nothing
+            in it waited for the device, and if its launches fit the launch
+            queue (the k = 20 call's ~6,600 do not: the host then blocks
+            until the queue drains)."""
+            torch.cuda._sleep(int(2e9 * 3))
+            ahead = torch.cuda.Event()
+            ahead.record()
+            t1 = time.perf_counter()
+            run(start, k)
+            host_s = time.perf_counter() - t1
+            returned_ahead = not ahead.query()
+            torch.cuda.synchronize()
+            return returned_ahead, host_s
+
+        # the same without the prototype sync detector, on one iteration:
+        # every iteration runs the same code, with no branch on device values
+        queued = {k: behind_queued_work(k) for k in (1, K)}
+        res = {"iterations": K, "final_cost": cost, "radius": float(st.radius),
+               "wall_s": wall_s, "peak_device_bytes": peak,
+               "launches": launches, "plain_calls": plain_calls,
+               "expected_launches": want,
+               "behind_queued_work_by_k": {k: {"returned_ahead": a, "host_s": h}
+                                           for k, (a, h) in queued.items()}}
+        log(f"pipeline {path}", json.dumps(res) + f"; {card}")
+        check(all(v == 0 for v in plain_calls.values()),
+              f"{path}: a plain version ran on the card")
+        check(all(launches[k] == want.get(k, 0) for k in launches),
+              f"{path}: launches {launches}, expected exactly {want}")
+        check(queued[1][0], f"{path}: a call of one iteration waited for the device")
+        paths[path] = res
+        return st, res
+
+    def spec_times(path, run, start):
+        """ms per LM iteration as bench.py:177-178 reads it: the wall time
+        of 4 chained calls of k = 20 over 80, median of 5; the time to the
+        first iteration (tensors, plan, one iteration: kernels built); the
+        device busy share: the device time of one k-call under
+        torch.profiler over the median's wall time of k iterations."""
+        per_it = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = start
+            for _ in range(4):
+                st = run(st, K)
+            float(st.cost)
+            per_it.append(1e3 * (time.perf_counter() - t0) / (4 * K))
+        res = paths[path]
+        res["ms_per_iteration_runs"] = per_it
+        res["ms_per_iteration_median"] = statistics.median(per_it)
+        res["profile"] = profile_k_call(lambda: run(start, K), K,
+                                        res["ms_per_iteration_median"])
+        log("time", f"pipeline {path}: ms per LM iteration (4 calls of k=20 / 80) over "
+            f"5: median {res['ms_per_iteration_median']:.4f}, runs "
+            + ", ".join(f"{v:.4f}" for v in per_it) + "; device busy share "
+            f"{res['profile'].get('device_busy_share')}; peak device memory "
+            f"{res['peak_device_bytes'] / 2**30:.3f} GiB; time to first iteration "
+            f"{res['time_to_first_iteration_s']:.3f} s; profile "
+            f"{json.dumps(res['profile'])}; {card}")
+
+    for dtn in ("float64", "float32"):
+        args = {}
+        for pipeline, call in (("v1", v1_call), ("v2", v2_call)):
+            setup = spec_setup(b16, getattr(torch, dtn), asm=pipeline == "v2")
+            args.update({c: a for c, a in first_iteration_args(
+                pipeline, call(setup), setup[0]).items() if c not in args})
+        check_and_time("bal16_specialized", dtn, args, 100, 10)
+        del args, setup
+
+    for dtn in ("float64", "float32"):
+        dt = getattr(torch, dtn)
+        for pipeline, call in (("v1", v1_call), ("v2", v2_call)):
+            path = f"specialized_{pipeline}_{TAG[dtn]}"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            setup = spec_setup(b16, dt, asm=pipeline == "v2")
+            run = call(setup)
+            first = float(run(setup[0], 1).cost)
+            ttfi = time.perf_counter() - t0
+            start = setup[0]
+            # four calls of k = 5, against the JAX package's costs (and warm-up)
+            costs, st = [], start
+            for _ in range(4):
+                st = run(st, 5)
+                costs.append(float(st.cost))
+            st, res = drive_k(path, pipeline, run, start)
+            res.update(time_to_first_iteration_s=ttfi, first_iteration_cost=first,
+                       costs_after_5_10_15_20=costs)
+            gaps = [(c - g) / g for c, g in zip(costs + [res["final_cost"]],
+                                                 golden + golden[-1:])]
+            res["gaps_to_jax"] = gaps
+            if dtn == "float64":
+                log(f"pipeline {path}", f"costs after 5/10/15/20 {costs}, one k={K} call "
+                    f"{res['final_cost']!r}; relative gaps to the JAX package's "
+                    f"{list(golden)}: {', '.join(f'{g:.3e}' for g in gaps)} (limit 1e-6)")
+                check(all(abs(g) <= 1e-6 for g in gaps),
+                      f"{path}: off the JAX package's costs: {gaps}")
+            else:
+                log(f"pipeline {path}", f"costs after 5/10/15/20 {costs}, one k={K} call "
+                    f"{res['final_cost']!r} (the JAX package's float32 run on the CPU: "
+                    f"{SPECIALIZED16_JAX_F32} from iteration 5 on); gate: finite, "
+                    f"non-increasing, <= 1.05 x {golden[-1]}")
+                check(all(np.isfinite(c) for c in costs)
+                      and all(b <= a for a, b in zip(costs, costs[1:]))
+                      and costs[-1] <= 1.05 * golden[-1]
+                      and res["final_cost"] <= 1.05 * golden[-1],
+                      f"{path}: float32 costs {costs}, {res['final_cost']}")
+            spec_times(path, run, start)
+            del setup, run, st
+    sb.PRECISE_SCHUR_SOLVE = True
+    try:
+        setup = spec_setup(b16, torch.float32)
+        cost = float(v1_call(setup)(setup[0], K).cost)
+    finally:
+        sb.PRECISE_SCHUR_SOLVE = False
+    paths["specialized_v1_f32"]["precise_schur_solve_final_cost"] = cost
+    log("pipeline specialized_v1_f32", f"with PRECISE_SCHUR_SOLVE: {cost!r} after {K} "
+        f"LM iterations (gate <= {golden[-1]} x (1 + 1e-4)); {card}")
+    check(cost <= golden[-1] * (1 + 1e-4),
+          f"specialized v1 float32 with PRECISE_SCHUR_SOLVE ends at {cost}")
+    del setup
+
+    # the card against the CPU: lm_step_schur_k (k = 10) with the plan, float64
+    small = bal.perturb(bal.synthetic_bal(num_cameras=6, num_points=400,
+                                          visibility=0.5, seed=5),
+                        0.01, 0.05, 0.05, seed=1)
+    ulp = bal.from_arrays(np.nextafter(small.cameras, np.inf), small.points,
+                          small.camera_index, small.point_index, small.observations)
+    runs = {}
+    for name, b, device in (("card", small, dev), ("cpu", small, "cpu"),
+                            ("cpu_ulp", ulp, "cpu")):
+        setup = spec_setup(b, torch.float64, device)
+        runs[name] = v1_call(setup)(setup[0], 10)
+    vs_cpu = {}
+    for field in ("cams", "pts", "cost"):
+        ref = getattr(runs["cpu"], field)
+        scale = ref.abs().max().item()
+        gap = (getattr(runs["card"], field).cpu() - ref).abs().max().item() / scale
+        sens = (getattr(runs["cpu_ulp"], field) - ref).abs().max().item() / scale
+        vs_cpu[field] = {"gap": gap, "cpu_one_ulp_sensitivity": sens,
+                         "limit": max(1e-9, 4 * sens)}
+    log("pipeline specialized card vs cpu", f"6 cameras, 400 points, k=10: "
+        f"{json.dumps(vs_cpu)}; card cost {float(runs['card'].cost)!r}, cpu "
+        f"{float(runs['cpu'].cost)!r}; {card}")
+    paths["specialized_v1_f64"]["card_vs_cpu"] = vs_cpu
+    check(all(v["gap"] <= v["limit"] for v in vs_cpu.values()),
+          f"specialized v1: card and CPU differ: {vs_cpu}")
+    del runs, setup
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # the one PyTorch call that computes each flat-path kernel's function
@@ -873,27 +1183,58 @@ def profile_solve(run, anchor="eval_fused_kernel"):
     card come before; on the flat path the anchor, its first segment sum,
     comes after the first plain evaluation) over the minimizer's wall
     time."""
+    s, _, busy_us, n_ops, by_name = device_profile(run, anchor)
+    n_it = len(s.iterations) - 1
+    wall_ms = 1e3 * s.minimizer_time_in_seconds
+    res = {"minimizer_ms": wall_ms, "iterations": n_it,
+           "cg_iterations": sum(r.linear_solver_iterations for r in s.iterations)}
+    return busy_share(res, busy_us, n_ops, by_name, wall_ms, n_it)
+
+
+def profile_k_call(run, k, ms_per_iteration):
+    """Device busy share of one k-call of the specialized pipeline: the
+    device time of all its CUDA events in a call under torch.profiler over
+    the wall time of k iterations without it (ms_per_iteration, measured
+    before: the profiler slows the host); also the share of the profiled
+    call's own wall time (host clock, to the cost's one sync)."""
+    _, wall_s, busy_us, n_ops, by_name = device_profile(lambda: float(run().cost))
+    res = {"profiled_wall_ms": 1e3 * wall_s, "unprofiled_wall_ms": ms_per_iteration * k,
+           "iterations": k}
+    res = busy_share(res, busy_us, n_ops, by_name, ms_per_iteration * k, k)
+    if busy_us > 0:
+        res["device_busy_share_of_profiled_wall"] = busy_us / 1e3 / (1e3 * wall_s)
+    return res
+
+
+def device_profile(run, anchor=None):
+    """(run's result, its wall seconds, device microseconds, device ops,
+    device microseconds by kernel name) of one run under torch.profiler
+    after a warm one; with `anchor`, only the CUDA events from the first
+    launch of that kernel on."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run()  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        s = run()
+        t0 = time.perf_counter()
+        out = run()
         torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
     busy_us, n_ops, by_name = 0.0, 0, {}
     dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     t0 = min((e.time_range.start for e in dev_events
-              if anchor in e.name), default=0)
+              if anchor is None or anchor in e.name), default=0)
     for evt in dev_events:
         if evt.time_range.start >= t0:
             busy_us += evt.device_time_total
             n_ops += 1
             by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.device_time_total
-    n_it = len(s.iterations) - 1
-    wall_ms = 1e3 * s.minimizer_time_in_seconds
-    res = {"minimizer_ms": wall_ms, "iterations": n_it,
-           "cg_iterations": sum(r.linear_solver_iterations for r in s.iterations)}
+    return out, wall_s, busy_us, n_ops, by_name
+
+
+def busy_share(res, busy_us, n_ops, by_name, wall_ms, n_it):
+    """res with the busy share and the top kernels per iteration added."""
     if busy_us > 0:
         # names cut to 80 characters, the device time of names that share
         # those summed (PyTorch's elementwise kernels differ only later)
@@ -916,14 +1257,24 @@ def work(case, args):
     tensors and the row -> camera / point / block maps (cam_idx, pt_idx,
     a segment plan's ids), not the design's own plans or workspaces; and
     the arithmetic, taking each symmetric product once."""
-    if CASES[case] in ("segment_block_sum", "unsorted_segment_sum"):
+    name = CASES[case]
+    if name in ("segment_block_sum", "unsorted_segment_sum"):
         contrib, plan = args
         out = contrib.element_size() * plan.num_keys * contrib.shape[1]
         return nbytes(contrib, plan.ids) + out, contrib.numel()  # one add per value
-    if case == "segment_block_expand":
+    if name == "segment_block_expand":
         vals, ids = args
         return nbytes(vals, ids) + vals.element_size() * ids.numel() * vals.shape[1], 0
-    if case == "segment_spread_sum":
+    if name == "segment_spread_ftf":
+        Y, cam, pt_start, C, te, tf, Jc, r = args[:8]
+        P = pt_start.shape[0] - 1
+        es = Y.element_size()
+        # Y, Jc, the row -> camera and row -> point maps, A (P, te*C*tf) and
+        # F'F (C, tf*tf); an add per Y value, the r products of each of the
+        # tf(tf+1)/2 entries of a row's symmetric outer product, multiply-add
+        byts = nbytes(Y, Jc, cam) + 4 * Y.shape[0] + es * (P * te * C * tf + C * tf * tf)
+        return byts, Y.numel() + Y.shape[0] * r * tf * (tf + 1)
+    if name == "segment_spread_sum":
         Y, cam, pt_start, C, te, tf = args
         P = pt_start.shape[0] - 1
         # Y, the row -> camera and row -> point maps, the (P, te*C*tf) A
@@ -931,18 +1282,18 @@ def work(case, args):
     plan = next(a for a in args if hasattr(a, "cam_idx"))
     B, P, C = plan.B, plan.P, plan.C
     idx = nbytes(plan.cam_idx, plan.pt_idx)
-    if case == "eval_fused":
+    if name == "eval_fused":
         cams, pts, obs = args[:3]
         es = cams.element_size()
         byts = nbytes(cams, pts, obs) + idx + es * 26 * B + 8
         return byts, 330 * B  # rotation with its 3 derivatives, projection, J
-    if case == "post_eval_fused":
+    if name == "post_eval_fused":
         JT, rT = args[:2]
         es = JT.element_size()
         byts = nbytes(JT, rT) + idx + es * (15 * P + 18 * C)
         # g_e, sqn_e, E'E (6 of 9), g_f, sqn_f per row
         return byts, (12 + 12 + 24 + 36 + 36) * B
-    if case == "schur_assembly":
+    if name == "schur_assembly":
         JT, sc, sp, K, u = args[:5]
         es = JT.element_size()
         byts = nbytes(JT, sc, sp, K, u) + idx + es * ((9 * C) ** 2 + 81 * C + 9 * C)
@@ -950,14 +1301,14 @@ def work(case, args):
         # per row: scaling 24, W 108, Y 162, FtF (45 of 81) 180, U 54;
         # Y_a'Y_b once per unordered pair a != b, 45 of 81 entries for a == b
         return byts, 528 * B + 486 * (NP - B) // 2 + 270 * B
-    if case.startswith("isc_matvec"):
+    if name == "isc_matvec":
         JT, z, minv = args[:3]
         emit_u = args[4]
         es = JT.element_size()
         byts = nbytes(JT, z, minv) + idx + es * (9 * C + (3 * P if emit_u else 0))
         # per row: F z 36, E'fz 12, E u 12, q 2, F'q 36; per point M^{-1} e 15
         return byts, 98 * B + 15 * P
-    if case == "schur_jacobi_blocks":
+    if name == "schur_jacobi_blocks":
         JT, se, minv = args[:3]
         es = JT.element_size()
         byts = nbytes(JT, se, minv) + idx + es * 81 * C

@@ -26,6 +26,7 @@ inline thread_local std::barrier<>* ct_emu_barrier;
 #define __launch_bounds__(...)
 #define __shared__ static
 typedef void* cudaStream_t;
+enum { cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
 inline void __syncthreads() { ct_emu_barrier->arrive_and_wait(); }
 template <typename... KArgs, typename... Args>

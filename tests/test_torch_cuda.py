@@ -284,3 +284,75 @@ def test_libmv_solve_on_card_matches_cpu(card, solver):
     for a, c, u in zip(ref.iterations, out.iterations, twin.iterations):
         sens = abs(u.cost - a.cost) / abs(a.cost)
         assert c.cost == pytest.approx(a.cost, rel=max(1e-9, 4 * sens))
+
+
+def _specialized_inputs(card, dtype):
+    """The first iteration's inputs of kernel 8J on the specialized pipeline
+    (parallel/sharded_ba.py) at a 6-camera, 400-point instance: Y and the
+    scaled camera rows Js_c of lm_step_schur, through its own point plan."""
+    from ceres_tpu_torch.parallel import sharded_ba as sb
+
+    b = small_bal()
+    dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
+    ci, pi, obs = sb.observations_by_point(b.camera_index, b.point_index,
+                                           b.observations, dt, card)
+    plan = sb.build_point_plan(ci, pi, b.num_points, b.num_cameras, card)
+    st = sb.state_from_arrays(b.cameras, b.points, 1e4, dt, card)
+    seen = {}
+
+    def spy(Y, cam_ids, C, tp, tc, Jc):
+        seen["args"] = (Y.contiguous(), cam_ids, plan.rows.pt_start, C, tp, tc,
+                        Jc.contiguous(), 2, plan.rows)
+        return kn.segment_spread_sum(*seen["args"])
+
+    env = sb._env(st.cams, ci, pi, b.num_points, None, plan)
+    env = env._replace(spread_p=spy)
+    r, J = sb._evaluate_flat(st.cams, st.pts, env.ci, obs, None, env.expand_p)
+    sb._schur_core(J, r, st.radius, env, b.num_cameras, b.num_points)
+    return seen["args"]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_spread_ftf_matches_plain_on_card(card, dtype):
+    """Kernel 8J (segment_spread_sum with Jc) against its plain version on
+    the same card inputs, A and F'F relative to their largest entry: 1e-11
+    in float64, 1e-4 in float32."""
+    args = _specialized_inputs(card, dtype)
+    kn.reset_counts()
+    out = kn.segment_spread_sum(*args)
+    torch.cuda.synchronize()
+    ref = kn.segment_spread_ftf_plain(*args)
+    assert kn.segment_spread_ftf.launches == 1
+    assert kn.segment_spread_ftf.plain_calls == 0
+    for o, r in zip(out, ref):
+        err = (o.double() - r.double()).abs().max().item()
+        assert err <= REL_LIMIT[o.dtype] * r.double().abs().max().item()
+
+
+def test_specialized_pipeline_on_card_matches_cpu(card):
+    """lm_step_schur_k (k = 10) with the point plan on the card (kernels 6,
+    7 and 8J, each launched every iteration) and on the CPU (their plain
+    versions), float64: cameras, points and cost to 1e-9 relative."""
+    from ceres_tpu_torch.parallel import sharded_ba as sb
+
+    b = small_bal()
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        ci, pi, obs = sb.observations_by_point(b.camera_index, b.point_index,
+                                               b.observations, torch.float64, dev)
+        plan = sb.build_point_plan(ci, pi, b.num_points, b.num_cameras, dev)
+        st = sb.state_from_arrays(b.cameras, b.points, 1e4, torch.float64, dev)
+        kn.reset_counts()
+        out[dev.type] = sb.lm_step_schur_k(st.cams, st.pts, ci, pi, obs, st.radius,
+                                           k=10, plan=plan)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            for k in (kn.segment_block_sum, kn.segment_block_expand,
+                      kn.segment_spread_ftf):
+                assert k.launches >= 10 and k.plain_calls == 0, k.__name__
+            assert kn.segment_spread_ftf.launches == 10
+            assert kn.segment_spread_sum.launches == 0
+    for name in ("cams", "pts", "cost"):
+        a = getattr(out["cpu"], name)
+        c = getattr(out["cuda"], name).cpu()
+        assert (c - a).abs().max().item() <= 1e-9 * a.abs().max().item(), name

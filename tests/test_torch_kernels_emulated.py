@@ -172,3 +172,59 @@ def test_emulated_flat_kernel_matches_plain(kernel_path, name, dtype):
     err = (out.double() - ref.double()).abs().max().item()
     limit = 0.0 if name == "segment_block_expand" else LIMIT[ref.dtype]
     assert err <= limit * ref.double().abs().max().item()
+
+
+def _spread_ftf_inputs(dtype, C, B):
+    """The Jc form's inputs: 12 points, C cameras and some rows of the
+    constant camera C, Y (B, 27), Jc (B, 18), and the camera plan of a row
+    plan over the C + 1 camera ids, cut to the C real cameras."""
+    import dataclasses
+
+    from ceres_tpu_torch.ops import flatops as fo
+
+    dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
+    rng = np.random.default_rng(C)
+    P = 12
+    pt = np.sort(rng.integers(0, P, B))
+    cam = rng.integers(0, C + 1, B)
+    rows = fo.build_row_plan(pt, cam, P, C + 1, "cpu")
+    plan = dataclasses.replace(rows, C=C,
+                               cam_chunk_first=rows.cam_chunk_first[:C + 1].contiguous())
+    Y = torch.as_tensor(rng.standard_normal((B, 27))).to(dt)
+    Jc = torch.as_tensor(rng.standard_normal((B, 18))).to(dt)
+    return (Y, plan.cam_idx, plan.pt_start, C, 3, 9, Jc, 2, plan)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("C,B", [(4, 150), (3, 400)])
+def test_emulated_spread_ftf_matches_plain(kernel_path, dtype, C, B):
+    """Kernel 8J (segment_spread_sum with Jc) in one launch and its
+    finalize pass, against the plain version: A and F'F relative to their
+    largest entry, 1e-12 in float64, 1e-5 in float32. At 400 rows each
+    camera owns more than one chunk; the constant camera's rows add
+    nothing."""
+    args = _spread_ftf_inputs(dtype, C, B)
+    kn.reset_counts()
+    out = kernel_path(kn.segment_spread_sum, *args)
+    ref = kn.segment_spread_ftf_plain(*args)
+    assert kn.segment_spread_ftf.launches == 1
+    assert kn.segment_spread_ftf.plain_calls == 0
+    if B == 400:
+        assert args[-1].n_cam_chunks > C + 1
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape and o.dtype == r.dtype
+        err = (o.double() - r.double()).abs().max().item()
+        assert err <= LIMIT[r.dtype] * r.double().abs().max().item()
+
+
+def test_emulated_spread_ftf_refuses_what_it_does_not_take(kernel_path):
+    """Jc rows wider than the kernel stages, or no camera plan: the wrapper
+    raises before anything launches."""
+    Y, cam, pt_start, C, te, tf, Jc, r, plan = _spread_ftf_inputs("float64", 4, 150)
+    kn.reset_counts()
+    with pytest.raises(ValueError, match="at most 32"):
+        kernel_path(kn.segment_spread_sum, Y, cam, pt_start, C, te, tf,
+                    torch.cat([Jc, Jc], dim=1), 4, plan)
+    with pytest.raises(ValueError, match="camera plan"):
+        kernel_path(kn.segment_spread_sum, Y, cam, pt_start, C, te, tf, Jc, r, None)
+    assert kn.segment_spread_ftf.launches == 0

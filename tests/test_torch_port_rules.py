@@ -22,7 +22,7 @@ def test_import_loads_no_jax_and_no_ceres_tpu():
     code = (
         "import sys, ceres_tpu_torch, ceres_tpu_torch.solver, "
         "ceres_tpu_torch.models.bal, ceres_tpu_torch.models.libmv, "
-        "ceres_tpu_torch.ops.build\n"
+        "ceres_tpu_torch.ops.build, ceres_tpu_torch.parallel.sharded_ba\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'ceres_tpu' or m.startswith('ceres_tpu.')]\n"
         "print(bad)\n"
@@ -45,6 +45,7 @@ def _imported_roots(path):
 def test_sources_import_no_jax_and_no_ceres_tpu():
     files = sorted((ROOT / "ceres_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    assert ROOT / "ceres_tpu_torch" / "parallel" / "sharded_ba.py" in files
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "ceres_tpu"}, path
@@ -137,6 +138,33 @@ def test_kernel_wrapper_given_cuda_tensors_does_not_run_the_plain_version(
         with pytest.raises(RuntimeError, match="nvcc not found"):
             kn.segment_spread_sum(torch.zeros(B, 18, **f64), torch.zeros(B, **i32),
                                   torch.zeros(P + 1, **i32), C, 3, 6)
+    assert all(k.plain_calls == 0 and k.launches == 0 for k in kn.KERNELS)
+
+
+def test_spread_ftf_given_cuda_tensors_does_not_run_the_plain_version(monkeypatch):
+    """The Jc form of segment_spread_sum (kernel 8J), as above: on (fake)
+    CUDA tensors it goes to its kernel and raises without a toolkit."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ceres_tpu_torch.ops import build
+
+    def no_toolkit():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(build, "_LIB", None)
+    monkeypatch.setattr(build, "find_nvcc", no_toolkit)
+    kn.reset_counts()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        B, P, C = 6, 3, 2
+        i32 = dict(dtype=torch.int32, device="cuda")
+        plan = type("Plan", (), dict(
+            cam_rows=torch.zeros(B, **i32), cam_chunk_start=torch.zeros(2, **i32),
+            cam_chunk_first=torch.zeros(C + 1, **i32), n_cam_chunks=1))
+        f64 = dict(dtype=torch.float64, device="cuda")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            kn.segment_spread_sum(torch.zeros(B, 27, **f64), torch.zeros(B, **i32),
+                                  torch.zeros(P + 1, **i32), C, 3, 9,
+                                  Jc=torch.zeros(B, 18, **f64), r=2, plan=plan)
     assert all(k.plain_calls == 0 and k.launches == 0 for k in kn.KERNELS)
 
 
