@@ -3,12 +3,33 @@
 The port runs the public `solve()` with Levenberg-Marquardt and
 DENSE_SCHUR or ITERATIVE_SCHUR, in the fused-loop form, through
 hand-written CUDA kernels (ops/kernels.py, csrc/): on the fused jt path
-for BAL bundle adjustment (models/bal.py), on the flat path for other
+for BAL bundle adjustment (models/bal.py), angle-axis or quaternion
+cameras, with or without a robust loss; on the flat path for other
 programs such as the libmv bundle adjuster (models/libmv.py). It imports
 torch and numpy only: nothing of jax and nothing of ceres_tpu.
 """
 from .cost_function import AutoDiffCostFunction, CostFunction
-from .loss import LossFunction, TrivialLoss
+from .loss import (
+    ArctanLoss,
+    CauchyLoss,
+    ComposedLoss,
+    HuberLoss,
+    LossFunction,
+    LossFunctionWrapper,
+    ScaledLoss,
+    SoftLOneLoss,
+    TolerantLoss,
+    TrivialLoss,
+    TukeyLoss,
+)
+from .manifolds import (
+    EigenQuaternionManifold,
+    EuclideanManifold,
+    Manifold,
+    ProductManifold,
+    QuaternionManifold,
+    SubsetManifold,
+)
 from .options import Options
 from .problem import ParameterBlockArray, Problem
 from .solver import solve
@@ -22,19 +43,34 @@ from .types import (
 )
 
 __all__ = [
+    "ArctanLoss",
     "AutoDiffCostFunction",
+    "CauchyLoss",
+    "ComposedLoss",
     "CostFunction",
+    "EigenQuaternionManifold",
+    "EuclideanManifold",
+    "HuberLoss",
     "IterationSummary",
     "LinearSolverType",
     "LossFunction",
+    "LossFunctionWrapper",
+    "Manifold",
     "MinimizerType",
     "Options",
     "ParameterBlockArray",
     "PreconditionerType",
     "Problem",
+    "ProductManifold",
+    "QuaternionManifold",
+    "ScaledLoss",
+    "SoftLOneLoss",
+    "SubsetManifold",
     "Summary",
     "TerminationType",
+    "TolerantLoss",
     "TrivialLoss",
     "TrustRegionStrategyType",
+    "TukeyLoss",
     "solve",
 ]

@@ -3,7 +3,11 @@ ceres_tpu/models/bal.py).
 
 Camera: 9 parameters, angle-axis rotation (3), translation (3), focal f,
 radial distortion k1, k2. BAL convention: P = R X + t, p = -P / P_z,
-predicted = f (1 + k1 r^2 + k2 r^4) p.
+predicted = f (1 + k1 r^2 + k2 r^4) p. The quaternion camera
+(`SNAVELY_QUAT_COST`, `build_problem_batched_quat`; bundle_adjuster.cc's
+--use_quaternions --use_manifolds) is the same model with a unit
+quaternion in place of the angle-axis: 10 parameters under
+ProductManifold(QuaternionManifold(), EuclideanManifold(6)), 9 tangent.
 
 `synthetic_bal`, `synthetic_bal_large` and `perturb` draw the same numbers
 from the same seeds as the JAX package (numpy's default_rng in the same
@@ -19,8 +23,11 @@ import numpy as np
 import torch
 
 from ..cost_function import AutoDiffCostFunction
+from ..loss import HuberLoss
+from ..manifolds import EuclideanManifold, ProductManifold, QuaternionManifold
 from ..problem import Problem
-from ..rotation import angle_axis_rotate_point
+from ..rotation import (angle_axis_rotate_point, angle_axis_to_quaternion,
+                        unit_quaternion_rotate_point)
 
 
 def snavely_reprojection_residual(camera, point, observed):
@@ -71,6 +78,64 @@ SNAVELY_COST = AutoDiffCostFunction(
     snavely_reprojection_residual, 2, [9, 3], name="snavely")
 # slot order in the cost is [camera, point]
 SNAVELY_COST.residual_rows = snavely_residual_rows
+
+
+def snavely_quat_residual(cam, pt, data):
+    """Snavely reprojection with a unit-quaternion camera [q (w, x, y, z),
+    t (3), f, k1, k2] (bal.py:86)."""
+    p3 = unit_quaternion_rotate_point(cam[:4], pt) + cam[4:7]
+    xp = -p3[0] / p3[2]
+    yp = -p3[1] / p3[2]
+    r2 = xp * xp + yp * yp
+    distortion = 1.0 + r2 * (cam[8] + cam[9] * r2)
+    f = cam[7]
+    return torch.stack([f * distortion * xp - data[0],
+                        f * distortion * yp - data[1]])
+
+
+def snavely_quat_residual_rows(cam, pt, obs):
+    """Row-vectorized quaternion-camera Snavely residual: cam (10, rows),
+    pt (3, rows), obs (2, rows) -> (2, rows), or single observations as
+    vectors; the rotation in its two-cross-product form written lane by
+    lane. The eval_fused CUDA kernel computes exactly this function
+    (csrc/eval_fused.cu, model 1)."""
+    w = cam[0:1]
+    qx, qy, qz = cam[1:2], cam[2:3], cam[3:4]
+    px, py, pz = pt[0:1], pt[1:2], pt[2:3]
+    # uv = v x p; uuv = v x uv; p' = p + 2 (w uv + uuv)
+    uvx = qy * pz - qz * py
+    uvy = qz * px - qx * pz
+    uvz = qx * py - qy * px
+    uux = qy * uvz - qz * uvy
+    uuy = qz * uvx - qx * uvz
+    uuz = qx * uvy - qy * uvx
+    rx = px + 2.0 * (w * uvx + uux) + cam[4:5]
+    ry = py + 2.0 * (w * uvy + uuy) + cam[5:6]
+    rz = pz + 2.0 * (w * uvz + uuz) + cam[6:7]
+    xp = -rx / rz
+    yp = -ry / rz
+    r2 = xp * xp + yp * yp
+    distortion = 1.0 + r2 * (cam[8:9] + cam[9:10] * r2)
+    f = cam[7:8]
+    return torch.cat([f * distortion * xp - obs[0:1],
+                      f * distortion * yp - obs[1:2]], dim=0)
+
+
+SNAVELY_QUAT_COST = AutoDiffCostFunction(
+    snavely_quat_residual, 2, [10, 3], name="snavely_quat")
+SNAVELY_QUAT_COST.residual_rows = snavely_quat_residual_rows
+
+
+def quaternion_camera_manifold():
+    """The quaternion camera's manifold: the rotation on the unit sphere,
+    the other six parameters Euclidean."""
+    return ProductManifold(QuaternionManifold(), EuclideanManifold(6))
+
+
+def cameras_to_quaternion(cameras: np.ndarray) -> np.ndarray:
+    """(C, 9) angle-axis cameras -> (C, 10) unit-quaternion cameras."""
+    q = angle_axis_to_quaternion(torch.as_tensor(cameras[:, :3], dtype=torch.float64))
+    return np.concatenate([q.numpy(), cameras[:, 3:]], axis=1)
 
 
 @dataclasses.dataclass
@@ -195,10 +260,14 @@ def perturb(bal: BALProblem, rotation_sigma=0.0, translation_sigma=0.0,
                       bal.observations)
 
 
-def build_problem_batched(bal: BALProblem, loss=None):
+def build_problem_batched(bal: BALProblem, loss=None, use_huber=False):
     """Parameter block arrays plus one batched residual add; returns
     (problem, camera_array, point_array). The solution is written back
-    into the two returned (num_cameras, 9) / (num_points, 3) arrays."""
+    into the two returned (num_cameras, 9) / (num_points, 3) arrays.
+    `use_huber` without a loss is bundle_adjuster.cc's --robustify,
+    HuberLoss(1.0)."""
+    if use_huber and loss is None:
+        loss = HuberLoss(1.0)
     cam_values = np.ascontiguousarray(bal.cameras)
     pt_values = np.ascontiguousarray(bal.points)
     p = Problem()
@@ -206,6 +275,22 @@ def build_problem_batched(bal: BALProblem, loss=None):
     pts = p.add_parameter_block_array(pt_values)
     p.add_residual_block_batch(
         SNAVELY_COST, loss,
+        [(cams, bal.camera_index), (pts, bal.point_index)],
+        data=bal.observations)
+    return p, cam_values, pt_values
+
+
+def build_problem_batched_quat(bal: BALProblem, loss=None):
+    """build_problem_batched with quaternion cameras under their manifold
+    (bal.py:146); the solution is written back into the returned
+    (num_cameras, 10) and (num_points, 3) arrays."""
+    cam_values = cameras_to_quaternion(np.ascontiguousarray(bal.cameras))
+    pt_values = np.ascontiguousarray(bal.points)
+    p = Problem()
+    cams = p.add_parameter_block_array(cam_values, manifold=quaternion_camera_manifold())
+    pts = p.add_parameter_block_array(pt_values)
+    p.add_residual_block_batch(
+        SNAVELY_QUAT_COST, loss,
         [(cams, bal.camera_index), (pts, bal.point_index)],
         data=bal.observations)
     return p, cam_values, pt_values

@@ -114,11 +114,19 @@ def _compile_and_link(nvcc: str, out: Path) -> None:
         raise RuntimeError("nvcc link failed:\n" + link.stdout)
 
 
+class LossDesc(ctypes.Structure):
+    """csrc/eval_fused.cu's CtLoss, passed by value: a loss.LossChain of n
+    ops (code, a, b)."""
+
+    _fields_ = [("n", ctypes.c_int), ("code", ctypes.c_int * 4),
+                ("a", ctypes.c_double * 4), ("b", ctypes.c_double * 4)]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argument types of every C entry point, by kernel
 _SIGNATURES = {
-    "ct_eval_fused": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+    "ct_eval_fused": [_P, _P, _P, _P, _P, _I, _I, LossDesc, _P, _P, _P, _P, _P],
     "ct_post_eval_fused": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     "ct_schur_assembly": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                           _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],

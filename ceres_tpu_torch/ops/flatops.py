@@ -2,8 +2,10 @@
 ceres_tpu/ops/flatops.py), in its two halves.
 
 The jt half (`JTSchurOps`) serves the programs the fused jt-mode path
-takes: one kind of a residual with `residual_rows` over one camera and one
-point family (BAL). The JAX module plans 128-lane row tiles, gather bases,
+takes (`jt_refusal`): one kind of a Snavely residual the eval_fused kernel
+computes, over one camera family (angle-axis, or quaternion under its
+manifold) and one point family, with no loss or a built-in one (BAL).
+The JAX module plans 128-lane row tiles, gather bases,
 camera windows and streamed mask planes to satisfy TPU alignment; none of
 that carries over. What its CUDA kernels need instead is the row plan
 (`RowPlan`): rows sorted by point with the point segments, and a camera
@@ -14,9 +16,9 @@ index: it is built on request (`RowPlan.ensure_pairs`), never for the
 iterative path, whose camera count can make it gigabytes.
 
 The flat half (`FlatSchurOps`) serves every other program (the libmv
-bundle adjuster, costs without `residual_rows`, several kinds or e/f
-families): products and reductions over per-(kind, slot) Jacobian blocks
-flattened to (B, r*t), one `SlotPlanFlat` per slot. The JAX module's 0/1
+bundle adjuster, costs with another residual, a user's own loss, other
+manifolds, several kinds or e/f families): products and reductions over
+per-(kind, slot) Jacobian blocks flattened to (B, r*t), one `SlotPlanFlat` per slot. The JAX module's 0/1
 selector matmuls are an MXU device; here they are reshapes and batched
 products on (B, r, t) views. Its reductions take two tiers, not five:
 sorted ids go to segment_block_sum (kernel 6), unsorted ids to
@@ -247,20 +249,38 @@ def apply_inverse_rows(inv: torch.Tensor, v: torch.Tensor, t: int) -> torch.Tens
 
 
 class JTQual(NamedTuple):
-    """What qualifies a program for the fused jt-mode evaluation."""
+    """What qualifies a program for the fused jt-mode evaluation: its
+    camera (f) and point (e) families, the residual (`rows_fn`, the
+    kernel's model), the camera's ambient width and the loss flattened
+    for the kernel."""
 
     fam_f: object
     fam_e: object
     rows_fn: object
+    cam_size: int
+    loss: object  # loss.LossChain
 
 
 def jt_refusal(pm: pt.PartitionedMeta, program) -> Optional[str]:
     """Why the fused jt-mode path does not take this program, or None
-    when it does: one kind of two slots, one point (e) and one camera (f)
-    family of the kernels' sizes, rows sorted by point, a cost with
-    `residual_rows` and (B, 2) observations (the JAX qualification of
-    flatops.py:685-710 and :842, without its float32 condition: the
-    kernels take both dtypes). Every other program takes the flat path."""
+    when it does. It takes what the eval_fused kernel computes, on either
+    device alike: one kind of two slots, one point (e) and one camera (f)
+    family of tangent sizes 3 and 9, rows sorted by point, (B, 2)
+    observations, and
+      - the residual snavely_residual_rows with Euclidean cameras (9) and
+        points (3), or snavely_quat_residual_rows with cameras of 10 under
+        ProductManifold(QuaternionManifold(), EuclideanManifold(6)) and
+        Euclidean points;
+      - no loss, TrivialLoss, or a loss that loss.flatten_loss reduces to
+        the kernel's chain.
+    Every other program takes the flat path: a user's own residual_rows,
+    a user LossFunction subclass, any other manifold (the JAX
+    qualification of flatops.py:685-710 and :842-894, without its float32
+    condition: the kernels take both dtypes, and without its tracing of
+    any rows_fn, which a hand-written kernel cannot do)."""
+    from ..loss import flatten_loss
+    from ..models.bal import quaternion_camera_manifold
+
     kinds = pm.base.kinds
     if len(kinds) != 1 or len(kinds[0].slots) != 2:
         return "not one residual kind of two slots"
@@ -275,8 +295,21 @@ def jt_refusal(pm: pt.PartitionedMeta, program) -> Optional[str]:
                  if s.family_index == pm.e_family_indices[0])
     if np.any(e_ids[1:] < e_ids[:-1]):
         return "rows not sorted by point"
-    if getattr(pkind.cost, "residual_rows", None) is None:
-        return "a cost without residual_rows"
+    pff = program.families[pm.f_family_indices[0]]
+    pfe = program.families[pm.e_family_indices[0]]
+    model = kn.eval_model(getattr(pkind.cost, "residual_rows", None))
+    if model is None:
+        return "a cost without the residual_rows of a kernel model"
+    if not pfe.euclidean:
+        return "a point manifold"
+    if model == kn.MODEL_SNAVELY and not (pff.asize == kn.TF and pff.euclidean):
+        return "angle-axis cameras that are not Euclidean of 9"
+    if model == kn.MODEL_SNAVELY_QUAT and not (
+            pff.asize == kn.TF + 1 and pff.manifold is not None and
+            pff.manifold.batch_key() == quaternion_camera_manifold().batch_key()):
+        return "quaternion cameras not of 10 under the quaternion camera manifold"
+    if flatten_loss(pkind.loss) is None:
+        return "a loss the kernel's loss chain does not take"
     if pkind.data is None or tuple(pkind.data.shape) != (pkind.B, kn.R):
         return "observation data other than (B, 2)"
     return None
@@ -308,19 +341,25 @@ class JTSchurOps:
     # -- evaluation (pallas_kernels.eval_fused) ----------------------------
 
     def eval_kernel_qual(self, program) -> JTQual:
-        """The fused evaluation's residual and families (the program has
-        already refused robust losses and manifolds)."""
+        """The fused evaluation's families, residual and loss (jt_refusal
+        has admitted them)."""
+        from ..loss import flatten_loss
+
         kind = program.kinds[0]
-        return JTQual(kind.slots[self.sf].family, kind.slots[self.se].family,
-                      kind.cost.residual_rows)
+        fam_f = kind.slots[self.sf].family
+        return JTQual(fam_f, kind.slots[self.se].family, kind.cost.residual_rows,
+                      fam_f.asize, flatten_loss(kind.loss))
 
     def eval_fused_x(self, program, q: JTQual, x: torch.Tensor):
-        """Fused evaluation at state x: (cost f64 0-d, rT (2, B), JT (24, B))."""
+        """Fused evaluation at state x: (cost f64 0-d, rT (2, B), JT (24, B)),
+        the camera table read at its ambient width, the Jacobian lanes in
+        tangent coordinates, residuals and lanes corrected for the loss."""
         dt = program.compute_dtype
         cams = program.family_table(x, q.fam_f).to(dt).contiguous()
         pts = program.family_table(x, q.fam_e).to(dt).contiguous()
         kind = program.kinds[0]
-        sq, rT, JT = kn.eval_fused(cams, pts, kind.data, self.plan, q.rows_fn)
+        sq, rT, JT = kn.eval_fused(cams, pts, kind.data, self.plan, q.rows_fn,
+                                   q.loss)
         cost = 0.5 * sq[0] + program.fixed_cost
         return cost, rT, JT
 

@@ -9,7 +9,11 @@ integers: `launches`, counted where the CUDA kernel is launched, and
 `plain_calls`, counted where the plain version runs.
 
 The jt-mode kernels (1-5) take the shapes of the Snavely BA path: r = 2
-residual rows, tf = 9 camera and te = 3 point tangent columns. J travels
+residual rows, tf = 9 camera and te = 3 point tangent columns. eval_fused
+(1) computes the angle-axis camera model or the quaternion one (10 ambient
+parameters, its lanes in the 9 tangent coordinates), with a robust loss
+applied by the Triggs corrector; its two further variants count on their
+own wrappers, eval_fused_loss (1L) and eval_fused_quat (1Q). J travels
 transposed, as JT (24, B) (layout in csrc/common.cuh), residuals as rT
 (2, B). Their `plan` argument is a flatops.RowPlan: rows sorted by point,
 the point segments, the camera chunk plan and, for schur_assembly, the
@@ -127,13 +131,39 @@ def _point_sum(plan, contrib: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# 1. eval_fused (pallas_kernels.py:2066)
+# 1. eval_fused (pallas_kernels.py:2066), with its loss (1L) and
+#    quaternion-camera (1Q) variants
 # --------------------------------------------------------------------------
 
+# the residual models of the kernel (csrc/eval_fused.cu): code, camera width
+MODEL_SNAVELY, MODEL_SNAVELY_QUAT = 0, 1
+_CAM_SIZE = {MODEL_SNAVELY: TF, MODEL_SNAVELY_QUAT: TF + 1}
 
-def eval_fused_plain(cams, pts, obs, plan, rows_fn):
-    """Residuals, exact Jacobian (forward-mode autodiff of `rows_fn`) and
-    the f64 sum of squared residuals."""
+
+def eval_model(rows_fn):
+    """The kernel's model code of a row-vectorized residual, or None for
+    a residual the kernel does not compute."""
+    from ..models import bal
+
+    return {bal.snavely_residual_rows: MODEL_SNAVELY,
+            bal.snavely_quat_residual_rows: MODEL_SNAVELY_QUAT}.get(rows_fn)
+
+
+def _chain(loss):
+    from ..loss import LossChain
+
+    return LossChain() if loss is None else loss
+
+
+def eval_fused_plain(cams, pts, obs, plan, rows_fn, loss=None):
+    """Residuals, the exact tangent-space Jacobian (forward-mode autodiff
+    of `rows_fn`, the camera columns times the quaternion camera's
+    PlusJacobian) and the f64 cost partials' sum, corrected for `loss` (a
+    loss.LossChain) as the kernel does it: rho' clamped at 1e-30."""
+    from .. import loss as ls
+    from ..models import bal
+
+    chain = _chain(loss)
     c = cams[plan.cam_idx.long()]
     p = pts[plan.pt_idx.long()]
 
@@ -141,43 +171,108 @@ def eval_fused_plain(cams, pts, obs, plan, rows_fn):
         return rows_fn(ci, pi, oi)
 
     jac = torch.func.vmap(torch.func.jacfwd(one, argnums=(0, 1)))
-    Jc, Jp = jac(c, p, obs)  # (B, 2, 9), (B, 2, 3)
+    Jc, Jp = jac(c, p, obs)  # (B, 2, cam width), (B, 2, 3)
     res = torch.func.vmap(one)(c, p, obs)  # (B, 2)
+    if eval_model(rows_fn) == MODEL_SNAVELY_QUAT:
+        pj = torch.func.vmap(bal.quaternion_camera_manifold().plus_jacobian)(cams)
+        Jc = torch.einsum("bra,bat->brt", Jc, pj[plan.cam_idx.long()])
+    s = torch.sum(res * res, dim=1)
+    if chain.ops:
+        rho0, rho1, rho2 = ls.evaluate_chain(chain, s)
+        rho1 = torch.clamp(rho1, min=1e-30)
+        rs, asq, sqrt_r1 = ls.corrector_coefficients(s, rho1, rho2)
+
+        def correct(J):
+            rtj = torch.einsum("br,brp->bp", res, J)
+            return (J - (asq[:, None] * res)[:, :, None] * rtj[:, None, :]) * \
+                sqrt_r1[:, None, None]
+
+        Jc, Jp = correct(Jc), correct(Jp)
+        res = rs[:, None] * res
+        s = rho0
     B = obs.shape[0]
     JT = torch.cat([Jc.permute(1, 2, 0).reshape(E_OFF, B),
                     Jp.permute(1, 2, 0).reshape(R * TE, B)], dim=0)
-    cost = torch.sum(torch.sum(res * res, dim=1).to(torch.float64)).reshape(1)
+    cost = torch.sum(s.to(torch.float64)).reshape(1)
     return cost, res.T.contiguous(), JT.contiguous()
 
 
-def eval_fused(cams, pts, obs, plan, rows_fn):
-    """(cost (1,) f64 = sum |r|^2, rT (2, B), JT (24, B)) of the Snavely
-    residual at cameras (C, 9), points (P, 3), observations (B, 2)."""
-    dev = cams.device
+eval_fused_loss_plain = eval_fused_quat_plain = eval_fused_plain
+
+
+def eval_fused(cams, pts, obs, plan, rows_fn, loss=None):
+    """(cost (1,) f64, rT (2, B), JT (24, B)) of a Snavely residual at
+    cameras (C, 9) (snavely_residual_rows) or (C, 10)
+    (snavely_quat_residual_rows, tangent lanes), points (P, 3),
+    observations (B, 2), with `loss` a loss.LossChain (None or empty: the
+    trivial loss). The cost is sum |r|^2, or sum rho(|r|^2) with a loss.
+    The quaternion model counts as eval_fused_quat (row 1Q), the
+    angle-axis model with a loss as eval_fused_loss (row 1L)."""
+    if eval_model(rows_fn) == MODEL_SNAVELY_QUAT:
+        return eval_fused_quat(cams, pts, obs, plan, rows_fn, loss)
+    if loss is not None and loss.ops:
+        return eval_fused_loss(cams, pts, obs, plan, rows_fn, loss)
     if _on_cpu(cams):
         eval_fused.plain_calls += 1
-        return eval_fused_plain(cams, pts, obs, plan, rows_fn)
-    from ..models.bal import snavely_residual_rows
+        return eval_fused_plain(cams, pts, obs, plan, rows_fn, loss)
+    out = _eval_fused_launch(cams, pts, obs, plan, rows_fn, loss)
+    eval_fused.launches += 1
+    return out
 
-    if rows_fn is not snavely_residual_rows:
-        raise NotImplementedError(
-            "the eval_fused CUDA kernel computes snavely_residual_rows only")
+
+def eval_fused_loss(cams, pts, obs, plan, rows_fn, loss):
+    """eval_fused of the angle-axis model with a robust loss (row 1L)."""
+    if _on_cpu(cams):
+        eval_fused_loss.plain_calls += 1
+        return eval_fused_plain(cams, pts, obs, plan, rows_fn, loss)
+    out = _eval_fused_launch(cams, pts, obs, plan, rows_fn, loss)
+    eval_fused_loss.launches += 1
+    return out
+
+
+def eval_fused_quat(cams, pts, obs, plan, rows_fn, loss=None):
+    """eval_fused of the quaternion-camera model, any loss (row 1Q)."""
+    if _on_cpu(cams):
+        eval_fused_quat.plain_calls += 1
+        return eval_fused_plain(cams, pts, obs, plan, rows_fn, loss)
+    out = _eval_fused_launch(cams, pts, obs, plan, rows_fn, loss)
+    eval_fused_quat.launches += 1
+    return out
+
+
+def _eval_fused_launch(cams, pts, obs, plan, rows_fn, loss):
+    from ..loss import MAX_CHAIN
+    from .build import LossDesc
+
+    model = eval_model(rows_fn)
+    if model is None:
+        raise ValueError(
+            "the eval_fused kernel computes snavely_residual_rows and "
+            "snavely_quat_residual_rows only; since port slice 3, "
+            "flatops.jt_refusal sends every other residual to the flat path")
+    chain = _chain(loss)
+    if len(chain.ops) > MAX_CHAIN:
+        raise ValueError(f"the eval_fused kernel takes a loss chain of at most "
+                         f"{MAX_CHAIN} ops, not {len(chain.ops)}")
+    dev = cams.device
     dt = _dtype_of(cams)
     fn = _entry("ct_eval_fused", dt)
     B, P, C = plan.B, plan.P, plan.C
-    _check(cams, "cams", dt, (C, TF), dev)
+    _check(cams, "cams", dt, (C, _CAM_SIZE[model]), dev)
     _check(pts, "pts", dt, (P, TE), dev)
     _check(obs, "obs", dt, (B, R), dev)
     _check(plan.cam_idx, "plan.cam_idx", torch.int32, (B,), dev)
     _check(plan.pt_idx, "plan.pt_idx", torch.int32, (B,), dev)
+    desc = LossDesc(len(chain.ops))
+    for k, op in enumerate(chain.ops):
+        desc.code[k], desc.a[k], desc.b[k] = op.code, op.a, op.b
     rT = torch.empty((R, B), dtype=dt, device=dev)
     JT = torch.empty((LANES, B), dtype=dt, device=dev)
     partial = torch.empty((max(1, -(-B // 256)),), dtype=torch.float64, device=dev)
     cost = torch.empty((1,), dtype=torch.float64, device=dev)
     _launch(fn, _ptr(cams), _ptr(pts), _ptr(obs),
-            _ptr(plan.cam_idx), _ptr(plan.pt_idx), B, _ptr(rT), _ptr(JT),
-            _ptr(partial), _ptr(cost), _stream(dev))
-    eval_fused.launches += 1
+            _ptr(plan.cam_idx), _ptr(plan.pt_idx), B, model, desc, _ptr(rT),
+            _ptr(JT), _ptr(partial), _ptr(cost), _stream(dev))
     return cost, rT, JT
 
 
@@ -629,7 +724,7 @@ def segment_spread_ftf(Y, cam_ids, pt_start, C, te, tf, Jc, r, plan):
     return out, ftf
 
 
-KERNELS = (eval_fused, post_eval_fused, schur_assembly, normal_matvec,
+KERNELS = (eval_fused, eval_fused_loss, eval_fused_quat, post_eval_fused, schur_assembly, normal_matvec,
            isc_matvec, schur_jacobi_blocks, segment_block_sum,
            segment_block_expand, segment_spread_sum, segment_spread_ftf,
            unsorted_segment_sum)

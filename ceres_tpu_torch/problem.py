@@ -1,9 +1,10 @@
 """Problem: the user-facing modeling graph (counterpart of ceres_tpu/problem.py).
 
-The slice carries the batched path: parameter block arrays and batched
-residual blocks, which is how `models/bal.build_problem_batched` builds a
-BAL problem. Parameter blocks are the caller's numpy arrays; `solve`
-writes the solution back into them, as `ceres_tpu.solve` does.
+The port carries the batched path: parameter block arrays, each with an
+optional manifold, and batched residual blocks with an optional loss,
+which is how `models/bal.build_problem_batched` builds a BAL problem.
+Parameter blocks are the caller's numpy arrays; `solve` writes the
+solution back into them, as `ceres_tpu.solve` does.
 """
 from __future__ import annotations
 
@@ -14,26 +15,28 @@ import numpy as np
 
 from .cost_function import CostFunction
 from .loss import LossFunction
+from .manifolds import Manifold
 from .types import not_ported
 
 
 class ParameterBlockArray:
     """B same-sized parameter blocks stored as one (B, size) float64 array;
-    the whole array is one evaluation family."""
+    the whole array shares one manifold (None: Euclidean) and is one
+    evaluation family."""
 
     __slots__ = ("values", "B", "size", "manifold")
 
-    def __init__(self, values: np.ndarray, manifold=None):
+    def __init__(self, values: np.ndarray, manifold: Optional[Manifold] = None):
         if values.ndim != 2:
             raise ValueError("parameter block array must be 2-D (B, size)")
         if values.dtype != np.float64:
             raise TypeError("parameter blocks must be float64")
-        if manifold is not None:
-            raise not_ported("a manifold on a parameter block array", 3)
+        if manifold is not None and manifold.ambient_size != values.shape[1]:
+            raise ValueError("manifold ambient size mismatch")
         self.values = values
         self.B = int(values.shape[0])
         self.size = int(values.shape[1])
-        self.manifold = None
+        self.manifold = manifold
 
 
 @dataclasses.dataclass
@@ -56,7 +59,8 @@ class Problem:
         self._next_rb_id = 0
 
     def add_parameter_block_array(self, values: np.ndarray,
-                                  manifold=None) -> ParameterBlockArray:
+                                  manifold: Optional[Manifold] = None
+                                  ) -> ParameterBlockArray:
         arr = ParameterBlockArray(np.asanyarray(values), manifold)
         self._block_arrays.append(arr)
         return arr

@@ -2,18 +2,24 @@
 (counterpart of ceres_tpu/program.py).
 
 Layout, as in the JAX package:
- - the state vector x is family-major and block-contiguous; a family is
-   one ParameterBlockArray, so gathering a family is a reshape;
- - the tangent vector equals the state (the slice is Euclidean);
+ - the state vector x is family-major and block-contiguous in the ambient
+   coordinates; a family is one ParameterBlockArray, so gathering a
+   family is a reshape;
+ - the tangent vector (steps, gradients, the LM diagonal) is family-major
+   in each family's tangent coordinates: a family with a manifold has
+   `tsize` < `asize` columns there, and `plus` maps a tangent step onto
+   the state;
  - residual blocks of one batched add form one *kind*; a kind's rows are
    sorted by its largest family's block ids (for BAL: by point), so
    per-point sums are contiguous segments (the JAX package's
    `sort_rows=True`, which is what its fused path uses).
 
 `_eval_core` is the plain evaluation: the cost function's own residual,
-differentiated by torch.func; the flat Schur path evaluates through it.
-The jt path evaluates through the eval_fused kernel instead
-(ops/flatops.py).
+differentiated by torch.func, its Jacobian taken to the tangent space
+through each manifold's PlusJacobian and corrected for the kind's robust
+loss (`loss.correct_residuals_and_jacobians`); the flat Schur path
+evaluates through it. The jt path evaluates through the eval_fused kernel
+instead (ops/flatops.py).
 """
 from __future__ import annotations
 
@@ -23,16 +29,17 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .loss import TrivialLoss
+from .loss import TrivialLoss, correct_residuals_and_jacobians
+from .manifolds import EuclideanManifold, Manifold
 from .problem import ParameterBlockArray, Problem
-from .types import not_ported
 
 
 @dataclasses.dataclass
 class Family:
-    """One ParameterBlockArray: `count` blocks of `asize` parameters."""
+    """One ParameterBlockArray: `count` blocks of `asize` parameters, with
+    `tsize` tangent coordinates each under its manifold."""
 
-    manifold: None
+    manifold: Optional[Manifold]  # None: Euclidean
     asize: int
     num_var: int
     state_offset: int
@@ -41,7 +48,13 @@ class Family:
 
     @property
     def tsize(self) -> int:
-        return self.asize
+        if self.manifold is None:
+            return self.asize
+        return self.manifold.tangent_size
+
+    @property
+    def euclidean(self) -> bool:
+        return self.manifold is None or isinstance(self.manifold, EuclideanManifold)
 
     @property
     def count(self) -> int:
@@ -113,21 +126,19 @@ class CompiledProgram:
         for arr in problem.parameter_block_arrays():
             if id(arr) not in used:
                 continue
-            fam = Family(manifold=None, asize=arr.size, num_var=arr.B,
+            fam = Family(manifold=arr.manifold, asize=arr.size, num_var=arr.B,
                          state_offset=state_off, tangent_offset=tangent_off,
                          array=arr)
             fam_of[id(arr)] = len(self.families)
             self.families.append(fam)
             state_off += arr.B * arr.size
-            tangent_off += arr.B * arr.size
+            tangent_off += arr.B * fam.tsize
         self.state_size = state_off
         self.tangent_size = tangent_off
 
         self.kinds: List[Kind] = []
         row_off = 0
         for rec in records:
-            if rec.loss is not None and not isinstance(rec.loss, TrivialLoss):
-                raise not_ported("robust losses", 3)
             slots = [SlotPlan(family=self.families[fam_of[id(arr)]],
                               family_index=fam_of[id(arr)],
                               pos_in_family=idx.astype(np.int64))
@@ -192,32 +203,78 @@ class CompiledProgram:
                                                device=self.device)
         return self._index[key]
 
+    def _plus_jacobians(self, xc: torch.Tensor):
+        """{family index: (count, asize, tsize) PlusJacobians} of the
+        families with a non-Euclidean manifold, in xc's dtype
+        (program.py:519-529)."""
+        out = {}
+        for i, fam in enumerate(self.families):
+            if not fam.euclidean:
+                out[i] = torch.func.vmap(fam.manifold.plus_jacobian)(
+                    self.family_table(xc, fam))
+        return out
+
     def _eval_core(self, x: torch.Tensor):
         """Plain evaluation: {"cost": f64 scalar, "residuals": (N,),
-        "block_jacs": [kind][slot] (B, r, t)} in the compute dtype. Rows
-        are evaluated EVAL_CHUNK_ROWS at a time, which bounds the memory
-        of the batched forward-mode Jacobian and changes no value."""
+        "block_jacs": [kind][slot] (B, r, t)} in the compute dtype, with
+        tangent-space Jacobians (J_ambient PlusJacobian) and the kind's
+        loss applied by the corrector: the cost is 1/2 sum rho(|r|^2), the
+        residuals and Jacobians the corrected ones (program.py:620-642).
+        Rows are evaluated EVAL_CHUNK_ROWS at a time, which bounds the
+        memory of the batched forward-mode Jacobian and changes no value."""
         xc = x.to(self.compute_dtype)
         total = torch.zeros((), dtype=torch.float64, device=x.device)
+        plus_jacs = self._plus_jacobians(xc)
         res_chunks, block_jacs = [], []
         for k, kind in enumerate(self.kinds):
             tables = [self.family_table(xc, s.family) for s in kind.slots]
+            trivial = kind.loss is None or isinstance(kind.loss, TrivialLoss)
             parts = []
             for a in range(0, kind.B, EVAL_CHUNK_ROWS):
                 rows = slice(a, min(a + EVAL_CHUNK_ROWS, kind.B))
-                params = tuple(tab[self._slot_index(k, s)[rows]]
-                               for s, tab in enumerate(tables))
+                index = [self._slot_index(k, s)[rows] for s in range(len(tables))]
+                params = tuple(tab[i] for tab, i in zip(tables, index))
                 data = None if kind.data is None else kind.data[rows]
-                parts.append(kind.cost.batched_residuals_and_jacobians(params, data))
+                res, jacs = kind.cost.batched_residuals_and_jacobians(params, data)
+                jacs = [J if s.family_index not in plus_jacs else torch.einsum(
+                    "bra,bat->brt", J, plus_jacs[s.family_index][i])
+                    for s, i, J in zip(kind.slots, index, jacs)]
+                cost_b = None
+                if not trivial:
+                    cost_b, res, jacs = correct_residuals_and_jacobians(
+                        kind.loss, res, jacs)
+                parts.append((res, jacs, cost_b))
             if len(parts) == 1:
-                res, jacs = parts[0]
+                res, jacs, cost_b = parts[0]
             else:
                 res = torch.cat([p[0] for p in parts])
                 jacs = [torch.cat([p[1][s] for p in parts]) for s in range(len(tables))]
+                cost_b = None if trivial else torch.cat([p[2] for p in parts])
             block_jacs.append(list(jacs))
-            total = total + 0.5 * torch.sum((res * res).to(torch.float64))
+            if trivial:
+                total = total + 0.5 * torch.sum((res * res).to(torch.float64))
+            else:
+                total = total + torch.sum(cost_b.to(torch.float64))
             res_chunks.append(res.reshape(-1))
         return {"cost": total + self.fixed_cost,
                 "residuals": torch.cat(res_chunks) if res_chunks
                 else torch.zeros((0,), dtype=self.compute_dtype, device=x.device),
                 "block_jacs": block_jacs}
+
+    # ------------------------------------------------------- step application
+
+    def plus(self, x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+        """x [+] delta: the state x (state_size,) moved by a tangent step
+        delta (tangent_size,), through each family's manifold
+        (program.py:744-772, without bounds: port slice 6)."""
+        if all(f.euclidean for f in self.families):
+            return x + delta
+        parts = []
+        for fam in self.families:
+            xf = self.family_table(x, fam)
+            n = fam.count * fam.tsize
+            df = delta[fam.tangent_offset:fam.tangent_offset + n].reshape(
+                fam.count, fam.tsize)
+            xf = xf + df if fam.euclidean else torch.func.vmap(fam.manifold.plus)(xf, df)
+            parts.append(xf.reshape(-1))
+        return torch.cat(parts) if parts else x

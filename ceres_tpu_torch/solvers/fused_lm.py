@@ -485,9 +485,10 @@ class FlatDenseSchurStepOps(_FlatStepOps):
         return step, -0.5 * torch.dot(b, step) + 0.5 * torch.dot(D2_c * step, step), 1
 
 
-def _grad_norms(x, g):
-    """|x - Plus(x, -g)| and its max norm (Euclidean Plus)."""
-    dx = x - (x + (-g.to(torch.float64)))
+def _grad_norms(program, x, g):
+    """|x - Plus(x, -g)| and its max norm, in the ambient space
+    (fused_lm.py:1396-1400)."""
+    dx = x - program.plus(x, -g.to(torch.float64))
     if dx.numel() == 0:
         z = torch.zeros((), dtype=torch.float64, device=x.device)
         return z, z
@@ -523,7 +524,7 @@ class FusedTrustRegionMinimizer:
         else:
             scale = torch.ones_like(sqn)
         scale_c = scale.to(cdt)
-        gnorm_t, gmax_t = _grad_norms(x0, g)
+        gnorm_t, gmax_t = _grad_norms(self.program, x0, g)
         cost, gnorm, gmax = self._fetch(summary, cost_t, gnorm_t, gmax_t)
 
         radius = float(opts.initial_trust_region_radius)
@@ -557,10 +558,10 @@ class FusedTrustRegionMinimizer:
                 lambda *sc: self._fetch(summary, *sc))
             mcc_t = mcc_c.to(torch.float64)
             valid_t = torch.isfinite(step).all() & (mcc_t > 0.0)
-            cand_x = x + step.to(torch.float64) * scale
+            cand_x = self.program.plus(x, step.to(torch.float64) * scale)
             cand_cost_t, cand_vrep = ops.evaluate(cand_x)
             cand_g, cand_sqn, cand_aux = ops.post_eval(cand_vrep)
-            cgnorm_t, cgmax_t = _grad_norms(cand_x, cand_g)
+            cgnorm_t, cgmax_t = _grad_norms(self.program, cand_x, cand_g)
             (valid_f, mcc, cand_cost, step_norm, x_norm, cgnorm,
              cgmax) = self._fetch(
                 summary, valid_t, mcc_t, cand_cost_t,

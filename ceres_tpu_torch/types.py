@@ -65,7 +65,6 @@ class TerminationType(_StrEnum):
 # Later slices of the port, as ROADMAP.md numbers them. Features outside
 # this slice raise NotImplementedError naming the slice that brings them.
 LATER_SLICES = {
-    3: "robust losses and manifolds inside eval_fused",
     4: "a device-resident LM loop (CUDA graphs)",
     5: 'evaluation_dtype="mixed" and mixed-precision solves',
     6: "the remaining linear solvers, preconditioners, minimizers and modeling API",

@@ -356,3 +356,68 @@ def test_specialized_pipeline_on_card_matches_cpu(card):
         a = getattr(out["cpu"], name)
         c = getattr(out["cuda"], name).cpu()
         assert (c - a).abs().max().item() <= 1e-9 * a.abs().max().item(), name
+
+
+_VARIANT_LOSSES = {
+    "trivial": lambda: None,
+    "huber": lambda: ctt.HuberLoss(1.0),
+    "softlone": lambda: ctt.SoftLOneLoss(1.0),
+    "cauchy": lambda: ctt.CauchyLoss(0.5),
+    "arctan": lambda: ctt.ArctanLoss(2.0),
+    "tolerant": lambda: ctt.TolerantLoss(2.0, 0.1),
+    "tukey": lambda: ctt.TukeyLoss(2.0),
+    "composed": lambda: ctt.ComposedLoss(ctt.HuberLoss(1.1), ctt.SoftLOneLoss(0.5)),
+    "scaled": lambda: ctt.ScaledLoss(ctt.CauchyLoss(1.0), 3.0),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("model", ["angle_axis", "quat"])
+@pytest.mark.parametrize("loss_name", list(_VARIANT_LOSSES))
+def test_eval_fused_variant_matches_plain_on_card(card, model, loss_name, dtype):
+    """eval_fused with each loss, in both camera models, against its plain
+    version on the card: 1e-11 in float64, 1e-4 in float32, relative to
+    each output's largest entry; the launch counts on its variant."""
+    build = (tbal.build_problem_batched_quat if model == "quat"
+             else tbal.build_problem_batched)
+    prog = CompiledProgram(build(small_bal(), _VARIANT_LOSSES[loss_name]())[0], dtype,
+                           device=card)
+    ops = DenseSchurStepOps(
+        prog, ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR), [1])
+    q, x, dt = ops._jt_qual, prog.initial_state(), prog.compute_dtype
+    args = (prog.family_table(x, q.fam_f).to(dt).contiguous(),
+            prog.family_table(x, q.fam_e).to(dt).contiguous(),
+            prog.kinds[0].data, ops.flat.plan, q.rows_fn, q.loss)
+    kn.reset_counts()
+    out = kn.eval_fused(*args)
+    torch.cuda.synchronize()
+    ref = kn.eval_fused_plain(*args)
+    variant = ("eval_fused_quat" if model == "quat" else
+               "eval_fused_loss" if q.loss.ops else "eval_fused")
+    assert {k.__name__: k.launches for k in kn.KERNELS if k.launches} == {variant: 1}
+    for o, r in zip(out, ref):
+        err = (o.double() - r.double()).abs().max().item()
+        assert err <= REL_LIMIT[dt] * r.double().abs().max().item()
+
+
+def test_robust_quaternion_solve_on_card_matches_cpu(card):
+    """Quaternion cameras with CauchyLoss(0.5), DENSE_SCHUR, on the card
+    and on the CPU: the same rows, each cost to 1e-9 relative, and the
+    quaternion variant launched once per evaluation."""
+    b = tbal.perturb(tbal.synthetic_bal(num_cameras=6, num_points=80, visibility=0.4,
+                                        seed=0), 0.02, 0.1, 0.1, seed=1)
+    arrays = (b.cameras, b.points, b.camera_index, b.point_index, b.observations)
+    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR)
+
+    def problem():
+        return tbal.build_problem_batched_quat(tbal.from_arrays(*arrays),
+                                               ctt.CauchyLoss(0.5))[0]
+
+    ref = ctt.solve(opts, problem(), device="cpu")
+    kn.reset_counts()
+    out = ctt.solve(opts, problem())
+    assert kn.eval_fused_quat.launches == len(out.iterations)
+    assert kn.eval_fused_quat.plain_calls == 0
+    assert len(out.iterations) == len(ref.iterations)
+    for a, c in zip(ref.iterations, out.iterations):
+        assert c.cost == pytest.approx(a.cost, rel=1e-9)

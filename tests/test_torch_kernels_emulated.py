@@ -124,6 +124,87 @@ def test_emulated_kernel_matches_plain(kernel_path, name, dtype, num_cameras,
         assert err <= LIMIT[r.dtype] * r.double().abs().max().item()
 
 
+_LOSSES = {
+    "trivial": lambda: None,
+    "huber": lambda: ctt.HuberLoss(1.0),
+    "softlone": lambda: ctt.SoftLOneLoss(1.0),
+    "cauchy": lambda: ctt.CauchyLoss(0.5),
+    "arctan": lambda: ctt.ArctanLoss(2.0),
+    "tolerant": lambda: ctt.TolerantLoss(2.0, 0.1),
+    "tukey": lambda: ctt.TukeyLoss(2.0),
+    "composed": lambda: ctt.ComposedLoss(ctt.HuberLoss(1.1), ctt.SoftLOneLoss(0.5)),
+    "scaled": lambda: ctt.ScaledLoss(ctt.CauchyLoss(1.0), 3.0),
+}
+_EVAL_VARIANTS = ([("angle_axis", n) for n in _LOSSES if n != "trivial"]
+                  + [("quat", n) for n in ("trivial", "huber", "cauchy", "tukey",
+                                           "composed")])
+
+
+def _eval_inputs(model, loss_name, dtype):
+    """eval_fused's arguments at the start of a 5-camera, 80-point BAL
+    problem whose residual norms run from ~0 to ~10 pixels, past every
+    loss's kink (and past Tolerant's large-x branch), with the angle-axis
+    or the quaternion camera model."""
+    b = tbal.perturb(tbal.synthetic_bal(num_cameras=5, num_points=80,
+                                        visibility=0.6, seed=4),
+                     0.01, 0.05, 0.05, seed=1)
+    loss = _LOSSES[loss_name]()
+    build = (tbal.build_problem_batched_quat if model == "quat"
+             else tbal.build_problem_batched)
+    prog = CompiledProgram(build(b, loss)[0], dtype, device="cpu")
+    ops = DenseSchurStepOps(
+        prog, ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR), [1])
+    q, x = ops._jt_qual, prog.initial_state()
+    cams = prog.family_table(x, q.fam_f).to(prog.compute_dtype).contiguous()
+    pts = prog.family_table(x, q.fam_e).to(prog.compute_dtype).contiguous()
+    return cams, pts, prog.kinds[0].data, ops.flat.plan, q.rows_fn, q.loss
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("model,loss_name", _EVAL_VARIANTS)
+def test_emulated_eval_fused_variants_match_plain(kernel_path, model, loss_name,
+                                                  dtype):
+    """The loss chain, the Triggs corrector and the quaternion model's
+    tangent lanes of csrc/eval_fused.cu against the plain version (jacfwd,
+    J PlusJacobian, loss.py's chain and corrector), each output relative
+    to its largest entry: 1e-12 in float64, 1e-5 in float32. Each variant
+    counts on its own wrapper."""
+    args = _eval_inputs(model, loss_name, dtype)
+    s = torch.sum(kn.eval_fused_plain(*args[:5])[1].double() ** 2, dim=0)
+    assert float(s.min()) < 0.25 and float(s.max()) > 30.0
+    kn.reset_counts()
+    out = kernel_path(kn.eval_fused, *args)
+    ref = kn.eval_fused_plain(*args)
+    variant = ("eval_fused_quat" if model == "quat" else
+               "eval_fused_loss" if args[-1].ops else "eval_fused")
+    assert {k.__name__: k.launches for k in kn.KERNELS if k.launches} == {variant: 1}
+    assert all(k.plain_calls == 0 for k in kn.KERNELS)
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape and o.dtype == r.dtype
+        err = (o.double() - r.double()).abs().max().item()
+        assert err <= LIMIT[args[0].dtype] * r.double().abs().max().item()
+
+
+def test_emulated_eval_fused_refuses_what_it_does_not_compute(kernel_path):
+    """Another residual, a camera table of the other model's width, or a
+    chain longer than the kernel takes: the wrapper raises before
+    anything launches."""
+    from ceres_tpu_torch import loss as tloss
+
+    cams, pts, obs, plan, rows_fn, loss = _eval_inputs("angle_axis", "huber", "float64")
+    kn.reset_counts()
+    with pytest.raises(ValueError, match="flat path"):
+        kernel_path(kn.eval_fused, cams, pts, obs, plan,
+                    lambda c, p, o: tbal.snavely_residual_rows(c, p, o), loss)
+    with pytest.raises(ValueError, match="shape"):
+        kernel_path(kn.eval_fused, cams, pts, obs, plan, tbal.snavely_quat_residual_rows,
+                    loss)
+    with pytest.raises(ValueError, match="at most 4 ops"):
+        kernel_path(kn.eval_fused, cams, pts, obs, plan, rows_fn,
+                    tloss.LossChain(loss.ops * 5))
+    assert all(k.launches == 0 for k in kn.KERNELS)
+
+
 def _flat_inputs(name, dtype):
     """Inputs of the flat path's kernels: widths 3 to 15, blocks without
     rows, the sentinel id (key 100), and one block holding 4,200 rows (two

@@ -22,7 +22,8 @@ def test_import_loads_no_jax_and_no_ceres_tpu():
     code = (
         "import sys, ceres_tpu_torch, ceres_tpu_torch.solver, "
         "ceres_tpu_torch.models.bal, ceres_tpu_torch.models.libmv, "
-        "ceres_tpu_torch.ops.build, ceres_tpu_torch.parallel.sharded_ba\n"
+        "ceres_tpu_torch.ops.build, ceres_tpu_torch.parallel.sharded_ba, "
+        "ceres_tpu_torch.loss, ceres_tpu_torch.manifolds, ceres_tpu_torch.rotation\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'ceres_tpu' or m.startswith('ceres_tpu.')]\n"
         "print(bad)\n"
@@ -46,6 +47,7 @@ def test_sources_import_no_jax_and_no_ceres_tpu():
     files = sorted((ROOT / "ceres_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     assert ROOT / "ceres_tpu_torch" / "parallel" / "sharded_ba.py" in files
+    assert ROOT / "ceres_tpu_torch" / "manifolds.py" in files
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "ceres_tpu"}, path
@@ -165,6 +167,44 @@ def test_spread_ftf_given_cuda_tensors_does_not_run_the_plain_version(monkeypatc
             kn.segment_spread_sum(torch.zeros(B, 27, **f64), torch.zeros(B, **i32),
                                   torch.zeros(P + 1, **i32), C, 3, 9,
                                   Jc=torch.zeros(B, 18, **f64), r=2, plan=plan)
+    assert all(k.plain_calls == 0 and k.launches == 0 for k in kn.KERNELS)
+
+
+def test_eval_fused_variants_given_cuda_tensors_do_not_run_the_plain_version(
+        monkeypatch):
+    """eval_fused with a loss (row 1L) and with quaternion cameras (row 1Q),
+    as above: on (fake) CUDA tensors each goes to the kernel and raises
+    without a toolkit; a residual the kernel does not compute raises
+    too, and no plain version runs in its place."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ceres_tpu_torch import loss as tloss
+    from ceres_tpu_torch.ops import build
+
+    def no_toolkit():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(build, "_LIB", None)
+    monkeypatch.setattr(build, "find_nvcc", no_toolkit)
+    kn.reset_counts()
+    huber = tloss.flatten_loss(ctt.HuberLoss(1.0))
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        B, P, C = 6, 3, 2
+        i32 = dict(dtype=torch.int32, device="cuda")
+        plan = type("Plan", (), dict(B=B, P=P, C=C, cam_idx=torch.zeros(B, **i32),
+                                     pt_idx=torch.zeros(B, **i32)))
+        f64 = dict(dtype=torch.float64, device="cuda")
+        pts, obs = torch.zeros(P, 3, **f64), torch.zeros(B, 2, **f64)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            kn.eval_fused(torch.zeros(C, 9, **f64), pts, obs, plan,
+                          tbal.snavely_residual_rows, huber)
+        for loss in (None, huber):
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                kn.eval_fused(torch.zeros(C, 10, **f64), pts, obs, plan,
+                              tbal.snavely_quat_residual_rows, loss)
+        with pytest.raises(ValueError, match="flat path"):
+            kn.eval_fused(torch.zeros(C, 9, **f64), pts, obs, plan,
+                          lambda c, p, o: tbal.snavely_residual_rows(c, p, o))
     assert all(k.plain_calls == 0 and k.launches == 0 for k in kn.KERNELS)
 
 
