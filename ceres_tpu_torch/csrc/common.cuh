@@ -34,6 +34,33 @@ constexpr int kEOff = kR * kTF;           // first J_e lane
 
 inline int ceil_div(long long a, int b) { return (int)((a + b - 1) / b); }
 
+// 16 bytes of float or double, loaded through the read-only path or stored
+// in one instruction; p must be 16-byte aligned.
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int kN = 4;
+  static __device__ __forceinline__ void load(const float* p, float* x) {
+    float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* x) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  }
+};
+template <>
+struct Vec16<double> {
+  static constexpr int kN = 2;
+  static __device__ __forceinline__ void load(const double* p, double* x) {
+    double2 v = __ldg(reinterpret_cast<const double2*>(p));
+    x[0] = v.x, x[1] = v.y;
+  }
+  static __device__ __forceinline__ void store(double* p, const double* x) {
+    *reinterpret_cast<double2*>(p) = make_double2(x[0], x[1]);
+  }
+};
+
 // Sum of the partials of each camera in chunk order:
 // out[c * L + l] = sum_{k = cf[c]}^{cf[c+1]-1} partial[k * L + l].
 template <typename T>

@@ -132,8 +132,8 @@ _SIGNATURES = {
                           _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "ct_normal_matvec": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                          _P, _P, _P],
-    "ct_isc_matvec": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
-                      _P, _P, _P],
+    "ct_isc_matvec": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P,
+                      _P, _P, _P, _P, _P, _P],
     "ct_schur_jacobi": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "ct_segment_block_sum": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
     "ct_unsorted_segment_sum": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P],

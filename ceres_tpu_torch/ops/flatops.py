@@ -31,6 +31,7 @@ numpy and moved to the device.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -64,11 +65,37 @@ class RowPlan:
     cam_rows: torch.Tensor  # (B,) int32: rows ordered by camera (stable)
     cam_chunk_start: torch.Tensor  # (n+1,) int32 offsets into cam_rows
     cam_chunk_first: torch.Tensor  # (C+1,) int32 first chunk of each camera
+    cam_pos: torch.Tensor  # (B,) int32: each row's place in cam_rows (its inverse)
+    # the fixed tree of a camera sum over rows in camera order: level 0 is
+    # cam_chunk_start, each further level chunks a camera's partials of the
+    # level before (SegmentPlan.level_starts); cam_level_first (C+1,) int32
+    # indexes each camera's chunks of the last level
+    cam_levels: Tuple[torch.Tensor, ...]
+    cam_level_first: torch.Tensor
+    # (n+1,) int32 first point of each point block: whole points of at most
+    # kn.POINT_BLOCK rows and points together, or one point of more rows
+    pt_block: torch.Tensor
     pairs: Optional[PairPlan] = None  # the dense-Schur pair plan, on request
+
+    def __post_init__(self):
+        # the camera levels as isc_matvec passes them, checked and built
+        # once: their chunk counts, and host arrays of those counts and of
+        # the levels' device pointers
+        for lv, st in enumerate(self.cam_levels):
+            kn._check(st, f"plan.cam_levels[{lv}]", torch.int32, (st.shape[0],),
+                      self.cam_idx.device)
+        self.cam_level_sizes = tuple(int(st.shape[0]) - 1 for st in self.cam_levels)
+        n = len(self.cam_levels)
+        self.cam_level_counts = (ctypes.c_int * n)(*self.cam_level_sizes)
+        self.cam_level_ptrs = (ctypes.c_void_p * n)(*[st.data_ptr() for st in self.cam_levels])
 
     @property
     def n_cam_chunks(self) -> int:
         return self.cam_chunk_start.shape[0] - 1
+
+    @property
+    def n_pt_blocks(self) -> int:
+        return self.pt_block.shape[0] - 1
 
     def ensure_pairs(self) -> PairPlan:
         """The point-pair plan, built on first request."""
@@ -102,6 +129,38 @@ def _chunks_of_counts(counts: np.ndarray, chunk: int):
     return chunk_start, chunk_first
 
 
+def _chunk_levels(counts: np.ndarray):
+    """The chunk offsets of each level of a fixed summation tree over keys
+    with `counts` items each (in key order): level 0 cuts each key's items
+    into chunks of at most CHUNK, and while a key still owns more than
+    CHUNK chunks, the next level cuts its chunk partials again. Returns
+    the chunk_start and the chunk_first of each level, int64."""
+    starts, firsts = [], []
+    per_key = counts
+    while True:
+        chunk_start, chunk_first = _chunks_of_counts(per_key, kn.CHUNK)
+        starts.append(chunk_start)
+        firsts.append(chunk_first)
+        per_key = np.diff(chunk_first)
+        if per_key.max(initial=0) <= kn.CHUNK:
+            return starts, firsts
+
+
+def _point_blocks(pt_start: np.ndarray, cap: int) -> np.ndarray:
+    """The first point of each point block, greedily: whole points while
+    their rows and their number stay within `cap`, or one point of more
+    rows alone. (n+1,) int64."""
+    P = pt_start.shape[0] - 1
+    first = np.arange(P, dtype=np.int64)
+    # the furthest end of a block that starts at each point
+    end = np.searchsorted(pt_start, pt_start[:-1] + cap, side="right") - 1
+    end = np.maximum(np.minimum(end, first + cap), first + 1).tolist()
+    blocks = [0]
+    while blocks[-1] < P:
+        blocks.append(end[blocks[-1]])
+    return np.asarray(blocks, np.int64)
+
+
 def _dev_i32(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.size and (a.min() < 0 or a.max() > np.iinfo(np.int32).max):
@@ -119,13 +178,18 @@ def build_row_plan(pt_idx: np.ndarray, cam_idx: np.ndarray, P: int, C: int,
     counts = np.bincount(pt_idx, minlength=P)
     pt_start = np.concatenate([[0], np.cumsum(counts)])
     cam_rows = np.argsort(cam_idx, kind="stable")
-    cam_cs, cam_cf = _chunks(cam_idx[cam_rows], C, kn.CHUNK)
+    cam_pos = np.empty(B, np.int64)
+    cam_pos[cam_rows] = np.arange(B)
+    starts, firsts = _chunk_levels(np.bincount(cam_idx, minlength=C))
 
     def dev(a):
         return _dev_i32(a, device)
 
+    cam_levels = tuple(dev(a) for a in starts)
     return RowPlan(B, P, C, dev(pt_idx), dev(cam_idx), dev(pt_start),
-                   dev(cam_rows), dev(cam_cs), dev(cam_cf))
+                   dev(cam_rows), cam_levels[0], dev(firsts[0]), dev(cam_pos),
+                   cam_levels, dev(firsts[-1]),
+                   dev(_point_blocks(pt_start, kn.POINT_BLOCK)))
 
 
 def _build_pair_plan(pt_idx, cam_idx, pt_start, C: int, device) -> PairPlan:
@@ -467,16 +531,10 @@ def build_segment_plan(ids, num_keys: int, device) -> SegmentPlan:
     order = None if srt else _dev_i32(np.argsort(ids, kind="stable"), device)
     seg_start = (_dev_i32(np.concatenate([[0], np.cumsum(counts)]), device)
                  if srt else None)
-    starts = []
-    per_key = counts
-    while True:
-        chunk_start, chunk_first = _chunks_of_counts(per_key, kn.CHUNK)
-        starts.append(_dev_i32(chunk_start, device))
-        per_key = np.diff(chunk_first)
-        if per_key.max(initial=0) <= kn.CHUNK:
-            break
-    return SegmentPlan(_dev_i32(ids, device), num_keys, order, tuple(starts),
-                       _dev_i32(chunk_first, device), seg_start)
+    starts, firsts = _chunk_levels(counts)
+    return SegmentPlan(_dev_i32(ids, device), num_keys, order,
+                       tuple(_dev_i32(a, device) for a in starts),
+                       _dev_i32(firsts[-1], device), seg_start)
 
 
 class SlotPlanFlat(NamedTuple):

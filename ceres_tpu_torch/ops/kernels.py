@@ -38,6 +38,10 @@ R, TF, TE = 2, 9, 3
 LANES = R * (TF + TE)
 E_OFF = R * TF
 CHUNK = 64  # rows (or pairs) per chunk; CT_CHUNK in csrc/common.cuh
+POINT_BLOCK = 256  # rows and points of a point block; kThreads in csrc/isc_matvec.cu
+# isc_matvec's z and w rows: 9 values padded to whole 16-byte groups
+# (kStride in csrc/isc_matvec.cu)
+_ISC_STRIDE = {torch.float32: 12, torch.float64: 10}
 _PT_OUT = 2 * TE + TE * TE
 _CAM_OUT = 2 * TF
 
@@ -460,20 +464,27 @@ def isc_matvec(JT, z, minv, plan, emit_u=False):
     dt = _dtype_of(JT)
     fn = _entry("ct_isc_matvec", dt)
     B, P, C = plan.B, plan.P, plan.C
+    i32 = torch.int32
     _check(JT, "JT", dt, (LANES, B), dev)
     _check(z, "z", dt, (C, TF), dev)
     _check(minv, "minv", dt, (P, TE * TE), dev)
     _check_plan(plan, dev)
-    q = torch.empty((R, B), dtype=dt, device=dev)
+    _check(plan.cam_pos, "plan.cam_pos", i32, (B,), dev)
+    _check(plan.pt_block, "plan.pt_block", i32, (plan.n_pt_blocks + 1,), dev)
+    _check(plan.cam_level_first, "plan.cam_level_first", i32, (C + 1,), dev)
+    sizes = plan.cam_level_sizes  # the levels themselves: checked by RowPlan
     u = torch.empty((P, TE) if emit_u else (1, TE), dtype=dt, device=dev)
-    cam_partial = torch.empty((max(1, plan.n_cam_chunks), TF), dtype=dt,
-                              device=dev)
+    w = torch.empty((max(1, B), _ISC_STRIDE[dt]), dtype=dt, device=dev)
+    zp = torch.empty((max(1, C), _ISC_STRIDE[dt]), dtype=dt, device=dev)
+    work = torch.empty((max(1, sum(sizes)), TF), dtype=dt, device=dev)
     cam_out = torch.empty((C, TF), dtype=dt, device=dev)
-    _launch(fn, _ptr(JT), B, P, C,
-            _ptr(plan.cam_idx), _ptr(plan.pt_start), _ptr(plan.cam_rows),
-            _ptr(plan.cam_chunk_start), plan.n_cam_chunks,
-            _ptr(plan.cam_chunk_first), _ptr(z), _ptr(minv), int(bool(emit_u)),
-            _ptr(q), _ptr(u), _ptr(cam_partial), _ptr(cam_out), _stream(dev))
+    _launch(fn, _ptr(JT), B, C, _ptr(plan.cam_idx), _ptr(plan.cam_pos),
+            _ptr(plan.pt_start), _ptr(plan.pt_block), plan.n_pt_blocks, _ptr(z),
+            _ptr(minv), int(bool(emit_u)), len(sizes),
+            ctypes.cast(plan.cam_level_ptrs, ctypes.c_void_p),
+            ctypes.cast(plan.cam_level_counts, ctypes.c_void_p),
+            _ptr(plan.cam_level_first), _ptr(u), _ptr(w), _ptr(zp), _ptr(work),
+            _ptr(cam_out), _stream(dev))
     isc_matvec.launches += 1
     return cam_out, (u if emit_u else None)
 

@@ -16,7 +16,13 @@ quaternion-camera BA through eval_fused's loss and manifold branches
 (BAL-16 with HuberLoss(1.0), angle-axis and quaternion cameras, against
 the JAX package's answers; the quaternion Venice shape with HuberLoss(1.0);
 every loss in both camera models against the plain version), counts what
-each run launched, and times the kernels, the solves and the pipeline.
+each run launched, and times the kernels (segment_block_expand at each
+width a libmv solve gathers, 3, 6, 8 and 9, beside torch.index_select),
+the solves (with isc_matvec's device time per LM iteration, kernel by
+kernel, at the Venice shape in both dtypes; and the CG iterations of
+float32 BAL-16 + HuberLoss(1.0) ITERATIVE_SCHUR beside those of the same
+solve through isc_matvec's plain version on the card and on the CPU) and
+the pipeline.
 
     python3 chip_smoke.py
 
@@ -133,7 +139,8 @@ ROW_PATH = {"1": "bal16_dense_f64", "1L": "bal16_huber_dense_f64",
 ROW_VARIANTS = {"1": ["venice"], "1L": ["venice"], "1Q": ["venice"], "2": ["venice"],
                 "4": ["venice"], "4b": ["venice"], "6": ["libmv_venice"],
                 "7": ["libmv_venice"], "9": ["libmv_venice"]}
-ROW_CASES = {"6": [("segment_block_sum_one_key", "_one_key")]}
+ROW_CASES = {"6": [("segment_block_sum_one_key", "_one_key")],
+             "7": [(f"segment_block_expand_t{t}", f"_t{t}") for t in (3, 8, 9)]}
 # why no single PyTorch call computes each kernel's function
 NO_LIBRARY_CALL = {
     "eval_fused": "no PyTorch call evaluates a residual and its Jacobian",
@@ -197,6 +204,7 @@ CASES = {"eval_fused": "eval_fused", "post_eval_fused": "post_eval_fused",
          "segment_block_sum_one_key": "segment_block_sum",
          "unsorted_segment_sum": "unsorted_segment_sum",
          "segment_block_expand": "segment_block_expand",
+         **{f"segment_block_expand_t{t}": "segment_block_expand" for t in (3, 8, 9)},
          "segment_spread_sum": "segment_spread_sum",
          "segment_spread_ftf": "segment_spread_ftf",
          "segment_block_expand_pts": "segment_block_expand",
@@ -479,9 +487,12 @@ def main():
         """The flat path's kernel cases at this libmv program's real
         first-iteration inputs: the post-evaluation sums of the point side
         (sorted, w = 15), of the intrinsics (one key holding every row,
-        w = 80) and of the cameras (unsorted, w = 48); the gather of the
-        camera scales; with `dense`, the spread sum of the cameras' A rows
-        at Jacobi scales and an LM diagonal at radius 1e4."""
+        w = 80) and of the cameras (unsorted, w = 48); the gathers of each
+        width a solve launches: the camera scales (t = 6, the row's main
+        case), the point scales (3), the intrinsics scales (8) and the
+        points' M^{-1} blocks at Jacobi scales and an LM diagonal at radius
+        1e4 (9, the SCHUR_JACOBI and dense-Schur gathers); with `dense`,
+        the spread sum of the cameras' A rows at those scales."""
         _, e_fams = _pick_linear_solver(opts, prog, Summary())
         ops = (FlatDenseSchurStepOps if dense else FlatIterativeSchurStepOps)(
             prog, opts, e_fams)
@@ -495,6 +506,13 @@ def main():
         sqn64 = sqn.to(torch.float64)
         scale_c = (1.0 / (1.0 + torch.sqrt(sqn64))).to(dt)
         sf = pt.extract_f(pm, scale_c)
+        se = pt.extract_e(pm, scale_c)
+        D2_c = (torch.clamp(scale_c.double() ** 2 * sqn64, 1e-6, 1e32) / 1e4).to(dt)
+        minv_e = fl.scaled_block_inverses(pm.e_fams, aux[0], se, pt.extract_e(pm, D2_c))
+
+        def table(v, p):
+            return torch.cat([v.reshape(p.nv, -1), v.new_zeros((1, v.numel() // p.nv))])
+
         args = {
             "segment_block_sum": (
                 fl.post_contrib(fl._jac(vrep.vflat, 0, pe), rows), pe.seg),
@@ -503,12 +521,14 @@ def main():
             "unsorted_segment_sum": (
                 fl.post_contrib(fl._jac(vrep.vflat, 0, pcam), rows), pcam.seg),
             "segment_block_expand": (
-                torch.cat([sf[pcam.off:pcam.off + pcam.nv * pcam.t].reshape(
-                    pcam.nv, pcam.t), sf.new_zeros((1, pcam.t))]), pcam.local),
+                table(sf[pcam.off:pcam.off + pcam.nv * pcam.t], pcam), pcam.local),
+            "segment_block_expand_t3": (
+                table(se[pe.off:pe.off + pe.nv * pe.t], pe), pe.local),
+            "segment_block_expand_t8": (
+                table(sf[pintr.off:pintr.off + pintr.nv * pintr.t], pintr), pintr.local),
+            "segment_block_expand_t9": (table(minv_e[pe.fi], pe), pe.local),
         }
         if dense:
-            D2_c = (torch.clamp(scale_c.double() ** 2 * sqn64, 1e-6, 1e32) / 1e4).to(dt)
-            se = pt.extract_e(pm, scale_c)
             K_e = ops._scaled_K(aux[0], se, pt.extract_e(pm, D2_c))
             for p_e, p_f, Y in ops.eliminated_rows(vrep.vflat, K_e, se, sf):
                 if p_f is pcam:
@@ -554,6 +574,8 @@ def main():
                     f"max_abs_err {mabs:.3e}")
             check(all(v <= lim for v, lim in zip(per_out, limits)),
                   f"{case} {shape} {dtn} disagrees with its plain version")
+            check(name != "segment_block_expand" or mabs == 0.0,
+                  f"{case} {shape} {dtn}: the gather is a copy, yet differs by {mabs}")
             del ref, out
             checks[(case, shape, dtn)] = (rel, mabs)
             if not timed:
@@ -899,12 +921,19 @@ def main():
         opts = ctt.Options(linear_solver_type=IS, evaluation_dtype=dtn,
                            max_num_iterations=VENICE_LM_ITERATIONS)
         large_solves("venice_iterative_" + TAG[dtn], opts, lambda: copy_problem(venice))
-    opts = ctt.Options(linear_solver_type=IS, evaluation_dtype="float32",
-                       max_num_iterations=2)
-    paths["venice_iterative_f32"]["profile"] = profile_solve(
-        lambda: ctt.solve(opts, copy_problem(venice)))
-    log("profile venice_iterative_f32 (2 LM iterations)",
-        json.dumps(paths["venice_iterative_f32"]["profile"]) + f"; {card}")
+    for dtn in ("float32", "float64"):
+        path = "venice_iterative_" + TAG[dtn]
+        opts = ctt.Options(linear_solver_type=IS, evaluation_dtype=dtn,
+                           max_num_iterations=2)
+        paths[path]["profile"] = profile_solve(
+            lambda: ctt.solve(opts, copy_problem(venice)))
+        log(f"profile {path} (2 LM iterations)",
+            json.dumps(paths[path]["profile"]) + f"; {card}")
+        prof = paths[path]["profile"]
+        log(f"profile {path}", "isc_matvec's kernels (isc_*): "
+            f"{prof.get('isc_device_ms_per_iteration')} device ms per LM iteration, "
+            f"by kernel {json.dumps(prof.get('isc_device_ms_per_iteration_by_kernel'))}; "
+            f"{card}")
 
     # -- the Venice shape with HuberLoss(1.0): rows 1L and 1Q at 4.4M rows, --
     # -- and quaternion cameras through ITERATIVE_SCHUR -------------------------
@@ -967,6 +996,17 @@ def main():
                      ctt.Options(linear_solver_type=IS,
                                  max_num_iterations=SMALL_VENICE_LM_ITERATIONS),
                      lambda: copy_problem(small), lambda: copy_problem(ulp))
+
+    # -- segment_block_expand against torch.index_select, per width ------------
+    for shp in ("libmv16", "libmv_venice"):
+        for dtn in ("float64", "float32"):
+            parts = []
+            for case in ["segment_block_expand"] + [c for c, _ in ROW_CASES["7"]]:
+                tm = timings[(case, shp, dtn)]
+                parts.append(f"{case}: {tm['ms']:.4f} ms, index_select "
+                             f"{tm['library_ms']:.4f} ms ({tm['ms'] / tm['library_ms']:.2f}x), "
+                             f"bound {tm['bound_ms']:.4f} ms ({tm['ms'] / tm['bound_ms']:.2f}x)")
+            log("expand vs index_select", f"{shp} {dtn}: " + "; ".join(parts) + f"; {card}")
 
     # -- the kernels line ------------------------------------------------------
     K = SPECIALIZED_K
@@ -1052,6 +1092,31 @@ def eval_args(prog):
             prog.kinds[0].data, ops.flat.plan, q.rows_fn, q.loss)
 
 
+def cg_counts(ctt, kn, path, res, s, opts, problem):
+    """A record, not a gate: the CG iterations per LM iteration of an
+    ITERATIVE_SCHUR solve `s`, and in float32 those of the same solve with
+    isc_matvec's plain version on the card (its index_add_ sums by
+    atomics, so that solve may differ from run to run) and of the solve on
+    the CPU (the plain versions throughout), whose rounding differs from
+    the kernel's. A float32 CG near its forcing tolerance is sensitive to
+    rounding (PERF.md §7); this shows which path a kernel change moved."""
+    runs = {"kernel": s}
+    if opts.evaluation_dtype == "float32":
+        kernel = kn.isc_matvec
+        kn.isc_matvec = kn.isc_matvec_plain
+        try:
+            runs["plain_on_card"] = ctt.solve(opts, problem())
+        finally:
+            kn.isc_matvec = kernel
+        runs["cpu"] = ctt.solve(opts, problem(), device="cpu")
+    for name, run in runs.items():
+        cg = [r.linear_solver_iterations for r in run.iterations]
+        res[f"cg_iterations_{name}"] = cg
+        log(f"cg {path}", f"{name}: {sum(cg)} CG iterations in {len(cg)} rows, "
+            f"{sum(c >= opts.max_linear_solver_iterations for c in cg)} at the limit; "
+            f"final cost {run.final_cost!r}; per row {cg}")
+
+
 def robust_phase(ctt, bal, kn, dev, card, b16, paths, check_and_time, drive):
     """Robust-loss and quaternion-camera BA (bundle_adjuster.cc --robustify,
     --use_quaternions --use_manifolds) on BAL-16: eval_fused with each of
@@ -1119,6 +1184,8 @@ def robust_phase(ctt, bal, kn, dev, card, b16, paths, check_and_time, drive):
                 per_it.append(1e3 * s2.minimizer_time_in_seconds / (len(s2.iterations) - 1))
             res["ms_per_iteration_runs"] = per_it
             res["ms_per_iteration_median"] = statistics.median(per_it)
+            if solver == "iterative":
+                cg_counts(ctt, kn, path, res, s, opts, problem)
             log(f"solve {path}", f"final cost {s.final_cost!r} in {len(s.iterations)} rows "
                 f"(JAX golden {golden!r} in {golden_rows}), relative gap {gap:.3e} "
                 f"(gate: {limit}); {variant} launches {res['launches'][variant]}; ms per "
@@ -1468,6 +1535,11 @@ def busy_share(res, busy_us, n_ops, by_name, wall_ms, n_it):
             top[k[:80]] = top.get(k[:80], 0.0) + v / 1e3 / max(n_it, 1)
         res.update(device_busy_ms=busy_us / 1e3,
                    device_busy_share=busy_us / 1e3 / wall_ms,
+                   # isc_matvec's kernels: isc_pad, isc_point, isc_camera
+                   isc_device_ms_per_iteration=sum(
+                       v for k, v in by_name.items() if "isc_" in k) / 1e3 / max(n_it, 1),
+                   isc_device_ms_per_iteration_by_kernel={
+                       k[:80]: v for k, v in top.items() if "isc_" in k},
                    device_ops_per_iteration=n_ops / max(n_it, 1),
                    top_device_ms_per_iteration=dict(
                        sorted(top.items(), key=lambda kv: -kv[1])[:10]))

@@ -29,6 +29,12 @@ typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
 inline void __syncthreads() { ct_emu_barrier->arrive_and_wait(); }
+template <typename T>
+inline T __ldg(const T* p) { return *p; }
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) double2 { double x, y; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+inline double2 make_double2(double x, double y) { return {x, y}; }
 template <typename... KArgs, typename... Args>
 void ct_emu_launch(void (*k)(KArgs...), int grid, int block, Args... args) {
   for (int b = 0; b < grid; ++b) {

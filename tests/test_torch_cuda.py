@@ -197,6 +197,69 @@ def test_iterative_solve_on_card_matches_cpu(card):
         assert c.trust_region_radius == pytest.approx(a.trust_region_radius, rel=1e-9)
 
 
+def _isc_long_inputs(card, dtype, emit_u):
+    """isc_matvec's arguments on a row plan that reaches every branch of
+    the redesigned kernel (tests/test_torch_kernels_emulated.py's, ten
+    times the points): tracks of 600 and 1,000 rows (blocks that loop),
+    points without rows, and a camera of ~40,000 rows (a second camera
+    level)."""
+    rng = np.random.default_rng(11)
+    P, C = 15000, 7
+    counts = rng.integers(1, 6, P)
+    counts[17], counts[3], counts[1400], counts[9000] = 600, 0, 0, 1000
+    pt = np.repeat(np.arange(P), counts)
+    B = pt.shape[0]
+    cam = np.where(rng.uniform(size=B) < 0.85, 0, rng.integers(1, C, B))
+    plan = fo.build_row_plan(pt, cam, P, C, card)
+    assert len(plan.cam_levels) == 2
+    dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
+    JT = torch.as_tensor(rng.standard_normal((kn.LANES, B)), device=card).to(dt)
+    z = torch.as_tensor(rng.standard_normal((C, 9)), device=card).to(dt)
+    A = rng.standard_normal((P, 3, 3))
+    minv = torch.as_tensor((A @ A.transpose(0, 2, 1)).reshape(P, 9), device=card).to(dt)
+    return JT, z, minv, plan, emit_u
+
+
+@pytest.mark.parametrize("emit_u", [True, False], ids=["isc_matvec", "isc_matvec_no_u"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_isc_matvec_long_track_and_large_camera_on_card(card, dtype, emit_u):
+    """The looping point blocks and the second camera level of
+    csrc/isc_matvec.cu against the plain version on the same card inputs,
+    relative to each output's largest entry: 1e-11 in float64, 1e-4 in
+    float32; a second call gives the same bits (no atomics)."""
+    args = _isc_long_inputs(card, dtype, emit_u)
+    kn.reset_counts()
+    cam, u = kn.isc_matvec(*args)
+    torch.cuda.synchronize()
+    cam_ref, u_ref = kn.isc_matvec_plain(*args)
+    assert kn.isc_matvec.launches == 1 and kn.isc_matvec.plain_calls == 0
+    for o, r in ((cam, cam_ref), (u, u_ref)) if emit_u else ((cam, cam_ref),):
+        err = (o.double() - r.double()).abs().max().item()
+        assert err <= REL_LIMIT[o.dtype] * r.double().abs().max().item()
+    assert torch.equal(kn.isc_matvec(*args)[0], cam)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("t", [1, 3, 6, 8, 9, 13])
+def test_segment_block_expand_widths_on_card(card, dtype, t):
+    """segment_block_expand at every width the port launches (3, 6, 8, 9:
+    the templated kernels) and two it does not (1, 13: the generic one), ids
+    in no order with the sentinel among them, N no multiple of a block's
+    rows: exactly the plain version."""
+    rng = np.random.default_rng(t)
+    dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
+    K, N = 5001, 300_007
+    vals = torch.as_tensor(rng.standard_normal((K, t)), device=card).to(dt)
+    vals[-1] = 0
+    ids = rng.integers(0, K, N)
+    ids[::97] = K - 1
+    ids = torch.as_tensor(ids.astype(np.int32), device=card)
+    ref = kn.segment_block_expand_plain(vals, ids)
+    kn.reset_counts()
+    assert torch.equal(kn.segment_block_expand(vals, ids), ref)
+    assert kn.segment_block_expand.launches == 1
+
+
 def small_libmv():
     """tests/test_torch_libmv.py's problem: 5 cameras, 120 points."""
     import chip_smoke

@@ -309,3 +309,72 @@ def test_emulated_spread_ftf_refuses_what_it_does_not_take(kernel_path):
     with pytest.raises(ValueError, match="camera plan"):
         kernel_path(kn.segment_spread_sum, Y, cam, pt_start, C, te, tf, Jc, r, None)
     assert kn.segment_spread_ftf.launches == 0
+
+
+def _isc_long_inputs(dtype, emit_u):
+    """isc_matvec's arguments on a row plan that reaches every branch of
+    the redesigned kernel (tests/test_torch_row_plan.py's "long_track"
+    structure): one point of 600 rows (past a point block's
+    kn.POINT_BLOCK rows: a block of its own that loops), points without
+    rows, tracks of 1 to 5 rows, and a camera holding about 4,400 rows (past
+    CHUNK chunks of CHUNK rows: a second level of the camera sum)."""
+    from ceres_tpu_torch.ops import flatops as fo
+    from test_torch_row_plan import _structure
+
+    dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
+    pt, cam, P, C = _structure("long_track")
+    plan = fo.build_row_plan(pt, cam, P, C, "cpu")
+    assert len(plan.cam_levels) == 2 and int(np.bincount(cam)[0]) > kn.CHUNK ** 2
+    rng = np.random.default_rng(11)
+    JT = torch.as_tensor(rng.standard_normal((kn.LANES, pt.shape[0]))).to(dt)
+    z = torch.as_tensor(rng.standard_normal((C, 9))).to(dt)
+    A = rng.standard_normal((P, 3, 3))
+    minv = torch.as_tensor((A @ A.transpose(0, 2, 1)).reshape(P, 9)).to(dt)
+    return JT, z, minv, plan, emit_u
+
+
+@pytest.mark.parametrize("emit_u", [True, False], ids=["isc_matvec", "isc_matvec_no_u"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_emulated_isc_matvec_long_track_and_large_camera(kernel_path, dtype, emit_u):
+    """csrc/isc_matvec.cu's looping point block and its second camera level
+    against the plain version, each output relative to its largest entry:
+    1e-12 in float64, 1e-5 in float32 (sums in another order); one launch
+    for the whole call."""
+    args = _isc_long_inputs(dtype, emit_u)
+    kn.reset_counts()
+    cam, u = kernel_path(kn.isc_matvec, *args)
+    cam_ref, u_ref = kn.isc_matvec_plain(*args)
+    assert kn.isc_matvec.launches == 1 and kn.isc_matvec.plain_calls == 0
+    assert (u is None) == (not emit_u)
+    for o, r in ((cam, cam_ref), (u, u_ref)) if emit_u else ((cam, cam_ref),):
+        assert o.shape == r.shape and o.dtype == r.dtype
+        err = (o.double() - r.double()).abs().max().item()
+        assert err <= LIMIT[r.dtype] * r.double().abs().max().item()
+
+
+def _expand_inputs(dtype, t, N=2501, K=301):
+    """A table (K, t) whose last row is the sentinel zero row, and N ids in
+    no order over all K rows (the sentinel's among them); the last block's
+    453 rows are no whole number of 16-byte groups at any odd t."""
+    dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
+    rng = np.random.default_rng(t)
+    vals = torch.as_tensor(rng.standard_normal((K, t))).to(dt)
+    vals[-1] = 0
+    ids = rng.integers(0, K, N)
+    ids[::97] = K - 1
+    return vals, torch.as_tensor(ids.astype(np.int32))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("t", [1, 3, 6, 8, 9, 13])
+def test_emulated_segment_block_expand_widths(kernel_path, dtype, t):
+    """Every width: the templated kernels (3, 6, 8, 9, with their 16-byte
+    stores and the ragged tail) and the generic one (1, 13): a copy, so
+    exactly the plain version."""
+    vals, ids = _expand_inputs(dtype, t)
+    kn.reset_counts()
+    out = kernel_path(kn.segment_block_expand, vals, ids)
+    assert kn.segment_block_expand.launches == 1
+    assert kn.segment_block_expand.plain_calls == 0
+    assert torch.equal(out, kn.segment_block_expand_plain(vals, ids))
+
