@@ -17,7 +17,11 @@
 
 #include <cuda_runtime.h>
 
+// rows (or items) per chunk, kn.CHUNK; the tests' CPU build of the kernels
+// may set it smaller, with kn.CHUNK, to reach deep level trees at small sizes
+#ifndef CT_CHUNK
 #define CT_CHUNK 64
+#endif
 
 #ifndef CT_LAUNCH
 #define CT_LAUNCH(kernel, grid, block, stream, ...) \

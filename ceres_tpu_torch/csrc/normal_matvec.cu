@@ -6,135 +6,117 @@
 // Replaces the Pallas kernel implicit_schur_matvec in mode="normal", as
 // normal_matvec calls it (ceres_tpu/ops/pallas_kernels.py:781 and :1759,
 // pallas_call at :1258 / :1270). The dense-Schur step uses the point
-// output for its back-substitution (ceres_tpu/solvers/fused_lm.py:963-966).
+// output for its back-substitution (ceres_tpu/solvers/fused_lm.py:963-966),
+// the iterative step for its right-hand side.
 //
-// What bounds it on an H100: bytes. It reads J once (24 values per row)
-// and gathers x; ~100 flops per row. The point output is a segment sum over
-// rows sorted by point: one thread per point. The camera output has the
-// same C-way contention as post_eval_fused, and the same answer: camera
-// chunks staged in shared memory (jv computed once per row there), summed
-// by 9 lanes in order, then a finalize pass over each camera's chunks.
-#include "common.cuh"
+// What bounds it on an H100: bytes. Per row it reads J (24 values) and
+// gathers x_c (9, from L2: the camera table is small) and x_p (3) for ~100
+// flops. The first design walked each point's rows with one thread per
+// point (neighbouring threads a track apart in J: a 32-byte sector for 4
+// or 8 useful bytes), then read all of J again, scattered, by camera chunk.
+// Design: the point-block passes of point_blocks.cuh with this body, as
+// isc_matvec without its M^{-1} step. Each row forms jv from J in registers,
+// the padded row of x_c and its point's x_p; J_e'jv goes to shared memory,
+// where one thread per (point, value) sums it in row order into pt; J_f'jv
+// (9 values) goes at the row's place in camera order (RowPlan.cam_pos),
+// which the camera pass sums by RowPlan.cam_levels. jv never reaches device
+// memory. Traffic per row: J (24 values) read, J_f'jv (9, padded) written
+// and read back. The point pass keeps at most 85 registers a thread (56
+// [80] in float32 [float64]), 3 blocks per SM.
+#include "point_blocks.cuh"
 
-namespace {
-
-using ct::kEOff;
-using ct::kTE;
-using ct::kTF;
-
-constexpr int kThreads = 128;
-
-template <typename T>
-__device__ __forceinline__ void row_jv(const T* __restrict__ JT, int B, int b,
-                                       const T* __restrict__ xc,
-                                       const T* __restrict__ xp, T jf[2][kTF],
-                                       T je[2][kTE], T jv[2]) {
-  for (int i = 0; i < 2; ++i) {
-    T acc = T(0);
-    for (int a = 0; a < kTF; ++a) {
-      jf[i][a] = JT[(long long)(i * kTF + a) * B + b];
-      acc += jf[i][a] * xc[a];
-    }
-    for (int k = 0; k < kTE; ++k) {
-      je[i][k] = JT[(long long)(kEOff + i * kTE + k) * B + b];
-      acc += je[i][k] * xp[k];
-    }
-    jv[i] = acc;
-  }
-}
+namespace ct {
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-normal_matvec_kernel(const T* __restrict__ JT, int B, int P, int pt_blocks,
-                     const int* __restrict__ cam_idx,
-                     const int* __restrict__ pt_idx,
-                     const int* __restrict__ pt_start,
-                     const int* __restrict__ cam_rows,
-                     const int* __restrict__ chunk_start,
-                     const T* __restrict__ xc, const T* __restrict__ xp,
-                     T* __restrict__ pt_out, T* __restrict__ cam_partial) {
-  T jf[2][kTF], je[2][kTE], jv[2];
-  if ((int)blockIdx.x < pt_blocks) {
-    int p = blockIdx.x * kThreads + threadIdx.x;
-    if (p >= P) return;
-    T acc[kTE] = {};
-    const T* xpp = xp + (long long)p * kTE;
-    for (int b = pt_start[p]; b < pt_start[p + 1]; ++b) {
-      row_jv(JT, B, b, xc + (long long)cam_idx[b] * kTF, xpp, jf, je, jv);
-      for (int k = 0; k < kTE; ++k) acc[k] += je[0][k] * jv[0] + je[1][k] * jv[1];
+struct NormalMatvec {
+  static constexpr int kPt = kTE, kCam = kTF;
+  static constexpr int kMinBlocks = 3;
+  static constexpr bool kFinish = false, kRuns = false;
+  struct Reg {
+    Row<T> j;
+    T jv[2];
+  };
+  const T* JT;
+  long long B;
+  const int* cam_idx;
+  const int* pt_idx;
+  const T* xcp;  // (C, kPad) x_c, padded
+  const T* xp;   // (P, 3)
+  T* pt_out;     // (P, 3)
+  CamRows<T> cam;
+
+  __device__ __forceinline__ void load(long long b, Reg& g) const {
+    load_row(JT, B, b, g.j);
+    T xv[kPad<T, kTF>];
+    load_padded<T, kTF>(xcp + (long long)__ldg(cam_idx + b) * kPad<T, kTF>, xv);
+    const T* x = xp + (long long)__ldg(pt_idx + b) * kTE;
+    T xe[kTE] = {__ldg(x), __ldg(x + 1), __ldg(x + 2)};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      T acc = T(0);
+#pragma unroll
+      for (int a = 0; a < kTF; ++a) acc += g.j.f[i * kTF + a] * xv[a];
+#pragma unroll
+      for (int k = 0; k < kTE; ++k) acc += g.j.e[i * kTE + k] * xe[k];
+      g.jv[i] = acc;
     }
-    for (int k = 0; k < kTE; ++k) pt_out[(long long)p * kTE + k] = acc[k];
-    return;
   }
-  constexpr int kW = 2 * kTF + 2;
-  __shared__ T rows[CT_CHUNK][kW];
-  int chunk = blockIdx.x - pt_blocks;
-  int s = chunk_start[chunk], n = chunk_start[chunk + 1] - s;
-  if ((int)threadIdx.x < n) {
-    int b = cam_rows[s + threadIdx.x];
-    row_jv(JT, B, b, xc + (long long)cam_idx[b] * kTF,
-           xp + (long long)pt_idx[b] * kTE, jf, je, jv);
-    for (int i = 0; i < 2; ++i)
-      for (int a = 0; a < kTF; ++a) rows[threadIdx.x][i * kTF + a] = jf[i][a];
-    rows[threadIdx.x][2 * kTF] = jv[0];
-    rows[threadIdx.x][2 * kTF + 1] = jv[1];
+  // J_e'jv
+  __device__ __forceinline__ void point_values(const Reg& g, T* v) const {
+#pragma unroll
+    for (int k = 0; k < kTE; ++k) v[k] = g.j.e[k] * g.jv[0] + g.j.e[kTE + k] * g.jv[1];
   }
-  __syncthreads();
-  int l = threadIdx.x;
-  if (l >= kTF) return;
-  T acc = T(0);
-  for (int i = 0; i < n; ++i)
-    acc += rows[i][l] * rows[i][2 * kTF] + rows[i][kTF + l] * rows[i][2 * kTF + 1];
-  cam_partial[(long long)chunk * kTF + l] = acc;
-}
+  __device__ __forceinline__ void point_out(long long i, T s) const { pt_out[i] = s; }
+  // J_f'jv
+  __device__ __forceinline__ void camera_values(const Reg& g, const T*, T* v) const {
+#pragma unroll
+    for (int a = 0; a < kTF; ++a) v[a] = g.j.f[a] * g.jv[0] + g.j.f[kTF + a] * g.jv[1];
+  }
+};
 
 template <typename T>
-int launch(const T* JT, int B, int P, int C, const int* cam_idx,
-           const int* pt_idx, const int* pt_start, const int* cam_rows,
-           const int* chunk_start, int n_chunks, const int* chunk_first,
-           const T* xc, const T* xp, T* pt_out, T* cam_partial, T* cam_out,
-           cudaStream_t stream) {
-  static_assert(CT_CHUNK <= kThreads, "one thread per chunk row");
-  int pt_blocks = ct::ceil_div(P, kThreads);
-  if (pt_blocks + n_chunks > 0) {
-    CT_LAUNCH(normal_matvec_kernel<T>, pt_blocks + n_chunks, kThreads, stream,
-              JT, B, P, pt_blocks, cam_idx, pt_idx, pt_start, cam_rows,
-              chunk_start, xc, xp, pt_out, cam_partial);
+int normal_launch(const T* JT, int B, int C, const int* cam_idx, const int* pt_idx,
+                  const int* cam_pos, const int* pt_start, const int* pt_block,
+                  int n_pt_blocks, const T* xc, const T* xp, int n_levels,
+                  const int* const* levels, const int* sizes, const int* cam_first,
+                  T* pt_out, T* w, T* xcp, T* work, T* cam_out, cudaStream_t stream) {
+  using Body = NormalMatvec<T>;
+  if (!aligned16(w) || !aligned16(xcp)) return (int)cudaErrorInvalidValue;
+  if (C > 0) {
+    auto pad = pad_kernel<T, Body>;
+    CT_LAUNCH(pad, ceil_div((long long)C * kPad<T, kTF>, 256), 256, stream, xc, C, xcp);
   }
-  int outs = C * kTF;
-  if (outs > 0) {
-    CT_LAUNCH(ct::camera_finalize_kernel<T>, ct::ceil_div(outs, 256), 256,
-              stream, cam_partial, chunk_first, C, kTF, cam_out);
+  if (n_pt_blocks > 0) {
+    const Body body{JT, B, cam_idx, pt_idx, xcp, xp, pt_out, {cam_pos, w}};
+    auto pass = point_pass_kernel<T, Body>;
+    CT_LAUNCH(pass, n_pt_blocks, kBlock, stream, body, pt_start, pt_block);
   }
+  camera_levels<T, Body>(w, C, n_levels, levels, sizes, cam_first, work, cam_out, stream);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace ct
 
-// xc (C, 9), xp (P, 3) -> cam_out (C, 9), pt_out (P, 3); cam_partial is
-// workspace of (n_chunks, 9).
-extern "C" int ct_normal_matvec_f64(const double* JT, int B, int P, int C,
-                                    const int* cam_idx, const int* pt_idx,
-                                    const int* pt_start, const int* cam_rows,
-                                    const int* chunk_start, int n_chunks,
-                                    const int* chunk_first, const double* xc,
-                                    const double* xp, double* pt_out,
-                                    double* cam_partial, double* cam_out,
-                                    cudaStream_t stream) {
-  return launch<double>(JT, B, P, C, cam_idx, pt_idx, pt_start, cam_rows,
-                        chunk_start, n_chunks, chunk_first, xc, xp, pt_out,
-                        cam_partial, cam_out, stream);
-}
+// xc (C, 9), xp (P, 3) -> cam_out (C, 9), pt_out (P, 3). Rows sorted by
+// point (pt_start covers B); pt_block (n_pt_blocks + 1,) the first point of
+// each point block; cam_pos (B,) each row's place in camera order; levels,
+// sizes (host arrays of n_levels) and cam_first (C + 1,) the camera plan's
+// levels. Workspace, 16-byte aligned: w (B, s) and xcp (C, s), s = 12
+// floats or 10 doubles; work (sum of sizes, 9).
+#define CT_NORMAL_ENTRY(NAME, T)                                               \
+  extern "C" int NAME(const T* JT, int B, int C, const int* cam_idx,          \
+                      const int* pt_idx, const int* cam_pos,                  \
+                      const int* pt_start, const int* pt_block,               \
+                      int n_pt_blocks, const T* xc, const T* xp,              \
+                      int n_levels, const int* const* levels,                 \
+                      const int* sizes, const int* cam_first, T* pt_out,      \
+                      T* w, T* xcp, T* work, T* cam_out,                      \
+                      cudaStream_t stream) {                                  \
+    return ct::normal_launch<T>(JT, B, C, cam_idx, pt_idx, cam_pos, pt_start, \
+                                pt_block, n_pt_blocks, xc, xp, n_levels,      \
+                                levels, sizes, cam_first, pt_out, w, xcp,     \
+                                work, cam_out, stream);                       \
+  }
 
-extern "C" int ct_normal_matvec_f32(const float* JT, int B, int P, int C,
-                                    const int* cam_idx, const int* pt_idx,
-                                    const int* pt_start, const int* cam_rows,
-                                    const int* chunk_start, int n_chunks,
-                                    const int* chunk_first, const float* xc,
-                                    const float* xp, float* pt_out,
-                                    float* cam_partial, float* cam_out,
-                                    cudaStream_t stream) {
-  return launch<float>(JT, B, P, C, cam_idx, pt_idx, pt_start, cam_rows,
-                       chunk_start, n_chunks, chunk_first, xc, xp, pt_out,
-                       cam_partial, cam_out, stream);
-}
+CT_NORMAL_ENTRY(ct_normal_matvec_f64, double)
+CT_NORMAL_ENTRY(ct_normal_matvec_f32, float)

@@ -1,0 +1,357 @@
+// The row-parallel point-block design that isc_matvec (row 4b),
+// normal_matvec (row 4) and post_eval_fused (row 2) share: each reads the
+// 24 lanes of J once per row, sums per-row values per point and sums
+// per-row values per camera. Each source keeps its entry point and its
+// own per-row body; this header holds the rest.
+//
+// What bounds the three on an H100: bytes (~100 flops per row against 24
+// values of J read). So neighbouring threads read neighbouring rows of JT's
+// lanes, and nothing of J is read twice (but for a point longer than a
+// block):
+// 1. Point pass, one thread per row. A block owns the rows of whole points
+//    (RowPlan.pt_block: at most kBlock rows and points), loads each row's
+//    lanes coalesced into registers (the body's load), puts the row's
+//    per-point values in shared memory, and sums them per point in row
+//    order: one thread per (point, value) writes a coalesced point table,
+//    or, for a body that needs its point's sum back (isc_matvec's u), one
+//    thread per point passes the sums through the body's finish and hands
+//    the result to the point's rows. Each row then forms its per-camera
+//    values from its registers and writes them, padded to whole 16-byte
+//    groups, at its place in camera order (RowPlan.cam_pos). A body with
+//    wide camera values (post_eval_fused's 18) instead sums them first, in
+//    shared memory, over each run of one camera within the block's rows
+//    (RowPlan.run_*: 0.42 runs per row at the Venice shape), and writes one
+//    padded row per run at the run's place in camera order. The block
+//    stages its points' row starts and its runs' starts and places in
+//    shared memory first: what bounds it beside the bytes is the latency
+//    of its phases between syncs, not their arithmetic. A point with more
+//    rows than a block holds owns a block that loops over tiles of kBlock
+//    rows (a body with finish reads its J twice).
+// 2. Camera pass: the rows (or runs) in camera order are a sorted segment
+//    sum through the fixed tree of levels of the row plan (cam_levels or
+//    run_levels): a block stages the items of a few consecutive chunks with
+//    coalesced loads, sums each (chunk, value) in kSub interleaved parts and
+//    the parts in order; the last level sums each camera's chunks.
+// No atomics anywhere: every sum has a fixed order, so a solve repeats bit
+// for bit, and each point's values are summed in row order.
+#pragma once
+
+#include "common.cuh"
+
+namespace ct {
+
+constexpr int kBlock = 256;  // rows and points of a point block: kn.POINT_BLOCK
+constexpr int kSub = 7;      // parts of a (chunk, value) sum of the camera pass
+
+// W values padded to whole 16-byte groups: the row stride of a padded table
+template <typename T, int W>
+constexpr int kPad = (W + Vec16<T>::kN - 1) / Vec16<T>::kN * Vec16<T>::kN;
+
+template <typename T>
+struct Row {
+  T f[2 * kTF];  // J_f, residual row i at i * 9
+  T e[2 * kTE];  // J_e, residual row i at i * 3
+};
+
+// row b's 24 lanes: neighbouring threads, neighbouring rows of each lane
+template <typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ JT, long long B,
+                                         long long b, Row<T>& j) {
+#pragma unroll
+  for (int i = 0; i < 2 * kTF; ++i) j.f[i] = __ldg(JT + i * B + b);
+#pragma unroll
+  for (int i = 0; i < 2 * kTE; ++i) j.e[i] = __ldg(JT + (kEOff + i) * B + b);
+}
+
+// v (kPad<T, W> values, the tail zero) in whole 16-byte stores
+template <typename T, int W>
+__device__ __forceinline__ void store_padded(T* __restrict__ dst, const T* v) {
+  constexpr int V = Vec16<T>::kN;
+#pragma unroll
+  for (int a = 0; a < kPad<T, W>; a += V) Vec16<T>::store(dst + a, v + a);
+}
+
+// a padded table's row (kPad<T, W> values) in whole 16-byte loads
+template <typename T, int W>
+__device__ __forceinline__ void load_padded(const T* __restrict__ src, T* v) {
+  constexpr int V = Vec16<T>::kN;
+#pragma unroll
+  for (int a = 0; a < kPad<T, W>; a += V) Vec16<T>::load(src + a, v + a);
+}
+
+// in (n, W) -> out (n, kPad<T, W>): a camera table the rows gather padded
+// (Body only names the kernel in a profile)
+template <typename T, class Body>
+__global__ void pad_kernel(const T* __restrict__ in, int n, T* __restrict__ out) {
+  constexpr int W = Body::kCam, S = kPad<T, W>;
+  int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n * S) return;
+  int c = idx / S, l = idx - c * S;
+  out[idx] = l < W ? in[c * W + l] : T(0);
+}
+
+// Where the per-camera values go: at each row's place in camera order
+// (RowPlan.cam_pos), or summed over each run of one camera within a tile of
+// rows and written at the run's place in camera order (RowPlan.run_*).
+template <typename T>
+struct CamRows {
+  const int* cam_pos;  // (B,)
+  T* w;                // (B, kPad)
+};
+template <typename T>
+struct CamRuns {
+  const int* tile_first;  // (n_pt_blocks + 1,) first tile of each point block
+  const int* tile_run;    // (n_tiles + 1,) first run of each tile
+  const int* run_start;   // (n_runs + 1,) each run's first place in run order
+  const int* run_slot;    // (B,) each row's place in run order: (tile, camera, row)
+  const int* run_pos;     // (n_runs,) each run's place in camera order
+  T* w;                   // (n_runs, kPad)
+};
+
+// A body (one per kernel) provides:
+//   kPt, kCam             per-row values summed per point / per camera
+//   kFinish               whether rows need their point's sums back
+//   kRuns                 whether its camera values go by runs (CamRuns)
+//   kMinBlocks            blocks per SM the point pass keeps its registers for
+//   Reg                   what a row keeps in registers
+//   load(b, g)            row b into g
+//   point_values(g, v)    kPt values of the row
+//   point_out(i, s)       (no kFinish) value i of the flat (P, kPt) point
+//                         table, s the sum over the point's rows
+//   finish(p, s, u)       (kFinish) point p's kPt sums -> kPt values its rows read
+//   camera_values(g, u, v) kCam values of the row (u: finish's, or null)
+//   cam                   its CamRows or CamRuns
+
+// Rows r0 .. r0 + m (thread tid < m holds row r0 + tid in g) write their
+// camera values, padded, at their places in camera order.
+template <typename T, class Body>
+__device__ __forceinline__ void camera_rows(const Body& body, long long r0, int m,
+                                            const typename Body::Reg& g, const T* u) {
+  constexpr int NC = Body::kCam, S = kPad<T, NC>;
+  const int tid = threadIdx.x;
+  if (tid < m) {
+    T v[S];
+    body.camera_values(g, u, v);
+#pragma unroll
+    for (int a = NC; a < S; ++a) v[a] = T(0);
+    store_padded<T, NC>(body.cam.w + (long long)__ldg(body.cam.cam_pos + r0 + tid) * S, v);
+  }
+}
+
+// The rows of tile `tile` (r0 .. r0 + m, m <= kBlock): thread tid < m loads
+// row r0 + tid into g and puts its point values in sh. A body by runs first
+// puts the row's camera values at its place in the tile's run order in sh,
+// sums each (run, value) over the run's rows (contiguous there, in row
+// order) and writes the run's padded row: its J_f is dead before the block
+// waits, and only what its point values need stays in registers. Every
+// thread of the block calls it; sh is free on entry.
+template <typename T, class Body>
+__device__ __forceinline__ void tile_rows(const Body& body, int tile, long long r0, int m,
+                                          typename Body::Reg& g, T* sh) {
+  const int tid = threadIdx.x;
+  if (tid < m) body.load(r0 + tid, g);
+  if constexpr (Body::kRuns) {
+    constexpr int NC = Body::kCam, S = kPad<T, NC>;
+    if (tid < m) {
+      T v[NC];
+      body.camera_values(g, nullptr, v);
+      T* dst = sh + (__ldg(body.cam.run_slot + r0 + tid) - r0) * NC;
+#pragma unroll
+      for (int a = 0; a < NC; ++a) dst[a] = v[a];
+    }
+    __shared__ int rs[kBlock + 1], rp[kBlock];
+    const int q0 = __ldg(body.cam.tile_run + tile);
+    const int nq = __ldg(body.cam.tile_run + tile + 1) - q0;
+    for (int i = tid; i <= nq; i += kBlock) {  // the tile's runs: starts, places
+      rs[i] = (int)(__ldg(body.cam.run_start + q0 + i) - r0);
+      if (i < nq) rp[i] = __ldg(body.cam.run_pos + q0 + i);
+    }
+    __syncthreads();
+    for (int i = tid; i < nq * NC; i += kBlock) {
+      const int q = i / NC, a = i % NC;
+      T s = T(0);
+      for (int k = rs[q]; k < rs[q + 1]; ++k) s += sh[k * NC + a];
+      body.cam.w[(long long)rp[q] * S + a] = s;
+    }
+    __syncthreads();
+  }
+  if (tid < m) body.point_values(g, sh + tid * Body::kPt);
+}
+
+// The block of one point p of n > kBlock rows from row r0: tiles of kBlock
+// rows in turn; thread k < kPt sums value k over the rows in row order.
+template <typename T, class Body>
+__device__ void long_point(const Body& body, int blk, int p, long long r0, int n,
+                           T* sh) {
+  constexpr int NP = Body::kPt;
+  const int tid = threadIdx.x;
+  int tile = 0;
+  if constexpr (Body::kRuns) tile = __ldg(body.cam.tile_first + blk);
+  T acc = T(0);
+  for (int c = 0; c < n; c += kBlock, ++tile) {
+    const int m = n - c < kBlock ? n - c : kBlock;
+    typename Body::Reg g;
+    tile_rows<T>(body, tile, r0 + c, m, g, sh);
+    __syncthreads();
+    if (tid < NP)
+      for (int r = 0; r < m; ++r) acc += sh[r * NP + tid];
+    if constexpr (!Body::kFinish && !Body::kRuns) camera_rows<T>(body, r0 + c, m, g, nullptr);
+    __syncthreads();
+  }
+  if constexpr (!Body::kFinish) {
+    if (tid < NP) body.point_out((long long)p * NP + tid, acc);
+  } else {
+    if (tid < NP) sh[tid] = acc;
+    __syncthreads();
+    if (tid == 0) body.finish(p, sh, sh + NP);
+    __syncthreads();
+    for (int c = 0; c < n; c += kBlock) {
+      const int m = n - c < kBlock ? n - c : kBlock;
+      typename Body::Reg g;
+      if (tid < m) body.load(r0 + c + tid, g);
+      camera_rows<T>(body, r0 + c, m, g, sh + NP);
+    }
+  }
+}
+
+template <typename T, class Body>
+__global__ void __launch_bounds__(kBlock, Body::kMinBlocks)
+point_pass_kernel(const Body body, const int* __restrict__ pt_start,
+                  const int* __restrict__ pt_block) {
+  constexpr int NP = Body::kPt, NC = Body::kCam;
+  static_assert(!(Body::kFinish && Body::kRuns), "finish hands values through sh");
+  __shared__ T sh[kBlock * (Body::kRuns && NC > NP ? NC : NP)];
+  const int tid = threadIdx.x;
+  const int p0 = pt_block[blockIdx.x], p1 = pt_block[blockIdx.x + 1];
+  const long long r0 = pt_start[p0];
+  const int n = (int)(pt_start[p1] - r0);
+  if (n > kBlock) {  // the block's one point (block-uniform)
+    long_point<T>(body, blockIdx.x, p0, r0, n, sh);
+    return;
+  }
+  int tile = 0;
+  if constexpr (Body::kRuns) tile = __ldg(body.cam.tile_first + blockIdx.x);
+  __shared__ int ps[Body::kFinish ? 1 : kBlock + 1];  // the block's point starts, from r0
+  if constexpr (!Body::kFinish)
+    for (int i = tid; i <= p1 - p0; i += kBlock) ps[i] = (int)(pt_start[p0 + i] - r0);
+  typename Body::Reg g;
+  tile_rows<T>(body, tile, r0, n, g, sh);
+  __syncthreads();
+  if constexpr (Body::kFinish) {
+    // one thread per point: its rows' values in row order, through finish,
+    // handed back to its rows' slots
+    const int p = p0 + tid;
+    if (p < p1) {
+      const int a = (int)(pt_start[p] - r0), e = (int)(pt_start[p + 1] - r0);
+      T s[NP] = {};
+      for (int r = a; r < e; ++r)
+#pragma unroll
+        for (int k = 0; k < NP; ++k) s[k] += sh[r * NP + k];
+      T u[NP];
+      body.finish(p, s, u);
+      for (int r = a; r < e; ++r)
+#pragma unroll
+        for (int k = 0; k < NP; ++k) sh[r * NP + k] = u[k];
+    }
+    __syncthreads();
+    camera_rows<T>(body, r0, n, g, sh + tid * NP);
+  } else {
+    // one thread per (point, value): its rows in row order, written to the
+    // point table coalesced
+    const int nv = (p1 - p0) * NP;
+    for (int i = tid; i < nv; i += kBlock) {
+      const int q = i / NP, k = i % NP;
+      T s = T(0);
+      for (int r = ps[q]; r < ps[q + 1]; ++r) s += sh[r * NP + k];
+      body.point_out((long long)p0 * NP + i, s);
+    }
+    if constexpr (!Body::kRuns) camera_rows<T>(body, r0, n, g, nullptr);
+  }
+}
+
+// chunks of W-wide items that a block of the camera pass sums
+template <int W>
+constexpr int kTileChunks = 36 / W;
+
+// One level of the camera sum: block k sums chunks [k kTileChunks, ...) of
+// `in` (items of W values at stride IS in camera order; chunk c covers
+// items cs[c] .. cs[c+1], at most CT_CHUNK, never across a camera) into
+// out (n_chunks, W). Level 0 reads the padded rows with 16-byte loads.
+template <typename T, class Body, int IS>
+__global__ void __launch_bounds__(kBlock)
+camera_level_kernel(const T* __restrict__ in, const int* __restrict__ cs, int n_chunks,
+                    T* __restrict__ out) {
+  constexpr int W = Body::kCam, TC = kTileChunks<W>, V = Vec16<T>::kN;
+  static_assert(TC >= 1 && TC * W * kSub <= kBlock, "a thread per part");
+  __shared__ T rows[TC * CT_CHUNK * W];
+  __shared__ T part[TC * kSub * W];
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.x * TC;
+  const int nc = n_chunks - c0 < TC ? n_chunks - c0 : TC;
+  const int s = cs[c0];
+  const int nv = (cs[c0 + nc] - s) * IS;
+  const T* src = in + (long long)s * IS;
+  if constexpr (IS % V == 0) {
+    for (int k = tid * V; k < nv; k += kBlock * V) {
+      T x[V];
+      Vec16<T>::load(src + k, x);
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const int r = (k + q) / IS, l = k + q - r * IS;
+        if (l < W) rows[r * W + l] = x[q];
+      }
+    }
+  } else {
+    for (int i = tid; i < nv; i += kBlock) rows[i] = __ldg(src + i);
+  }
+  __syncthreads();
+  // part (chunk c, value l, part g): items g, g + kSub, ... of the chunk
+  const int c = tid / (kSub * W), l = tid % W, g = (tid / W) % kSub;
+  if (c < nc) {
+    const int r1 = cs[c0 + c + 1] - s;
+    T acc = T(0);
+    for (int r = cs[c0 + c] - s + g; r < r1; r += kSub) acc += rows[r * W + l];
+    part[tid] = acc;
+  }
+  __syncthreads();
+  if (tid < nc * W) {
+    const int cc = tid / W, ll = tid % W;
+    T acc = T(0);
+    for (int gg = 0; gg < kSub; ++gg) acc += part[(cc * kSub + gg) * W + ll];
+    out[(long long)(c0 + cc) * W + ll] = acc;
+  }
+}
+
+// The camera pass over the padded items `in` (rows or runs in camera
+// order): levels[lv] (sizes[lv] + 1,) device chunk offsets of level lv
+// (host arrays of n_levels), level 0 chunking the items, each further level
+// the partials of the one before; cam_first (C + 1,) each camera's chunks
+// of the last level. work holds every level's partials in turn.
+template <typename T, class Body>
+void camera_levels(const T* in, int C, int n_levels, const int* const* levels,
+                   const int* sizes, const int* cam_first, T* work, T* cam_out,
+                   cudaStream_t stream) {
+  constexpr int W = Body::kCam;
+  const T* src = in;
+  T* dst = work;
+  for (int lv = 0; lv <= n_levels; ++lv) {
+    const bool last = lv == n_levels;
+    const int* cs = last ? cam_first : levels[lv];
+    const int n = last ? C : sizes[lv];
+    T* out = last ? cam_out : dst;
+    if (n > 0) {
+      auto kernel = lv == 0 ? camera_level_kernel<T, Body, kPad<T, W>>
+                            : camera_level_kernel<T, Body, W>;
+      CT_LAUNCH(kernel, ceil_div(n, kTileChunks<W>), kBlock, stream, src, cs, n, out);
+    }
+    src = dst;
+    dst += (long long)n * W;
+  }
+}
+
+template <typename T>
+inline bool aligned16(const T* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
+}
+
+}  // namespace ct

@@ -6,128 +6,113 @@
 // (ceres_tpu/ops/pallas_kernels.py:1780, pallas_call at :2052).
 //
 // What bounds it on an H100: bytes. It reads J and r once (26 values per
-// observation) for ~100 flops per observation and writes per-point and
-// per-camera tables that are small next to J.
-// The point sums are contiguous segments, because rows are sorted by point
-// (about 3.8 rows per point at BAL-16): one thread per point walks its
-// segment. The camera sums reduce every row into only C cameras (16 at
-// BAL-16), which as global atomics would serialise on 16 addresses and,
-// in float64, make runs differ. Instead the camera plan (common.cuh) cuts
-// the rows of each camera into chunks of at most CT_CHUNK rows: one block
-// stages a chunk's rows in shared memory and 18 lanes sum them in order;
-// a finalize pass sums each camera's chunk partials in order. Point
-// blocks and chunk blocks share one launch.
-#include "common.cuh"
+// row) for ~100 flops per row and writes per-point and per-camera tables
+// that are small next to J. The first design walked each point's rows with
+// one thread per point (neighbouring threads a track apart in J), then
+// gathered every row's J_f again by camera chunk, one 32-byte sector per
+// value.
+// Design: the point-block passes of point_blocks.cuh with this body. Each
+// row loads its 24 lanes and 2 residuals coalesced; its 15 point values go
+// to shared memory, where one thread per (point, value) sums them in row
+// order into ptab, written coalesced. Its 18 camera values are wider than
+// the 9 of the matvecs: a padded row each, written and read back, would
+// move 1.5 times J's own bytes. So they go by runs: summed in shared memory
+// over the rows of each camera within the block's tile (0.42 runs per row at
+// the Venice shape, 1/16 at BAL-16), one padded row per run at the run's
+// place in camera order (RowPlan.run_*), which the camera pass sums by
+// RowPlan.run_levels. The camera values come first, so that only J_e and r
+// stay live across the block's syncs: 64 registers a thread, 4 blocks per
+// SM in both dtypes.
+#include "point_blocks.cuh"
 
-namespace {
-
-using ct::kEOff;
-using ct::kTE;
-using ct::kTF;
-
-constexpr int kThreads = 128;
-constexpr int kPtOut = 2 * kTE + kTE * kTE;  // 15 values per point
-constexpr int kCamOut = 2 * kTF;             // 18 values per camera
+namespace ct {
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-post_eval_kernel(const T* __restrict__ JT, const T* __restrict__ rT, int B,
-                 int P, int pt_blocks, const int* __restrict__ pt_start,
-                 const int* __restrict__ cam_rows,
-                 const int* __restrict__ chunk_start, T* __restrict__ ptab,
-                 T* __restrict__ cam_partial) {
-  if ((int)blockIdx.x < pt_blocks) {
-    int p = blockIdx.x * kThreads + threadIdx.x;
-    if (p >= P) return;
-    T g[kTE] = {}, sq[kTE] = {}, ete[kTE][kTE] = {};
-    for (int b = pt_start[p]; b < pt_start[p + 1]; ++b) {
-      T r[2] = {rT[b], rT[(long long)B + b]};
-      T je[2][kTE];
-      for (int i = 0; i < 2; ++i)
-        for (int k = 0; k < kTE; ++k)
-          je[i][k] = JT[(long long)(kEOff + i * kTE + k) * B + b];
-      for (int k = 0; k < kTE; ++k) {
-        g[k] += je[0][k] * r[0] + je[1][k] * r[1];
-        sq[k] += je[0][k] * je[0][k] + je[1][k] * je[1][k];
-        for (int m = 0; m < kTE; ++m)
-          ete[k][m] += je[0][k] * je[0][m] + je[1][k] * je[1][m];
-      }
-    }
-    T* out = ptab + (long long)p * kPtOut;
+struct PostEvalFused {
+  static constexpr int kPt = 2 * kTE + kTE * kTE;  // g_e | sqn_e | E'E
+  static constexpr int kCam = 2 * kTF;             // g_f | sqn_f
+  static constexpr int kMinBlocks = 4;
+  static constexpr bool kFinish = false, kRuns = true;
+  struct Reg {
+    Row<T> j;
+    T r[2];
+  };
+  const T* JT;
+  const T* rT;
+  long long B;
+  T* ptab;  // (P, 15)
+  CamRuns<T> cam;
+
+  __device__ __forceinline__ void load(long long b, Reg& g) const {
+    load_row(JT, B, b, g.j);
+    g.r[0] = __ldg(rT + b);
+    g.r[1] = __ldg(rT + B + b);
+  }
+  __device__ __forceinline__ void point_values(const Reg& g, T* v) const {
+    const T* e = g.j.e;
+#pragma unroll
     for (int k = 0; k < kTE; ++k) {
-      out[k] = g[k];
-      out[kTE + k] = sq[k];
-      for (int m = 0; m < kTE; ++m) out[2 * kTE + k * kTE + m] = ete[k][m];
+      v[k] = e[k] * g.r[0] + e[kTE + k] * g.r[1];
+      v[kTE + k] = e[k] * e[k] + e[kTE + k] * e[kTE + k];
+#pragma unroll
+      for (int m = 0; m < kTE; ++m)
+        v[2 * kTE + k * kTE + m] = e[k] * e[m] + e[kTE + k] * e[kTE + m];
     }
-    return;
   }
-  // one camera chunk: stage J_f (18) and r (2) of its rows, then lanes
-  constexpr int kW = 2 * kTF + 2;
-  __shared__ T rows[CT_CHUNK][kW];
-  int chunk = blockIdx.x - pt_blocks;
-  int s = chunk_start[chunk], n = chunk_start[chunk + 1] - s;
-  for (int idx = threadIdx.x; idx < n * kW; idx += kThreads) {
-    int i = idx / kW, l = idx % kW;
-    int b = cam_rows[s + i];
-    rows[i][l] = l < 2 * kTF ? JT[(long long)l * B + b]
-                             : rT[(long long)(l - 2 * kTF) * B + b];
+  __device__ __forceinline__ void point_out(long long i, T s) const { ptab[i] = s; }
+  __device__ __forceinline__ void camera_values(const Reg& g, const T*, T* v) const {
+    const T* f = g.j.f;
+#pragma unroll
+    for (int a = 0; a < kTF; ++a) {
+      v[a] = f[a] * g.r[0] + f[kTF + a] * g.r[1];
+      v[kTF + a] = f[a] * f[a] + f[kTF + a] * f[kTF + a];
+    }
   }
-  __syncthreads();
-  int l = threadIdx.x;
-  if (l >= kCamOut) return;
-  T acc = T(0);
-  if (l < kTF) {
-    for (int i = 0; i < n; ++i)
-      acc += rows[i][l] * rows[i][2 * kTF] + rows[i][kTF + l] * rows[i][2 * kTF + 1];
-  } else {
-    int a = l - kTF;
-    for (int i = 0; i < n; ++i)
-      acc += rows[i][a] * rows[i][a] + rows[i][kTF + a] * rows[i][kTF + a];
-  }
-  cam_partial[(long long)chunk * kCamOut + l] = acc;
-}
+};
 
 template <typename T>
-int launch(const T* JT, const T* rT, int B, int P, int C, const int* pt_start,
-           const int* cam_rows, const int* chunk_start, int n_chunks,
-           const int* chunk_first, T* ptab, T* cam_partial, T* cam,
-           cudaStream_t stream) {
-  int pt_blocks = ct::ceil_div(P, kThreads);
-  if (pt_blocks + n_chunks > 0) {
-    CT_LAUNCH(post_eval_kernel<T>, pt_blocks + n_chunks, kThreads, stream, JT,
-              rT, B, P, pt_blocks, pt_start, cam_rows, chunk_start, ptab,
-              cam_partial);
+int post_eval_launch(const T* JT, const T* rT, int B, int C, const int* pt_start,
+                     const int* pt_block, int n_pt_blocks, const int* tile_first,
+                     const int* tile_run, const int* run_start, const int* run_slot,
+                     const int* run_pos, int n_levels, const int* const* levels,
+                     const int* sizes, const int* cam_first, T* ptab, T* w, T* work,
+                     T* cam, cudaStream_t stream) {
+  using Body = PostEvalFused<T>;
+  if (!aligned16(w)) return (int)cudaErrorInvalidValue;
+  if (n_pt_blocks > 0) {
+    const Body body{JT, rT, B, ptab, {tile_first, tile_run, run_start, run_slot, run_pos, w}};
+    auto pass = point_pass_kernel<T, Body>;
+    CT_LAUNCH(pass, n_pt_blocks, kBlock, stream, body, pt_start, pt_block);
   }
-  int outs = C * kCamOut;
-  if (outs > 0) {
-    CT_LAUNCH(ct::camera_finalize_kernel<T>, ct::ceil_div(outs, 256), 256,
-              stream, cam_partial, chunk_first, C, kCamOut, cam);
-  }
+  camera_levels<T, Body>(w, C, n_levels, levels, sizes, cam_first, work, cam, stream);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace ct
 
-// ptab (P, 15) = [g_e | sqn_e | E'E]; cam (C, 18) = [g_f | sqn_f];
-// cam_partial is workspace of (n_chunks, 18).
-extern "C" int ct_post_eval_fused_f64(const double* JT, const double* rT, int B,
-                                      int P, int C, const int* pt_start,
-                                      const int* cam_rows,
-                                      const int* chunk_start, int n_chunks,
-                                      const int* chunk_first, double* ptab,
-                                      double* cam_partial, double* cam,
-                                      cudaStream_t stream) {
-  return launch<double>(JT, rT, B, P, C, pt_start, cam_rows, chunk_start,
-                        n_chunks, chunk_first, ptab, cam_partial, cam, stream);
-}
+// ptab (P, 15) = [g_e | sqn_e | E'E]; cam (C, 18) = [g_f | sqn_f]. Rows
+// sorted by point (pt_start covers B); pt_block (n_pt_blocks + 1,) the first
+// point of each point block; the runs (RowPlan.run_*): tile_first
+// (n_pt_blocks + 1,), tile_run (n_tiles + 1,), run_start (n_runs + 1,),
+// run_slot (B,), run_pos (n_runs,); levels, sizes (host arrays of n_levels)
+// and cam_first (C + 1,) the runs' camera levels. Workspace, 16-byte
+// aligned: w (n_runs, s), s = 20 floats or 18 doubles; work (sum of sizes,
+// 18).
+#define CT_POST_EVAL_ENTRY(NAME, T)                                            \
+  extern "C" int NAME(const T* JT, const T* rT, int B, int C,                 \
+                      const int* pt_start, const int* pt_block,               \
+                      int n_pt_blocks, const int* tile_first,                 \
+                      const int* tile_run, const int* run_start,              \
+                      const int* run_slot, const int* run_pos, int n_levels,  \
+                      const int* const* levels, const int* sizes,             \
+                      const int* cam_first, T* ptab, T* w, T* work, T* cam,   \
+                      cudaStream_t stream) {                                  \
+    return ct::post_eval_launch<T>(JT, rT, B, C, pt_start, pt_block,          \
+                                   n_pt_blocks, tile_first, tile_run,         \
+                                   run_start, run_slot, run_pos, n_levels,    \
+                                   levels, sizes, cam_first, ptab, w, work,   \
+                                   cam, stream);                              \
+  }
 
-extern "C" int ct_post_eval_fused_f32(const float* JT, const float* rT, int B,
-                                      int P, int C, const int* pt_start,
-                                      const int* cam_rows,
-                                      const int* chunk_start, int n_chunks,
-                                      const int* chunk_first, float* ptab,
-                                      float* cam_partial, float* cam,
-                                      cudaStream_t stream) {
-  return launch<float>(JT, rT, B, P, C, pt_start, cam_rows, chunk_start,
-                       n_chunks, chunk_first, ptab, cam_partial, cam, stream);
-}
+CT_POST_EVAL_ENTRY(ct_post_eval_fused_f64, double)
+CT_POST_EVAL_ENTRY(ct_post_eval_fused_f32, float)

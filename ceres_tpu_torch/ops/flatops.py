@@ -75,19 +75,30 @@ class RowPlan:
     # (n+1,) int32 first point of each point block: whole points of at most
     # kn.POINT_BLOCK rows and points together, or one point of more rows
     pt_block: torch.Tensor
+    # the runs: the rows of one camera within one tile, a tile being a point
+    # block's rows, or kn.POINT_BLOCK of them in a block of one longer point
+    # (post_eval_fused sums its camera values over each run first)
+    tile_first: torch.Tensor  # (n_pt_blocks+1,) int32 first tile of each point block
+    tile_run: torch.Tensor  # (n_tiles+1,) int32 first run of each tile
+    # the rows in run order, (tile, camera, row): run q holds the places
+    # run_start[q] .. run_start[q+1], row b sits at place run_slot[b]
+    run_start: torch.Tensor  # (n_runs+1,) int32
+    run_slot: torch.Tensor  # (B,) int32
+    run_pos: torch.Tensor  # (n_runs,) int32 each run's place in camera order
+    # the camera sum's tree over the runs in camera order, as cam_levels
+    run_levels: Tuple[torch.Tensor, ...]
+    run_level_first: torch.Tensor
     pairs: Optional[PairPlan] = None  # the dense-Schur pair plan, on request
 
     def __post_init__(self):
-        # the camera levels as isc_matvec passes them, checked and built
-        # once: their chunk counts, and host arrays of those counts and of
-        # the levels' device pointers
-        for lv, st in enumerate(self.cam_levels):
-            kn._check(st, f"plan.cam_levels[{lv}]", torch.int32, (st.shape[0],),
-                      self.cam_idx.device)
-        self.cam_level_sizes = tuple(int(st.shape[0]) - 1 for st in self.cam_levels)
-        n = len(self.cam_levels)
-        self.cam_level_counts = (ctypes.c_int * n)(*self.cam_level_sizes)
-        self.cam_level_ptrs = (ctypes.c_void_p * n)(*[st.data_ptr() for st in self.cam_levels])
+        # the levels as the kernels pass them, checked and built once: their
+        # chunk counts, and host arrays of those counts and of the levels'
+        # device pointers
+        dev = self.cam_idx.device
+        (self.cam_level_sizes, self.cam_level_counts,
+         self.cam_level_ptrs) = level_host_arrays(self.cam_levels, "cam_levels", dev)
+        (self.run_level_sizes, self.run_level_counts,
+         self.run_level_ptrs) = level_host_arrays(self.run_levels, "run_levels", dev)
 
     @property
     def n_cam_chunks(self) -> int:
@@ -97,6 +108,14 @@ class RowPlan:
     def n_pt_blocks(self) -> int:
         return self.pt_block.shape[0] - 1
 
+    @property
+    def n_tiles(self) -> int:
+        return self.tile_run.shape[0] - 1
+
+    @property
+    def n_runs(self) -> int:
+        return self.run_pos.shape[0]
+
     def ensure_pairs(self) -> PairPlan:
         """The point-pair plan, built on first request."""
         if self.pairs is None:
@@ -105,6 +124,19 @@ class RowPlan:
                                           self.pt_start.cpu().numpy(), self.C,
                                           self.pt_idx.device)
         return self.pairs
+
+
+def level_host_arrays(levels, name: str, device):
+    """(sizes, counts, ptrs) of a fixed summation tree's levels, each an
+    int32 (n + 1,) tensor of chunk offsets on `device`: the chunk counts,
+    and host arrays of those counts and of the levels' device pointers, as
+    the kernels take them. Raises for a level that is not such a tensor."""
+    for lv, st in enumerate(levels):
+        kn._check(st, f"plan.{name}[{lv}]", torch.int32, (st.shape[0],), device)
+    sizes = tuple(int(st.shape[0]) - 1 for st in levels)
+    n = len(levels)
+    return (sizes, (ctypes.c_int * n)(*sizes),
+            (ctypes.c_void_p * n)(*[st.data_ptr() for st in levels]))
 
 
 def _chunks(keys_sorted: np.ndarray, num_keys: int, chunk: int):
@@ -161,6 +193,38 @@ def _point_blocks(pt_start: np.ndarray, cap: int) -> np.ndarray:
     return np.asarray(blocks, np.int64)
 
 
+def _camera_runs(pt_start, pt_block, cam_idx, cam_rows, C: int):
+    """The runs of one camera within one tile of rows (RowPlan.run_*):
+    (tile_first, tile_run, run_start, run_slot, run_pos, counts of runs per
+    camera), int64. A tile is a point block's rows, or kn.POINT_BLOCK of
+    them in a block of one longer point. Runs are found in camera order,
+    along cam_rows, where a camera's rows come in row order and so tile by
+    tile; then ordered by tile, camera within a tile."""
+    cap = kn.POINT_BLOCK
+    B = cam_idx.shape[0]
+    blk_rows = pt_start[pt_block]
+    per_block = np.maximum(1, -(-np.diff(blk_rows) // cap))
+    tile_first = np.concatenate([[0], np.cumsum(per_block)])
+    owner = np.repeat(np.arange(per_block.shape[0]), per_block)
+    t0 = blk_rows[owner] + (np.arange(tile_first[-1]) - tile_first[owner]) * cap
+    t1 = np.minimum(t0 + cap, blk_rows[owner + 1])
+    tile = np.repeat(np.arange(t0.shape[0]), t1 - t0)[cam_rows]
+    cam = cam_idx[cam_rows]
+    new = np.ones(B, bool)
+    new[1:] = (tile[1:] != tile[:-1]) | (cam[1:] != cam[:-1])
+    first = np.flatnonzero(new)  # each run's first place in camera order
+    length = np.diff(np.append(first, B))
+    order = np.argsort(tile[first], kind="stable")  # the runs by tile
+    run_start = np.concatenate([[0], np.cumsum(length[order])])
+    run_slot = np.empty(B, np.int64)
+    run_slot[cam_rows[np.repeat(first[order] - run_start[:-1], length[order])
+                      + np.arange(B)]] = np.arange(B)
+    tile_run = np.concatenate([[0], np.cumsum(np.bincount(tile[first],
+                                                          minlength=t0.shape[0]))])
+    return (tile_first, tile_run, run_start, run_slot, order,
+            np.bincount(cam[first], minlength=C))
+
+
 def _dev_i32(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.size and (a.min() < 0 or a.max() > np.iinfo(np.int32).max):
@@ -186,10 +250,14 @@ def build_row_plan(pt_idx: np.ndarray, cam_idx: np.ndarray, P: int, C: int,
         return _dev_i32(a, device)
 
     cam_levels = tuple(dev(a) for a in starts)
+    pt_block = _point_blocks(pt_start, kn.POINT_BLOCK)
+    *runs, runs_per_cam = _camera_runs(pt_start, pt_block, cam_idx, cam_rows, C)
+    run_starts, run_firsts = _chunk_levels(runs_per_cam)
     return RowPlan(B, P, C, dev(pt_idx), dev(cam_idx), dev(pt_start),
                    dev(cam_rows), cam_levels[0], dev(firsts[0]), dev(cam_pos),
-                   cam_levels, dev(firsts[-1]),
-                   dev(_point_blocks(pt_start, kn.POINT_BLOCK)))
+                   cam_levels, dev(firsts[-1]), dev(pt_block),
+                   *(dev(a) for a in runs), tuple(dev(a) for a in run_starts),
+                   dev(run_firsts[-1]))
 
 
 def _build_pair_plan(pt_idx, cam_idx, pt_start, C: int, device) -> PairPlan:
@@ -504,7 +572,8 @@ class SegmentPlan:
     CHUNK, so that a key holding every row (the shared intrinsics block)
     is summed in a fixed tree, never by one thread. `key_first` indexes
     each key's chunks of the last level, which the finalize pass sums in
-    order."""
+    order. The levels' chunk counts and their host arrays (level_sizes,
+    level_counts, level_ptrs) are checked and built once, with the plan."""
 
     ids: torch.Tensor  # (B,) int32 block id of each row, in [0, num_keys)
     num_keys: int
@@ -513,13 +582,14 @@ class SegmentPlan:
     key_first: torch.Tensor  # (num_keys + 1,) int32 first last-level chunk of each key
     seg_start: Optional[torch.Tensor]  # sorted ids: (num_keys + 1,) int32 row offsets
 
+    def __post_init__(self):
+        (self.level_sizes, self.level_counts,
+         self.level_ptrs) = level_host_arrays(self.level_starts, "level_starts",
+                                              self.ids.device)
+
     @property
     def B(self) -> int:
         return self.ids.shape[0]
-
-    @property
-    def level_sizes(self) -> Tuple[int, ...]:
-        return tuple(int(s.shape[0]) - 1 for s in self.level_starts)
 
 
 def build_segment_plan(ids, num_keys: int, device) -> SegmentPlan:

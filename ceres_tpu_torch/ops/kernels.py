@@ -38,12 +38,13 @@ R, TF, TE = 2, 9, 3
 LANES = R * (TF + TE)
 E_OFF = R * TF
 CHUNK = 64  # rows (or pairs) per chunk; CT_CHUNK in csrc/common.cuh
-POINT_BLOCK = 256  # rows and points of a point block; kThreads in csrc/isc_matvec.cu
-# isc_matvec's z and w rows: 9 values padded to whole 16-byte groups
-# (kStride in csrc/isc_matvec.cu)
-_ISC_STRIDE = {torch.float32: 12, torch.float64: 10}
+POINT_BLOCK = 256  # rows and points of a point block; kBlock in csrc/point_blocks.cuh
 _PT_OUT = 2 * TE + TE * TE
 _CAM_OUT = 2 * TF
+# the row stride of a padded camera table or workspace: w values padded to
+# whole 16-byte groups (kPad in csrc/point_blocks.cuh)
+_PAD = {dt: {w: -(-w * n // 16) * 16 // n for w in (TF, _CAM_OUT)}
+        for dt, n in ((torch.float32, 4), (torch.float64, 8))}
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
@@ -86,6 +87,19 @@ def _check_plan(plan, device) -> None:
     _check(plan.cam_chunk_start, "plan.cam_chunk_start", i32,
            (plan.n_cam_chunks + 1,), device)
     _check(plan.cam_chunk_first, "plan.cam_chunk_first", i32, (C + 1,), device)
+
+
+def _check_point_blocks(plan, device) -> None:
+    """The point blocks of the row-parallel kernels (csrc/point_blocks.cuh)."""
+    _check(plan.pt_block, "plan.pt_block", torch.int32, (plan.n_pt_blocks + 1,), device)
+
+
+def _check_cam_levels(plan, device) -> None:
+    """Each row's place in camera order and the last camera level's chunks
+    of each camera; the levels themselves are checked by the RowPlan."""
+    _check(plan.cam_pos, "plan.cam_pos", torch.int32, (plan.B,), device)
+    _check(plan.cam_level_first, "plan.cam_level_first", torch.int32,
+           (plan.C + 1,), device)
 
 
 def _dtype_of(ref: torch.Tensor):
@@ -310,14 +324,26 @@ def post_eval_fused(JT, rT, plan):
     _check(JT, "JT", dt, (LANES, B), dev)
     _check(rT, "rT", dt, (R, B), dev)
     _check_plan(plan, dev)
+    _check_point_blocks(plan, dev)
+    i32 = torch.int32
+    _check(plan.tile_first, "plan.tile_first", i32, (plan.n_pt_blocks + 1,), dev)
+    _check(plan.tile_run, "plan.tile_run", i32, (plan.n_tiles + 1,), dev)
+    _check(plan.run_start, "plan.run_start", i32, (plan.n_runs + 1,), dev)
+    _check(plan.run_slot, "plan.run_slot", i32, (B,), dev)
+    _check(plan.run_pos, "plan.run_pos", i32, (plan.n_runs,), dev)
+    _check(plan.run_level_first, "plan.run_level_first", i32, (C + 1,), dev)
+    sizes = plan.run_level_sizes  # the levels themselves: checked by RowPlan
     ptab = torch.empty((P, _PT_OUT), dtype=dt, device=dev)
-    cam_partial = torch.empty((max(1, plan.n_cam_chunks), _CAM_OUT), dtype=dt,
-                              device=dev)
+    w = torch.empty((max(1, plan.n_runs), _PAD[dt][_CAM_OUT]), dtype=dt, device=dev)
+    work = torch.empty((max(1, sum(sizes)), _CAM_OUT), dtype=dt, device=dev)
     cam = torch.empty((C, _CAM_OUT), dtype=dt, device=dev)
-    _launch(fn, _ptr(JT), _ptr(rT), B, P, C,
-            _ptr(plan.pt_start), _ptr(plan.cam_rows), _ptr(plan.cam_chunk_start),
-            plan.n_cam_chunks, _ptr(plan.cam_chunk_first), _ptr(ptab),
-            _ptr(cam_partial), _ptr(cam), _stream(dev))
+    _launch(fn, _ptr(JT), _ptr(rT), B, C, _ptr(plan.pt_start), _ptr(plan.pt_block),
+            plan.n_pt_blocks, _ptr(plan.tile_first), _ptr(plan.tile_run),
+            _ptr(plan.run_start), _ptr(plan.run_slot), _ptr(plan.run_pos), len(sizes),
+            ctypes.cast(plan.run_level_ptrs, ctypes.c_void_p),
+            ctypes.cast(plan.run_level_counts, ctypes.c_void_p),
+            _ptr(plan.run_level_first), _ptr(ptab), _ptr(w), _ptr(work), _ptr(cam),
+            _stream(dev))
     post_eval_fused.launches += 1
     return ptab, cam
 
@@ -422,15 +448,21 @@ def normal_matvec(JT, xc, xp, plan):
     _check(xc, "xc", dt, (C, TF), dev)
     _check(xp, "xp", dt, (P, TE), dev)
     _check_plan(plan, dev)
+    _check_point_blocks(plan, dev)
+    _check_cam_levels(plan, dev)
+    sizes = plan.cam_level_sizes  # the levels themselves: checked by RowPlan
     pt_out = torch.empty((P, TE), dtype=dt, device=dev)
-    cam_partial = torch.empty((max(1, plan.n_cam_chunks), TF), dtype=dt,
-                              device=dev)
+    w = torch.empty((max(1, B), _PAD[dt][TF]), dtype=dt, device=dev)
+    xcp = torch.empty((max(1, C), _PAD[dt][TF]), dtype=dt, device=dev)
+    work = torch.empty((max(1, sum(sizes)), TF), dtype=dt, device=dev)
     cam_out = torch.empty((C, TF), dtype=dt, device=dev)
-    _launch(fn, _ptr(JT), B, P, C,
-            _ptr(plan.cam_idx), _ptr(plan.pt_idx), _ptr(plan.pt_start),
-            _ptr(plan.cam_rows), _ptr(plan.cam_chunk_start), plan.n_cam_chunks,
-            _ptr(plan.cam_chunk_first), _ptr(xc), _ptr(xp), _ptr(pt_out),
-            _ptr(cam_partial), _ptr(cam_out), _stream(dev))
+    _launch(fn, _ptr(JT), B, C, _ptr(plan.cam_idx), _ptr(plan.pt_idx),
+            _ptr(plan.cam_pos), _ptr(plan.pt_start), _ptr(plan.pt_block),
+            plan.n_pt_blocks, _ptr(xc), _ptr(xp), len(sizes),
+            ctypes.cast(plan.cam_level_ptrs, ctypes.c_void_p),
+            ctypes.cast(plan.cam_level_counts, ctypes.c_void_p),
+            _ptr(plan.cam_level_first), _ptr(pt_out), _ptr(w), _ptr(xcp), _ptr(work),
+            _ptr(cam_out), _stream(dev))
     normal_matvec.launches += 1
     return cam_out, pt_out
 
@@ -464,18 +496,16 @@ def isc_matvec(JT, z, minv, plan, emit_u=False):
     dt = _dtype_of(JT)
     fn = _entry("ct_isc_matvec", dt)
     B, P, C = plan.B, plan.P, plan.C
-    i32 = torch.int32
     _check(JT, "JT", dt, (LANES, B), dev)
     _check(z, "z", dt, (C, TF), dev)
     _check(minv, "minv", dt, (P, TE * TE), dev)
     _check_plan(plan, dev)
-    _check(plan.cam_pos, "plan.cam_pos", i32, (B,), dev)
-    _check(plan.pt_block, "plan.pt_block", i32, (plan.n_pt_blocks + 1,), dev)
-    _check(plan.cam_level_first, "plan.cam_level_first", i32, (C + 1,), dev)
+    _check_point_blocks(plan, dev)
+    _check_cam_levels(plan, dev)
     sizes = plan.cam_level_sizes  # the levels themselves: checked by RowPlan
     u = torch.empty((P, TE) if emit_u else (1, TE), dtype=dt, device=dev)
-    w = torch.empty((max(1, B), _ISC_STRIDE[dt]), dtype=dt, device=dev)
-    zp = torch.empty((max(1, C), _ISC_STRIDE[dt]), dtype=dt, device=dev)
+    w = torch.empty((max(1, B), _PAD[dt][TF]), dtype=dt, device=dev)
+    zp = torch.empty((max(1, C), _PAD[dt][TF]), dtype=dt, device=dev)
     work = torch.empty((max(1, sum(sizes)), TF), dtype=dt, device=dev)
     cam_out = torch.empty((C, TF), dtype=dt, device=dev)
     _launch(fn, _ptr(JT), B, C, _ptr(plan.cam_idx), _ptr(plan.cam_pos),
@@ -557,19 +587,16 @@ def _segment_sum(fn_name, contrib, plan, sorted_ids):
     i32 = torch.int32
     _check(contrib, "contrib", dt, (B, w), dev)
     _check(plan.key_first, "plan.key_first", i32, (K + 1,), dev)
-    sizes = plan.level_sizes
-    for lv, (st, n) in enumerate(zip(plan.level_starts, sizes)):
-        _check(st, f"plan.level_starts[{lv}]", i32, (n + 1,), dev)
+    sizes = plan.level_sizes  # the levels themselves: checked by SegmentPlan
     order = ()
     if not sorted_ids:
         _check(plan.order, "plan.order", i32, (B,), dev)
         order = (_ptr(plan.order),)
     work = torch.empty((max(1, sum(sizes)), w), dtype=dt, device=dev)
     out = torch.empty((K, w), dtype=dt, device=dev)
-    starts = (ctypes.c_void_p * len(sizes))(*[st.data_ptr() for st in plan.level_starts])
-    counts = (ctypes.c_int * len(sizes))(*sizes)
     _launch(fn, _ptr(contrib), B, w, *order, len(sizes),
-            ctypes.cast(starts, ctypes.c_void_p), ctypes.cast(counts, ctypes.c_void_p),
+            ctypes.cast(plan.level_ptrs, ctypes.c_void_p),
+            ctypes.cast(plan.level_counts, ctypes.c_void_p),
             _ptr(plan.key_first), K, _ptr(work), _ptr(out), _stream(dev))
     return out
 

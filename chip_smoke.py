@@ -17,12 +17,16 @@ quaternion-camera BA through eval_fused's loss and manifold branches
 the JAX package's answers; the quaternion Venice shape with HuberLoss(1.0);
 every loss in both camera models against the plain version), counts what
 each run launched, and times the kernels (segment_block_expand at each
-width a libmv solve gathers, 3, 6, 8 and 9, beside torch.index_select),
-the solves (with isc_matvec's device time per LM iteration, kernel by
-kernel, at the Venice shape in both dtypes; and the CG iterations of
-float32 BAL-16 + HuberLoss(1.0) ITERATIVE_SCHUR beside those of the same
-solve through isc_matvec's plain version on the card and on the CPU) and
-the pipeline.
+width a libmv solve gathers, 3, 6, 8 and 9, beside torch.index_select;
+segment_block_sum and unsorted_segment_sum at the widths a flat CG
+iteration sums, 3, 8 and 6, beside Tensor.index_add; each call's own peak
+device memory), the solves (with the device time per LM iteration of
+isc_matvec, normal_matvec and post_eval_fused, pass by pass, at the Venice
+shape in both dtypes; and the CG iterations of float32 BAL-16 +
+HuberLoss(1.0) ITERATIVE_SCHUR beside those of the same solve through
+isc_matvec's plain version on the card and on the CPU and the JAX
+package's, with the symmetry of the Schur operator where the kernel path's
+count first parts from the plain version's) and the pipeline.
 
     python3 chip_smoke.py
 
@@ -139,8 +143,14 @@ ROW_PATH = {"1": "bal16_dense_f64", "1L": "bal16_huber_dense_f64",
 ROW_VARIANTS = {"1": ["venice"], "1L": ["venice"], "1Q": ["venice"], "2": ["venice"],
                 "4": ["venice"], "4b": ["venice"], "6": ["libmv_venice"],
                 "7": ["libmv_venice"], "9": ["libmv_venice"]}
-ROW_CASES = {"6": [("segment_block_sum_one_key", "_one_key")],
-             "7": [(f"segment_block_expand_t{t}", f"_t{t}") for t in (3, 8, 9)]}
+# (rows 6 and 9 also at the widths each CG iteration of the flat
+# ITERATIVE_SCHUR step sums: w = 3 over the points, w = 8 over libmv's one
+# intrinsics key, w = 6 over the cameras)
+ROW_CASES = {"6": [("segment_block_sum_one_key", "_one_key"),
+                   ("segment_block_sum_w3", "_w3"),
+                   ("segment_block_sum_one_key_w8", "_one_key_w8")],
+             "7": [(f"segment_block_expand_t{t}", f"_t{t}") for t in (3, 8, 9)],
+             "9": [("unsorted_segment_sum_w6", "_w6")]}
 # why no single PyTorch call computes each kernel's function
 NO_LIBRARY_CALL = {
     "eval_fused": "no PyTorch call evaluates a residual and its Jacobian",
@@ -202,7 +212,10 @@ CASES = {"eval_fused": "eval_fused", "post_eval_fused": "post_eval_fused",
          "schur_jacobi_blocks": "schur_jacobi_blocks",
          "segment_block_sum": "segment_block_sum",
          "segment_block_sum_one_key": "segment_block_sum",
+         "segment_block_sum_w3": "segment_block_sum",
+         "segment_block_sum_one_key_w8": "segment_block_sum",
          "unsorted_segment_sum": "unsorted_segment_sum",
+         "unsorted_segment_sum_w6": "unsorted_segment_sum",
          "segment_block_expand": "segment_block_expand",
          **{f"segment_block_expand_t{t}": "segment_block_expand" for t in (3, 8, 9)},
          "segment_spread_sum": "segment_spread_sum",
@@ -487,7 +500,8 @@ def main():
         """The flat path's kernel cases at this libmv program's real
         first-iteration inputs: the post-evaluation sums of the point side
         (sorted, w = 15), of the intrinsics (one key holding every row,
-        w = 80) and of the cameras (unsorted, w = 48); the gathers of each
+        w = 80) and of the cameras (unsorted, w = 48), and random rows at
+        the widths a CG iteration sums (3, 8 and 6); the gathers of each
         width a solve launches: the camera scales (t = 6, the row's main
         case), the point scales (3), the intrinsics scales (8) and the
         points' M^{-1} blocks at Jacobi scales and an LM diagonal at radius
@@ -513,6 +527,11 @@ def main():
         def table(v, p):
             return torch.cat([v.reshape(p.nv, -1), v.new_zeros((1, v.numel() // p.nv))])
 
+        gen = torch.Generator(device=dev).manual_seed(3)
+
+        def rows_of(w):  # timing inputs at a CG iteration's widths
+            return torch.randn((pe.seg.B, w), generator=gen, dtype=dt, device=dev)
+
         args = {
             "segment_block_sum": (
                 fl.post_contrib(fl._jac(vrep.vflat, 0, pe), rows), pe.seg),
@@ -520,6 +539,9 @@ def main():
                 fl.post_contrib(fl._jac(vrep.vflat, 0, pintr), rows), pintr.seg),
             "unsorted_segment_sum": (
                 fl.post_contrib(fl._jac(vrep.vflat, 0, pcam), rows), pcam.seg),
+            "segment_block_sum_w3": (rows_of(3), pe.seg),
+            "segment_block_sum_one_key_w8": (rows_of(8), pintr.seg),
+            "unsorted_segment_sum_w6": (rows_of(6), pcam.seg),
             "segment_block_expand": (
                 table(sf[pcam.off:pcam.off + pcam.nv * pcam.t], pcam), pcam.local),
             "segment_block_expand_t3": (
@@ -546,8 +568,13 @@ def main():
             name = CASES[case]
             wrapper = getattr(kn, name)
             plain = getattr(kn, name + "_plain")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
             out = wrapper(*args_c)
             torch.cuda.synchronize()
+            # the call's own peak: its outputs and workspaces
+            call_peak = torch.cuda.max_memory_allocated() - held
             dt = args_c[0].dtype
             if dt == torch.float64:
                 ref = plain(*args_c)
@@ -595,11 +622,14 @@ def main():
             bound_by = "bytes" if t_bytes >= t_ops else "operations"
             timings[(case, shape, dtn)] = dict(ms=ms, plain_ms=plain_ms,
                                                bound_ms=max(t_bytes, t_ops),
-                                               bound_by=bound_by, library_ms=lib_ms)
+                                               bound_by=bound_by, library_ms=lib_ms,
+                                               call_peak_bytes=call_peak)
             log("time", f"{case} {shape} {dtn}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms by {bound_by} "
                 f"(counted, not measured: {byts} bytes -> {t_bytes:.4f} ms, "
-                f"{flops} flops -> {t_ops:.4f} ms); library call: {lib_text}; {card}")
+                f"{flops} flops -> {t_ops:.4f} ms); library call: {lib_text}; the "
+                f"call's peak device memory (outputs, workspaces) "
+                f"{call_peak / 2**20:.1f} MiB; {card}")
             torch.cuda.synchronize()
 
     # -- BAL-16: every kernel against its plain version ----------------------
@@ -929,11 +959,10 @@ def main():
             lambda: ctt.solve(opts, copy_problem(venice)))
         log(f"profile {path} (2 LM iterations)",
             json.dumps(paths[path]["profile"]) + f"; {card}")
-        prof = paths[path]["profile"]
-        log(f"profile {path}", "isc_matvec's kernels (isc_*): "
-            f"{prof.get('isc_device_ms_per_iteration')} device ms per LM iteration, "
-            f"by kernel {json.dumps(prof.get('isc_device_ms_per_iteration_by_kernel'))}; "
-            f"{card}")
+        for name, ms in paths[path]["profile"].get("row_device_ms_per_iteration",
+                                                   {}).items():
+            log(f"profile {path}", f"{name}'s kernels: {ms['total']} device ms per LM "
+                f"iteration, by pass {json.dumps(ms['by_kernel'])}; {card}")
 
     # -- the Venice shape with HuberLoss(1.0): rows 1L and 1Q at 4.4M rows, --
     # -- and quaternion cameras through ITERATIVE_SCHUR -------------------------
@@ -1007,6 +1036,19 @@ def main():
                              f"{tm['library_ms']:.4f} ms ({tm['ms'] / tm['library_ms']:.2f}x), "
                              f"bound {tm['bound_ms']:.4f} ms ({tm['ms'] / tm['bound_ms']:.2f}x)")
             log("expand vs index_select", f"{shp} {dtn}: " + "; ".join(parts) + f"; {card}")
+
+    # -- segment sums at a flat CG iteration's widths against index_add ------
+    for shp in ("libmv16", "libmv_venice"):
+        for dtn in ("float64", "float32"):
+            parts = []
+            for case in ("segment_block_sum_w3", "segment_block_sum_one_key_w8",
+                         "unsorted_segment_sum_w6"):
+                tm = timings[(case, shp, dtn)]
+                parts.append(f"{case}: {tm['ms']:.4f} ms, index_add "
+                             f"{tm['library_ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
+                             f"({tm['ms'] / tm['bound_ms']:.2f}x)")
+            log("segment sums at CG widths", f"{shp} {dtn}: " + "; ".join(parts)
+                + f"; {card}")
 
     # -- the kernels line ------------------------------------------------------
     K = SPECIALIZED_K
@@ -1115,6 +1157,96 @@ def cg_counts(ctt, kn, path, res, s, opts, problem):
         log(f"cg {path}", f"{name}: {sum(cg)} CG iterations in {len(cg)} rows, "
             f"{sum(c >= opts.max_linear_solver_iterations for c in cg)} at the limit; "
             f"final cost {run.final_cost!r}; per row {cg}")
+    if opts.evaluation_dtype == "float32":
+        cg_divergence(ctt, kn, path, res, runs, opts, problem)
+
+
+# the JAX package's float32 BAL-16 + HuberLoss(1.0) ITERATIVE_SCHUR solve,
+# CG iterations per row: scripts/robust16_golden.py's problem and options
+# with evaluation_dtype="float32", JAX on a CPU (NO_CONVERGENCE after 30
+# LM iterations, final cost 43747.765625); a record beside the port's
+JAX_ROBUST16_ITERATIVE_F32_CG = [0, 2, 2, 3, 5, 5, 5, 5, 2, 12, 2, 2, 2, 2, 2, 2, 2, 2,
+                                 2, 2, 4, 8, 11, 12, 13, 18, 19, 19, 20, 2, 20]
+
+
+def cg_divergence(ctt, kn, path, res, runs, opts, problem):
+    """A record, not a gate: where the kernel path's float32 CG counts part
+    from those of isc_matvec's plain version on the card and on the CPU
+    (side by side, the JAX package's beside them), and how symmetric the
+    float32 Schur operator S is at the first row where the kernel path's
+    count leaves the plain version's on the card: |z1'S z2 - z2'S z1| /
+    (|z1| |S z2|) on isc_matvec's inputs of that row's CG (recorded from a
+    repeat of the kernel solve, which repeats bit for bit), through the
+    kernel, its plain version in float32 and its plain version in float64,
+    for the row's first two nonzero CG vectors and for two random vectors.
+    A less symmetric S breaks CG's conjugacy."""
+    cg = {k: [r.linear_solver_iterations for r in v.iterations] for k, v in runs.items()}
+    cg["jax"] = JAX_ROBUST16_ITERATIVE_F32_CG
+
+    def first_apart(other):
+        return next((i for i, (a, b) in enumerate(zip(cg["kernel"], cg[other]))
+                     if a != b), None)
+
+    first = {k: first_apart(k) for k in cg if k != "kernel"}
+    n = max(map(len, cg.values()))
+    table = [[i] + [cg[k][i] if i < len(cg[k]) else None for k in cg] for i in range(n)]
+    res["cg_side_by_side"] = {"columns": ["row"] + list(cg), "rows": table}
+    res["cg_first_row_apart"] = first
+    log(f"cg {path}", f"per row ({', '.join(['row'] + list(cg))}): {table}; JAX "
+        f"{sum(cg['jax'])} in {len(cg['jax'])} rows; the first row where the kernel "
+        f"path's count differs, from each: {first}")
+    row = first["plain_on_card"]
+    if not row:
+        return
+    # isc_matvec's inputs of each linear solve: schur_jacobi_blocks runs
+    # once at the start of each, so solve k is row k + 1
+    solves, kernel, jacobi = [], kn.isc_matvec, kn.schur_jacobi_blocks
+
+    def jacobi_rec(*args):
+        solves.append({"z": []})
+        return jacobi(*args)
+
+    def isc_rec(JT, z, minv, plan, emit_u=False):
+        rec = solves[-1]
+        if not rec["z"]:
+            rec.update(JT=JT, minv=minv, plan=plan)
+        if len(rec["z"]) < 2 and bool(torch.any(z != 0)):  # not x0 = 0
+            rec["z"].append(z.clone())
+        return kernel(JT, z, minv, plan, emit_u)
+
+    # a wrapper counts on the module's name of it, here the recorder's
+    for rec_fn in (isc_rec, jacobi_rec):
+        rec_fn.launches = rec_fn.plain_calls = 0
+    kn.isc_matvec, kn.schur_jacobi_blocks = isc_rec, jacobi_rec
+    try:
+        again = ctt.solve(opts, problem())
+    finally:
+        kn.isc_matvec, kn.schur_jacobi_blocks = kernel, jacobi
+    check([r.linear_solver_iterations for r in again.iterations] == cg["kernel"]
+          and len(solves) == len(cg["kernel"]) - 1,
+          f"{path}: the recorded repeat of the kernel solve differs")
+    rec = solves[row - 1]
+    gen = torch.Generator(device=rec["JT"].device).manual_seed(5)
+    pairs = {"random": [torch.randn(rec["z"][0].shape, generator=gen, device=gen.device,
+                                    dtype=torch.float64) for _ in range(2)]}
+    if len(rec["z"]) == 2:
+        pairs["cg_directions"] = rec["z"]
+    fns = {"kernel": (kernel, torch.float32),
+           "plain_f32": (kn.isc_matvec_plain, torch.float32),
+           "plain_f64": (kn.isc_matvec_plain, torch.float64)}
+    sym = {}
+    for pname, (z1, z2) in pairs.items():
+        for fname, (fn, dt) in fns.items():
+            JT, minv = rec["JT"].to(dt), rec["minv"].to(dt)
+            s1 = fn(JT, z1.to(dt).contiguous(), minv, rec["plan"])[0].double()
+            s2 = fn(JT, z2.to(dt).contiguous(), minv, rec["plan"])[0].double()
+            a = float(torch.sum(z1.double() * s2))
+            b = float(torch.sum(z2.double() * s1))
+            sym[f"{pname}_{fname}"] = abs(a - b) / float(z1.double().norm() * s2.norm())
+    res["schur_asymmetry_at_first_row_apart"] = {"row": row, **sym}
+    log(f"cg {path}", f"row {row}, the kernel path's first CG count apart from the "
+        f"plain version's on the card: |z1'S z2 - z2'S z1| / (|z1| |S z2|) "
+        + ", ".join(f"{k} {v:.3e}" for k, v in sym.items()))
 
 
 def robust_phase(ctt, bal, kn, dev, card, b16, paths, check_and_time, drive):
@@ -1525,6 +1657,27 @@ def device_profile(run, anchor=None):
     return out, wall_s, busy_us, n_ops, by_name
 
 
+# the kernels of the point-block rows (csrc/point_blocks.cuh), named by
+# their body: the pad, the point pass and the camera levels of each
+POINT_BLOCK_BODIES = {"isc_matvec": "IscMatvec", "normal_matvec": "NormalMatvec",
+                      "post_eval_fused": "PostEvalFused"}
+
+
+def row_device_ms(by_name, n_it):
+    """Device ms per LM iteration of each point-block row's kernels, in
+    all and by kernel (its name without its arguments and namespace)."""
+    out = {}
+    for row, body in POINT_BLOCK_BODIES.items():
+        passes = {}
+        for k, us in by_name.items():
+            if f"{body}<" in k:
+                label = k.split("(")[0].replace("void ", "").replace("ct::", "")
+                passes[label] = passes.get(label, 0.0) + us / 1e3 / max(n_it, 1)
+        if passes:
+            out[row] = {"total": sum(passes.values()), "by_kernel": passes}
+    return out
+
+
 def busy_share(res, busy_us, n_ops, by_name, wall_ms, n_it):
     """res with the busy share and the top kernels per iteration added."""
     if busy_us > 0:
@@ -1535,11 +1688,7 @@ def busy_share(res, busy_us, n_ops, by_name, wall_ms, n_it):
             top[k[:80]] = top.get(k[:80], 0.0) + v / 1e3 / max(n_it, 1)
         res.update(device_busy_ms=busy_us / 1e3,
                    device_busy_share=busy_us / 1e3 / wall_ms,
-                   # isc_matvec's kernels: isc_pad, isc_point, isc_camera
-                   isc_device_ms_per_iteration=sum(
-                       v for k, v in by_name.items() if "isc_" in k) / 1e3 / max(n_it, 1),
-                   isc_device_ms_per_iteration_by_kernel={
-                       k[:80]: v for k, v in top.items() if "isc_" in k},
+                   row_device_ms_per_iteration=row_device_ms(by_name, n_it),
                    device_ops_per_iteration=n_ops / max(n_it, 1),
                    top_device_ms_per_iteration=dict(
                        sorted(top.items(), key=lambda kv: -kv[1])[:10]))

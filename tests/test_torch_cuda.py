@@ -239,6 +239,54 @@ def test_isc_matvec_long_track_and_large_camera_on_card(card, dtype, emit_u):
     assert torch.equal(kn.isc_matvec(*args)[0], cam)
 
 
+def _point_block_inputs(card, name, dtype):
+    """normal_matvec's or post_eval_fused's arguments on a row plan that
+    reaches every branch of csrc/point_blocks.cuh at the real chunk: tracks
+    of 256 (a full block), 600 and 1,000 rows (blocks that loop), points
+    without rows and of one row, a ragged last block, and a camera of about
+    a million rows in 4,722 tiles (three levels of its sum by rows, two by
+    runs)."""
+    rng = np.random.default_rng(17)
+    P, C = 400_000, 7
+    counts = rng.integers(1, 6, P)
+    counts[17], counts[3], counts[1400], counts[9000], counts[500] = 600, 0, 0, 1000, 256
+    pt = np.repeat(np.arange(P), counts)
+    B = pt.shape[0]
+    cam = np.where(rng.uniform(size=B) < 0.85, 0, rng.integers(1, C, B))
+    plan = fo.build_row_plan(pt, cam, P, C, card)
+    assert len(plan.cam_levels) == 3 and len(plan.run_levels) == 2
+    assert B % kn.POINT_BLOCK
+    dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
+
+    def rand(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), device=card).to(dt)
+
+    if name == "post_eval_fused":
+        return rand(kn.LANES, B), rand(kn.R, B), plan
+    return rand(kn.LANES, B), rand(C, 9), rand(P, 3), plan
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("name", ["normal_matvec", "post_eval_fused"])
+def test_point_block_kernel_long_tracks_and_deep_camera_on_card(card, name, dtype):
+    """csrc/normal_matvec.cu and csrc/post_eval_fused.cu against the plain
+    version in float64 on the same card inputs (a float32 sum by atomics
+    over a million rows is no reference), relative to each output's
+    largest entry: 1e-11 in float64, 1e-4 in float32; one launch for the
+    call; a second call gives the same bits (no atomics)."""
+    args = _point_block_inputs(card, name, dtype)
+    wrapper, plain = getattr(kn, name), getattr(kn, name + "_plain")
+    kn.reset_counts()
+    out = wrapper(*args)
+    torch.cuda.synchronize()
+    ref = plain(*(a.double() if isinstance(a, torch.Tensor) else a for a in args))
+    assert wrapper.launches == 1 and wrapper.plain_calls == 0
+    for o, r in zip(out, ref):
+        err = (o.double() - r.double()).abs().max().item()
+        assert err <= REL_LIMIT[o.dtype] * r.double().abs().max().item()
+    assert all(torch.equal(a, o) for a, o in zip(wrapper(*args), out))
+
+
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("t", [1, 3, 6, 8, 9, 13])
 def test_segment_block_expand_widths_on_card(card, dtype, t):

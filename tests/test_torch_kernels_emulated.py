@@ -25,13 +25,12 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 LIMIT = {torch.float64: 1e-12, torch.float32: 1e-5}
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
+def _compile(tmp_path_factory, *flags):
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler (g++)")
     lib_path = tmp_path_factory.mktemp("emu") / "libemu.so"
-    cmd = [cxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", "-x", "c++",
+    cmd = [cxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", *flags, "-x", "c++",
            "-I", str(ROOT / "tests" / "cuda_emulation"),
            "-I", str(build.CSRC), *map(str, sorted(build.CSRC.glob("*.cu"))),
            "-o", str(lib_path)]
@@ -40,10 +39,25 @@ def emulated(tmp_path_factory):
     return build.bind(ctypes.CDLL(str(lib_path)))
 
 
-@pytest.fixture
-def kernel_path(emulated, monkeypatch):
-    """Route the wrappers' CPU tensors to the emulated kernels."""
-    monkeypatch.setattr(build, "_LIB", emulated)
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    return _compile(tmp_path_factory)
+
+
+# a chunk of 4 rows in the small-chunk build: a level tree 3 to 6 levels
+# deep at a few thousand rows (kn.CHUNK is set to match while such a
+# test builds its plan)
+SMALL_CHUNK = 4
+
+
+@pytest.fixture(scope="module")
+def emulated_small_chunk(tmp_path_factory):
+    return _compile(tmp_path_factory, f"-DCT_CHUNK={SMALL_CHUNK}")
+
+
+def _route(lib, monkeypatch):
+    """Route the wrappers' CPU tensors to the emulated kernels of lib."""
+    monkeypatch.setattr(build, "_LIB", lib)
     monkeypatch.setattr(kn, "_stream", lambda dev: ctypes.c_void_p(0))
 
     def call(fn, *args):
@@ -54,6 +68,17 @@ def kernel_path(emulated, monkeypatch):
             monkeypatch.setattr(kn, "_on_cpu", lambda ref: True)
 
     return call
+
+
+@pytest.fixture
+def kernel_path(emulated, monkeypatch):
+    return _route(emulated, monkeypatch)
+
+
+@pytest.fixture
+def kernel_path_small_chunk(emulated_small_chunk, monkeypatch):
+    monkeypatch.setattr(kn, "CHUNK", SMALL_CHUNK)
+    return _route(emulated_small_chunk, monkeypatch)
 
 
 def _inputs(dtype, num_cameras, num_points):
@@ -378,3 +403,80 @@ def test_emulated_segment_block_expand_widths(kernel_path, dtype, t):
     assert kn.segment_block_expand.plain_calls == 0
     assert torch.equal(out, kn.segment_block_expand_plain(vals, ids))
 
+
+
+def _point_block_inputs(name, dtype, structure="long_tracks"):
+    """normal_matvec's or post_eval_fused's arguments on a row plan of
+    tests/test_torch_row_plan.py: "long_tracks" has points of 600, 256,
+    257 and 1,000 rows (past a point block's kn.POINT_BLOCK rows, blocks
+    that loop; 256 rows fill one exactly), points without rows, points of
+    one row and tracks of 2 to 5, a camera of about 5,600 rows (past CHUNK
+    chunks of CHUNK rows: a second camera level) and B not a multiple of a
+    block; J, r and x random."""
+    from ceres_tpu_torch.ops import flatops as fo
+    from test_torch_row_plan import _structure
+
+    dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
+    pt, cam, P, C = _structure(structure)
+    plan = fo.build_row_plan(pt, cam, P, C, "cpu")
+    rng = np.random.default_rng(13)
+    B = pt.shape[0]
+    JT = torch.as_tensor(rng.standard_normal((kn.LANES, B))).to(dt)
+    if name == "post_eval_fused":
+        return JT, torch.as_tensor(rng.standard_normal((kn.R, B))).to(dt), plan
+    xc = torch.as_tensor(rng.standard_normal((C, kn.TF))).to(dt)
+    xp = torch.as_tensor(rng.standard_normal((P, kn.TE))).to(dt)
+    return JT, xc, xp, plan
+
+
+def _run_and_hold(call, name, args):
+    """One call of the wrapper through the emulated kernel against the
+    plain version, each output relative to its largest entry (1e-12 in
+    float64, 1e-5 in float32: sums in another order), one launch for the
+    call; a second call gives the same bits."""
+    wrapper, plain = getattr(kn, name), getattr(kn, name + "_plain")
+    kn.reset_counts()
+    out = call(wrapper, *args)
+    ref = plain(*args)
+    assert wrapper.launches == 1 and wrapper.plain_calls == 0
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape and o.dtype == r.dtype
+        err = (o.double() - r.double()).abs().max().item()
+        assert err <= LIMIT[r.dtype] * r.double().abs().max().item()
+    again = call(wrapper, *args)
+    assert all(torch.equal(a, o) for a, o in zip(again, out))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("name", ["normal_matvec", "post_eval_fused"])
+def test_emulated_point_block_kernel_long_tracks_and_large_camera(kernel_path, name,
+                                                                  dtype):
+    """csrc/normal_matvec.cu and csrc/post_eval_fused.cu through the point
+    blocks of csrc/point_blocks.cuh: looping blocks, a block of exactly
+    kn.POINT_BLOCK rows, points of one row or none, a ragged last block and
+    a camera of more than CHUNK**2 rows (two levels of the camera sum by
+    rows for normal_matvec; post_eval_fused sums by runs, a few dozen for
+    that camera, one level:
+    test_emulated_post_eval_fused_run_levels_of_a_deep_tree takes them
+    deeper)."""
+    args = _point_block_inputs(name, dtype)
+    plan = args[-1]
+    counts = np.diff(plan.pt_start.numpy())
+    assert plan.B % kn.POINT_BLOCK and counts.max() > kn.POINT_BLOCK
+    assert (counts == 1).any() and (counts == 0).any() and (counts == kn.POINT_BLOCK).any()
+    assert len(plan.cam_levels) == 2
+    _run_and_hold(kernel_path, name, args)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_emulated_post_eval_fused_run_levels_of_a_deep_tree(kernel_path_small_chunk,
+                                                            dtype):
+    """The camera pass's later levels at width 18, over post_eval_fused's
+    runs: the kernels built with a chunk of SMALL_CHUNK items and the plan
+    cut to match, so the long_tracks structure's large camera takes 2
+    levels of runs (the matvecs' rows reach a second level at the real
+    chunk: test_emulated_point_block_kernel_long_tracks_and_large_camera,
+    test_emulated_isc_matvec_long_track_and_large_camera)."""
+    args = _point_block_inputs("post_eval_fused", dtype)
+    assert len(args[-1].run_levels) == 2
+    _run_and_hold(kernel_path_small_chunk, "post_eval_fused", args)

@@ -1,7 +1,11 @@
-"""The row plan's fields for isc_matvec's point and camera passes
-(ops/flatops.build_row_plan): each row's place in camera order, the point
-blocks and the camera sum's tree of levels, on structures with a long
-track, points without rows and a camera of thousands of rows."""
+"""The row plan's fields for the point and camera passes of isc_matvec,
+normal_matvec and post_eval_fused (ops/flatops.build_row_plan): each row's
+place in camera order, the point blocks, the runs of one camera within a
+tile of rows and the camera sum's trees of levels, on structures with a
+long track, points without rows and a camera of thousands of rows; and the
+host arrays of a SegmentPlan's levels."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -117,3 +121,114 @@ def test_camera_levels_host_arrays_are_built_once_and_follow_the_levels(name):
     assert list(cut.cam_level_ptrs) == [levels[0].data_ptr()]
     with pytest.raises(TypeError, match="cam_levels"):
         dataclasses.replace(plan, cam_levels=(levels[0].to(torch.int64),))
+
+
+def _tiles(plan):
+    """Each tile's first row and end, from the point blocks: a block's rows,
+    or kn.POINT_BLOCK of them in a block of one longer point."""
+    start, blk = plan.pt_start.numpy().astype(np.int64), plan.pt_block.numpy()
+    first = plan.tile_first.numpy().astype(np.int64)
+    t0, t1 = [], []
+    for k in range(plan.n_pt_blocks):
+        a, e = start[blk[k]], start[blk[k + 1]]
+        n = first[k + 1] - first[k]
+        assert n == max(1, -(-(e - a) // kn.POINT_BLOCK))
+        for j in range(n):
+            t0.append(a + j * kn.POINT_BLOCK)
+            t1.append(min(a + (j + 1) * kn.POINT_BLOCK, e))
+    return np.asarray(t0), np.asarray(t1)
+
+
+@pytest.mark.parametrize("name", _NAMES)
+def test_camera_runs_cover_every_row_once_by_tile_and_camera(name):
+    """post_eval_fused's runs: every row in exactly one run; a run's rows
+    share a camera and a tile and come in row order; a tile's runs are its
+    cameras in order; run_pos puts the runs in camera order (tile order
+    within a camera); summing values through the run levels and the last
+    level's per-camera chunks gives each camera's sum."""
+    pt, cam, P, C = _structure(name)
+    plan = fo.build_row_plan(pt, cam, P, C, "cpu")
+    B = pt.shape[0]
+    t0, t1 = _tiles(plan)
+    assert plan.n_tiles == t0.shape[0] and t1[-1] == B
+    tile_of_row = np.repeat(np.arange(t0.shape[0]), t1 - t0)
+    slot = plan.run_slot.numpy().astype(np.int64)
+    rs = plan.run_start.numpy().astype(np.int64)
+    assert np.array_equal(np.sort(slot), np.arange(B))
+    rows = np.empty(B, np.int64)
+    rows[slot] = np.arange(B)  # the rows in run order
+    # a row's place lies in its own tile's range of places
+    assert np.all((slot >= t0[tile_of_row]) & (slot < t1[tile_of_row]))
+    assert rs[0] == 0 and rs[-1] == B and np.all(np.diff(rs) >= 1)
+    run_of = np.repeat(np.arange(plan.n_runs), np.diff(rs))
+    run_cam = cam[rows[rs[:-1]]]
+    run_tile = tile_of_row[rows[rs[:-1]]]
+    assert np.array_equal(cam[rows], run_cam[run_of])
+    assert np.array_equal(tile_of_row[rows], run_tile[run_of])
+    same = run_of[1:] == run_of[:-1]
+    assert np.all(rows[1:][same] > rows[:-1][same])
+    tr = plan.tile_run.numpy().astype(np.int64)
+    assert np.array_equal(tr, np.concatenate(
+        [[0], np.cumsum(np.bincount(run_tile, minlength=plan.n_tiles))]))
+    in_tile = run_tile[1:] == run_tile[:-1]
+    assert np.all(run_cam[1:][in_tile] > run_cam[:-1][in_tile])
+    pos = plan.run_pos.numpy().astype(np.int64)
+    by_cam = np.empty_like(pos)
+    by_cam[pos] = np.arange(plan.n_runs)
+    key = run_cam[by_cam] * plan.n_tiles + run_tile[by_cam]
+    assert np.all(np.diff(key) > 0)
+    vals = np.random.default_rng(1).standard_normal(B)
+    x = np.add.reduceat(vals[rows], rs[:-1])[by_cam] if B else vals
+    for cs in plan.run_levels:
+        cs = cs.numpy().astype(np.int64)
+        assert cs[0] == 0 and cs[-1] == x.shape[0] and np.all(np.diff(cs) <= kn.CHUNK)
+        x = np.array([x[a:b].sum() for a, b in zip(cs[:-1], cs[1:])])
+    first = plan.run_level_first.numpy().astype(np.int64)
+    assert first.shape == (C + 1,) and np.all(np.diff(first) <= kn.CHUNK)
+    out = np.array([x[a:b].sum() for a, b in zip(first[:-1], first[1:])])
+    np.testing.assert_allclose(out, np.bincount(cam, vals, minlength=C), rtol=1e-12,
+                               atol=1e-9)
+    assert plan.n_runs < B / 2  # runs gather rows: a tile's rows see few cameras
+
+
+@pytest.mark.parametrize("name", _NAMES)
+def test_run_levels_host_arrays_are_built_once_and_follow_the_levels(name):
+    """post_eval_fused passes the run levels as host arrays, which the plan
+    builds once, as it does the camera levels'."""
+    import torch
+
+    pt, cam, P, C = _structure(name)
+    plan = fo.build_row_plan(pt, cam, P, C, "cpu")
+    levels = plan.run_levels
+    assert plan.run_level_sizes == tuple(int(s.shape[0]) - 1 for s in levels)
+    assert list(plan.run_level_counts) == list(plan.run_level_sizes)
+    assert list(plan.run_level_ptrs) == [s.data_ptr() for s in levels]
+    with pytest.raises(TypeError, match="run_levels"):
+        dataclasses.replace(plan, run_levels=(levels[0].to(torch.int64),))
+
+
+@pytest.mark.parametrize("ids", ["sorted", "unsorted", "one_key"])
+def test_segment_plan_host_arrays_are_built_once_and_follow_the_levels(ids):
+    """segment_block_sum and unsorted_segment_sum pass a SegmentPlan's levels
+    as host arrays of their chunk counts and device pointers, which the plan
+    builds once (the wrappers build none per call); a plan made anew by
+    dataclasses.replace builds them from its own levels, and a level that is
+    not int32 is refused there. "one_key" holds 5,000 rows under one key:
+    two levels."""
+    import torch
+
+    rng = np.random.default_rng(3)
+    keys = {"sorted": np.sort(rng.integers(0, 50, 3000)),
+            "unsorted": rng.integers(0, 50, 3000),
+            "one_key": np.zeros(5000, np.int64)}[ids]
+    plan = fo.build_segment_plan(keys, 50, "cpu")
+    levels = plan.level_starts
+    assert len(levels) == (2 if ids == "one_key" else 1)
+    assert plan.level_sizes == tuple(int(s.shape[0]) - 1 for s in levels)
+    assert list(plan.level_counts) == list(plan.level_sizes)
+    assert list(plan.level_ptrs) == [s.data_ptr() for s in levels]
+    cut = dataclasses.replace(plan, level_starts=levels[:1])
+    assert list(cut.level_counts) == [plan.level_sizes[0]]
+    assert list(cut.level_ptrs) == [levels[0].data_ptr()]
+    with pytest.raises(TypeError, match="level_starts"):
+        dataclasses.replace(plan, level_starts=(levels[0].to(torch.int64),))
