@@ -31,8 +31,9 @@ template <typename T>
 struct PostEvalFused {
   static constexpr int kPt = 2 * kTE + kTE * kTE;  // g_e | sqn_e | E'E
   static constexpr int kCam = 2 * kTF;             // g_f | sqn_f
+  static constexpr int kStage = kCam, kRunItems = kCam;  // a run's values: its rows' sums
   static constexpr int kMinBlocks = 4;
-  static constexpr bool kFinish = false, kRuns = true;
+  static constexpr bool kFinish = false, kRuns = true, kRowsOut = false;
   struct Reg {
     Row<T> j;
     T r[2];
@@ -67,6 +68,12 @@ struct PostEvalFused {
       v[a] = f[a] * g.r[0] + f[kTF + a] * g.r[1];
       v[kTF + a] = f[a] * f[a] + f[kTF + a] * f[kTF + a];
     }
+  }
+  __device__ __forceinline__ int entry(int a) const { return a; }
+  __device__ __forceinline__ void run_put(const T* r, int n, int a, int, T* w) const {
+    T s = T(0);
+    for (int k = 0; k < n; ++k) s += r[k * kStage + a];
+    w[a] = s;
   }
 };
 

@@ -129,13 +129,15 @@ _SIGNATURES = {
     "ct_eval_fused": [_P, _P, _P, _P, _P, _I, _I, LossDesc, _P, _P, _P, _P, _P],
     "ct_post_eval_fused": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
                            _P, _P, _P, _P, _P, _P],
-    "ct_schur_assembly": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
-                          _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "ct_schur_assembly": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                          _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _P, _P, _P, _P, _P],
     "ct_normal_matvec": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
                          _P, _P, _P, _P, _P, _P],
     "ct_isc_matvec": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P,
                       _P, _P, _P, _P, _P, _P],
-    "ct_schur_jacobi": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "ct_schur_jacobi": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P,
+                        _P, _P, _P, _P, _P, _P],
     "ct_segment_block_sum": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
     "ct_unsorted_segment_sum": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P],
     "ct_segment_block_expand": [_P, _I, _I, _P, _I, _P, _P],

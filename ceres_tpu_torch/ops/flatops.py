@@ -8,12 +8,14 @@ manifold) and one point family, with no loss or a built-in one (BAL).
 The JAX module plans 128-lane row tiles, gather bases,
 camera windows and streamed mask planes to satisfy TPU alignment; none of
 that carries over. What its CUDA kernels need instead is the row plan
-(`RowPlan`): rows sorted by point with the point segments, and a camera
-plan (the rows ordered by camera, cut into chunks that never cross a
-camera). Only the dense Schur assembly also needs the point-pair plan,
-which holds every ordered pair of rows of one point and a C*C-entry chunk
-index: it is built on request (`RowPlan.ensure_pairs`), never for the
-iterative path, whose camera count can make it gigabytes.
+(`RowPlan`): rows sorted by point with the point segments and blocks, and
+the camera plans (the rows ordered by camera, cut into chunks that never
+cross a camera; the runs of one camera within a tile of rows; their trees
+of levels). Only the dense Schur assembly also needs the point-pair plan,
+which holds each pair of two rows of one point once, by camera-pair key,
+and a tree of levels over the C(C+1)/2 keys: it is built on request
+(`RowPlan.ensure_pairs`), never for the iterative path, whose camera count
+can make it gigabytes.
 
 The flat half (`FlatSchurOps`) serves every other program (the libmv
 bundle adjuster, costs with another residual, a user's own loss, other
@@ -47,11 +49,33 @@ from . import partition as pt
 # --------------------------------------------------------------------------
 
 
-class PairPlan(NamedTuple):
+@dataclasses.dataclass
+class PairPlan:
+    """The dense Schur assembly's pairs (csrc/schur_assembly.cu): each pair
+    of two rows of one point once, a from the lower camera (the earlier row
+    within one camera), ordered by the key of its camera pair (c_a <= c_b:
+    the upper triangle of the C x C blocks, row by row), then by point. A
+    row's product with itself is a sum by camera, which the kernel takes
+    with FtF's."""
+
     pair_a: torch.Tensor  # (NP,) int32 rows; (a, b) share a point
     pair_b: torch.Tensor
-    pair_chunk_start: torch.Tensor  # (m+1,) int32 offsets into the pairs
-    pair_chunk_first: torch.Tensor  # (C*C+1,) int32 first chunk of each camera pair
+    # the fixed tree of the sum by keys: level 0 cuts each key's pairs into
+    # chunks of at most kn.CHUNK, each further level a key's partials of the
+    # level before; pair_level_first (n_keys+1,) int32 indexes each key's
+    # chunks of the last level
+    pair_levels: Tuple[torch.Tensor, ...]
+    pair_level_first: torch.Tensor
+    key_cams: torch.Tensor  # (n_keys,) int32 c_a * C + c_b of each key
+
+    def __post_init__(self):
+        (self.pair_level_sizes, self.pair_level_counts,
+         self.pair_level_ptrs) = level_host_arrays(self.pair_levels, "pairs.pair_levels",
+                                                   self.pair_a.device)
+
+    @property
+    def n_keys(self) -> int:
+        return self.key_cams.shape[0]
 
 
 @dataclasses.dataclass
@@ -77,7 +101,8 @@ class RowPlan:
     pt_block: torch.Tensor
     # the runs: the rows of one camera within one tile, a tile being a point
     # block's rows, or kn.POINT_BLOCK of them in a block of one longer point
-    # (post_eval_fused sums its camera values over each run first)
+    # (post_eval_fused, schur_jacobi_blocks and schur_assembly sum their
+    # camera values over each run first)
     tile_first: torch.Tensor  # (n_pt_blocks+1,) int32 first tile of each point block
     tile_run: torch.Tensor  # (n_tiles+1,) int32 first run of each tile
     # the rows in run order, (tile, camera, row): run q holds the places
@@ -261,8 +286,9 @@ def build_row_plan(pt_idx: np.ndarray, cam_idx: np.ndarray, P: int, C: int,
 
 
 def _build_pair_plan(pt_idx, cam_idx, pt_start, C: int, device) -> PairPlan:
-    """Every ordered pair (a, b) of rows of one point, ordered by camera
-    pair (cam[a], cam[b]) and cut into chunks of one camera pair each."""
+    """Each pair (a, b) of two rows of one point once, a the row of the
+    lower camera (the earlier row within one camera), ordered by
+    camera-pair key and point, with the levels of its sum by key."""
     pt_idx = np.asarray(pt_idx, np.int64)
     cam_idx = np.asarray(cam_idx, np.int64)
     pt_start = np.asarray(pt_start, np.int64)
@@ -272,11 +298,20 @@ def _build_pair_plan(pt_idx, cam_idx, pt_start, C: int, device) -> PairPlan:
     first = np.concatenate([[0], np.cumsum(m)])[:-1]
     local = np.arange(pair_a.shape[0], dtype=np.int64) - np.repeat(first, m)
     pair_b = pt_start[pt_idx[pair_a]] + local
-    key = cam_idx[pair_a] * C + cam_idx[pair_b]
+    ca, cb = cam_idx[pair_a], cam_idx[pair_b]
+    keep = (ca < cb) | ((ca == cb) & (pair_a < pair_b))
+    pair_a, pair_b, ca, cb = pair_a[keep], pair_b[keep], ca[keep], cb[keep]
+    # the row-by-row index of (ca, cb) in the upper triangle of C x C
+    key = ca * C - ca * (ca - 1) // 2 + (cb - ca)
     order = np.argsort(key, kind="stable")
-    pair_a, pair_b, key = pair_a[order], pair_b[order], key[order]
-    pair_cs, pair_cf = _chunks(key, C * C, kn.CHUNK)
-    return PairPlan(*(_dev_i32(a, device) for a in (pair_a, pair_b, pair_cs, pair_cf)))
+    rows, cols = np.triu_indices(C)
+    starts, firsts = _chunk_levels(np.bincount(key, minlength=rows.shape[0]))
+
+    def dev(a):
+        return _dev_i32(a, device)
+
+    return PairPlan(dev(pair_a[order]), dev(pair_b[order]), tuple(dev(a) for a in starts),
+                    dev(firsts[-1]), dev(rows * C + cols))
 
 
 # --------------------------------------------------------------------------

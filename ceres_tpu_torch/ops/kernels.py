@@ -16,8 +16,9 @@ applied by the Triggs corrector; its two further variants count on their
 own wrappers, eval_fused_loss (1L) and eval_fused_quat (1Q). J travels
 transposed, as JT (24, B) (layout in csrc/common.cuh), residuals as rT
 (2, B). Their `plan` argument is a flatops.RowPlan: rows sorted by point,
-the point segments, the camera chunk plan and, for schur_assembly, the
-point-pair plan.
+the point segments and blocks, the camera plans (each row's place in
+camera order, the runs of one camera within a tile of rows, their trees of
+levels) and, for schur_assembly, the point-pair plan.
 
 The flat-path kernels (6-9) take any width: segment sums of (B, w) rows
 by block id through a flatops.SegmentPlan (6 sorted, 9 unsorted), the
@@ -37,10 +38,13 @@ import torch
 R, TF, TE = 2, 9, 3
 LANES = R * (TF + TE)
 E_OFF = R * TF
-CHUNK = 64  # rows (or pairs) per chunk; CT_CHUNK in csrc/common.cuh
+CHUNK = 64  # rows (runs, pairs) per chunk; CT_CHUNK in csrc/common.cuh
 POINT_BLOCK = 256  # rows and points of a point block; kBlock in csrc/point_blocks.cuh
 _PT_OUT = 2 * TE + TE * TE
 _CAM_OUT = 2 * TF
+_UPPER = TF * (TF + 1) // 2  # entries of a 9 x 9 block's upper triangle
+_Y_ROW = 24  # a row of Y's factors, Jsf and Z: kYS in csrc/schur_assembly.cu
+_SA_CAM = 2 * _UPPER + TF  # a run's FtF, U and Y'Y values in schur_assembly
 # the row stride of a padded camera table or workspace: w values padded to
 # whole 16-byte groups (kPad in csrc/point_blocks.cuh)
 _PAD = {dt: {w: -(-w * n // 16) * 16 // n for w in (TF, _CAM_OUT)}
@@ -78,15 +82,14 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 
 def _check_plan(plan, device) -> None:
+    """Each row's camera and point and each point's first row. The
+    camera-chunk plan (cam_rows, cam_chunk_*) is checked only by
+    segment_spread_ftf, the one kernel that reads it."""
     i32 = torch.int32
-    B, P, C = plan.B, plan.P, plan.C
+    B, P = plan.B, plan.P
     _check(plan.cam_idx, "plan.cam_idx", i32, (B,), device)
     _check(plan.pt_idx, "plan.pt_idx", i32, (B,), device)
     _check(plan.pt_start, "plan.pt_start", i32, (P + 1,), device)
-    _check(plan.cam_rows, "plan.cam_rows", i32, (B,), device)
-    _check(plan.cam_chunk_start, "plan.cam_chunk_start", i32,
-           (plan.n_cam_chunks + 1,), device)
-    _check(plan.cam_chunk_first, "plan.cam_chunk_first", i32, (C + 1,), device)
 
 
 def _check_point_blocks(plan, device) -> None:
@@ -100,6 +103,29 @@ def _check_cam_levels(plan, device) -> None:
     _check(plan.cam_pos, "plan.cam_pos", torch.int32, (plan.B,), device)
     _check(plan.cam_level_first, "plan.cam_level_first", torch.int32,
            (plan.C + 1,), device)
+
+
+def _check_runs(plan, device) -> None:
+    """The runs of one camera within a tile of rows and the last run
+    level's chunks of each camera; the levels themselves are checked by the
+    RowPlan."""
+    i32 = torch.int32
+    _check(plan.tile_first, "plan.tile_first", i32, (plan.n_pt_blocks + 1,), device)
+    _check(plan.tile_run, "plan.tile_run", i32, (plan.n_tiles + 1,), device)
+    _check(plan.run_start, "plan.run_start", i32, (plan.n_runs + 1,), device)
+    _check(plan.run_slot, "plan.run_slot", i32, (plan.B,), device)
+    _check(plan.run_pos, "plan.run_pos", i32, (plan.n_runs,), device)
+    _check(plan.run_level_first, "plan.run_level_first", i32, (plan.C + 1,), device)
+
+
+def _runs_args(plan):
+    """The run plan as the kernels by runs take it, after pt_start and
+    pt_block: n_pt_blocks, the runs, and the run levels."""
+    return (plan.n_pt_blocks, _ptr(plan.tile_first), _ptr(plan.tile_run),
+            _ptr(plan.run_start), _ptr(plan.run_slot), _ptr(plan.run_pos),
+            len(plan.run_level_sizes), ctypes.cast(plan.run_level_ptrs, ctypes.c_void_p),
+            ctypes.cast(plan.run_level_counts, ctypes.c_void_p),
+            _ptr(plan.run_level_first))
 
 
 def _dtype_of(ref: torch.Tensor):
@@ -325,25 +351,14 @@ def post_eval_fused(JT, rT, plan):
     _check(rT, "rT", dt, (R, B), dev)
     _check_plan(plan, dev)
     _check_point_blocks(plan, dev)
-    i32 = torch.int32
-    _check(plan.tile_first, "plan.tile_first", i32, (plan.n_pt_blocks + 1,), dev)
-    _check(plan.tile_run, "plan.tile_run", i32, (plan.n_tiles + 1,), dev)
-    _check(plan.run_start, "plan.run_start", i32, (plan.n_runs + 1,), dev)
-    _check(plan.run_slot, "plan.run_slot", i32, (B,), dev)
-    _check(plan.run_pos, "plan.run_pos", i32, (plan.n_runs,), dev)
-    _check(plan.run_level_first, "plan.run_level_first", i32, (C + 1,), dev)
-    sizes = plan.run_level_sizes  # the levels themselves: checked by RowPlan
+    _check_runs(plan, dev)
     ptab = torch.empty((P, _PT_OUT), dtype=dt, device=dev)
     w = torch.empty((max(1, plan.n_runs), _PAD[dt][_CAM_OUT]), dtype=dt, device=dev)
-    work = torch.empty((max(1, sum(sizes)), _CAM_OUT), dtype=dt, device=dev)
+    work = torch.empty((max(1, sum(plan.run_level_sizes)), _CAM_OUT), dtype=dt,
+                       device=dev)
     cam = torch.empty((C, _CAM_OUT), dtype=dt, device=dev)
     _launch(fn, _ptr(JT), _ptr(rT), B, C, _ptr(plan.pt_start), _ptr(plan.pt_block),
-            plan.n_pt_blocks, _ptr(plan.tile_first), _ptr(plan.tile_run),
-            _ptr(plan.run_start), _ptr(plan.run_slot), _ptr(plan.run_pos), len(sizes),
-            ctypes.cast(plan.run_level_ptrs, ctypes.c_void_p),
-            ctypes.cast(plan.run_level_counts, ctypes.c_void_p),
-            _ptr(plan.run_level_first), _ptr(ptab), _ptr(w), _ptr(work), _ptr(cam),
-            _stream(dev))
+            *_runs_args(plan), _ptr(ptab), _ptr(w), _ptr(work), _ptr(cam), _stream(dev))
     post_eval_fused.launches += 1
     return ptab, cam
 
@@ -390,31 +405,35 @@ def schur_assembly(JT, sc, sp, K, u, plan):
     _check(K, "K", dt, (P, TE * TE), dev)
     _check(u, "u", dt, (P, TE), dev)
     _check_plan(plan, dev)
-    i32 = torch.int32
+    _check_point_blocks(plan, dev)
+    _check_runs(plan, dev)
     pairs = plan.ensure_pairs()
+    i32 = torch.int32
     NP = pairs.pair_a.shape[0]
-    n_pair_chunks = pairs.pair_chunk_start.shape[0] - 1
-    _check(pairs.pair_a, "plan.pair_a", i32, (NP,), dev)
-    _check(pairs.pair_b, "plan.pair_b", i32, (NP,), dev)
-    _check(pairs.pair_chunk_start, "plan.pair_chunk_start", i32,
-           (n_pair_chunks + 1,), dev)
-    _check(pairs.pair_chunk_first, "plan.pair_chunk_first", i32, (C * C + 1,), dev)
+    n_keys = C * (C + 1) // 2
+    _check(pairs.pair_a, "plan.pairs.pair_a", i32, (NP,), dev)
+    _check(pairs.pair_b, "plan.pairs.pair_b", i32, (NP,), dev)
+    _check(pairs.pair_level_first, "plan.pairs.pair_level_first", i32, (n_keys + 1,), dev)
+    _check(pairs.key_cams, "plan.pairs.key_cams", i32, (n_keys,), dev)
+    psizes = pairs.pair_level_sizes  # the levels themselves: checked by PairPlan
     t_full = C * TF
-    Y = torch.empty((TE * TF, B), dtype=dt, device=dev)
-    cam_partial = torch.empty((max(1, plan.n_cam_chunks), TF * TF + TF),
-                              dtype=dt, device=dev)
-    pair_partial = torch.empty((max(1, n_pair_chunks), TF * TF), dtype=dt,
-                               device=dev)
+    Y = torch.empty((max(1, B), _Y_ROW), dtype=dt, device=dev)
+    w = torch.empty((max(1, plan.n_runs), _SA_CAM), dtype=dt, device=dev)
+    run_work = torch.empty((max(1, sum(plan.run_level_sizes)), _SA_CAM), dtype=dt,
+                           device=dev)
+    pair_partial = torch.empty((max(1, psizes[0]), TF * TF), dtype=dt, device=dev)
+    pair_work = torch.empty((max(1, sum(psizes[1:])), TF * TF), dtype=dt, device=dev)
     ata = torch.empty((t_full, t_full), dtype=dt, device=dev)
     ftf = torch.empty((C, TF * TF), dtype=dt, device=dev)
     U = torch.empty((t_full,), dtype=dt, device=dev)
-    _launch(fn, _ptr(JT), B, P, C,
-            _ptr(plan.cam_idx), _ptr(plan.pt_idx), _ptr(sc), _ptr(sp), _ptr(K),
-            _ptr(u), _ptr(plan.cam_rows), _ptr(plan.cam_chunk_start),
-            plan.n_cam_chunks, _ptr(plan.cam_chunk_first), _ptr(pairs.pair_a),
-            _ptr(pairs.pair_b), _ptr(pairs.pair_chunk_start), n_pair_chunks,
-            _ptr(pairs.pair_chunk_first), _ptr(Y), _ptr(cam_partial),
-            _ptr(pair_partial), _ptr(ata), _ptr(ftf), _ptr(U), _stream(dev))
+    _launch(fn, _ptr(JT), B, C, _ptr(plan.cam_idx), _ptr(plan.pt_idx), _ptr(sc),
+            _ptr(sp), _ptr(K), _ptr(u), _ptr(plan.pt_start), _ptr(plan.pt_block),
+            *_runs_args(plan), _ptr(pairs.pair_a), _ptr(pairs.pair_b), len(psizes),
+            ctypes.cast(pairs.pair_level_ptrs, ctypes.c_void_p),
+            ctypes.cast(pairs.pair_level_counts, ctypes.c_void_p),
+            _ptr(pairs.pair_level_first), _ptr(pairs.key_cams), _ptr(Y), _ptr(w),
+            _ptr(run_work), _ptr(pair_partial), _ptr(pair_work), _ptr(ata), _ptr(ftf),
+            _ptr(U), _stream(dev))
     schur_assembly.launches += 1
     return ata, ftf, U
 
@@ -540,7 +559,8 @@ def schur_jacobi_blocks(JT, se, minv, plan):
     (C, 81) row-major, block c = sum over the rows of camera c of
     J_f'J_f - W' M^{-1}[pt] W with W = diag(se[pt]) J_e'J_f (3 x 9); se
     (P, 3) point scales, minv (P, 9) row-major symmetric blocks (the
-    kernel forms each block's upper triangle and mirrors it)."""
+    kernel reads their upper triangles, forms each output block's upper
+    triangle and mirrors it)."""
     dev = JT.device
     if _on_cpu(JT):
         schur_jacobi_blocks.plain_calls += 1
@@ -552,12 +572,14 @@ def schur_jacobi_blocks(JT, se, minv, plan):
     _check(se, "se", dt, (P, TE), dev)
     _check(minv, "minv", dt, (P, TE * TE), dev)
     _check_plan(plan, dev)
-    cam_partial = torch.empty((max(1, plan.n_cam_chunks), TF * TF), dtype=dt,
-                              device=dev)
+    _check_point_blocks(plan, dev)
+    _check_runs(plan, dev)
+    w = torch.empty((max(1, plan.n_runs), _UPPER), dtype=dt, device=dev)
+    work = torch.empty((max(1, sum(plan.run_level_sizes)), _UPPER), dtype=dt, device=dev)
     out = torch.empty((C, TF * TF), dtype=dt, device=dev)
-    _launch(fn, _ptr(JT), B, P, C, _ptr(plan.pt_idx), _ptr(se), _ptr(minv),
-            _ptr(plan.cam_rows), _ptr(plan.cam_chunk_start), plan.n_cam_chunks,
-            _ptr(plan.cam_chunk_first), _ptr(cam_partial), _ptr(out), _stream(dev))
+    _launch(fn, _ptr(JT), B, C, _ptr(plan.pt_idx), _ptr(se), _ptr(minv),
+            _ptr(plan.pt_start), _ptr(plan.pt_block), *_runs_args(plan), _ptr(w),
+            _ptr(work), _ptr(out), _stream(dev))
     schur_jacobi_blocks.launches += 1
     return out
 

@@ -20,9 +20,13 @@ each run launched, and times the kernels (segment_block_expand at each
 width a libmv solve gathers, 3, 6, 8 and 9, beside torch.index_select;
 segment_block_sum and unsorted_segment_sum at the widths a flat CG
 iteration sums, 3, 8 and 6, beside Tensor.index_add; each call's own peak
-device memory), the solves (with the device time per LM iteration of
-isc_matvec, normal_matvec and post_eval_fused, pass by pass, at the Venice
-shape in both dtypes; and the CG iterations of float32 BAL-16 +
+device memory; schur_assembly also at 120 cameras), holds
+schur_assembly's AtA and schur_jacobi_blocks' blocks to exact symmetry and
+a repeated call of each to the same bits, the solves (with the device time
+per LM iteration of isc_matvec, normal_matvec, post_eval_fused,
+schur_jacobi_blocks and schur_assembly, pass by pass, at BAL-16
+DENSE_SCHUR and ITERATIVE_SCHUR and at the Venice shape in both dtypes;
+and the CG iterations of float32 BAL-16 +
 HuberLoss(1.0) ITERATIVE_SCHUR beside those of the same solve through
 isc_matvec's plain version on the card and on the CPU and the JAX
 package's, with the symmetry of the Schur operator where the kernel path's
@@ -94,6 +98,9 @@ VENICE_PERTURB = dict(rotation_sigma=0.01, translation_sigma=0.1,
 VENICE_LM_ITERATIONS = 5
 # past the JAX package's 1024-camera window threshold, small for the CPU
 SMALL_VENICE = dict(VENICE, num_cameras=2048, num_points=30_000)
+# schur_assembly at 120 cameras (tests/test_torch_cuda.py): an AtA of
+# 1080 x 1080, past the JAX package's t_full = 1024 for this path
+C120 = dict(num_cameras=120, num_points=2000, visibility=0.04, seed=6)
 SMALL_VENICE_LM_ITERATIONS = 5
 
 # one row per TPU kernel: (row, wrapper, source, replaces)
@@ -141,7 +148,7 @@ ROW_PATH = {"1": "bal16_dense_f64", "1L": "bal16_huber_dense_f64",
             "8J": "specialized_v1_f64", "9": "libmv16_dense_f64"}
 # a row's other shapes, and its further cases (case, key suffix)
 ROW_VARIANTS = {"1": ["venice"], "1L": ["venice"], "1Q": ["venice"], "2": ["venice"],
-                "4": ["venice"], "4b": ["venice"], "6": ["libmv_venice"],
+                "3": ["c120"], "4": ["venice"], "4b": ["venice"], "6": ["libmv_venice"],
                 "7": ["libmv_venice"], "9": ["libmv_venice"]}
 # (rows 6 and 9 also at the widths each CG iteration of the flat
 # ITERATIVE_SCHUR step sums: w = 3 over the points, w = 8 over libmv's one
@@ -228,6 +235,16 @@ CASES = {"eval_fused": "eval_fused", "post_eval_fused": "post_eval_fused",
          "segment_block_sum_v2_etfz": "segment_block_sum",
          **{f"eval_fused_{model}_{loss}": "eval_fused"
             for model in ("angle_axis", "quat") for loss in ROBUST_LOSSES}}
+
+
+def exactly_symmetric(name, out):
+    """schur_assembly's AtA and FtF blocks, or schur_jacobi_blocks' blocks,
+    equal to their transposes bit for bit."""
+    if name == "schur_assembly":
+        ata, ftf = out[0], out[1].reshape(-1, 9, 9)
+        return torch.equal(ata, ata.T) and torch.equal(ftf, ftf.transpose(1, 2))
+    blocks = out.reshape(-1, 9, 9)
+    return torch.equal(blocks, blocks.transpose(1, 2))
 
 
 def specialized_launches(pipeline, k):
@@ -603,6 +620,16 @@ def main():
                   f"{case} {shape} {dtn} disagrees with its plain version")
             check(name != "segment_block_expand" or mabs == 0.0,
                   f"{case} {shape} {dtn}: the gather is a copy, yet differs by {mabs}")
+            if name in ("schur_assembly", "schur_jacobi_blocks"):
+                sym = exactly_symmetric(name, out)
+                again = wrapper(*args_c)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(as_tuple(again), as_tuple(out)))
+                log("check", f"{case} {shape} {dtn}: exactly symmetric {sym}, a repeated "
+                    f"call bit for bit {same}")
+                check(sym, f"{case} {shape} {dtn}: an output block is not exactly symmetric")
+                check(same, f"{case} {shape} {dtn}: a repeated call differs")
+                del again
             del ref, out
             checks[(case, shape, dtn)] = (rel, mabs)
             if not timed:
@@ -643,6 +670,12 @@ def main():
                                device=dev)
         args = kernel_inputs(prog, ctt.Options(linear_solver_type=DS), True, rng)
         check_and_time("bal16", dtn, args, 100, 10)
+        del prog, args
+    b120 = bal.perturb(bal.synthetic_bal(**C120), 0.01, 0.05, 0.05, seed=1)
+    for dtn in ("float64", "float32"):
+        prog = CompiledProgram(copy_problem(b120), dtn, device=dev)
+        args = kernel_inputs(prog, ctt.Options(linear_solver_type=DS), True, rng)
+        check_and_time("c120", dtn, {"schur_assembly": args["schur_assembly"]}, 100, 10)
         del prog, args
 
     paths = {}
@@ -852,6 +885,7 @@ def main():
         paths[path]["profile"] = profile_solve(
             lambda: ctt.solve(opts, bal.build_problem_batched(bal.bal16())[0]))
         log(f"profile {path}", json.dumps(paths[path]["profile"]) + f"; {card}")
+        log_row_passes(path, paths[path]["profile"], card)
 
     # -- libmv16: the flat path's kernels against their plain versions -------
     log("phase", f"libmv16 from {time.monotonic() - t_start:.1f} s")
@@ -959,10 +993,7 @@ def main():
             lambda: ctt.solve(opts, copy_problem(venice)))
         log(f"profile {path} (2 LM iterations)",
             json.dumps(paths[path]["profile"]) + f"; {card}")
-        for name, ms in paths[path]["profile"].get("row_device_ms_per_iteration",
-                                                   {}).items():
-            log(f"profile {path}", f"{name}'s kernels: {ms['total']} device ms per LM "
-                f"iteration, by pass {json.dumps(ms['by_kernel'])}; {card}")
+        log_row_passes(path, paths[path]["profile"], card)
 
     # -- the Venice shape with HuberLoss(1.0): rows 1L and 1Q at 4.4M rows, --
     # -- and quaternion cameras through ITERATIVE_SCHUR -------------------------
@@ -1226,6 +1257,11 @@ def cg_divergence(ctt, kn, path, res, runs, opts, problem):
           and len(solves) == len(cg["kernel"]) - 1,
           f"{path}: the recorded repeat of the kernel solve differs")
     rec = solves[row - 1]
+    # a point block that is not positive definite in float32 leaves M^{-1}
+    # non-finite, and the row's CG runs to its limit: a record of the inputs
+    nonfinite = {k: int((~torch.isfinite(rec[k])).sum()) for k in ("JT", "minv")}
+    res["nonfinite_inputs_at_first_row_apart"] = {"row": row, **nonfinite}
+    log(f"cg {path}", f"row {row}: non-finite entries of isc_matvec's inputs {nonfinite}")
     gen = torch.Generator(device=rec["JT"].device).manual_seed(5)
     pairs = {"random": [torch.randn(rec["z"][0].shape, generator=gen, device=gen.device,
                                     dtype=torch.float64) for _ in range(2)]}
@@ -1658,9 +1694,18 @@ def device_profile(run, anchor=None):
 
 
 # the kernels of the point-block rows (csrc/point_blocks.cuh), named by
-# their body: the pad, the point pass and the camera levels of each
+# their body: the pad, the point pass and the camera levels of each, and
+# schur_assembly's pair chunks and pair levels
 POINT_BLOCK_BODIES = {"isc_matvec": "IscMatvec", "normal_matvec": "NormalMatvec",
-                      "post_eval_fused": "PostEvalFused"}
+                      "post_eval_fused": "PostEvalFused",
+                      "schur_jacobi_blocks": "SchurJacobi",
+                      "schur_assembly": "SchurAssembly"}
+
+
+def log_row_passes(path, profile, card):
+    for name, ms in profile.get("row_device_ms_per_iteration", {}).items():
+        log(f"profile {path}", f"{name}'s kernels: {ms['total']} device ms per LM "
+            f"iteration, by pass {json.dumps(ms['by_kernel'])}; {card}")
 
 
 def row_device_ms(by_name, n_it):
@@ -1748,7 +1793,8 @@ def work(case, args):
         JT, sc, sp, K, u = args[:5]
         es = JT.element_size()
         byts = nbytes(JT, sc, sp, K, u) + idx + es * ((9 * C) ** 2 + 81 * C + 9 * C)
-        NP = plan.ensure_pairs().pair_a.shape[0]  # ordered row pairs of a point, a == b too
+        m = torch.diff(plan.pt_start.long())
+        NP = int(torch.sum(m * m))  # ordered row pairs of a point, a == b too
         # per row: scaling 24, W 108, Y 162, FtF (45 of 81) 180, U 54;
         # Y_a'Y_b once per unordered pair a != b, 45 of 81 entries for a == b
         return byts, 528 * B + 486 * (NP - B) // 2 + 270 * B

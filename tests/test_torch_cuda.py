@@ -105,6 +105,10 @@ def test_schur_assembly_beyond_shared_memory_on_card(card):
     assert out[0].shape == (1080, 1080)
     for o, r in zip(out, ref):
         assert (o - r).abs().max().item() <= 1e-11 * r.abs().max().item()
+    # exactly symmetric, and the same bits again (no atomics)
+    ftf = out[1].reshape(-1, 9, 9)
+    assert torch.equal(out[0], out[0].T) and torch.equal(ftf, ftf.transpose(1, 2))
+    assert all(torch.equal(a, o) for a, o in zip(kn.schur_assembly(*args), out))
 
 
 def test_solve_on_card_matches_cpu(card):
@@ -240,12 +244,12 @@ def test_isc_matvec_long_track_and_large_camera_on_card(card, dtype, emit_u):
 
 
 def _point_block_inputs(card, name, dtype):
-    """normal_matvec's or post_eval_fused's arguments on a row plan that
-    reaches every branch of csrc/point_blocks.cuh at the real chunk: tracks
-    of 256 (a full block), 600 and 1,000 rows (blocks that loop), points
-    without rows and of one row, a ragged last block, and a camera of about
-    a million rows in 4,722 tiles (three levels of its sum by rows, two by
-    runs)."""
+    """normal_matvec's, post_eval_fused's or schur_jacobi_blocks' arguments
+    on a row plan that reaches every branch of csrc/point_blocks.cuh at the
+    real chunk: tracks of 256 (a full block), 600 and 1,000 rows (blocks
+    that loop), points without rows and of one row, a ragged last block, and
+    a camera of about a million rows in 4,722 tiles (three levels of its sum
+    by rows, two by runs); 1.2M rows in all."""
     rng = np.random.default_rng(17)
     P, C = 400_000, 7
     counts = rng.integers(1, 6, P)
@@ -263,17 +267,23 @@ def _point_block_inputs(card, name, dtype):
 
     if name == "post_eval_fused":
         return rand(kn.LANES, B), rand(kn.R, B), plan
+    if name == "schur_jacobi_blocks":
+        se = torch.as_tensor(rng.uniform(0.5, 1.5, (P, 3)), device=card).to(dt)
+        A = rng.standard_normal((P, 3, 3))
+        minv = (A @ A.transpose(0, 2, 1) + np.eye(3)).reshape(P, 9)
+        return rand(kn.LANES, B), se, torch.as_tensor(minv, device=card).to(dt), plan
     return rand(kn.LANES, B), rand(C, 9), rand(P, 3), plan
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("name", ["normal_matvec", "post_eval_fused"])
+@pytest.mark.parametrize("name", ["normal_matvec", "post_eval_fused", "schur_jacobi_blocks"])
 def test_point_block_kernel_long_tracks_and_deep_camera_on_card(card, name, dtype):
-    """csrc/normal_matvec.cu and csrc/post_eval_fused.cu against the plain
-    version in float64 on the same card inputs (a float32 sum by atomics
-    over a million rows is no reference), relative to each output's
-    largest entry: 1e-11 in float64, 1e-4 in float32; one launch for the
-    call; a second call gives the same bits (no atomics)."""
+    """csrc/normal_matvec.cu, csrc/post_eval_fused.cu and
+    csrc/schur_jacobi.cu against the plain version in float64 on the same
+    card inputs (a float32 sum by atomics over a million rows is no
+    reference), relative to each output's largest entry: 1e-11 in float64,
+    1e-4 in float32; one launch for the call; a second call gives the same
+    bits (no atomics); block-diag(S)'s blocks exactly symmetric."""
     args = _point_block_inputs(card, name, dtype)
     wrapper, plain = getattr(kn, name), getattr(kn, name + "_plain")
     kn.reset_counts()
@@ -281,10 +291,16 @@ def test_point_block_kernel_long_tracks_and_deep_camera_on_card(card, name, dtyp
     torch.cuda.synchronize()
     ref = plain(*(a.double() if isinstance(a, torch.Tensor) else a for a in args))
     assert wrapper.launches == 1 and wrapper.plain_calls == 0
+    if isinstance(out, torch.Tensor):
+        out, ref = (out,), (ref,)
+        blocks = out[0].reshape(-1, 9, 9)
+        assert torch.equal(blocks, blocks.transpose(1, 2))
     for o, r in zip(out, ref):
         err = (o.double() - r.double()).abs().max().item()
         assert err <= REL_LIMIT[o.dtype] * r.double().abs().max().item()
-    assert all(torch.equal(a, o) for a, o in zip(wrapper(*args), out))
+    again = wrapper(*args)
+    again = again if isinstance(again, tuple) else (again,)
+    assert all(torch.equal(a, o) for a, o in zip(again, out))
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])

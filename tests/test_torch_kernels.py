@@ -123,7 +123,9 @@ def test_normal_matvec_plain_matches_dense_jacobian(setup):
 
 def test_row_plan_covers_every_row_and_pair(setup):
     """The camera chunks partition the rows, each within one camera, and
-    the pair plan holds every ordered pair of rows of each point."""
+    the pair plan holds each pair of two rows of each point once, a from
+    the lower camera, ordered by camera-pair key; each key's level-0 chunks
+    hold its pairs only."""
     plan = setup["ops"].flat.plan
     cam = plan.cam_idx.long().numpy()
     pt = plan.pt_idx.long().numpy()
@@ -139,11 +141,16 @@ def test_row_plan_covers_every_row_and_pair(setup):
     a = pairs.pair_a.long().numpy()
     bb = pairs.pair_b.long().numpy()
     counts = np.bincount(pt, minlength=plan.P)
-    assert a.shape[0] == int(np.sum(counts ** 2))
+    assert a.shape[0] == int(np.sum(counts * (counts - 1) // 2))
     assert np.all(pt[a] == pt[bb])
-    pcs = pairs.pair_chunk_start.long().numpy()
-    pcf = pairs.pair_chunk_first.long().numpy()
-    for key in range(plan.C * plan.C):
-        for k in range(pcf[key], pcf[key + 1]):
-            seg = slice(pcs[k], pcs[k + 1])
-            assert np.all(cam[a[seg]] * plan.C + cam[bb[seg]] == key)
+    assert np.all((cam[a] < cam[bb]) | ((cam[a] == cam[bb]) & (a < bb)))
+    got = {(min(x, y), max(x, y)) for x, y in zip(a.tolist(), bb.tolist())}
+    assert len(got) == a.shape[0]
+    key_cams = pairs.key_cams.long().numpy()
+    assert pairs.n_keys == plan.C * (plan.C + 1) // 2
+    pair_key = cam[a] * plan.C + cam[bb]
+    key = np.searchsorted(key_cams, pair_key)
+    assert np.all(key_cams[key] == pair_key) and np.all(np.diff(key) >= 0)
+    pcs = pairs.pair_levels[0].long().numpy()
+    assert pcs[0] == 0 and pcs[-1] == a.shape[0]
+    assert np.all(key[pcs[:-1]] == key[pcs[1:] - 1])

@@ -429,22 +429,27 @@ def _point_block_inputs(name, dtype, structure="long_tracks"):
     return JT, xc, xp, plan
 
 
-def _run_and_hold(call, name, args):
+def _run_and_hold(call, name, args, repeat=True):
     """One call of the wrapper through the emulated kernel against the
     plain version, each output relative to its largest entry (1e-12 in
     float64, 1e-5 in float32: sums in another order), one launch for the
-    call; a second call gives the same bits."""
+    call; with `repeat`, a second call gives the same bits. Returns the
+    outputs."""
     wrapper, plain = getattr(kn, name), getattr(kn, name + "_plain")
     kn.reset_counts()
     out = call(wrapper, *args)
     ref = plain(*args)
     assert wrapper.launches == 1 and wrapper.plain_calls == 0
+    out, ref = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
     for o, r in zip(out, ref):
         assert o.shape == r.shape and o.dtype == r.dtype
         err = (o.double() - r.double()).abs().max().item()
         assert err <= LIMIT[r.dtype] * r.double().abs().max().item()
-    again = call(wrapper, *args)
-    assert all(torch.equal(a, o) for a, o in zip(again, out))
+    if repeat:
+        again = call(wrapper, *args)
+        again = again if isinstance(again, tuple) else (again,)
+        assert all(torch.equal(a, o) for a, o in zip(again, out))
+    return out
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -480,3 +485,138 @@ def test_emulated_post_eval_fused_run_levels_of_a_deep_tree(kernel_path_small_ch
     args = _point_block_inputs("post_eval_fused", dtype)
     assert len(args[-1].run_levels) == 2
     _run_and_hold(kernel_path_small_chunk, "post_eval_fused", args)
+
+
+
+def _schur_jacobi_inputs(dtype):
+    """schur_jacobi_blocks' arguments on _point_block_inputs' "long_tracks"
+    row plan: J random, se in [0.5, 1.5], M symmetric positive definite."""
+    from ceres_tpu_torch.ops import flatops as fo
+    from test_torch_row_plan import _structure
+
+    dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
+    pt, cam, P, C = _structure("long_tracks")
+    plan = fo.build_row_plan(pt, cam, P, C, "cpu")
+    rng = np.random.default_rng(19)
+    JT = torch.as_tensor(rng.standard_normal((kn.LANES, pt.shape[0]))).to(dt)
+    se = torch.as_tensor(rng.uniform(0.5, 1.5, (P, 3))).to(dt)
+    A = rng.standard_normal((P, 3, 3))
+    minv = torch.as_tensor((A @ A.transpose(0, 2, 1) + np.eye(3)).reshape(P, 9)).to(dt)
+    return JT, se, minv, plan
+
+
+def _schur_assembly_inputs(dtype, C, counts, seed=2):
+    """schur_assembly's arguments on C cameras and points of counts[p]
+    rows, each row's camera drawn at random (so a point's rows may share a
+    camera); J random, the scales in [0.5, 1.5], K lower triangular, u
+    random."""
+    from ceres_tpu_torch.ops import flatops as fo
+
+    dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
+    rng = np.random.default_rng(seed)
+    P = counts.shape[0]
+    pt = np.repeat(np.arange(P), counts)
+    B = pt.shape[0]
+    plan = fo.build_row_plan(pt, rng.integers(0, C, B), P, C, "cpu")
+
+    def rand(*shape):
+        return torch.as_tensor(rng.uniform(0.5, 1.5, shape)).to(dt)
+
+    JT = torch.as_tensor(rng.standard_normal((kn.LANES, B))).to(dt)
+    K = torch.tril(rand(P, 3, 3)).reshape(P, 9).contiguous()
+    return JT, rand(C, 9), rand(P, 3), K, rand(P, 3), plan
+
+
+def _hold_schur(call, name, args, repeat=True):
+    """_run_and_hold, and the outputs exactly symmetric: AtA and each 9 x 9
+    block of FtF (row 3), each 9 x 9 block of block-diag(S) (rows 3b, 5).
+    Returns the outputs."""
+    out = _run_and_hold(call, name, args, repeat)
+    blocks = (out[1] if name == "schur_assembly" else out[0]).reshape(-1, 9, 9)
+    assert torch.equal(blocks, blocks.transpose(1, 2))
+    if name == "schur_assembly":
+        assert torch.equal(out[0], out[0].T)
+    return out
+
+
+def _pairs_within_one_camera(plan):
+    pairs = plan.ensure_pairs()
+    a, b = pairs.pair_a.long(), pairs.pair_b.long()
+    cam = plan.cam_idx.long()
+    return int(((a != b) & (cam[a] == cam[b])).sum())
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_emulated_schur_jacobi_long_tracks_and_large_camera(kernel_path, dtype):
+    """csrc/schur_jacobi.cu (rows 3b and 5) through the point blocks and
+    runs of csrc/point_blocks.cuh: blocks that loop (points of 600, 256, 257
+    and 1,000 rows), a ragged last block, points of one row or none; held
+    to the plain version (1e-12 of the largest entry in float64, 1e-5 in
+    float32), each block exactly symmetric, a second call the same bits."""
+    args = _schur_jacobi_inputs(dtype)
+    plan = args[-1]
+    counts = np.diff(plan.pt_start.numpy())
+    assert plan.B % kn.POINT_BLOCK and counts.max() > kn.POINT_BLOCK
+    assert (counts == 0).any() and (counts == 1).any()
+    _hold_schur(kernel_path, "schur_jacobi_blocks", args)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_emulated_schur_jacobi_run_levels_of_a_deep_tree(kernel_path_small_chunk, dtype):
+    """Rows 3b and 5's camera levels past the first, at width 45, and the
+    mirrored last store: the kernels built with a chunk of SMALL_CHUNK items
+    and the plan cut to match, so the long_tracks structure's large camera
+    takes two levels of runs."""
+    args = _schur_jacobi_inputs(dtype)
+    assert len(args[-1].run_levels) == 2
+    _hold_schur(kernel_path_small_chunk, "schur_jacobi_blocks", args)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_emulated_schur_assembly_many_cameras(kernel_path, dtype):
+    """csrc/schur_assembly.cu (row 3) at 40 cameras: 820 camera-pair keys,
+    more than a block has threads, an AtA of 360 x 360 whose blocks without
+    pairs come out zero; points of 1 to 6 rows, some seen twice by one
+    camera, one point without rows, a ragged last block. Held to the plain
+    version (1e-12 of each output's largest entry in float64, 1e-5 in
+    float32), AtA and each FtF block exactly symmetric. One call: the
+    emulation runs a block at a time, and each takes ~10 ms."""
+    counts = np.random.default_rng(40).integers(1, 7, 100)
+    counts[3] = 0
+    args = _schur_assembly_inputs(dtype, 40, counts)
+    plan = args[-1]
+    assert plan.ensure_pairs().n_keys == 820 > kn.POINT_BLOCK
+    assert plan.B % kn.POINT_BLOCK and _pairs_within_one_camera(plan) > 0
+    out = _hold_schur(kernel_path, "schur_assembly", args, repeat=False)
+    assert (out[0] == 0).any()
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_emulated_schur_assembly_long_track(kernel_path, dtype):
+    """Row 3 with a point of 260 rows over 4 cameras (a block that loops,
+    ~65 of its rows in each camera: 33,930 pairs, most within one camera or
+    across two, in chunks of up to 64), 300 points of 1 to 4 rows and a
+    ragged last block: held to the plain version, exactly symmetric, a
+    second call the same bits."""
+    counts = np.random.default_rng(4).integers(1, 5, 300)
+    counts[150] = 260
+    args = _schur_assembly_inputs(dtype, 4, counts)
+    plan = args[-1]
+    assert plan.B % kn.POINT_BLOCK and counts.max() > kn.POINT_BLOCK
+    assert _pairs_within_one_camera(plan) > 4 * 64
+    _hold_schur(kernel_path, "schur_assembly", args)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_emulated_schur_assembly_levels_of_a_deep_tree(kernel_path_small_chunk, dtype):
+    """Row 3's run levels (width 54, the FtF and U store) and pair levels
+    (width 81, the AtA store) past the first: the kernels built with a chunk
+    of SMALL_CHUNK items and the plan cut to match, on 2 cameras and 4,200
+    points of one row or, every twentieth, four (19 tiles of runs: two run
+    levels; 1,260 pairs in 3 keys: four pair levels)."""
+    counts = np.ones(4200, np.int64)
+    counts[::20] = 4
+    args = _schur_assembly_inputs(dtype, 2, counts)
+    plan = args[-1]
+    assert len(plan.run_levels) == 2 and len(plan.ensure_pairs().pair_levels) == 4
+    _hold_schur(kernel_path_small_chunk, "schur_assembly", args, repeat=False)

@@ -232,3 +232,63 @@ def test_segment_plan_host_arrays_are_built_once_and_follow_the_levels(ids):
     assert list(cut.level_ptrs) == [levels[0].data_ptr()]
     with pytest.raises(TypeError, match="level_starts"):
         dataclasses.replace(plan, level_starts=(levels[0].to(torch.int64),))
+
+
+@pytest.mark.parametrize("name", _NAMES)
+def test_pair_plan_holds_each_unordered_pair_once_by_key(name):
+    """The dense Schur assembly's pairs: each pair of two rows of one point
+    once, a from the lower camera (the earlier row within one camera), in
+    camera-pair key order (the upper triangle of C x C, row by row), by
+    point within a key; level 0 cuts each key's pairs into
+    chunks of at most kn.CHUNK, and summing values through the levels and
+    the last level's per-key chunks gives each key's sum."""
+    pt, cam, P, C = _structure(name)
+    plan = fo.build_row_plan(pt, cam, P, C, "cpu")
+    assert plan.pairs is None
+    pairs = plan.ensure_pairs()
+    assert plan.ensure_pairs() is pairs
+    a = pairs.pair_a.numpy().astype(np.int64)
+    b = pairs.pair_b.numpy().astype(np.int64)
+    m = np.bincount(pt, minlength=P)
+    assert a.shape[0] == int(np.sum(m * (m - 1) // 2))
+    assert np.all(pt[a] == pt[b])
+    assert np.all((cam[a] < cam[b]) | ((cam[a] == cam[b]) & (a < b)))
+    assert np.unique(a * pt.shape[0] + b).shape[0] == a.shape[0]
+    rows, cols = np.triu_indices(C)
+    assert pairs.n_keys == C * (C + 1) // 2
+    assert np.array_equal(pairs.key_cams.numpy(), rows * C + cols)
+    key_of = {(r, c): k for k, (r, c) in enumerate(zip(rows, cols))}
+    key = np.array([key_of[(x, y)] for x, y in zip(cam[a], cam[b])])
+    assert np.all(np.diff(key) >= 0)
+    same = np.diff(key) == 0
+    assert np.all(pt[a][1:][same] >= pt[a][:-1][same])
+    vals = np.random.default_rng(2).standard_normal(a.shape[0])
+    x = vals
+    for lv, cs in enumerate(pairs.pair_levels):
+        cs = cs.numpy().astype(np.int64)
+        assert cs[0] == 0 and cs[-1] == x.shape[0] and np.all(np.diff(cs) <= kn.CHUNK)
+        if lv == 0:  # a chunk never crosses a key
+            assert np.all(key[cs[:-1]] == key[cs[1:] - 1])
+        x = np.array([x[s:e].sum() for s, e in zip(cs[:-1], cs[1:])])
+    first = pairs.pair_level_first.numpy().astype(np.int64)
+    assert first.shape == (pairs.n_keys + 1,) and np.all(np.diff(first) <= kn.CHUNK)
+    out = np.array([x[s:e].sum() for s, e in zip(first[:-1], first[1:])])
+    np.testing.assert_allclose(out, np.bincount(key, vals, minlength=pairs.n_keys),
+                               rtol=1e-12, atol=1e-9)
+
+
+def test_pair_levels_host_arrays_are_built_once_and_follow_the_levels():
+    """schur_assembly passes the pair levels as host arrays of their chunk
+    counts and device pointers, which the pair plan builds once, as the row
+    plan does its levels'; a level that is not int32 is refused."""
+    import torch
+
+    pt, cam, P, C = _structure("long_track")
+    pairs = fo.build_row_plan(pt, cam, P, C, "cpu").ensure_pairs()
+    levels = pairs.pair_levels
+    assert len(levels) == 2  # camera 0 holds ~130,000 pairs of the 600-row point
+    assert pairs.pair_level_sizes == tuple(int(s.shape[0]) - 1 for s in levels)
+    assert list(pairs.pair_level_counts) == list(pairs.pair_level_sizes)
+    assert list(pairs.pair_level_ptrs) == [s.data_ptr() for s in levels]
+    with pytest.raises(TypeError, match="pair_levels"):
+        dataclasses.replace(pairs, pair_levels=(levels[0].to(torch.int64),))
