@@ -65,18 +65,20 @@ struct Vec16<double> {
   }
 };
 
-// Sum of the partials of each camera in chunk order:
-// out[c * L + l] = sum_{k = cf[c]}^{cf[c+1]-1} partial[k * L + l].
-template <typename T>
+// Sum of the partials of each camera (or key) in chunk order:
+// out[c' * L + l] = sum_{k = cf[c]}^{cf[c+1]-1} partial[k * L + l], c' =
+// keys[c], or c without keys. Tag names the caller's kernel in a profile.
+template <typename T, class Tag = void>
 __global__ void camera_finalize_kernel(const T* __restrict__ partial,
-                                       const int* __restrict__ cf, int C,
-                                       int L, T* __restrict__ out) {
+                                       const int* __restrict__ cf,
+                                       const int* __restrict__ keys, int C, int L,
+                                       T* __restrict__ out) {
   long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)C * L) return;
   int c = (int)(idx / L), l = (int)(idx % L);
   T acc = T(0);
   for (int k = cf[c]; k < cf[c + 1]; ++k) acc += partial[(long long)k * L + l];
-  out[idx] = acc;
+  out[(keys != nullptr ? (long long)keys[c] : (long long)c) * L + l] = acc;
 }
 
 // Block-wide sum of one double per thread, in a fixed tree order.

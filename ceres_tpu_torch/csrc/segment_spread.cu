@@ -135,7 +135,7 @@ int launch_ftf(const T* Y, const int* cam, const int* pt_start, int P, int C, in
   long long outs = (long long)C * tf * tf;
   if (outs > 0) {
     CT_LAUNCH(ct::camera_finalize_kernel<T>, ct::ceil_div(outs, 256), 256, stream,
-              cam_partial, chunk_first, C, tf * tf, ftf);
+              cam_partial, chunk_first, nullptr, C, tf * tf, ftf);
   }
   return (int)cudaGetLastError();
 }

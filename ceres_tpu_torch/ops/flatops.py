@@ -218,36 +218,47 @@ def _point_blocks(pt_start: np.ndarray, cap: int) -> np.ndarray:
     return np.asarray(blocks, np.int64)
 
 
+def _runs(tile, keys, key_rows, n_tiles: int, num_keys: int):
+    """The runs of one key within one tile of rows, for each row's tile
+    `tile` and key `keys` (B,) and the rows in key order, stable
+    (`key_rows`): (tile_run, run_start, run_slot, run_pos, counts of runs
+    per key), int64. Runs are found in key order, along key_rows, where a
+    key's rows come in row order and so tile by tile; then ordered by tile,
+    key within a tile: the rows in run order, (tile, key, row), are the
+    places run_start[q] .. run_start[q+1] of run q, row b at place
+    run_slot[b]; run_pos[q] is run q's place among the runs in key order."""
+    B = keys.shape[0]
+    tile = tile[key_rows]
+    key = keys[key_rows]
+    new = np.ones(B, bool)
+    new[1:] = (tile[1:] != tile[:-1]) | (key[1:] != key[:-1])
+    first = np.flatnonzero(new)  # each run's first place in key order
+    length = np.diff(np.append(first, B))
+    order = np.argsort(tile[first], kind="stable")  # the runs by tile
+    run_start = np.concatenate([[0], np.cumsum(length[order])]).astype(np.int64)
+    run_slot = np.empty(B, np.int64)
+    run_slot[key_rows[np.repeat(first[order] - run_start[:-1], length[order])
+                      + np.arange(B)]] = np.arange(B)
+    tile_run = np.concatenate([[0], np.cumsum(np.bincount(tile[first],
+                                                          minlength=n_tiles))])
+    return (tile_run, run_start, run_slot, order,
+            np.bincount(key[first], minlength=num_keys))
+
+
 def _camera_runs(pt_start, pt_block, cam_idx, cam_rows, C: int):
     """The runs of one camera within one tile of rows (RowPlan.run_*):
     (tile_first, tile_run, run_start, run_slot, run_pos, counts of runs per
     camera), int64. A tile is a point block's rows, or kn.POINT_BLOCK of
-    them in a block of one longer point. Runs are found in camera order,
-    along cam_rows, where a camera's rows come in row order and so tile by
-    tile; then ordered by tile, camera within a tile."""
+    them in a block of one longer point."""
     cap = kn.POINT_BLOCK
-    B = cam_idx.shape[0]
     blk_rows = pt_start[pt_block]
     per_block = np.maximum(1, -(-np.diff(blk_rows) // cap))
     tile_first = np.concatenate([[0], np.cumsum(per_block)])
     owner = np.repeat(np.arange(per_block.shape[0]), per_block)
     t0 = blk_rows[owner] + (np.arange(tile_first[-1]) - tile_first[owner]) * cap
     t1 = np.minimum(t0 + cap, blk_rows[owner + 1])
-    tile = np.repeat(np.arange(t0.shape[0]), t1 - t0)[cam_rows]
-    cam = cam_idx[cam_rows]
-    new = np.ones(B, bool)
-    new[1:] = (tile[1:] != tile[:-1]) | (cam[1:] != cam[:-1])
-    first = np.flatnonzero(new)  # each run's first place in camera order
-    length = np.diff(np.append(first, B))
-    order = np.argsort(tile[first], kind="stable")  # the runs by tile
-    run_start = np.concatenate([[0], np.cumsum(length[order])])
-    run_slot = np.empty(B, np.int64)
-    run_slot[cam_rows[np.repeat(first[order] - run_start[:-1], length[order])
-                      + np.arange(B)]] = np.arange(B)
-    tile_run = np.concatenate([[0], np.cumsum(np.bincount(tile[first],
-                                                          minlength=t0.shape[0]))])
-    return (tile_first, tile_run, run_start, run_slot, order,
-            np.bincount(cam[first], minlength=C))
+    tile = np.repeat(np.arange(t0.shape[0]), t1 - t0)
+    return (tile_first, *_runs(tile, cam_idx, cam_rows, t0.shape[0], C))
 
 
 def _dev_i32(a, device) -> torch.Tensor:
@@ -600,15 +611,32 @@ class JTSchurOps:
 class SegmentPlan:
     """The reduction plan of one slot's row -> block ids, for
     segment_block_sum (sorted ids, kernel 6) and unsorted_segment_sum
-    (kernel 9). Level 0 takes the rows in key order (through `order` when
-    the ids are unsorted) and cuts each key's run into chunks of at most
-    CHUNK rows. While a key still owns more than CHUNK chunks, the next
-    level cuts that key's chunk partials again into chunks of at most
-    CHUNK, so that a key holding every row (the shared intrinsics block)
-    is summed in a fixed tree, never by one thread. `key_first` indexes
-    each key's chunks of the last level, which the finalize pass sums in
-    order. The levels' chunk counts and their host arrays (level_sizes,
-    level_counts, level_ptrs) are checked and built once, with the plan."""
+    (kernel 9), csrc/segment_sum.cu.
+
+    The chunks by key: each key's rows in key order (through `order` when
+    the ids are unsorted) cut into chunks of at most CHUNK rows; while a key
+    still owns more than CHUNK chunks, the next level cuts its chunk
+    partials again, so that a key holding every row (the shared intrinsics
+    block) is summed in a fixed tree, never by one thread. key_first
+    indexes each key's chunks of the last level, which the last pass sums
+    in order. unsorted_segment_sum gathers through them.
+
+    The runs (sorted ids, segment_block_sum): the rows cut into tiles of
+    kn.SEG_TILE consecutive rows. A key whose rows end at most kn.SEG_HALO
+    rows past the end of the tile of its first row is one run of that
+    tile; a longer key has a run in each tile its rows meet. Runs are
+    contiguous and in row order. A key of one run writes its sum straight
+    to the output: its run_dest is n_partials + its key. The runs of every
+    other key of rows write partials, in key order (run_dest < n_partials),
+    summed by the same kind of tree (run_levels) and the last run level's
+    chunks of each fin key (fin_first; fin_keys are the keys of several
+    runs). Where no key has more than CHUNK partials there are no run
+    levels: fin_first indexes the partials, which the last pass sums. The
+    keys of no row (empty_keys) are zero.
+
+    The levels' chunk counts and their host arrays (level_sizes,
+    level_counts, level_ptrs; run_level_*) are checked and built once, with
+    the plan."""
 
     ids: torch.Tensor  # (B,) int32 block id of each row, in [0, num_keys)
     num_keys: int
@@ -616,15 +644,70 @@ class SegmentPlan:
     level_starts: Tuple[torch.Tensor, ...]  # per level (n_l + 1,) int32 chunk offsets
     key_first: torch.Tensor  # (num_keys + 1,) int32 first last-level chunk of each key
     seg_start: Optional[torch.Tensor]  # sorted ids: (num_keys + 1,) int32 row offsets
+    # the runs, for sorted ids (None, and () for unsorted)
+    tile_run: Optional[torch.Tensor] = None  # (n_tiles + 1,) int32 first run of each tile
+    run_start: Optional[torch.Tensor] = None  # (n_runs + 1,) int32 first row of each run
+    run_dest: Optional[torch.Tensor] = None  # (n_runs,) int32 its partial, or n_partials + key
+    n_partials: int = 0
+    empty_keys: Optional[torch.Tensor] = None  # (n_empty,) int32 the keys of no row
+    run_levels: Tuple[torch.Tensor, ...] = ()  # per level (n_l + 1,) int32, over the partials
+    fin_first: Optional[torch.Tensor] = None  # (n_fin + 1,) int32 each fin key's chunks,
+    # or partials where there are no run levels
+    fin_keys: Optional[torch.Tensor] = None  # (n_fin,) int32 the keys of several runs
 
     def __post_init__(self):
+        dev = self.ids.device
         (self.level_sizes, self.level_counts,
-         self.level_ptrs) = level_host_arrays(self.level_starts, "level_starts",
-                                              self.ids.device)
+         self.level_ptrs) = level_host_arrays(self.level_starts, "level_starts", dev)
+        (self.run_level_sizes, self.run_level_counts,
+         self.run_level_ptrs) = level_host_arrays(self.run_levels, "run_levels", dev)
 
     @property
     def B(self) -> int:
         return self.ids.shape[0]
+
+    @property
+    def n_runs(self) -> int:
+        return self.run_dest.shape[0]
+
+    @property
+    def n_fin(self) -> int:
+        return self.fin_keys.shape[0]
+
+    @property
+    def n_empty(self) -> int:
+        return self.empty_keys.shape[0]
+
+
+def _segment_runs(ids: np.ndarray, num_keys: int):
+    """The runs of SegmentPlan for sorted ids: (tile_run, run_start,
+    run_dest, n_partials, empty_keys, run level starts, fin_first,
+    fin_keys)."""
+    B = ids.shape[0]
+    T = kn.SEG_TILE
+    counts = np.bincount(ids, minlength=num_keys)
+    start = np.concatenate([[0], np.cumsum(counts)])
+    # each row's tile for the runs: the tile of its key's first row where
+    # the key ends within SEG_HALO rows past that tile, else its own
+    whole = start[1:] <= (start[:-1] // T + 1) * T + kn.SEG_HALO
+    rows = np.arange(B, dtype=np.int64)
+    tile = np.where(whole[ids], start[ids] // T, rows // T)
+    tile_run, run_start, _, _, per_key = _runs(tile, ids, rows, -(-B // T), num_keys)
+    # the runs (in key order, as the rows): each one's key, and its partial
+    # where its key has several runs
+    run_key = np.repeat(np.arange(num_keys, dtype=np.int64), per_key)
+    several = per_key[run_key] > 1
+    n_partials = int(several.sum())
+    dest = np.where(several, np.cumsum(several) - 1, n_partials + run_key)
+    empty_keys = np.flatnonzero(per_key == 0)
+    fin_keys = np.flatnonzero(per_key > 1)
+    counts = per_key[fin_keys]
+    if counts.max(initial=0) <= kn.CHUNK:  # the last pass sums the partials themselves
+        return (tile_run, run_start, dest, n_partials, empty_keys, [],
+                np.concatenate([[0], np.cumsum(counts)]), fin_keys)
+    starts, firsts = _chunk_levels(counts)
+    return (tile_run, run_start, dest, n_partials, empty_keys, starts, firsts[-1],
+            fin_keys)
 
 
 def build_segment_plan(ids, num_keys: int, device) -> SegmentPlan:
@@ -633,13 +716,21 @@ def build_segment_plan(ids, num_keys: int, device) -> SegmentPlan:
         raise ValueError("a segment id is out of range")
     counts = np.bincount(ids, minlength=num_keys)
     srt = bool(np.all(ids[1:] >= ids[:-1]))
-    order = None if srt else _dev_i32(np.argsort(ids, kind="stable"), device)
-    seg_start = (_dev_i32(np.concatenate([[0], np.cumsum(counts)]), device)
-                 if srt else None)
     starts, firsts = _chunk_levels(counts)
-    return SegmentPlan(_dev_i32(ids, device), num_keys, order,
-                       tuple(_dev_i32(a, device) for a in starts),
-                       _dev_i32(firsts[-1], device), seg_start)
+
+    def dev(a):
+        return _dev_i32(a, device)
+
+    if not srt:
+        return SegmentPlan(dev(ids), num_keys, dev(np.argsort(ids, kind="stable")),
+                           tuple(dev(a) for a in starts), dev(firsts[-1]), None)
+    (tile_run, run_start, run_dest, n_partials, empty_keys, run_starts, fin_first,
+     fin_keys) = _segment_runs(ids, num_keys)
+    return SegmentPlan(
+        dev(ids), num_keys, None, tuple(dev(a) for a in starts), dev(firsts[-1]),
+        dev(np.concatenate([[0], np.cumsum(counts)])), dev(tile_run), dev(run_start),
+        dev(run_dest), n_partials, dev(empty_keys), tuple(dev(a) for a in run_starts),
+        dev(fin_first), dev(fin_keys))
 
 
 class SlotPlanFlat(NamedTuple):
@@ -680,9 +771,12 @@ class _FlatOpsBase:
     @staticmethod
     def _reduce_rows(table, pe: SlotPlanFlat, contrib):
         """table + the segment sum of contrib (B, w) by pe's block ids:
-        kernel 6 for sorted ids, kernel 9 otherwise (flatops.py:359)."""
+        kernel 6 for sorted ids, kernel 9 otherwise (flatops.py:359). A
+        table of None is a family's first slot: the sum itself is the table
+        (0 + x = x), so no zero table is filled, read and written again."""
         reduce = kn.segment_block_sum if pe.srt else kn.unsorted_segment_sum
-        return table + reduce(contrib.contiguous(), pe.seg)
+        out = reduce(contrib.contiguous(), pe.seg)
+        return out if table is None else table + out
 
     @staticmethod
     def _expand(rows, pe: SlotPlanFlat):
@@ -718,7 +812,7 @@ class _FlatOpsBase:
 
     def _left(self, plans, fams, vflat, u):
         """J'u over the plans' columns, in partition layout."""
-        tables = [u.new_zeros((nv + 1, t)) for (_, nv, t, _) in fams]
+        tables = [None] * len(fams)
         for k in range(len(self.kinds)):
             if not plans[k]:
                 continue
@@ -726,6 +820,7 @@ class _FlatOpsBase:
             for pe in plans[k]:
                 contrib = torch.sum(self._jac(vflat, k, pe) * rows[:, :, None], dim=1)
                 tables[pe.fi] = self._reduce_rows(tables[pe.fi], pe, contrib)
+        tables = _zero_if_none(tables, [(nv + 1, t) for (_, nv, t, _) in fams], u)
         return _concat([tab[:nv].reshape(-1) for tab, (_, nv, _, _) in zip(tables, fams)],
                        u)
 
@@ -734,7 +829,7 @@ class _FlatOpsBase:
         gradient J'u, squared column norms diag(J'J) and J'J diagonal
         blocks (flatops.py:539). Returns (g, sqn, [blocks (nv, t*t)]) in
         this partition's layout."""
-        tables = [u.new_zeros((nv + 1, 2 * t + t * t)) for (_, nv, t, _) in fams]
+        tables = [None] * len(fams)
         for k in range(len(self.kinds)):
             if not plans[k]:
                 continue
@@ -742,6 +837,8 @@ class _FlatOpsBase:
             for pe in plans[k]:
                 contrib = self.post_contrib(self._jac(vflat, k, pe), rows)
                 tables[pe.fi] = self._reduce_rows(tables[pe.fi], pe, contrib)
+        tables = _zero_if_none(tables, [(nv + 1, 2 * t + t * t) for (_, nv, t, _) in fams],
+                               u)
         g = _concat([tab[:nv, :t].reshape(-1)
                      for tab, (_, nv, t, _) in zip(tables, fams)], u)
         sqn = _concat([tab[:nv, t:2 * t].reshape(-1)
@@ -774,6 +871,13 @@ class _FlatOpsBase:
         """x = blockdiag^{-1} v per family (flatops.py:648)."""
         return _concat([apply_inverse_rows(M, v[off:off + nv * t], t)
                         for (off, nv, t, _), M in zip(fams, invs)], v)
+
+
+def _zero_if_none(tables, shapes, like):
+    """Each family's table, zeros of its shape where no slot reduced into
+    it (_reduce_rows)."""
+    return [like.new_zeros(shape) if tab is None else tab
+            for tab, shape in zip(tables, shapes)]
 
 
 def _concat(parts, like):

@@ -40,6 +40,10 @@ LANES = R * (TF + TE)
 E_OFF = R * TF
 CHUNK = 64  # rows (runs, pairs) per chunk; CT_CHUNK in csrc/common.cuh
 POINT_BLOCK = 256  # rows and points of a point block; kBlock in csrc/point_blocks.cuh
+SEG_TILE = 128  # rows of a tile of segment_block_sum; kTile in csrc/segment_sum.cu
+SEG_HALO = 64  # rows a run may reach past its tile: kHalo
+STAGED_TILES = 4  # tiles a block of its staged pass takes: kStagedTiles
+STAGE_ROW_BYTES = 64  # the widest row its staged pass takes: kStageWidth
 _PT_OUT = 2 * TE + TE * TE
 _CAM_OUT = 2 * TF
 _UPPER = TF * (TF + 1) // 2  # entries of a 9 x 9 block's upper triangle
@@ -608,24 +612,72 @@ def _segment_sum(fn_name, contrib, plan, sorted_ids):
     K = plan.num_keys
     i32 = torch.int32
     _check(contrib, "contrib", dt, (B, w), dev)
-    _check(plan.key_first, "plan.key_first", i32, (K + 1,), dev)
-    sizes = plan.level_sizes  # the levels themselves: checked by SegmentPlan
-    order = ()
-    if not sorted_ids:
-        _check(plan.order, "plan.order", i32, (B,), dev)
-        order = (_ptr(plan.order),)
-    work = torch.empty((max(1, sum(sizes)), w), dtype=dt, device=dev)
     out = torch.empty((K, w), dtype=dt, device=dev)
-    _launch(fn, _ptr(contrib), B, w, *order, len(sizes),
-            ctypes.cast(plan.level_ptrs, ctypes.c_void_p),
-            ctypes.cast(plan.level_counts, ctypes.c_void_p),
-            _ptr(plan.key_first), K, _ptr(work), _ptr(out), _stream(dev))
+    if not sorted_ids:  # the gather by key
+        _check(plan.order, "plan.order", i32, (B,), dev)
+        _check(plan.key_first, "plan.key_first", i32, (K + 1,), dev)
+        sizes = plan.level_sizes  # the levels themselves: checked by SegmentPlan
+        work = torch.empty((max(1, sum(sizes)), w), dtype=dt, device=dev)
+        _launch(fn, _ptr(contrib), B, w, _ptr(plan.order), len(sizes),
+                ctypes.cast(plan.level_ptrs, ctypes.c_void_p),
+                ctypes.cast(plan.level_counts, ctypes.c_void_p),
+                _ptr(plan.key_first), K, _ptr(work), _ptr(out), _stream(dev))
+        return out
+    _check(plan.tile_run, "plan.tile_run", i32, (-(-B // SEG_TILE) + 1,), dev)
+    _check(plan.run_start, "plan.run_start", i32, (plan.n_runs + 1,), dev)
+    _check(plan.run_dest, "plan.run_dest", i32, (plan.n_runs,), dev)
+    _check(plan.empty_keys, "plan.empty_keys", i32, (plan.n_empty,), dev)
+    _check(plan.fin_first, "plan.fin_first", i32, (plan.n_fin + 1,), dev)
+    _check(plan.fin_keys, "plan.fin_keys", i32, (plan.n_fin,), dev)
+    sizes = plan.run_level_sizes  # the levels themselves: checked by SegmentPlan
+    work = torch.empty((max(1, plan.n_partials + sum(sizes)), w), dtype=dt, device=dev)
+    on = staged(plan, w, contrib.element_size(), _resident_blocks(dev, dt, w))
+    _launch(fn, _ptr(contrib), B, w, int(on),
+            _ptr(plan.tile_run), _ptr(plan.run_start), _ptr(plan.run_dest),
+            plan.n_partials, _ptr(plan.empty_keys), plan.n_empty, len(sizes),
+            ctypes.cast(plan.run_level_ptrs, ctypes.c_void_p),
+            ctypes.cast(plan.run_level_counts, ctypes.c_void_p), _ptr(plan.fin_first),
+            _ptr(plan.fin_keys), plan.n_fin, _ptr(work), _ptr(out), _stream(dev))
     return out
+
+
+_RESIDENT = {}
+
+
+def _resident_blocks(dev, dt, w: int) -> int:
+    """The blocks of segment_block_sum's staged pass at width w that the
+    card holds at once: its multiprocessors times the blocks of that kernel
+    one holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor), once a
+    process."""
+    key = (str(dev), dt, w)
+    if key not in _RESIDENT:
+        n = ctypes.c_int(0)
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        _launch(_entry("ct_segment_block_sum_resident", dt), index, w, ctypes.byref(n))
+        _RESIDENT[key] = n.value
+    return _RESIDENT[key]
+
+
+def staged(plan, w: int, itemsize: int, resident: int) -> bool:
+    """Whether segment_block_sum's tile pass stages its rows, STAGED_TILES
+    tiles a block (rows of at most STAGE_ROW_BYTES), or sums them in place,
+    a tile a block: in place where the staged grid would not fill the card
+    (fewer blocks than the `resident` ones it holds at once) and each
+    thread would sum more than two (run, column) items in turn (libmv16's
+    w = 15 in float32)."""
+    if w * itemsize > STAGE_ROW_BYTES:
+        return False
+    n_tiles = plan.tile_run.shape[0] - 1
+    items = plan.n_runs * w * STAGED_TILES  # (run, column) items of a block, n_tiles times
+    return -(-n_tiles // STAGED_TILES) >= resident or items <= 2 * 256 * n_tiles
 
 
 def segment_block_sum(contrib, plan):
     """out (K, w), out[k] = sum of the rows of contrib (B, w) whose id is
-    k, for ids sorted (plan.order is None); K = plan.num_keys."""
+    k, for ids sorted (plan.order is None); K = plan.num_keys. The runs of
+    one id within each tile of SEG_TILE rows (an id that ends at most
+    SEG_HALO rows past the tile of its first row: one run of that tile),
+    summed in the tile."""
     if _on_cpu(contrib):
         segment_block_sum.plain_calls += 1
         return segment_block_sum_plain(contrib, plan)
@@ -638,9 +690,9 @@ unsorted_segment_sum_plain = segment_block_sum_plain
 
 
 def unsorted_segment_sum(contrib, plan):
-    """segment_block_sum for ids in any order, through the plan's stable
-    order of the rows by id (replaces windowed_segment_sum, whose fixed
-    row tiles and id windows are a VMEM device)."""
+    """segment_block_sum for ids in any order (replaces
+    windowed_segment_sum): each id's rows gathered through the plan's
+    stable order of the rows by id, a warp to a chunk of them."""
     if _on_cpu(contrib):
         unsorted_segment_sum.plain_calls += 1
         return unsorted_segment_sum_plain(contrib, plan)

@@ -442,8 +442,7 @@ class FlatDenseSchurStepOps(_FlatStepOps):
                 tables[pe.fi][:, :, pf.off:pf.off + pf.nv * pf.t] += Afam.reshape(
                     pe.nv, te, pf.nv * pf.t)
             else:
-                rows = fl._reduce_rows(scale_c.new_zeros((pe.nv + 1, te * f_size)), pe,
-                                       self._spread(Y, pf, f_size))
+                rows = fl._reduce_rows(None, pe, self._spread(Y, pf, f_size))
                 tables[pe.fi] += rows[:pe.nv].reshape(pe.nv, te, f_size)
         A = torch.cat([tab.reshape(-1, f_size) for tab in tables])
 
@@ -465,9 +464,7 @@ class FlatDenseSchurStepOps(_FlatStepOps):
                                           self._scaled_jac(vflat, k, p2, sf))
                     if p1.fi == p2.fi:  # the same block twice: the diagonal term
                         W12 = W12 * (p1.local != p2.local).to(W12.dtype)[:, None, None]
-                    rows = fl._reduce_rows(
-                        scale_c.new_zeros((p1.nv + 1, p1.t * f_size)), p1,
-                        self._spread(W12, p2, f_size))
+                    rows = fl._reduce_rows(None, p1, self._spread(W12, p2, f_size))
                     S[p1.off:p1.off + p1.nv * p1.t] += rows[:p1.nv].reshape(-1, f_size)
         return K_e, A, S - A.T @ A
 

@@ -22,10 +22,13 @@ segment_block_sum and unsorted_segment_sum at the widths a flat CG
 iteration sums, 3, 8 and 6, beside Tensor.index_add; each call's own peak
 device memory; schur_assembly also at 120 cameras), holds
 schur_assembly's AtA and schur_jacobi_blocks' blocks to exact symmetry and
-a repeated call of each to the same bits, the solves (with the device time
+a repeated call of each and of both segment sums to the same bits, the
+solves (with the device time
 per LM iteration of isc_matvec, normal_matvec, post_eval_fused,
 schur_jacobi_blocks and schur_assembly, pass by pass, at BAL-16
-DENSE_SCHUR and ITERATIVE_SCHUR and at the Venice shape in both dtypes;
+DENSE_SCHUR and ITERATIVE_SCHUR and at the Venice shape in both dtypes,
+and of segment_block_sum and unsorted_segment_sum at libmv16 and
+libmv-Venice;
 and the CG iterations of float32 BAL-16 +
 HuberLoss(1.0) ITERATIVE_SCHUR beside those of the same solve through
 isc_matvec's plain version on the card and on the CPU and the JAX
@@ -41,6 +44,7 @@ times. Imports nothing of jax and nothing of ceres_tpu.
 """
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -211,6 +215,11 @@ ROBUST_LOSSES = {
     "scaled": lambda ctt: ctt.ScaledLoss(ctt.CauchyLoss(1.0), 3.0),
     "composed": lambda ctt: ctt.ComposedLoss(ctt.HuberLoss(1.1), ctt.SoftLOneLoss(0.5)),
 }
+# the kernels a repeated call of must give the same bits (no atomics: fixed
+# orders), schur_assembly's and schur_jacobi_blocks' output blocks also
+# exactly symmetric
+REPEAT_GATED = ("schur_assembly", "schur_jacobi_blocks", "segment_block_sum",
+                "unsorted_segment_sum")
 # the kernel checks: case -> wrapper
 CASES = {"eval_fused": "eval_fused", "post_eval_fused": "post_eval_fused",
          "eval_fused_loss": "eval_fused_loss", "eval_fused_quat": "eval_fused_quat",
@@ -620,14 +629,17 @@ def main():
                   f"{case} {shape} {dtn} disagrees with its plain version")
             check(name != "segment_block_expand" or mabs == 0.0,
                   f"{case} {shape} {dtn}: the gather is a copy, yet differs by {mabs}")
-            if name in ("schur_assembly", "schur_jacobi_blocks"):
-                sym = exactly_symmetric(name, out)
+            if name in REPEAT_GATED:
                 again = wrapper(*args_c)
                 torch.cuda.synchronize()
                 same = all(torch.equal(a, b) for a, b in zip(as_tuple(again), as_tuple(out)))
-                log("check", f"{case} {shape} {dtn}: exactly symmetric {sym}, a repeated "
-                    f"call bit for bit {same}")
-                check(sym, f"{case} {shape} {dtn}: an output block is not exactly symmetric")
+                sym = (exactly_symmetric(name, out)
+                       if name in ("schur_assembly", "schur_jacobi_blocks") else None)
+                log("check", f"{case} {shape} {dtn}: "
+                    + ("" if sym is None else f"exactly symmetric {sym}, ")
+                    + f"a repeated call bit for bit {same}")
+                check(sym is not False,
+                      f"{case} {shape} {dtn}: an output block is not exactly symmetric")
                 check(same, f"{case} {shape} {dtn}: a repeated call differs")
                 del again
             del ref, out
@@ -953,8 +965,9 @@ def main():
                        ("libmv16_iterative_f64", ctt.Options(linear_solver_type=IS))):
         paths[path]["profile"] = profile_solve(
             lambda: ctt.solve(opts, libmv.build_problem(fresh(lp16))[0]),
-            anchor="chunk_sum_kernel")
+            anchor=SEGMENT_SUM_ANCHOR)
         log(f"profile {path}", json.dumps(paths[path]["profile"]) + f"; {card}")
+        log_row_passes(path, paths[path]["profile"], card)
 
     # -- libmv16: the card against the CPU --------------------------------------
     ulp16 = fresh(lp16)
@@ -1040,9 +1053,11 @@ def main():
                        max_num_iterations=2)
     paths["libmv_venice_iterative_f32"]["profile"] = profile_solve(
         lambda: ctt.solve(opts, libmv.build_problem(fresh(lpv))[0]),
-        anchor="chunk_sum_kernel")
+        anchor=SEGMENT_SUM_ANCHOR)
     log("profile libmv_venice_iterative_f32 (2 LM iterations)",
         json.dumps(paths["libmv_venice_iterative_f32"]["profile"]) + f"; {card}")
+    log_row_passes("libmv_venice_iterative_f32", paths["libmv_venice_iterative_f32"]["profile"],
+                   card)
     del lpv
     gc.collect()
     torch.cuda.empty_cache()
@@ -1624,15 +1639,16 @@ def library_call(name, args):
     return None
 
 
-def profile_solve(run, anchor="eval_fused_kernel", repeats=3):
+def profile_solve(run, anchor=("eval_fused_kernel",), repeats=3):
     """Device busy share of one solve: the sum of the device time of the
     CUDA events of the minimizer in a solve under torch.profiler (from the
-    first launch of the kernel named `anchor` on: the set-up's copies to
-    the card come before; on the flat path the anchor, its first segment
-    sum, comes after the first plain evaluation) over the median minimizer
-    wall time of `repeats` solves of the same configuration without the
-    profiler, which slows the host; also the share of the profiled solve's
-    own minimizer wall time, which reads low."""
+    first launch of a kernel whose name holds one of `anchor` on: the
+    set-up's copies to the card come before; on the flat path the anchor,
+    its first segment sum, comes after the first plain evaluation) over the
+    median minimizer wall time of `repeats` solves of the same
+    configuration without the profiler, which slows the host; also the
+    share of the profiled solve's own minimizer wall time, which reads
+    low."""
     walls = []
     for _ in range(repeats):
         s = run()
@@ -1670,7 +1686,7 @@ def device_profile(run, anchor=None):
     """(run's result, its wall seconds, device microseconds, device ops,
     device microseconds by kernel name) of one run under torch.profiler
     after a warm one; with `anchor`, only the CUDA events from the first
-    launch of that kernel on."""
+    launch of a kernel whose name holds one of its names on."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1684,7 +1700,7 @@ def device_profile(run, anchor=None):
     busy_us, n_ops, by_name = 0.0, 0, {}
     dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     t0 = min((e.time_range.start for e in dev_events
-              if anchor is None or anchor in e.name), default=0)
+              if anchor is None or any(a in e.name for a in anchor)), default=0)
     for evt in dev_events:
         if evt.time_range.start >= t0:
             busy_us += evt.device_time_total
@@ -1695,11 +1711,17 @@ def device_profile(run, anchor=None):
 
 # the kernels of the point-block rows (csrc/point_blocks.cuh), named by
 # their body: the pad, the point pass and the camera levels of each, and
-# schur_assembly's pair chunks and pair levels
-POINT_BLOCK_BODIES = {"isc_matvec": "IscMatvec", "normal_matvec": "NormalMatvec",
-                      "post_eval_fused": "PostEvalFused",
-                      "schur_jacobi_blocks": "SchurJacobi",
-                      "schur_assembly": "SchurAssembly"}
+# schur_assembly's pair chunks and pair levels; and those of the segment sums
+# (csrc/segment_sum.cu), named by their entry point's tag: row 6's tile pass
+# and levels, row 9's gather and levels
+ROW_KERNEL_TAGS = {"isc_matvec": "IscMatvec", "normal_matvec": "NormalMatvec",
+                   "post_eval_fused": "PostEvalFused",
+                   "schur_jacobi_blocks": "SchurJacobi",
+                   "schur_assembly": "SchurAssembly",
+                   "segment_block_sum": "SegmentBlockSum",
+                   "unsorted_segment_sum": "UnsortedSegmentSum"}
+# the first kernel a flat-path solve's minimizer launches is a segment sum's
+SEGMENT_SUM_ANCHOR = ("SegmentBlockSum", "UnsortedSegmentSum")
 
 
 def log_row_passes(path, profile, card):
@@ -1709,14 +1731,15 @@ def log_row_passes(path, profile, card):
 
 
 def row_device_ms(by_name, n_it):
-    """Device ms per LM iteration of each point-block row's kernels, in
-    all and by kernel (its name without its arguments and namespace)."""
+    """Device ms per LM iteration of each row's kernels (ROW_KERNEL_TAGS), in
+    all and by kernel (its name without its arguments and namespaces)."""
     out = {}
-    for row, body in POINT_BLOCK_BODIES.items():
+    for row, tag in ROW_KERNEL_TAGS.items():
         passes = {}
         for k, us in by_name.items():
-            if f"{body}<" in k:
-                label = k.split("(")[0].replace("void ", "").replace("ct::", "")
+            if re.search(rf"\b{tag}\b", k):
+                label = (k.replace("(anonymous namespace)::", "").replace("void ", "")
+                         .replace("ct::", "").split("(")[0])
                 passes[label] = passes.get(label, 0.0) + us / 1e3 / max(n_it, 1)
         if passes:
             out[row] = {"total": sum(passes.values()), "by_kernel": passes}

@@ -1,8 +1,9 @@
 """The port on one card, compared between source trees: the wall per LM
-iteration on BAL-16, and post_eval_fused's kernel (row 2) at BAL-16 and
-at the Venice shape.
+iteration on BAL-16, libmv16 and libmv-Venice, post_eval_fused's kernel
+(row 2) at BAL-16 and at the Venice shape, and the segment sums (rows 6
+and 9) at the libmv16 and libmv-Venice shapes.
 
-    python3 scripts/torch_ab.py TREE [TREE ...]
+    python3 scripts/torch_ab.py [--kernels-only] TREE [TREE ...]
 
 Each TREE is a checkout of the repo (e.g. the parent commit unpacked with
 `git archive` into a git-ignored directory, and the change); give them in
@@ -14,12 +15,19 @@ line: the tree, the card's name and power limit, and
 - for each BAL-16 configuration, the median and the runs of minimizer ms
   per LM iteration over 5 solves after one that warms up, as
   `chip_smoke.py` measures them;
+- for libmv16 DENSE_SCHUR and ITERATIVE_SCHUR in float64 the same, and for
+  libmv-Venice ITERATIVE_SCHUR in float32 (5 LM iterations) the median over
+  3 solves after one that warms up, with each solve's time to first
+  iteration (the preprocessor's seconds: the plans are built there);
 - row 2's ms per call in float64 and float32 at BAL-16 and Venice, by
   `chip_smoke.time_cuda` (this script's own copy of `chip_smoke.py`, so
   every tree is timed alike), on random J and r (the kernel's work does not
-  depend on their values) over the row plan of the shape's structure.
-Needs a card; takes about a minute per tree on an H100 once its kernels
-are built.
+  depend on their values) over the row plan of the shape's structure;
+- rows 6 and 9 the same way at libmv16 and libmv-Venice (`SEGMENT_CASES`:
+  each case's ids as the flat path's plans hold them, rows by point,
+  random contrib), in both dtypes, with the call's own peak device memory.
+`--kernels-only` skips the walls. Needs a card; takes a few minutes per
+tree on an H100 once its kernels are built.
 """
 import importlib.util
 import json
@@ -33,6 +41,12 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
 CONFIGS = ("bal16_dense_f64", "bal16_dense_f32", "bal16_iterative_f64")
+# (case, ids, width): the points' sums (sorted ids, P + 1 keys with the flat
+# plans' sentinel) of a CG iteration (3) and of the post-evaluation (15); the
+# one intrinsics key's (8, 80); the cameras' (unsorted, C + 1 keys: 6, 48)
+SEGMENT_CASES = (("row6_w3", "points", 3), ("row6_w15", "points", 15),
+                 ("row6_one_key_w8", "one_key", 8), ("row6_one_key_w80", "one_key", 80),
+                 ("row9_w6", "cameras", 6), ("row9_w48", "cameras", 48))
 
 
 def _chip_smoke():
@@ -42,7 +56,76 @@ def _chip_smoke():
     return mod
 
 
-def child(tree: Path) -> None:
+def walls(ctt, bal, cs, out) -> None:
+    """The minimizer's ms per LM iteration of each wall configuration."""
+    import torch
+
+    from ceres_tpu_torch.models import libmv
+
+    DS, IS = ctt.LinearSolverType.DENSE_SCHUR, ctt.LinearSolverType.ITERATIVE_SCHUR
+    options = {
+        "bal16_dense_f64": ctt.Options(linear_solver_type=DS),
+        "bal16_dense_f32": ctt.Options(linear_solver_type=DS, evaluation_dtype="float32"),
+        "bal16_iterative_f64": ctt.Options(linear_solver_type=IS, max_num_iterations=30,
+                                           max_linear_solver_iterations=100),
+        "libmv16_dense_f64": ctt.Options(linear_solver_type=DS),
+        "libmv16_iterative_f64": ctt.Options(linear_solver_type=IS),
+        "libmv_venice_iterative_f32": ctt.Options(
+            linear_solver_type=IS, evaluation_dtype="float32",
+            max_num_iterations=cs.VENICE_LM_ITERATIONS),
+    }
+    lp16, lpv = cs.libmv16(), None
+    for name, opts in options.items():
+        if name.startswith("libmv_venice") and lpv is None:
+            lpv = cs.libmv_venice()
+        problem = {"bal16": lambda: bal.build_problem_batched(bal.bal16())[0],
+                   "libmv16": lambda: libmv.build_problem(cs.fresh(lp16))[0],
+                   "libmv_venice": lambda: libmv.build_problem(cs.fresh(lpv))[0]}[
+            name.rsplit("_", 2)[0]]
+        per_it, first = [], []
+        for k in range(4 if name.startswith("libmv_venice") else 6):
+            s = ctt.solve(opts, problem())
+            torch.cuda.synchronize()
+            if k:  # the first solve warms up
+                per_it.append(1e3 * s.minimizer_time_in_seconds / (len(s.iterations) - 1))
+                first.append(s.preprocessor_time_in_seconds)
+        out[name] = {"ms_per_iteration_median": statistics.median(per_it),
+                     "ms_per_iteration_runs": per_it, "time_to_first_iteration_s": first}
+
+
+def segment_sums(bal, cs, fo, kn, out) -> None:
+    """Rows 6 and 9 at libmv16's and libmv-Venice's ids (SEGMENT_CASES)."""
+    import torch
+
+    lp16 = cs.libmv16()
+    big = bal.synthetic_bal_large(**cs.VENICE)
+    shapes = {"libmv16": (lp16.marker_pt, lp16.marker_cam, lp16.points.shape[0],
+                          lp16.cameras.shape[0], 100),
+              "libmv_venice": (big.point_index, big.camera_index, big.num_points,
+                               big.num_cameras, 20)}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for shape, (pt, cam, P, C, n) in shapes.items():
+        B = pt.shape[0]
+        plans = {"points": fo.build_segment_plan(pt, P + 1, "cuda"),
+                 "cameras": fo.build_segment_plan(cam, C + 1, "cuda"),
+                 "one_key": fo.build_segment_plan(np.zeros(B, np.int64), 2, "cuda")}
+        for dt in (torch.float64, torch.float32):
+            for case, ids, w in SEGMENT_CASES:
+                plan = plans[ids]
+                fn = kn.unsorted_segment_sum if ids == "cameras" else kn.segment_block_sum
+                x = torch.randn((B, w), generator=gen, device="cuda", dtype=dt)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                fn(x, plan)
+                torch.cuda.synchronize()
+                key = f"{shape}_{case}_{cs.TAG[str(dt)[6:]]}"
+                out[key + "_peak_mib"] = (torch.cuda.max_memory_allocated() - held) / 2**20
+                out[key + "_ms"] = cs.time_cuda(lambda: fn(x, plan), n)
+                del x
+
+
+def child(tree: Path, kernels_only: bool) -> None:
     sys.path.insert(0, str(tree))
     import torch
 
@@ -56,23 +139,9 @@ def child(tree: Path) -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    DS, IS = ctt.LinearSolverType.DENSE_SCHUR, ctt.LinearSolverType.ITERATIVE_SCHUR
-    options = {
-        "bal16_dense_f64": ctt.Options(linear_solver_type=DS),
-        "bal16_dense_f32": ctt.Options(linear_solver_type=DS, evaluation_dtype="float32"),
-        "bal16_iterative_f64": ctt.Options(linear_solver_type=IS, max_num_iterations=30,
-                                           max_linear_solver_iterations=100),
-    }
     out = {"tree": str(tree), "card": card}
-    for name in CONFIGS:
-        per_it = []
-        for k in range(6):
-            s = ctt.solve(options[name], bal.build_problem_batched(bal.bal16())[0])
-            torch.cuda.synchronize()
-            if k:  # the first solve warms up
-                per_it.append(1e3 * s.minimizer_time_in_seconds / (len(s.iterations) - 1))
-        out[name] = {"ms_per_iteration_median": statistics.median(per_it),
-                     "ms_per_iteration_runs": per_it}
+    if not kernels_only:
+        walls(ctt, bal, cs, out)
     for shape, b, n in (("bal16", bal.bal16(), 100),
                         ("venice", bal.synthetic_bal_large(**cs.VENICE), 20)):
         order = np.argsort(b.point_index, kind="stable")
@@ -85,17 +154,19 @@ def child(tree: Path) -> None:
             ms = cs.time_cuda(lambda: kn.post_eval_fused(JT, rT, plan), n)
             out[f"post_eval_fused_{shape}_{cs.TAG[str(dt)[6:]]}_ms"] = ms
         del plan, b
+    segment_sums(bal, cs, fo, kn, out)
     print(json.dumps(out), flush=True)
 
 
-def main(trees) -> int:
+def main(trees, kernels_only: bool) -> int:
     for t in trees:
         tree = Path(t).resolve()
         if not (tree / "ceres_tpu_torch").is_dir():
             print(f"{tree} holds no ceres_tpu_torch", file=sys.stderr)
             return 2
         env = dict(os.environ, PYTHONPATH=str(tree))
-        rc = subprocess.run([sys.executable, __file__, "--child", str(tree)], env=env,
+        rc = subprocess.run([sys.executable, __file__, "--child", str(tree)]
+                            + (["--kernels-only"] if kernels_only else []), env=env,
                             cwd=tree).returncode
         if rc:
             return rc
@@ -103,10 +174,13 @@ def main(trees) -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--child":
-        child(Path(sys.argv[2]))
-    elif len(sys.argv) >= 2:
-        sys.exit(main(sys.argv[1:]))
+    args = sys.argv[1:]
+    kernels_only = "--kernels-only" in args
+    args = [a for a in args if a != "--kernels-only"]
+    if len(args) == 2 and args[0] == "--child":
+        child(Path(args[1]), kernels_only)
+    elif args:
+        sys.exit(main(args, kernels_only))
     else:
         print(__doc__, file=sys.stderr)
         sys.exit(2)

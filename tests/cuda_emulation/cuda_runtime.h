@@ -28,10 +28,20 @@ inline thread_local std::barrier<>* ct_emu_barrier;
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
+// device queries: a stand-in of no multiprocessors (the tests give
+// ceres_tpu_torch/ops/kernels.py the card's resident blocks themselves)
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 0; return 0; }
+template <class K>
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, unsigned long) {
+  *n = 0;
+  return 0;
+}
 inline void __syncthreads() { ct_emu_barrier->arrive_and_wait(); }
 template <typename T>
 inline T __ldg(const T* p) { return *p; }
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
 struct alignas(16) double2 { double x, y; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 inline double2 make_double2(double x, double y) { return {x, y}; }

@@ -324,6 +324,80 @@ def test_segment_block_expand_widths_on_card(card, dtype, t):
     assert kn.segment_block_expand.launches == 1
 
 
+def _segment_case(card, dtype, w, how, n=600_003):
+    """contrib (n, w) on the card and a SegmentPlan of rows sorted by point
+    ("sorted": tracks of up to 7 rows over 150,000 points, keys of no row,
+    points of 3,000 and of ~70,000 rows (the last) whose runs span tiles,
+    and the flat plans' sentinel key, of no row; 4,688 tiles, so the staged
+    pass takes four tiles a block; "short": those tracks alone, every point
+    one run) or of
+    their cameras ("unsorted": 2,000 cameras, each row's camera within 40
+    of its point's anchor, as the Venice shape draws them)."""
+    rng = np.random.default_rng(w)
+    dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
+    P = 150_000
+    counts = rng.integers(0, 8, P)
+    if how != "short":
+        counts[777] = 3000
+        counts[-1] += n - counts.sum()
+    n = int(counts.sum())
+    pt = np.repeat(np.arange(P), counts)
+    if how != "unsorted":
+        ids, K = pt, P + 1
+    else:
+        ids = np.clip(pt * 2000 // P + rng.integers(-40, 41, n), 0, 1999)
+        ids[::997] = 2000  # the sentinel
+        K = 2001
+    x = torch.as_tensor(rng.standard_normal((n, w)), device=card).to(dt)
+    return x, fo.build_segment_plan(ids, K, card)
+
+
+def _hold_segment_sum(name, x, plan):
+    """The wrapper against its plain version (REL_LIMIT of the largest
+    entry), one launch, a second call the same bits; keys of no row zero."""
+    wrapper, plain = getattr(kn, name), getattr(kn, name + "_plain")
+    kn.reset_counts()
+    out = wrapper(x, plan)
+    torch.cuda.synchronize()
+    assert wrapper.launches == 1 and wrapper.plain_calls == 0
+    ref = plain(x, plan)
+    err = (out.double() - ref.double()).abs().max().item()
+    assert err <= REL_LIMIT[x.dtype] * ref.double().abs().max().item()
+    assert torch.equal(wrapper(x, plan), out)
+    empty = torch.bincount(plan.ids.long(), minlength=plan.num_keys) == 0
+    assert bool((out[empty] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("w", [3, 6, 8, 15, 48, 80, 5, 36])
+@pytest.mark.parametrize("how", ["sorted", "short", "unsorted"])
+def test_segment_sums_every_width_on_card(card, how, w, dtype):
+    """Rows 6 and 9 (csrc/segment_sum.cu) at every templated width (3, 6,
+    8, 15, 48, 80) and two runtime ones (5, 36), as
+    test_emulated_segment_sums_every_width (tests/test_torch_kernels_emulated.py)
+    at 600,003 rows ("short": ~525,000, the tile pass alone)."""
+    x, plan = _segment_case(card, dtype, w, how)
+    assert plan.B % kn.SEG_TILE
+    assert how == "unsorted" or (plan.n_partials > 0) == (how == "sorted")
+    _hold_segment_sum("unsorted_segment_sum" if how == "unsorted" else "segment_block_sum",
+                      x, plan)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("w", [8, 80])
+def test_segment_sum_one_key_deep_tree_on_card(card, dtype, w):
+    """One key holding every row (libmv's intrinsics) over 4,300 tiles: a
+    run a tile (w = 8 staged four tiles a block), and the partials through
+    two levels of chunks."""
+    n = 4300 * kn.SEG_TILE - 77
+    dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
+    x = torch.randn((n, w), generator=torch.Generator(device=card).manual_seed(w),
+                    device=card, dtype=dt)
+    plan = fo.build_segment_plan(np.zeros(n, np.int64), 2, card)
+    assert plan.n_partials == 4300 and len(plan.run_levels) == 2
+    _hold_segment_sum("segment_block_sum", x, plan)
+
+
 def small_libmv():
     """tests/test_torch_libmv.py's problem: 5 cameras, 120 points."""
     import chip_smoke

@@ -55,10 +55,17 @@ def emulated_small_chunk(tmp_path_factory):
     return _compile(tmp_path_factory, f"-DCT_CHUNK={SMALL_CHUNK}")
 
 
+# the staged segment_block_sum blocks a card holds at once, as the emulated
+# wrappers see it: more than any test's grid, so kn.staged chooses by its
+# items rule alone
+RESIDENT = 1 << 20
+
+
 def _route(lib, monkeypatch):
     """Route the wrappers' CPU tensors to the emulated kernels of lib."""
     monkeypatch.setattr(build, "_LIB", lib)
     monkeypatch.setattr(kn, "_stream", lambda dev: ctypes.c_void_p(0))
+    monkeypatch.setattr(kn, "_resident_blocks", lambda dev, dt, w: RESIDENT)
 
     def call(fn, *args):
         monkeypatch.setattr(kn, "_on_cpu", lambda ref: False)
@@ -268,6 +275,8 @@ def test_emulated_flat_kernel_matches_plain(kernel_path, name, dtype):
     float64, 1e-5 in float32 (sums in another order); the gather
     exactly."""
     args = _flat_inputs(name, dtype)
+    if name == "segment_block_sum":  # ~11 runs a tile: in place, in float32 too
+        assert not kn.staged(args[1], 15, 4, RESIDENT)
     name = name.replace("_one_block", "")
     wrapper, plain = getattr(kn, name), getattr(kn, name + "_plain")
     kn.reset_counts()
@@ -620,3 +629,114 @@ def test_emulated_schur_assembly_levels_of_a_deep_tree(kernel_path_small_chunk, 
     plan = args[-1]
     assert len(plan.run_levels) == 2 and len(plan.ensure_pairs().pair_levels) == 4
     _hold_schur(kernel_path_small_chunk, "schur_assembly", args, repeat=False)
+
+
+# csrc/segment_sum.cu's templated widths, and two it does not template
+# (runtime-w instances: 5, and 36, the flat SCHUR_JACOBI camera blocks)
+_SEGMENT_WIDTHS = [3, 6, 8, 15, 48, 80, 5, 36]
+
+
+def _segment_inputs(dtype, w, how, n=1500, K=61):
+    """contrib (n, w) and a SegmentPlan over K keys: n no multiple of
+    kn.SEG_TILE; "sorted": keys of no row to a few dozen (single-run keys),
+    keys of 600 and 500 rows (runs in several tiles) and keys of no row;
+    "short": 1,450 rows, keys of no row to a few dozen only, the last one of
+    50 rows from the last whole tile over the ragged one, which so holds no
+    run (a call of the tile pass alone); "unsorted": ids with camera locality (a
+    key's rows spread over a window of rows, so over tiles), some keys of no
+    row and a few of one."""
+    from ceres_tpu_torch.ops import flatops as fo
+
+    dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
+    rng = np.random.default_rng(w)
+    if how == "sorted":
+        counts = rng.integers(0, 8, K)
+        counts[[7, 40]] = 600, 500
+        counts[[3, 50, 51]] = 0
+        counts[-1] += n - counts.sum()
+        ids = np.repeat(np.arange(K), counts)
+    elif how == "short":
+        n = 1450  # a ragged tile of 42 rows
+        counts = rng.integers(14, 36, K)
+        counts[[3, 50, 51]] = 0
+        counts[-1] = 50
+        live = np.flatnonzero(counts[:-1])
+        more = n - counts.sum()
+        np.add.at(counts, live[np.arange(abs(more)) % live.size], np.sign(more))
+        ids = np.repeat(np.arange(K), counts)
+    else:
+        ids = np.clip((np.arange(n) / n * (K - 10)).astype(np.int64)
+                      + rng.integers(-6, 7, n), 0, K - 11)
+        ids[[5, 900, n - 1]] = K - 3, K - 2, K - 1  # keys of one row
+    x = torch.as_tensor(rng.standard_normal((n, w))).to(dt)
+    return x, fo.build_segment_plan(ids, K, "cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("w", _SEGMENT_WIDTHS)
+@pytest.mark.parametrize("how", ["sorted", "short", "unsorted"])
+def test_emulated_segment_sums_every_width(kernel_path, how, w, dtype):
+    """Rows 6 and 9 (csrc/segment_sum.cu) at every templated width and two
+    runtime ones: row 6's tile pass staged (rows of up to 8 values) or
+    straight from the rows (wider), single-run keys written straight to
+    out, keys whose runs cross tiles summed through their partials, or none
+    ("short": every key one run, a last tile of no run); row 9's gather by
+    16-byte, 8-byte or 4-byte units, in row phases or along a row; keys of
+    no row zero, a ragged last tile; held to the plain version (1e-12
+    relative in float64, 1e-5 in float32), one launch, a second call the
+    same bits."""
+    x, plan = _segment_inputs(dtype, w, how)
+    rows = np.bincount(plan.ids.numpy(), minlength=plan.num_keys)
+    assert plan.B % kn.SEG_TILE and (rows == 0).any()
+    if how != "unsorted":
+        assert np.array_equal(plan.empty_keys.numpy(), np.flatnonzero(rows == 0))
+        assert (plan.n_partials > 0) == (how == "sorted") and (plan.n_fin > 0) == (
+            how == "sorted")
+        assert kn.staged(plan, w, x.element_size(), RESIDENT) == (
+            w * x.element_size() <= 64)
+    if how == "short":
+        assert plan.tile_run[-1] == plan.tile_run[-2]  # the ragged tile's rows: no run
+    name = "segment_block_sum" if how != "unsorted" else "unsorted_segment_sum"
+    out = _run_and_hold(kernel_path, name, (x, plan))[0]
+    assert (out[rows == 0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("w", [8, 80, 5])
+def test_emulated_segment_sum_one_key_deep_tree(kernel_path_small_chunk, dtype, w):
+    """One key holding every row (libmv's intrinsics block): a run a tile,
+    each summed in interleaved parts (w = 8 and 5 staged kn.STAGED_TILES
+    tiles a block, w = 80 in place), and the partials of 40 tiles through
+    two levels of chunks of SMALL_CHUNK (the kernels built with that chunk
+    and the plan cut to match; level_sums at the templated widths 8 and 80,
+    a thread per (chunk, column) at 5); a second key of no row is zero."""
+    from ceres_tpu_torch.ops import flatops as fo
+
+    n = 40 * kn.SEG_TILE - 37
+    dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
+    x = torch.as_tensor(np.random.default_rng(w).standard_normal((n, w))).to(dt)
+    plan = fo.build_segment_plan(np.zeros(n, np.int64), 2, "cpu")
+    assert plan.n_partials == plan.n_runs == 40 and len(plan.run_levels) == 2
+    assert kn.staged(plan, w, x.element_size(), RESIDENT) == (w != 80)
+    out = _run_and_hold(kernel_path_small_chunk, "segment_block_sum", (x, plan))[0]
+    assert (out[1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("w", [6, 48])
+def test_emulated_unsorted_segment_sum_deep_trees(kernel_path_small_chunk, dtype, w):
+    """Row 9's gather with one key of 1,200 of 1,500 rows in no order, past
+    CHUNK chunks of CHUNK (the kernels built with a chunk of SMALL_CHUNK and
+    the plans cut to match): five levels of chunks, by 16-byte units in row
+    phases (w = 6 in float64), single values (6 in float32) or along the row
+    (48)."""
+    from ceres_tpu_torch.ops import flatops as fo
+
+    rng = np.random.default_rng(w)
+    ids = rng.integers(1, 30, 1500)
+    ids[rng.permutation(1500)[:1200]] = 0
+    dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
+    x = torch.as_tensor(rng.standard_normal((1500, w))).to(dt)
+    plan = fo.build_segment_plan(ids, 31, "cpu")
+    assert len(plan.level_starts) == 5
+    _run_and_hold(kernel_path_small_chunk, "unsorted_segment_sum", (x, plan))

@@ -234,6 +234,85 @@ def test_segment_plan_host_arrays_are_built_once_and_follow_the_levels(ids):
         dataclasses.replace(plan, level_starts=(levels[0].to(torch.int64),))
 
 
+@pytest.mark.parametrize("ids", ["sorted", "one_key"])
+def test_segment_runs_cover_every_row_once_by_tile_and_key(ids):
+    """segment_block_sum's runs: every row in exactly one run; a run's rows
+    share a key and come in row order, from the run's tile of kn.SEG_TILE
+    rows; a key is one run exactly where it has rows and they end at most
+    kn.SEG_HALO rows past the tile of its first row (so past it only then),
+    else a run in each tile it meets; a tile's runs are its keys in order; a
+    key of one run is flagged to write out directly (run_dest >=
+    n_partials, its key), the others' runs write their partials in key
+    order (tile order within a key); the keys of no row are empty_keys;
+    summing through the run levels and fin_first gives each fin key's sum,
+    and the fin keys are exactly the keys of several runs. "one_key" holds
+    70 tiles under one key: two chunks of partials, which the last pass
+    sums; "sorted" keys of up to 60 rows, and of 300 and 700, have seven
+    partials at most, which the last pass sums without a run level."""
+    rng = np.random.default_rng(5)
+    counts = {"sorted": rng.integers(0, 61, 50),
+              "one_key": np.array([70 * kn.SEG_TILE - 3] + [0] * 49)}[ids]
+    if ids == "sorted":
+        counts[[10, 30]] = 300, 700
+        counts[[4, 5]] = 0
+    keys = np.repeat(np.arange(50), counts)
+    n = keys.shape[0]
+    plan = fo.build_segment_plan(keys, 50, "cpu")
+    tile_of_row = np.arange(n) // kn.SEG_TILE
+    n_tiles = tile_of_row[-1] + 1
+    rs = plan.run_start.numpy().astype(np.int64)
+    rows = np.arange(n)  # the rows in run order: sorted ids keep theirs
+    assert rs[0] == 0 and rs[-1] == n and np.all(np.diff(rs) >= 1)
+    run_of = np.repeat(np.arange(plan.n_runs), np.diff(rs))
+    run_key = keys[rows[rs[:-1]]]
+    run_tile = tile_of_row[rows[rs[:-1]]]
+    assert np.array_equal(keys[rows], run_key[run_of])
+    same = run_of[1:] == run_of[:-1]
+    assert np.all(rows[1:][same] > rows[:-1][same])
+    runs_per_key = np.bincount(run_key, minlength=50)
+    first = np.concatenate([[0], np.cumsum(counts)])
+    whole = first[1:] <= (first[:-1] // kn.SEG_TILE + 1) * kn.SEG_TILE + kn.SEG_HALO
+    assert np.array_equal(runs_per_key == 1, whole & (counts > 0))
+    assert np.array_equal(runs_per_key == 0, counts == 0)
+    assert np.array_equal(plan.empty_keys.numpy(), np.flatnonzero(counts == 0))
+    past = rs[1:] - (run_tile + 1) * kn.SEG_TILE  # rows past the run's tile
+    alone = runs_per_key[run_key] == 1
+    assert np.all(past <= np.where(alone, kn.SEG_HALO, 0))
+    assert ids == "one_key" or (past > 0).any()
+    assert np.array_equal(plan.tile_run.numpy(), np.concatenate(
+        [[0], np.cumsum(np.bincount(run_tile, minlength=n_tiles))]))
+    in_tile = run_tile[1:] == run_tile[:-1]
+    assert np.all(run_key[1:][in_tile] > run_key[:-1][in_tile])
+    dest = plan.run_dest.numpy().astype(np.int64)
+    direct = dest >= plan.n_partials
+    assert np.array_equal(direct, runs_per_key[run_key] == 1)
+    assert np.array_equal(dest[direct] - plan.n_partials, run_key[direct])
+    assert np.array_equal(np.sort(dest[~direct]), np.arange(plan.n_partials))
+    by_partial = np.empty(plan.n_partials, np.int64)
+    by_partial[dest[~direct]] = np.flatnonzero(~direct)
+    key = run_key[by_partial] * n_tiles + run_tile[by_partial]
+    assert np.all(np.diff(key) > 0)
+    fin = plan.fin_keys.numpy()
+    assert np.array_equal(fin, np.flatnonzero(runs_per_key > 1))
+    vals = np.random.default_rng(1).standard_normal(n)
+    x = np.add.reduceat(vals[rows], rs[:-1])[by_partial]
+    # no run levels where every key has at most CHUNK partials: the last
+    # pass sums them
+    assert len(plan.run_levels) == (1 if ids == "one_key" else 0)
+    for cs in plan.run_levels:
+        cs = cs.numpy().astype(np.int64)
+        assert cs[0] == 0 and cs[-1] == x.shape[0] and np.all(np.diff(cs) <= kn.CHUNK)
+        x = np.array([x[a:b].sum() for a, b in zip(cs[:-1], cs[1:])])
+    first = plan.fin_first.numpy().astype(np.int64)
+    assert first.shape == (fin.shape[0] + 1,) and np.all(np.diff(first) <= kn.CHUNK)
+    assert ids != "one_key" or first[1] - first[0] == 2
+    out = np.array([x[a:b].sum() for a, b in zip(first[:-1], first[1:])])
+    np.testing.assert_allclose(out, np.bincount(keys, vals, minlength=50)[fin],
+                               rtol=1e-12, atol=1e-9)
+    assert list(plan.run_level_counts) == list(plan.run_level_sizes)
+    assert list(plan.run_level_ptrs) == [s.data_ptr() for s in plan.run_levels]
+
+
 @pytest.mark.parametrize("name", _NAMES)
 def test_pair_plan_holds_each_unordered_pair_once_by_key(name):
     """The dense Schur assembly's pairs: each pair of two rows of one point
