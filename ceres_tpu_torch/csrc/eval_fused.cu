@@ -19,16 +19,21 @@
 // Jacobian lanes: ~26 values out against ~300-400 flops, far below the
 // card's flop-per-byte balance. The design therefore writes J transposed
 // (24, B), so that consecutive threads store consecutive addresses of every
-// lane; the camera table is tiny and stays in L1/L2; points are read almost
-// in order because rows are sorted by point. The derivatives are exact, all
-// in registers: forward-mode dual numbers over the three rotation tangent
-// directions (for the quaternion, seeded with the PlusJacobian's columns,
-// manifolds.py:233-246), closed forms for the point, projection and
-// distortion. The loss is a chain of at most kMaxChain elementary ops passed
-// by value (no device memory), each a __device__ function; the corrector
-// then acts on the 24 lanes in registers before they are stored. The cost is
-// reduced deterministically: a fixed-order tree per block into one double
-// partial per block, then one block sums the partials in order.
+// lane; points are read almost in order because rows are sorted by point;
+// each row reads its camera value by value, from a table that stays in L1
+// and L2 (reading it in whole 16-byte groups, or from a copy of a small
+// table in shared memory, was no faster at BAL-16 or the Venice shape:
+// PERF.md, rows 1 and 1Q). The derivatives are exact, all in registers: forward-mode dual numbers over the three
+// rotation tangent directions (for the quaternion, seeded with the
+// PlusJacobian's columns, manifolds.py:233-246), closed forms for the
+// point, projection and distortion. The loss is a chain of at most
+// kMaxChain elementary ops passed by value (no device memory), each a
+// __device__ function, compiled only into the variants with a loss; the
+// corrector then acts on the 24 lanes in registers before they are stored.
+// The cost is reduced deterministically in the same launch: a fixed-order
+// tree per block into one double partial per block, then the last block
+// to finish sums the partials in order. The first design summed them in a
+// second launch, a large share of a 13 us call at BAL-16.
 #include "common.cuh"
 
 namespace {
@@ -258,26 +263,92 @@ __device__ Rho<T> loss_chain(const CtLoss& loss, T s) {
   return g;
 }
 
-constexpr int kThreads = 256;
+// Threads of a block, and the blocks an SM keeps the registers for: in
+// float64 the body takes ~100 registers at 256 threads (2 blocks, 512 rows
+// an SM: BAL-16's 84,218 rows took two waves); 128 threads and 5 blocks
+// ask for at most 102, 640 rows an SM, 84,480 on the card.
+template <typename T>
+struct EvalShape {
+  static constexpr int kThreads = sizeof(T) == 8 ? 128 : 256;
+  static constexpr int kMinBlocks = sizeof(T) == 8 ? 5 : 4;
+};
+
+// The cost in one launch: each block's partial, then the last block to
+// finish (an integer count of finished blocks, which it sets back to 0 for
+// the next call on the stream) sums the partials in the order the first
+// design's second launch summed them: kSumThreads threads, thread t the
+// partials t, t + kSumThreads, ... in order, then the block's tree. Thread
+// t < kSumThreads here takes the sums of that design's threads t, t + NT,
+// ..., which the tree's first levels then combine as it did. sums holds
+// at least kSumThreads values.
+constexpr int kSumThreads = 256;
+
+template <int NT>
+__device__ void last_block_cost(double tot, double* __restrict__ partial,
+                                unsigned* __restrict__ done, double* __restrict__ cost,
+                                double* sums) {
+  static_assert(kSumThreads % NT == 0 || NT % kSumThreads == 0, "whole shares of the sum");
+  constexpr int kShare = NT < kSumThreads ? kSumThreads / NT : 1;
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    partial[blockIdx.x] = tot;
+    __threadfence();
+    last = atomicAdd(done, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the loads of kInFlight partials issued before their adds (at Venice a
+  // thread sums a hundred or more, each load a trip to L2)
+  constexpr int kInFlight = 4;
+  const int n = (int)gridDim.x;
+  if (threadIdx.x < kSumThreads) {
+#pragma unroll
+    for (int k = 0; k < kShare; ++k) {
+      const int t = threadIdx.x + k * NT;  // the first design's thread
+      double acc = 0.0;
+      for (int i0 = t; i0 < n; i0 += kSumThreads * kInFlight) {
+        double v[kInFlight];
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u)
+          v[u] = i0 + u * kSumThreads < n ? __ldcg(partial + i0 + u * kSumThreads) : 0.0;
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u)
+          if (i0 + u * kSumThreads < n) acc += v[u];
+      }
+      sums[t] = acc;
+    }
+  }
+  __syncthreads();
+  for (int s = kSumThreads / 2; s > 0; s >>= 1) {
+    for (int t = threadIdx.x; t < s; t += NT) sums[t] += sums[t + s];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    cost[0] = sums[0];
+    *done = 0u;
+  }
+}
 
 // Model 0: cams (C, 9) [angle-axis, t, f, k1, k2]; model 1: cams (C, 10)
-// [q (w, x, y, z), t, f, k1, k2].
-template <typename T, int kModel>
-__global__ void __launch_bounds__(kThreads)
+// [q (w, x, y, z), t, f, k1, k2]. kLoss: a loss chain of loss.n > 0 ops.
+template <typename T, int kModel, bool kLoss>
+__global__ void __launch_bounds__(EvalShape<T>::kThreads, EvalShape<T>::kMinBlocks)
 eval_fused_kernel(const T* __restrict__ cams, const T* __restrict__ pts,
                   const T* __restrict__ obs, const int* __restrict__ cam_idx,
                   const int* __restrict__ pt_idx, int B, CtLoss loss,
-                  T* __restrict__ rT, T* __restrict__ JT,
-                  double* __restrict__ partial) {
+                  T* __restrict__ rT, T* __restrict__ JT, double* __restrict__ partial,
+                  unsigned* __restrict__ done, double* __restrict__ cost_out) {
+  constexpr int NT = EvalShape<T>::kThreads;
   constexpr int kCam = kModel == 0 ? 9 : 10;
   constexpr int kT = kCam - 6;  // first translation parameter
-  __shared__ double sh[kThreads];
-  int b = blockIdx.x * kThreads + threadIdx.x;
+  __shared__ double sh[NT > kSumThreads ? NT : kSumThreads];
+  const int b = blockIdx.x * NT + threadIdx.x;
   double sq = 0.0;
   if (b < B) {
-    const T* cam = cams + (long long)cam_idx[b] * kCam;
-    const T* X = pts + (long long)pt_idx[b] * kTE;
-    T X0 = X[0], X1 = X[1], X2 = X[2];
+    const T* cam = cams + (long long)__ldg(cam_idx + b) * kCam;
+    const T* X = pts + (long long)__ldg(pt_idx + b) * kTE;
+    T X0 = __ldg(X), X1 = __ldg(X + 1), X2 = __ldg(X + 2);
     T Pr[3], dPr[3][3], dPX[3][3];
     if (kModel == 0) {
       rotate_angle_axis(cam, X0, X1, X2, Pr, dPr, dPX);
@@ -293,8 +364,8 @@ eval_fused_kernel(const T* __restrict__ cams, const T* __restrict__ pts,
     T dist = T(1) + r2 * (k1 + k2 * r2);
     T ddr2 = k1 + T(2) * k2 * r2;  // d dist / d r2
     T ddx = T(2) * xp * ddr2, ddy = T(2) * yp * ddr2;
-    T res[2] = {f * dist * xp - obs[2 * (long long)b],
-                f * dist * yp - obs[2 * (long long)b + 1]};
+    T res[2] = {f * dist * xp - __ldg(obs + 2 * (long long)b),
+                f * dist * yp - __ldg(obs + 2 * (long long)b + 1)};
     // d res / d (xp, yp)
     T a00 = f * (dist + xp * ddx), a01 = f * xp * ddy;
     T a10 = f * yp * ddx, a11 = f * (dist + yp * ddy);
@@ -326,7 +397,7 @@ eval_fused_kernel(const T* __restrict__ cams, const T* __restrict__ pts,
 
     T s = res[0] * res[0] + res[1] * res[1];
     T cost = s;
-    if (loss.n > 0) {
+    if constexpr (kLoss) {
       // The Triggs corrector (pallas_kernels.py:2356-2402): rho' clamped
       // at 1e-30, J corrected with the raw residuals, then r scaled; the
       // cost partial is rho(s).
@@ -360,59 +431,69 @@ eval_fused_kernel(const T* __restrict__ cams, const T* __restrict__ pts,
     rT[(long long)B + b] = res[1];
     sq = (double)cost;
   }
-  double tot = ct::block_sum<kThreads>(sq, sh);
-  if (threadIdx.x == 0) partial[blockIdx.x] = tot;
+  last_block_cost<NT>(ct::block_sum<NT>(sq, sh), partial, done, cost_out, sh);
 }
 
-// One block: the partials summed in a fixed order.
-__global__ void __launch_bounds__(kThreads)
-sum_partials_kernel(const double* __restrict__ partial, int n,
-                    double* __restrict__ out) {
-  __shared__ double sh[kThreads];
-  double acc = 0.0;
-  for (int i = threadIdx.x; i < n; i += kThreads) acc += partial[i];
-  double tot = ct::block_sum<kThreads>(acc, sh);
-  if (threadIdx.x == 0) out[0] = tot;
+template <typename T>
+using EvalKernel = void (*)(const T*, const T*, const T*, const int*, const int*, int,
+                            CtLoss, T*, T*, double*, unsigned*, double*);
+
+template <typename T>
+EvalKernel<T> eval_kernel(int model, bool with_loss) {
+  if (model == 0) return with_loss ? eval_fused_kernel<T, 0, true> : eval_fused_kernel<T, 0, false>;
+  return with_loss ? eval_fused_kernel<T, 1, true> : eval_fused_kernel<T, 1, false>;
 }
 
 template <typename T>
 int launch(const T* cams, const T* pts, const T* obs, const int* cam_idx,
            const int* pt_idx, int B, int model, CtLoss loss, T* rT, T* JT,
-           double* partial, double* cost, cudaStream_t stream) {
+           double* partial, unsigned* done, double* cost, cudaStream_t stream) {
   if ((model != 0 && model != 1) || loss.n < 0 || loss.n > kMaxChain)
     return (int)cudaErrorInvalidValue;
-  int blocks = ct::ceil_div(B, kThreads);
-  if (blocks > 0) {
-    auto kernel = model == 0 ? eval_fused_kernel<T, 0> : eval_fused_kernel<T, 1>;
-    CT_LAUNCH(kernel, blocks, kThreads, stream, cams, pts, obs, cam_idx, pt_idx,
-              B, loss, rT, JT, partial);
-  }
-  CT_LAUNCH(sum_partials_kernel, 1, kThreads, stream, partial, blocks, cost);
+  constexpr int NT = EvalShape<T>::kThreads;
+  CT_LAUNCH(eval_kernel<T>(model, loss.n > 0), B > 0 ? ct::ceil_div(B, NT) : 1, NT,
+            stream, cams, pts, obs, cam_idx, pt_idx, B, loss, rT, JT, partial, done,
+            cost);
+  return (int)cudaGetLastError();
+}
+
+// What the card makes of a variant: its threads a block, registers a
+// thread, local (spilled) bytes a thread, resident blocks an SM, and SMs.
+template <typename T>
+int occupancy(int device, int model, int with_loss, int* out) {
+  const auto kernel = eval_kernel<T>(model, with_loss != 0);
+  cudaFuncAttributes attr;
+  cudaFuncGetAttributes(&attr, kernel);
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, EvalShape<T>::kThreads, 0);
+  out[0] = EvalShape<T>::kThreads;
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = per_sm;
+  cudaDeviceGetAttribute(out + 4, cudaDevAttrMultiProcessorCount, device);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The cost partials' sum in `cost` (one double): sum |r|^2 with the trivial
-// loss (loss.n = 0), else sum rho(|r|^2); rT (2, B) and JT (24, B) the
-// corrected residuals and tangent-space Jacobian lanes; `partial` is
-// workspace of ceil(B / 256) doubles. model 0: cams (C, 9), model 1: (C, 10).
-extern "C" int ct_eval_fused_f64(const double* cams, const double* pts,
-                                 const double* obs, const int* cam_idx,
-                                 const int* pt_idx, int B, int model,
-                                 CtLoss loss, double* rT, double* JT,
-                                 double* partial, double* cost,
-                                 cudaStream_t stream) {
-  return launch<double>(cams, pts, obs, cam_idx, pt_idx, B, model, loss, rT,
-                        JT, partial, cost, stream);
-}
+// The cost in `cost` (one double): sum |r|^2 with the trivial loss (loss.n
+// = 0), else sum rho(|r|^2), in a fixed order: the partials of blocks of
+// EvalShape<T>::kThreads rows, then their sum (last_block_cost); rT (2, B)
+// and JT (24, B) the corrected residuals and tangent-space Jacobian lanes.
+// model 0: cams (C, 9), model 1: (C, 10). Workspace: partial (one double a
+// block, at least 1), done (one unsigned, 0 before the call and after
+// it).
+#define CT_EVAL_ENTRY(NAME, OCC, T)                                                 \
+  extern "C" int NAME(const T* cams, const T* pts, const T* obs, const int* cam_idx, \
+                      const int* pt_idx, int B, int model, CtLoss loss, T* rT,      \
+                      T* JT, double* partial, unsigned* done, double* cost,         \
+                      cudaStream_t stream) {                                        \
+    return launch<T>(cams, pts, obs, cam_idx, pt_idx, B, model, loss, rT, JT,       \
+                     partial, done, cost, stream);                                  \
+  }                                                                                 \
+  extern "C" int OCC(int device, int model, int with_loss, int* out) {              \
+    return occupancy<T>(device, model, with_loss, out);                             \
+  }
 
-extern "C" int ct_eval_fused_f32(const float* cams, const float* pts,
-                                 const float* obs, const int* cam_idx,
-                                 const int* pt_idx, int B, int model,
-                                 CtLoss loss, float* rT, float* JT,
-                                 double* partial, double* cost,
-                                 cudaStream_t stream) {
-  return launch<float>(cams, pts, obs, cam_idx, pt_idx, B, model, loss, rT, JT,
-                       partial, cost, stream);
-}
+CT_EVAL_ENTRY(ct_eval_fused_f64, ct_eval_fused_occupancy_f64, double)
+CT_EVAL_ENTRY(ct_eval_fused_f32, ct_eval_fused_occupancy_f32, float)

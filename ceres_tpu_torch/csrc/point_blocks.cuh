@@ -2,8 +2,9 @@
 // normal_matvec (row 4), post_eval_fused (row 2), schur_jacobi (rows 3b
 // and 5) and schur_assembly (row 3) share: each reads the 24 lanes of J
 // once per row, sums per-row values per point and sums per-row values per
-// camera. Each source keeps its entry point and its own per-row body; this
-// header holds the rest.
+// camera. 8J's F'F blocks (segment_spread.cu) take its camera sums by runs
+// over the rows of Jc. Each source keeps its entry point and its own
+// per-row body; this header holds the rest.
 //
 // What bounds them on an H100: bytes (~100 to ~700 flops per row against
 // 24 values of J read). So neighbouring threads read neighbouring rows of
@@ -36,13 +37,16 @@
 //    run_levels): a block stages the items of a few consecutive chunks with
 //    coalesced loads, sums each (chunk, value) in interleaved parts and the
 //    parts in order (items wider than 36 values: in order, straight from
-//    device memory); the last level sums each camera's chunks and hands
-//    each sum to a store (a camera table, or a body's own layout: the
-//    mirrored 9 x 9 blocks of rows 3 and 5). Row 3's camera-pair sums go
-//    through the same levels.
+//    device memory, or in a body's kWideParts interleaved parts, each from
+//    device memory, and the parts in order); the last level sums each
+//    camera's chunks and hands each sum to a store (a camera table, or a
+//    body's own layout: the mirrored 9 x 9 blocks of rows 3, 5 and 8J).
+//    Row 3's camera-pair sums go through the same levels.
 // No atomics anywhere: every sum has a fixed order, so a solve repeats bit
 // for bit, and each point's values are summed in row order.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -152,6 +156,8 @@ __host__ __device__ constexpr int kStageOf() {
   else return 0;
 }
 
+constexpr int kUpper = kTF * (kTF + 1) / 2;  // 45 entries of a 9 x 9 upper triangle
+
 // an entry (i, j) of a 9 x 9 block
 struct Entry {
   int i, j;
@@ -164,6 +170,19 @@ __host__ __device__ inline Entry upper_entry(int e) {
   while (e >= kTF - i) e -= kTF - i++;
   return {i, i + e};
 }
+
+// the last camera level's store of a sum of 9 x 9 blocks by their upper
+// triangles (rows 3b/5 and 8J): entry e of camera c's upper triangle to
+// both of its places in the camera's 9 x 9 block
+template <typename T>
+struct MirrorStore {
+  T* out;  // (C, 81)
+  __device__ __forceinline__ void put(long long c, int e, T v) const {
+    const Entry ab = upper_entry(e);
+    out[c * kTF * kTF + ab.i * kTF + ab.j] = v;
+    out[c * kTF * kTF + ab.j * kTF + ab.i] = v;
+  }
+};
 
 // Rows r0 .. r0 + m (thread tid < m holds row r0 + tid in g) write their
 // camera values, padded, at their places in camera order.
@@ -322,9 +341,21 @@ point_pass_kernel(const Body body, const int* __restrict__ pt_start,
   }
 }
 
+// The parts a (chunk, value) sum of wide items (more than 36 values) is cut
+// into, interleaved, and then summed in order: a body's kWideParts, or 1
+// (the chunk's items in order).
+template <class Tag, class = void>
+struct WideParts {
+  static constexpr int value = 1;
+};
+template <class Tag>
+struct WideParts<Tag, std::void_t<decltype(Tag::kWideParts)>> {
+  static constexpr int value = Tag::kWideParts;
+};
+
 // chunks of W-wide items that a block of the camera pass sums
-template <int W>
-constexpr int kTileChunks = W <= 36 ? 36 / W : kBlock / W;
+template <int W, int NP = 1>
+constexpr int kTileChunks = W <= 36 ? 36 / W : kBlock / (W * NP);
 
 // Where a level's sums go: value l of key k of a (n, W) table. The last
 // level of a body with its own output layout hands its sums to the body's
@@ -349,16 +380,36 @@ template <typename T, class Tag, int W, int IS, class Store>
 __global__ void __launch_bounds__(kBlock)
 camera_level_kernel(const T* __restrict__ in, const int* __restrict__ cs, int n_chunks,
                     const Store st) {
-  constexpr int TC = kTileChunks<W>, V = Vec16<T>::kN;
+  constexpr int NP = WideParts<Tag>::value;
+  constexpr int TC = kTileChunks<W, NP>, V = Vec16<T>::kN;
   const int tid = threadIdx.x;
   const int c0 = blockIdx.x * TC;
   const int nc = n_chunks - c0 < TC ? n_chunks - c0 : TC;
-  if constexpr (W > 36) {
+  if constexpr (W > 36 && NP == 1) {
     const int c = tid / W, l = tid % W;
     if (c < nc) {
       T acc = T(0);
       for (int r = cs[c0 + c]; r < cs[c0 + c + 1]; ++r) acc += __ldg(in + (long long)r * IS + l);
       st.put(c0 + c, l, acc);
+    }
+    return;
+  } else if constexpr (W > 36) {
+    // part (chunk c, part g, value l): items g, g + NP, ... of the chunk
+    static_assert(TC >= 1, "a thread per part");
+    __shared__ T part[TC * NP * W];
+    const int c = tid / (NP * W), g = (tid / W) % NP, l = tid % W;
+    if (c < nc) {
+      const int r1 = cs[c0 + c + 1];
+      T acc = T(0);
+      for (int r = cs[c0 + c] + g; r < r1; r += NP) acc += __ldg(in + (long long)r * IS + l);
+      part[tid] = acc;
+    }
+    __syncthreads();
+    if (tid < nc * W) {
+      const int cc = tid / W, ll = tid % W;
+      T acc = T(0);
+      for (int gg = 0; gg < NP; ++gg) acc += part[(cc * NP + gg) * W + ll];
+      st.put(c0 + cc, ll, acc);
     }
     return;
   } else {
@@ -416,7 +467,7 @@ void level_sums(const T* in, int n_keys, int n_levels, const int* const* levels,
     const bool is_last = lv == n_levels;
     const int* cs = is_last ? key_first : levels[lv];
     const int n = is_last ? n_keys : sizes[lv];
-    const int grid = ceil_div(n, kTileChunks<W>);
+    const int grid = ceil_div(n, kTileChunks<W, WideParts<Tag>::value>);
     if (n > 0 && is_last) {
       auto kernel = lv == 0 ? camera_level_kernel<T, Tag, W, IS, Store>
                             : camera_level_kernel<T, Tag, W, W, Store>;

@@ -39,8 +39,6 @@
 
 namespace ct {
 
-constexpr int kUpper = kTF * (kTF + 1) / 2;  // 45 entries of a 9 x 9 upper triangle
-
 template <typename T>
 struct SchurJacobi {
   static constexpr int kPt = 0, kCam = kUpper;
@@ -105,18 +103,6 @@ struct SchurJacobi {
            r[2 * kTF + 2] * f1a * f1c;
     }
     w[i] = s;
-  }
-};
-
-// the last camera level's store: entry e of camera c's upper triangle to
-// both of its places in the camera's 9 x 9 block
-template <typename T>
-struct MirrorStore {
-  T* out;  // (C, 81)
-  __device__ __forceinline__ void put(long long c, int e, T v) const {
-    const Entry ab = upper_entry(e);
-    out[c * kTF * kTF + ab.i * kTF + ab.j] = v;
-    out[c * kTF * kTF + ab.j * kTF + ab.i] = v;
   }
 };
 

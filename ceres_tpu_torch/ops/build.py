@@ -126,7 +126,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argument types of every C entry point, by kernel
 _SIGNATURES = {
-    "ct_eval_fused": [_P, _P, _P, _P, _P, _I, _I, LossDesc, _P, _P, _P, _P, _P],
+    "ct_eval_fused": [_P, _P, _P, _P, _P, _I, _I, LossDesc, _P, _P, _P, _P, _P, _P],
+    "ct_eval_fused_occupancy": [_I, _I, _I, _P],
     "ct_post_eval_fused": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
                            _P, _P, _P, _P, _P, _P],
     "ct_schur_assembly": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
@@ -144,8 +145,8 @@ _SIGNATURES = {
     "ct_unsorted_segment_sum": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P],
     "ct_segment_block_expand": [_P, _I, _I, _P, _I, _P, _P],
     "ct_segment_spread_sum": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "ct_segment_spread_ftf": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P,
-                              _P, _P, _P],
+    "ct_segment_spread_ftf": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P,
+                              _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -88,7 +88,6 @@ class RowPlan:
     pt_start: torch.Tensor  # (P+1,) int32: rows of point p are [p], [p+1])
     cam_rows: torch.Tensor  # (B,) int32: rows ordered by camera (stable)
     cam_chunk_start: torch.Tensor  # (n+1,) int32 offsets into cam_rows
-    cam_chunk_first: torch.Tensor  # (C+1,) int32 first chunk of each camera
     cam_pos: torch.Tensor  # (B,) int32: each row's place in cam_rows (its inverse)
     # the fixed tree of a camera sum over rows in camera order: level 0 is
     # cam_chunk_start, each further level chunks a camera's partials of the
@@ -124,10 +123,6 @@ class RowPlan:
          self.cam_level_ptrs) = level_host_arrays(self.cam_levels, "cam_levels", dev)
         (self.run_level_sizes, self.run_level_counts,
          self.run_level_ptrs) = level_host_arrays(self.run_levels, "run_levels", dev)
-
-    @property
-    def n_cam_chunks(self) -> int:
-        return self.cam_chunk_start.shape[0] - 1
 
     @property
     def n_pt_blocks(self) -> int:
@@ -290,7 +285,7 @@ def build_row_plan(pt_idx: np.ndarray, cam_idx: np.ndarray, P: int, C: int,
     *runs, runs_per_cam = _camera_runs(pt_start, pt_block, cam_idx, cam_rows, C)
     run_starts, run_firsts = _chunk_levels(runs_per_cam)
     return RowPlan(B, P, C, dev(pt_idx), dev(cam_idx), dev(pt_start),
-                   dev(cam_rows), cam_levels[0], dev(firsts[0]), dev(cam_pos),
+                   dev(cam_rows), cam_levels[0], dev(cam_pos),
                    cam_levels, dev(firsts[-1]), dev(pt_block),
                    *(dev(a) for a in runs), tuple(dev(a) for a in run_starts),
                    dev(run_firsts[-1]))

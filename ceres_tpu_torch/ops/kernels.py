@@ -31,6 +31,7 @@ it can pass 2^31 (24 * B passes it at B = 90M rows).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -86,9 +87,7 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 
 def _check_plan(plan, device) -> None:
-    """Each row's camera and point and each point's first row. The
-    camera-chunk plan (cam_rows, cam_chunk_*) is checked only by
-    segment_spread_ftf, the one kernel that reads it."""
+    """Each row's camera and point and each point's first row."""
     i32 = torch.int32
     B, P = plan.B, plan.P
     _check(plan.cam_idx, "plan.cam_idx", i32, (B,), device)
@@ -316,12 +315,41 @@ def _eval_fused_launch(cams, pts, obs, plan, rows_fn, loss):
         desc.code[k], desc.a[k], desc.b[k] = op.code, op.a, op.b
     rT = torch.empty((R, B), dtype=dt, device=dev)
     JT = torch.empty((LANES, B), dtype=dt, device=dev)
-    partial = torch.empty((max(1, -(-B // 256)),), dtype=torch.float64, device=dev)
+    partial, done = _eval_workspace(max(1, -(-B // EVAL_THREADS[dt])), dev)
     cost = torch.empty((1,), dtype=torch.float64, device=dev)
-    _launch(fn, _ptr(cams), _ptr(pts), _ptr(obs),
-            _ptr(plan.cam_idx), _ptr(plan.pt_idx), B, model, desc, _ptr(rT),
-            _ptr(JT), _ptr(partial), _ptr(cost), _stream(dev))
+    _launch(fn, _ptr(cams), _ptr(pts), _ptr(obs), _ptr(plan.cam_idx), _ptr(plan.pt_idx),
+            B, model, desc, _ptr(rT), _ptr(JT), _ptr(partial), _ptr(done), _ptr(cost),
+            _stream(dev))
     return cost, rT, JT
+
+
+# rows of a block of the kernel (EvalShape in csrc/eval_fused.cu): a cost
+# partial each, summed in the same launch by the last block to finish, in
+# the order of EVAL_SUM_THREADS threads (kSumThreads)
+EVAL_THREADS = {torch.float64: 128, torch.float32: 256}
+EVAL_SUM_THREADS = 256
+_DONE = {}
+
+
+def _eval_workspace(n_blocks: int, dev):
+    """eval_fused's workspace: a float64 cost partial per block, and the
+    count of finished blocks, one per device and stream, which is 0 between
+    calls (the last block to finish sets it back), so that no call needs a
+    reset from the host."""
+    key = (str(dev), _stream(dev).value)
+    if key not in _DONE:
+        _DONE[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return torch.empty((n_blocks,), dtype=torch.float64, device=dev), _DONE[key]
+
+
+def eval_fused_occupancy(dev, dt, model: int, with_loss: bool) -> dict:
+    """What the card makes of an eval_fused variant: threads a block,
+    registers and spilled (local) bytes a thread, resident blocks an SM, and
+    the card's SMs."""
+    out = (ctypes.c_int * 5)()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    _launch(_entry("ct_eval_fused_occupancy", dt), index, model, int(with_loss), out)
+    return dict(zip(("threads", "registers", "local_bytes", "blocks_per_sm", "sms"), out))
 
 
 # --------------------------------------------------------------------------
@@ -736,8 +764,6 @@ def segment_block_expand(vals, ids):
 # the Jc form's pallas_call at :734)
 # --------------------------------------------------------------------------
 
-SPREAD_MAX_ROW_WIDTH = 32  # r*tf of one Jc row; kMaxRowWidth in segment_spread.cu
-
 
 def _sentinel_cams(cam_ids, C):
     """cam_ids as int64 with every id outside [0, C) set to C."""
@@ -794,7 +820,7 @@ def segment_spread_sum(Y, cam_ids, pt_start, C, te, tf, Jc=None, r=2, plan=None)
 
 def segment_spread_ftf_plain(Y, cam_ids, pt_start, C, te, tf, Jc, r, plan=None):
     """Takes the kernel's arguments, so that the two are called alike; the
-    camera chunk plan is the kernel's own and not needed here."""
+    row plan's camera runs are the kernel's own and not needed here."""
     Jq = Jc.reshape(-1, r, tf)
     outer = torch.einsum("bqi,bqj->bij", Jq, Jq).reshape(-1, tf * tf)
     ftf = Y.new_zeros((C + 1, tf * tf)).index_add_(0, _sentinel_cams(cam_ids, C), outer)
@@ -802,12 +828,13 @@ def segment_spread_ftf_plain(Y, cam_ids, pt_start, C, te, tf, Jc, r, plan=None):
 
 
 def segment_spread_ftf(Y, cam_ids, pt_start, C, te, tf, Jc, r, plan):
-    """Kernel 8J: segment_spread_sum's A and, in the same pass, the camera
-    Gram blocks ftf (C, tf*tf), ftf[c, i*tf + j] = sum over every row b
-    with cam_ids[b] == c of sum_{q<r} Jc[b, q*tf + i] Jc[b, q*tf + j], for
-    Jc (B, r*tf), the scaled camera Jacobian rows. Returns (A, ftf). The
-    kernel sums the blocks through `plan`'s camera plan (a flatops.RowPlan
-    over these rows: cam_rows, cam_chunk_start, cam_chunk_first), which the
+    """Kernel 8J: segment_spread_sum's A and the camera Gram blocks ftf
+    (C, tf*tf), ftf[c, i*tf + j] = sum over every row b with cam_ids[b] ==
+    c of sum_{q<r} Jc[b, q*tf + i] Jc[b, q*tf + j], for Jc (B, r*tf), the
+    scaled camera Jacobian rows. Returns (A, ftf). The kernel takes r = 2
+    rows of tf = 9 camera columns (the Snavely camera of the specialized
+    pipeline) and sums the blocks by the camera runs of `plan`, a
+    flatops.RowPlan over these rows (plan.cam_idx: cam_ids), which the
     plain version does not need."""
     if _on_cpu(Y):
         segment_spread_ftf.plain_calls += 1
@@ -815,23 +842,27 @@ def segment_spread_ftf(Y, cam_ids, pt_start, C, te, tf, Jc, r, plan):
     dev = Y.device
     dt, B, P = _check_spread(Y, cam_ids, pt_start, te, tf)
     fn = _entry("ct_segment_spread_ftf", dt)
-    if r * tf > SPREAD_MAX_ROW_WIDTH:
-        raise ValueError(f"the spread kernel takes Jc rows of at most "
-                         f"{SPREAD_MAX_ROW_WIDTH} values, not r*tf = {r * tf}")
+    if (r, tf) != (R, TF):
+        raise ValueError(f"the spread kernel forms F'F of r = {R} Jc rows of tf = {TF} "
+                         f"camera columns, not r = {r}, tf = {tf}")
     if plan is None:
-        raise ValueError("the Jc form needs the camera plan of a flatops.RowPlan")
-    i32 = torch.int32
-    n_chunks = plan.n_cam_chunks
+        raise ValueError("the Jc form needs the camera runs of a flatops.RowPlan")
+    if (plan.B, plan.C) != (B, C):
+        raise ValueError(f"the row plan covers {plan.B} rows of {plan.C} cameras, "
+                         f"not {B} of {C}")
     _check(Jc, "Jc", dt, (B, r * tf), dev)
-    _check(plan.cam_rows, "plan.cam_rows", i32, (B,), dev)
-    _check(plan.cam_chunk_start, "plan.cam_chunk_start", i32, (n_chunks + 1,), dev)
-    _check(plan.cam_chunk_first, "plan.cam_chunk_first", i32, (C + 1,), dev)
+    _check(plan.pt_start, "plan.pt_start", torch.int32, (plan.P + 1,), dev)
+    _check_point_blocks(plan, dev)
+    _check_runs(plan, dev)
     out = torch.empty((P, te * C * tf), dtype=dt, device=dev)
-    cam_partial = torch.empty((max(1, n_chunks), tf * tf), dtype=dt, device=dev)
-    ftf = torch.empty((C, tf * tf), dtype=dt, device=dev)
-    _launch(fn, _ptr(Y), _ptr(cam_ids), _ptr(pt_start), P, C, te, tf, _ptr(out),
-            _ptr(Jc), r, _ptr(plan.cam_rows), _ptr(plan.cam_chunk_start), n_chunks,
-            _ptr(plan.cam_chunk_first), _ptr(cam_partial), _ptr(ftf), _stream(dev))
+    w = torch.empty((max(1, plan.n_runs), _UPPER), dtype=dt, device=dev)
+    work = torch.empty((max(1, sum(plan.run_level_sizes)), _UPPER), dtype=dt, device=dev)
+    ftf = torch.empty((C, TF * TF), dtype=dt, device=dev)
+    # the kernel forks onto a second stream of the current device
+    with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+        _launch(fn, _ptr(Y), _ptr(cam_ids), _ptr(pt_start), P, C, te, tf, _ptr(out),
+                _ptr(Jc), _ptr(plan.pt_start), _ptr(plan.pt_block), *_runs_args(plan),
+                _ptr(w), _ptr(work), _ptr(ftf), _stream(dev))
     segment_spread_ftf.launches += 1
     return out, ftf
 

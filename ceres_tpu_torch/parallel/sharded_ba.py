@@ -65,9 +65,9 @@ class PointPlan(NamedTuple):
     """The kernel plan over point-sorted rows, in place of the JAX
     `pallas_plan = (tile_starts, max_rows)` of plan_block_tiles and of the
     v2 `AsmPlan`. `rows` holds the point segments `pt_start` (the JAX
-    tile_starts/max_rows windows of kernels 6-8), the camera chunk plan
-    `cam_rows`, `cam_chunk_start`, `cam_chunk_first` (8J's F'F; the JAX
-    kernel accumulates it across its sequential grid) and, for v2, the
+    tile_starts/max_rows windows of kernels 6-8), the point blocks and the
+    runs of one camera within a tile with their camera levels (8J's F'F;
+    the JAX kernel accumulates it across its sequential grid) and, for v2, the
     point-pair plan of the Schur assembly (the JAX row_ts/row_tb/ids_T);
     `seg` is kernel 6's segment plan over the P points."""
 

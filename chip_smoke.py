@@ -20,9 +20,12 @@ each run launched, and times the kernels (segment_block_expand at each
 width a libmv solve gathers, 3, 6, 8 and 9, beside torch.index_select;
 segment_block_sum and unsorted_segment_sum at the widths a flat CG
 iteration sums, 3, 8 and 6, beside Tensor.index_add; each call's own peak
-device memory; schur_assembly also at 120 cameras), holds
-schur_assembly's AtA and schur_jacobi_blocks' blocks to exact symmetry and
-a repeated call of each and of both segment sums to the same bits, the
+device memory; schur_assembly also at 120 cameras; 8J's slab pass apart
+from its F'F passes; the device kernels of each eval_fused and spread call,
+and eval_fused's registers and occupancy in each variant), holds
+schur_assembly's AtA and schur_jacobi_blocks' and 8J's F'F blocks to exact
+symmetry and a repeated call of each, of both segment sums, both spread
+sums and eval_fused to the same bits, the
 solves (with the device time
 per LM iteration of isc_matvec, normal_matvec, post_eval_fused,
 schur_jacobi_blocks and schur_assembly, pass by pass, at BAL-16
@@ -215,11 +218,16 @@ ROBUST_LOSSES = {
     "scaled": lambda ctt: ctt.ScaledLoss(ctt.CauchyLoss(1.0), 3.0),
     "composed": lambda ctt: ctt.ComposedLoss(ctt.HuberLoss(1.1), ctt.SoftLOneLoss(0.5)),
 }
+# the kernels whose device kernels a call launches are logged, with their
+# device times (eval_fused's variants must launch one)
+PASSES_LOGGED = EVAL_VARIANTS + ("segment_spread_sum", "segment_spread_ftf")
 # the kernels a repeated call of must give the same bits (no atomics: fixed
-# orders), schur_assembly's and schur_jacobi_blocks' output blocks also
-# exactly symmetric
+# orders; eval_fused's count of finished blocks set back by its last block),
+# and those whose 9 x 9 output blocks must be exactly symmetric
 REPEAT_GATED = ("schur_assembly", "schur_jacobi_blocks", "segment_block_sum",
-                "unsorted_segment_sum")
+                "unsorted_segment_sum", "segment_spread_sum", "segment_spread_ftf",
+                *EVAL_VARIANTS)
+EXACTLY_SYMMETRIC = ("schur_assembly", "schur_jacobi_blocks", "segment_spread_ftf")
 # the kernel checks: case -> wrapper
 CASES = {"eval_fused": "eval_fused", "post_eval_fused": "post_eval_fused",
          "eval_fused_loss": "eval_fused_loss", "eval_fused_quat": "eval_fused_quat",
@@ -247,12 +255,12 @@ CASES = {"eval_fused": "eval_fused", "post_eval_fused": "post_eval_fused",
 
 
 def exactly_symmetric(name, out):
-    """schur_assembly's AtA and FtF blocks, or schur_jacobi_blocks' blocks,
-    equal to their transposes bit for bit."""
+    """schur_assembly's AtA and FtF blocks, schur_jacobi_blocks' blocks or
+    segment_spread_ftf's F'F blocks, equal to their transposes bit for bit."""
     if name == "schur_assembly":
         ata, ftf = out[0], out[1].reshape(-1, 9, 9)
         return torch.equal(ata, ata.T) and torch.equal(ftf, ftf.transpose(1, 2))
-    blocks = out.reshape(-1, 9, 9)
+    blocks = (out[1] if name == "segment_spread_ftf" else out).reshape(-1, 9, 9)
     return torch.equal(blocks, blocks.transpose(1, 2))
 
 
@@ -633,8 +641,7 @@ def main():
                 again = wrapper(*args_c)
                 torch.cuda.synchronize()
                 same = all(torch.equal(a, b) for a, b in zip(as_tuple(again), as_tuple(out)))
-                sym = (exactly_symmetric(name, out)
-                       if name in ("schur_assembly", "schur_jacobi_blocks") else None)
+                sym = exactly_symmetric(name, out) if name in EXACTLY_SYMMETRIC else None
                 log("check", f"{case} {shape} {dtn}: "
                     + ("" if sym is None else f"exactly symmetric {sym}, ")
                     + f"a repeated call bit for bit {same}")
@@ -663,6 +670,8 @@ def main():
                                                bound_ms=max(t_bytes, t_ops),
                                                bound_by=bound_by, library_ms=lib_ms,
                                                call_peak_bytes=call_peak)
+            if name in PASSES_LOGGED:
+                passes(case, shape, dtn, wrapper, args_c, n_kernel)
             log("time", f"{case} {shape} {dtn}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms by {bound_by} "
                 f"(counted, not measured: {byts} bytes -> {t_bytes:.4f} ms, "
@@ -670,6 +679,44 @@ def main():
                 f"call's peak device memory (outputs, workspaces) "
                 f"{call_peak / 2**20:.1f} MiB; {card}")
             torch.cuda.synchronize()
+
+    def passes(case, shape, dtn, wrapper, args_c, n_kernel):
+        """The device kernels of one call under torch.profiler, with each
+        one's device time; for 8J also the slab pass alone (the call
+        without Jc: row 8's entry point) by CUDA events, and the F'F passes
+        as the rest of the call's time."""
+        tm = timings[(case, shape, dtn)]
+        for _ in range(3):  # the profiler has returned no device event at times
+            n_ops, by_name = device_profile(lambda: wrapper(*args_c))[3:]
+            if n_ops:
+                break
+        tm["device_kernels_per_call"] = n_ops if n_ops else "not measured"
+        tm["device_us_by_kernel"] = {kernel_label(k): v for k, v in by_name.items()}
+        text = ""
+        if CASES[case] == "segment_spread_ftf":
+            tm["slab_ms"] = time_cuda(lambda: kn.segment_spread_sum(*args_c[:6]), n_kernel)
+            tm["ftf_ms"] = tm["ms"] - tm["slab_ms"]
+            text = (f"slab pass alone {tm['slab_ms']:.4f} ms, F'F passes (the rest) "
+                    f"{tm['ftf_ms']:.4f} ms; ")
+        log("passes", f"{case} {shape} {dtn}: {text}{tm['device_kernels_per_call']} "
+            f"device kernels a call, device us by kernel "
+            f"{json.dumps(tm['device_us_by_kernel'])}; {card}")
+        check(CASES[case] not in EVAL_VARIANTS or n_ops in (0, 1),
+              f"{case} {shape} {dtn}: {n_ops} device kernels a call, not one")
+
+    # -- eval_fused's variants on this card -----------------------------------
+    for dtn in ("float64", "float32"):
+        for model, with_loss in ((0, False), (0, True), (1, False), (1, True)):
+            occ = kn.eval_fused_occupancy(dev, getattr(torch, dtn), model, with_loss)
+            sms = occ["sms"]
+            rows_at_once = occ["threads"] * occ["blocks_per_sm"] * sms
+            log("eval_fused occupancy",
+                f"{('angle-axis', 'quaternion')[model]}{' + loss' if with_loss else ''} "
+                f"{dtn}: {occ['threads']} threads a block, {occ['registers']} registers "
+                f"and {occ['local_bytes']} local bytes a thread, {occ['blocks_per_sm']} "
+                f"blocks an SM, {rows_at_once} rows at once on {sms} SMs: waves at "
+                f"B = 84,218 {84218 / max(rows_at_once, 1):.3f}, at B = 4,397,236 "
+                f"{4397236 / max(rows_at_once, 1):.3f}; one launch a call; {card}")
 
     # -- BAL-16: every kernel against its plain version ----------------------
     log("phase", f"BAL-16 kernel checks from {time.monotonic() - t_start:.1f} s")
@@ -1730,6 +1777,12 @@ def log_row_passes(path, profile, card):
             f"iteration, by pass {json.dumps(ms['by_kernel'])}; {card}")
 
 
+def kernel_label(name):
+    """A device kernel's name without its arguments and namespaces."""
+    return (name.replace("(anonymous namespace)::", "").replace("void ", "")
+            .replace("ct::", "").split("(")[0])
+
+
 def row_device_ms(by_name, n_it):
     """Device ms per LM iteration of each row's kernels (ROW_KERNEL_TAGS), in
     all and by kernel (its name without its arguments and namespaces)."""
@@ -1738,8 +1791,7 @@ def row_device_ms(by_name, n_it):
         passes = {}
         for k, us in by_name.items():
             if re.search(rf"\b{tag}\b", k):
-                label = (k.replace("(anonymous namespace)::", "").replace("void ", "")
-                         .replace("ct::", "").split("(")[0])
+                label = kernel_label(k)
                 passes[label] = passes.get(label, 0.0) + us / 1e3 / max(n_it, 1)
         if passes:
             out[row] = {"total": sum(passes.values()), "by_kernel": passes}

@@ -1,9 +1,10 @@
 """The port on one card, compared between source trees: the wall per LM
 iteration on BAL-16, libmv16 and libmv-Venice, post_eval_fused's kernel
-(row 2) at BAL-16 and at the Venice shape, and the segment sums (rows 6
-and 9) at the libmv16 and libmv-Venice shapes.
+(row 2) at BAL-16 and at the Venice shape, the segment sums (rows 6 and 9)
+at the libmv16 and libmv-Venice shapes, and eval_fused (rows 1, 1L, 1Q)
+and the spread sum (rows 8J, 8).
 
-    python3 scripts/torch_ab.py [--kernels-only] TREE [TREE ...]
+    python3 scripts/torch_ab.py [--kernels-only | --eval-spread] TREE [TREE ...]
 
 Each TREE is a checkout of the repo (e.g. the parent commit unpacked with
 `git archive` into a git-ignored directory, and the change); give them in
@@ -25,9 +26,17 @@ line: the tree, the card's name and power limit, and
   depend on their values) over the row plan of the shape's structure;
 - rows 6 and 9 the same way at libmv16 and libmv-Venice (`SEGMENT_CASES`:
   each case's ids as the flat path's plans hold them, rows by point,
-  random contrib), in both dtypes, with the call's own peak device memory.
-`--kernels-only` skips the walls. Needs a card; takes a few minutes per
-tree on an H100 once its kernels are built.
+  random contrib), in both dtypes, with the call's own peak device memory;
+- rows 1, 1L and 1Q (eval_fused: angle-axis, angle-axis + HuberLoss(1.0),
+  quaternion + HuberLoss(1.0)) at BAL-16 and Venice at the start state, in
+  both dtypes; row 8J at the
+  specialized pipeline's first-iteration inputs on BAL-16, the whole call
+  and its slab pass alone (the same call without Jc, row 8's entry point:
+  the F'F passes are the rest); row 8 at libmv16's rows (te = 3, tf = 6,
+  the cameras' A) on random Y.
+`--kernels-only` skips the walls, `--eval-spread` runs only rows 1, 1L,
+1Q, 8J and 8. Needs a card; takes a few minutes per tree on an H100 once
+its kernels are built.
 """
 import importlib.util
 import json
@@ -125,7 +134,64 @@ def segment_sums(bal, cs, fo, kn, out) -> None:
                 del x
 
 
-def child(tree: Path, kernels_only: bool) -> None:
+def eval_spread(ctt, bal, cs, kn, out) -> None:
+    """Rows 1, 1L, 1Q, 8J and 8 (see the module's docstring)."""
+    import torch
+
+    from ceres_tpu_torch.parallel import sharded_ba as sb
+    from ceres_tpu_torch.program import CompiledProgram
+
+    def put(key, fn, n):
+        torch.cuda.synchronize()
+        out[key] = cs.time_cuda(fn, n)
+
+    b16 = bal.bal16()
+    venice = bal.perturb(bal.synthetic_bal_large(**cs.VENICE), **cs.VENICE_PERTURB)
+    for shape, b, n in (("bal16", b16, 100), ("venice", venice, 20)):
+        # float64 programs; their float32 arguments are the same tables cast
+        progs = {m: CompiledProgram(cs.robust_problem(bal, b, m, ctt.HuberLoss(1.0)),
+                                    "float64", device="cuda")
+                 for m in ("angle_axis", "quat")}
+        huber = {m: cs.eval_args(p) for m, p in progs.items()}
+        del progs
+        for dt in (torch.float64, torch.float32):
+            tag = cs.TAG[str(dt)[6:]]
+            cast = {m: tuple(a.to(dt) if torch.is_tensor(a) and a.is_floating_point()
+                             else a for a in args) for m, args in huber.items()}
+            cases = {"row1": cast["angle_axis"][:5] + (None,),
+                     "row1L": cast["angle_axis"], "row1Q": cast["quat"]}
+            for row, args in cases.items():
+                put(f"{row}_{shape}_{tag}_ms", lambda: kn.eval_fused(*args), n)
+            del cast, cases
+        del huber
+    del venice
+    for dt in (torch.float64, torch.float32):
+        tag = cs.TAG[str(dt)[6:]]
+        ci, pi, obs = sb.observations_by_point(b16.camera_index, b16.point_index,
+                                               b16.observations, dt, "cuda")
+        plan = sb.build_point_plan(ci, pi, b16.num_points, b16.num_cameras, "cuda")
+        st = sb.state_from_arrays(b16.cameras, b16.points, 1e4, dt, "cuda")
+        args = cs.first_iteration_args(
+            "v1", lambda s, k: sb.lm_step_schur_k(s.cams, s.pts, ci, pi, obs, s.radius,
+                                                  k=k, plan=plan), st)["segment_spread_ftf"]
+        put(f"row8J_spec_{tag}_ms", lambda: kn.segment_spread_sum(*args), 100)
+        put(f"row8J_spec_{tag}_slab_ms", lambda: kn.segment_spread_sum(*args[:6]), 100)
+        out[f"row8J_spec_{tag}_ftf_ms"] = (out[f"row8J_spec_{tag}_ms"]
+                                           - out[f"row8J_spec_{tag}_slab_ms"])
+        del args, plan
+    lp = cs.libmv16()
+    counts = np.bincount(lp.marker_pt, minlength=lp.points.shape[0])
+    pt_start = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
+                               device="cuda")
+    cam = torch.as_tensor(lp.marker_cam.astype(np.int32), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for dt in (torch.float64, torch.float32):
+        Y = torch.randn((cam.shape[0], 18), generator=gen, device="cuda", dtype=dt)
+        put(f"row8_libmv16_{cs.TAG[str(dt)[6:]]}_ms",
+            lambda: kn.segment_spread_sum(Y, cam, pt_start, lp.cameras.shape[0], 3, 6), 100)
+
+
+def child(tree: Path, kernels_only: bool, only_eval_spread: bool) -> None:
     sys.path.insert(0, str(tree))
     import torch
 
@@ -140,6 +206,10 @@ def child(tree: Path, kernels_only: bool) -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     out = {"tree": str(tree), "card": card}
+    if only_eval_spread:
+        eval_spread(ctt, bal, cs, kn, out)
+        print(json.dumps(out), flush=True)
+        return
     if not kernels_only:
         walls(ctt, bal, cs, out)
     for shape, b, n in (("bal16", bal.bal16(), 100),
@@ -155,19 +225,19 @@ def child(tree: Path, kernels_only: bool) -> None:
             out[f"post_eval_fused_{shape}_{cs.TAG[str(dt)[6:]]}_ms"] = ms
         del plan, b
     segment_sums(bal, cs, fo, kn, out)
+    eval_spread(ctt, bal, cs, kn, out)
     print(json.dumps(out), flush=True)
 
 
-def main(trees, kernels_only: bool) -> int:
+def main(trees, flags) -> int:
     for t in trees:
         tree = Path(t).resolve()
         if not (tree / "ceres_tpu_torch").is_dir():
             print(f"{tree} holds no ceres_tpu_torch", file=sys.stderr)
             return 2
         env = dict(os.environ, PYTHONPATH=str(tree))
-        rc = subprocess.run([sys.executable, __file__, "--child", str(tree)]
-                            + (["--kernels-only"] if kernels_only else []), env=env,
-                            cwd=tree).returncode
+        rc = subprocess.run([sys.executable, __file__, "--child", str(tree), *flags],
+                            env=env, cwd=tree).returncode
         if rc:
             return rc
     return 0
@@ -175,12 +245,12 @@ def main(trees, kernels_only: bool) -> int:
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    kernels_only = "--kernels-only" in args
-    args = [a for a in args if a != "--kernels-only"]
+    flags = [a for a in args if a in ("--kernels-only", "--eval-spread")]
+    args = [a for a in args if a not in flags]
     if len(args) == 2 and args[0] == "--child":
-        child(Path(args[1]), kernels_only)
+        child(Path(args[1]), "--kernels-only" in flags, "--eval-spread" in flags)
     elif args:
-        sys.exit(main(args, kernels_only))
+        sys.exit(main(args, flags))
     else:
         print(__doc__, file=sys.stderr)
         sys.exit(2)

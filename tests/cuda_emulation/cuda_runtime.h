@@ -8,6 +8,8 @@
 // card schedules them.
 #pragma once
 #include <math.h>
+#include <stddef.h>
+#include <atomic>
 #include <cmath>
 #include <thread>
 #include <barrier>
@@ -26,8 +28,21 @@ inline thread_local std::barrier<>* ct_emu_barrier;
 #define __launch_bounds__(...)
 #define __shared__ static
 typedef void* cudaStream_t;
+typedef void* cudaEvent_t;
 enum { cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
+// launches run to their end before they return, so streams and events
+// order nothing: one device, and calls that do nothing
+enum { cudaStreamNonBlocking = 1, cudaEventDisableTiming = 2 };
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetStreamPriorityRange(int* least, int* greatest) {
+  *least = *greatest = 0;
+  return 0;
+}
+inline int cudaStreamCreateWithPriority(cudaStream_t* s, unsigned, int) { *s = s; return 0; }
+inline int cudaEventCreateWithFlags(cudaEvent_t* e, unsigned) { *e = e; return 0; }
+inline int cudaEventRecord(cudaEvent_t, cudaStream_t) { return 0; }
+inline int cudaStreamWaitEvent(cudaStream_t, cudaEvent_t, unsigned) { return 0; }
 // device queries: a stand-in of no multiprocessors (the tests give
 // ceres_tpu_torch/ops/kernels.py the card's resident blocks themselves)
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
@@ -37,9 +52,23 @@ inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, unsigne
   *n = 0;
   return 0;
 }
+struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
+template <class K>
+inline int cudaFuncGetAttributes(cudaFuncAttributes* a, K) {
+  *a = {};
+  return 0;
+}
 inline void __syncthreads() { ct_emu_barrier->arrive_and_wait(); }
+// blocks run one after another, so a fence has nothing to order across
+// them; an atomic is one within its block
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_add(v);
+}
 template <typename T>
 inline T __ldg(const T* p) { return *p; }
+template <typename T>
+inline T __ldcg(const T* p) { return *p; }
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(8) float2 { float x, y; };
 struct alignas(16) double2 { double x, y; };

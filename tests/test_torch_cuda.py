@@ -601,6 +601,77 @@ def test_eval_fused_variant_matches_plain_on_card(card, model, loss_name, dtype)
         assert err <= REL_LIMIT[dt] * r.double().abs().max().item()
 
 
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("model,loss", [("angle_axis", None), ("quat", "huber")])
+def test_eval_fused_one_launch_on_card(card, monkeypatch, model, loss, dtype):
+    """eval_fused's cost in the launch that forms the rows: the cost equals
+    the fixed-order sum of its block partials bit for bit, the count of
+    finished blocks is 0 after each call, so a repeat gives the same bits."""
+    b = tbal.perturb(tbal.synthetic_bal(num_cameras=6, num_points=6000, visibility=0.5,
+                                        seed=5), 0.01, 0.05, 0.05, seed=1)
+    build = (tbal.build_problem_batched_quat if model == "quat"
+             else tbal.build_problem_batched)
+    prog = CompiledProgram(build(b, None if loss is None else ctt.HuberLoss(1.0))[0],
+                           dtype, device=card)
+    ops = DenseSchurStepOps(
+        prog, ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR), [1])
+    q, x, dt = ops._jt_qual, prog.initial_state(), prog.compute_dtype
+    args = (prog.family_table(x, q.fam_f).to(dt).contiguous(),
+            prog.family_table(x, q.fam_e).to(dt).contiguous(),
+            prog.kinds[0].data, ops.flat.plan, q.rows_fn, q.loss)
+    seen = []
+    workspace = kn._eval_workspace
+    monkeypatch.setattr(kn, "_eval_workspace",
+                        lambda n, dev: seen.append(workspace(n, dev)) or seen[-1])
+    nt = kn.EVAL_THREADS[dt]
+    outs = []
+    for _ in range(3):
+        outs.append(kn.eval_fused(*args))
+        torch.cuda.synchronize()
+        partial, done = (t.cpu() for t in seen[-1])
+        assert int(done) == 0 and partial.shape[0] == -(-ops.flat.plan.B // nt)
+        acc = [0.0] * kn.EVAL_SUM_THREADS
+        for i, v in enumerate(partial.tolist()):
+            acc[i % kn.EVAL_SUM_THREADS] += v
+        s = kn.EVAL_SUM_THREADS // 2
+        while s:
+            for t in range(s):
+                acc[t] += acc[t + s]
+            s //= 2
+        assert float(outs[-1][0]) == acc[0]
+    for out in outs[1:]:
+        assert all(torch.equal(a, c) for a, c in zip(out, outs[0]))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("te,C,tf", [(3, 16, 9), (3, 5, 3), (3, 400, 9)])
+def test_spread_slab_is_the_first_designs_sums_on_card(card, te, C, tf, dtype):
+    """segment_spread_sum's slab pass on the card, bit for bit the first
+    design's sums (each entry 0 plus its point's rows of its camera in row
+    order, in the dtype), at a width of whole 16-byte groups, one of none,
+    and one wider than a block's stretch of shared memory; camera ids
+    outside [0, C) add nothing."""
+    dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
+    rng = np.random.default_rng(C)
+    counts = rng.integers(0, 7, 40 if C > 100 else 600)
+    counts[3] = 700
+    pt_start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    B = int(pt_start[-1])
+    cam = rng.integers(-1, C + 1, B).astype(np.int32)
+    Y = rng.standard_normal((B, te * tf)).astype(str(dt)[6:])
+    ref = np.zeros((len(counts), te, C, tf), Y.dtype)
+    for p in range(len(counts)):
+        for r in range(pt_start[p], pt_start[p + 1]):
+            if 0 <= cam[r] < C:
+                ref[p, :, cam[r], :] += Y[r].reshape(te, tf)
+    kn.reset_counts()
+    A = kn.segment_spread_sum(torch.as_tensor(Y, device=card),
+                              torch.as_tensor(cam, device=card),
+                              torch.as_tensor(pt_start, device=card), C, te, tf)
+    assert kn.segment_spread_sum.launches == 1
+    assert torch.equal(A.cpu(), torch.as_tensor(ref.reshape(len(counts), -1)))
+
+
 def test_robust_quaternion_solve_on_card_matches_cpu(card):
     """Quaternion cameras with CauchyLoss(0.5), DENSE_SCHUR, on the card
     and on the CPU: the same rows, each cost to 1e-9 relative, and the

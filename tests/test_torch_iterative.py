@@ -280,7 +280,7 @@ def test_iterative_program_builds_no_pair_plan():
     assert plan.pairs is None
     biggest = max(t.numel() for t in (plan.pt_idx, plan.cam_idx, plan.pt_start,
                                       plan.cam_rows, plan.cam_chunk_start,
-                                      plan.cam_chunk_first))
+                                      plan.cam_level_first))
     assert biggest == plan.B < plan.C * plan.C
     small = port_problem(small_bal())[0]
     dense = DenseSchurStepOps(CompiledProgram(small, "float64", device="cpu"),

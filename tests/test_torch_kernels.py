@@ -122,21 +122,25 @@ def test_normal_matvec_plain_matches_dense_jacobian(setup):
 
 
 def test_row_plan_covers_every_row_and_pair(setup):
-    """The camera chunks partition the rows, each within one camera, and
-    the pair plan holds each pair of two rows of each point once, a from
-    the lower camera, ordered by camera-pair key; each key's level-0 chunks
-    hold its pairs only."""
+    """The camera chunks (the camera levels' level 0) partition the rows in
+    camera order, each within one camera, and the pair plan holds each pair
+    of two rows of each point once, a from the lower camera, ordered by
+    camera-pair key; each key's level-0 chunks hold its pairs only."""
     plan = setup["ops"].flat.plan
     cam = plan.cam_idx.long().numpy()
     pt = plan.pt_idx.long().numpy()
     rows = plan.cam_rows.long().numpy()
     assert sorted(rows.tolist()) == list(range(plan.B))
     cs = plan.cam_chunk_start.long().numpy()
-    cf = plan.cam_chunk_first.long().numpy()
-    for c in range(plan.C):
-        for k in range(cf[c], cf[c + 1]):
-            assert 0 < cs[k + 1] - cs[k] <= kn.CHUNK
-            assert np.all(cam[rows[cs[k]:cs[k + 1]]] == c)
+    assert cs[0] == 0 and cs[-1] == plan.B
+    chunk_cams = []
+    for k in range(cs.shape[0] - 1):
+        assert 0 < cs[k + 1] - cs[k] <= kn.CHUNK
+        cams = cam[rows[cs[k]:cs[k + 1]]]
+        assert np.all(cams == cams[0])
+        chunk_cams.append(cams[0])
+    assert np.all(np.diff(chunk_cams) >= 0)
+    assert set(chunk_cams) == set(cam.tolist())
     pairs = plan.ensure_pairs()
     a = pairs.pair_a.long().numpy()
     bb = pairs.pair_b.long().numpy()

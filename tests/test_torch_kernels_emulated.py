@@ -217,6 +217,69 @@ def test_emulated_eval_fused_variants_match_plain(kernel_path, model, loss_name,
         assert err <= LIMIT[args[0].dtype] * r.double().abs().max().item()
 
 
+def _fixed_order_sum(partial, nt):
+    """The cost as the last block of csrc/eval_fused.cu sums the partials:
+    thread t of nt adds the partials t, t + nt, ... in order from 0, then
+    the threads' sums go through the block's tree (ct::block_sum)."""
+    acc = [0.0] * nt
+    for i, v in enumerate(partial.tolist()):
+        acc[i % nt] += v
+    s = nt // 2
+    while s:
+        for t in range(s):
+            acc[t] += acc[t + s]
+        s //= 2
+    return acc[0]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("model,loss_name,num_points", [
+    ("angle_axis", "trivial", 80), ("angle_axis", "huber", 80), ("quat", "trivial", 80),
+    ("quat", "huber", 80), ("angle_axis", "trivial", 12000)])
+def test_emulated_eval_fused_cost_is_the_fixed_order_sum_of_its_partials(
+        kernel_path, monkeypatch, model, loss_name, num_points, dtype):
+    """eval_fused's cost comes from the launch that forms the rows: its
+    block partials (one per kn.EVAL_THREADS rows) summed by the last block
+    to finish, equal bit for bit to _fixed_order_sum of them (the order of
+    the first design's second launch), for both camera models with and
+    without a loss; 12,000 points give more partials than that sum has
+    threads (in float64). The count of finished blocks is 0 again after
+    each call, so a repeat gives the same bits. The cost is within 1e-12 in
+    float64, 1e-5 in float32, of the plain version's."""
+    b = tbal.perturb(tbal.synthetic_bal(num_cameras=5, num_points=num_points,
+                                        visibility=0.6, seed=4), 0.01, 0.05, 0.05, seed=1)
+    build = (tbal.build_problem_batched_quat if model == "quat"
+             else tbal.build_problem_batched)
+    prog = CompiledProgram(build(b, _LOSSES[loss_name]())[0], dtype, device="cpu")
+    ops = DenseSchurStepOps(
+        prog, ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR), [1])
+    q, x = ops._jt_qual, prog.initial_state()
+    args = (prog.family_table(x, q.fam_f).to(prog.compute_dtype).contiguous(),
+            prog.family_table(x, q.fam_e).to(prog.compute_dtype).contiguous(),
+            prog.kinds[0].data, ops.flat.plan, q.rows_fn, q.loss)
+    seen = []
+    workspace = kn._eval_workspace
+
+    def spy(n_blocks, dev):
+        seen.append(workspace(n_blocks, dev))
+        return seen[-1]
+
+    monkeypatch.setattr(kn, "_eval_workspace", spy)
+    nt = kn.EVAL_THREADS[args[0].dtype]
+    B = ops.flat.plan.B
+    outs = []
+    for _ in range(2):
+        outs.append(kernel_path(kn.eval_fused, *args))
+        partial, done = seen[-1]
+        assert partial.shape == (-(-B // nt),) and int(done) == 0
+        assert float(outs[-1][0]) == _fixed_order_sum(partial, kn.EVAL_SUM_THREADS)
+    if num_points > 80 and dtype == "float64":
+        assert partial.shape[0] > kn.EVAL_SUM_THREADS
+    assert all(torch.equal(o, r) for o, r in zip(outs[1], outs[0]))
+    ref = kn.eval_fused_plain(*args)  # rows' costs in the dtype, their sum in float64
+    assert abs(float(outs[0][0]) - float(ref[0])) <= LIMIT[args[0].dtype] * float(ref[0])
+
+
 def test_emulated_eval_fused_refuses_what_it_does_not_compute(kernel_path):
     """Another residual, a camera table of the other model's width, or a
     chain longer than the kernel takes: the wrapper raises before
@@ -289,58 +352,143 @@ def test_emulated_flat_kernel_matches_plain(kernel_path, name, dtype):
     assert err <= limit * ref.double().abs().max().item()
 
 
-def _spread_ftf_inputs(dtype, C, B):
-    """The Jc form's inputs: 12 points, C cameras and some rows of the
-    constant camera C, Y (B, 27), Jc (B, 18), and the camera plan of a row
-    plan over the C + 1 camera ids, cut to the C real cameras."""
+def _parent_spread(Y, cam, pt_start, C, te, tf):
+    """A as the first design of csrc/segment_spread.cu formed it: each entry
+    0 and then each row of its point and camera added in row order, in the
+    dtype of Y."""
+    Y, cam, pt_start = Y.numpy(), cam.numpy(), pt_start.numpy()
+    P = pt_start.shape[0] - 1
+    A = np.zeros((P, te, C, tf), Y.dtype)
+    for p in range(P):
+        for b in range(pt_start[p], pt_start[p + 1]):
+            if 0 <= cam[b] < C:
+                A[p, :, cam[b], :] += Y[b].reshape(te, tf)
+    return torch.as_tensor(A.reshape(P, te * C * tf))
+
+
+def _spread_ftf_inputs(dtype, C, B, counts=None, seed=None):
+    """The Jc form's inputs: 12 points (or points of counts[p] rows), C
+    cameras and some rows of the constant camera C, Y (B, 27), Jc (B, 18),
+    and a row plan over the C + 1 camera ids, cut to the C real cameras
+    (the last camera level's chunks of camera C are left out, so its runs
+    add nothing)."""
     import dataclasses
 
     from ceres_tpu_torch.ops import flatops as fo
 
     dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
-    rng = np.random.default_rng(C)
-    P = 12
-    pt = np.sort(rng.integers(0, P, B))
+    rng = np.random.default_rng(C if seed is None else seed)
+    if counts is None:
+        P = 12
+        pt = np.sort(rng.integers(0, P, B))
+    else:
+        P = counts.shape[0]
+        pt = np.repeat(np.arange(P), counts)
+        B = pt.shape[0]
     cam = rng.integers(0, C + 1, B)
     rows = fo.build_row_plan(pt, cam, P, C + 1, "cpu")
     plan = dataclasses.replace(rows, C=C,
-                               cam_chunk_first=rows.cam_chunk_first[:C + 1].contiguous())
+                               run_level_first=rows.run_level_first[:C + 1].contiguous())
     Y = torch.as_tensor(rng.standard_normal((B, 27))).to(dt)
     Jc = torch.as_tensor(rng.standard_normal((B, 18))).to(dt)
     return (Y, plan.cam_idx, plan.pt_start, C, 3, 9, Jc, 2, plan)
 
 
+def _hold_spread_ftf(call, args):
+    """Kernel 8J in its three passes, counted as one launch: A equal bit for
+    bit to the first design's sums (_parent_spread), F'F within 1e-12 in
+    float64 and 1e-5 in float32 of the plain version relative to its
+    largest entry, exactly symmetric, and a repeat gives the same bits."""
+    kn.reset_counts()
+    A, ftf = call(kn.segment_spread_sum, *args)
+    assert kn.segment_spread_ftf.launches == 1
+    assert kn.segment_spread_ftf.plain_calls == 0
+    assert torch.equal(A, _parent_spread(*args[:6]))
+    ref = kn.segment_spread_ftf_plain(*args)[1]
+    assert ftf.shape == ref.shape and ftf.dtype == ref.dtype
+    err = (ftf.double() - ref.double()).abs().max().item()
+    assert err <= LIMIT[ref.dtype] * ref.double().abs().max().item()
+    blocks = ftf.reshape(-1, 9, 9)
+    assert torch.equal(blocks, blocks.transpose(1, 2))
+    again = call(kn.segment_spread_sum, *args)
+    assert torch.equal(again[0], A) and torch.equal(again[1], ftf)
+
+
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("C,B", [(4, 150), (3, 400)])
 def test_emulated_spread_ftf_matches_plain(kernel_path, dtype, C, B):
-    """Kernel 8J (segment_spread_sum with Jc) in one launch and its
-    finalize pass, against the plain version: A and F'F relative to their
-    largest entry, 1e-12 in float64, 1e-5 in float32. At 400 rows each
-    camera owns more than one chunk; the constant camera's rows add
-    nothing."""
+    """Kernel 8J (segment_spread_sum with Jc): its slab pass and F'F's
+    point and camera-level passes, held as _hold_spread_ftf says. At 400
+    rows the rows take two tiles, so each camera has more than one run;
+    the constant camera's rows add nothing."""
     args = _spread_ftf_inputs(dtype, C, B)
-    kn.reset_counts()
-    out = kernel_path(kn.segment_spread_sum, *args)
-    ref = kn.segment_spread_ftf_plain(*args)
-    assert kn.segment_spread_ftf.launches == 1
-    assert kn.segment_spread_ftf.plain_calls == 0
     if B == 400:
-        assert args[-1].n_cam_chunks > C + 1
-    for o, r in zip(out, ref):
-        assert o.shape == r.shape and o.dtype == r.dtype
-        err = (o.double() - r.double()).abs().max().item()
-        assert err <= LIMIT[r.dtype] * r.double().abs().max().item()
+        assert args[-1].n_tiles == 2 and args[-1].n_runs > C + 1
+    _hold_spread_ftf(kernel_path, args)
+
+
+def _long_spread_counts():
+    """Points of 0 to 5 rows, one of 1,100 (more than a point block holds:
+    the F'F point pass loops over its tiles) and one of 300."""
+    counts = np.random.default_rng(8).integers(0, 6, 400)
+    counts[7], counts[250] = 1100, 300
+    return counts
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_emulated_spread_ftf_long_point(kernel_path, dtype):
+    """8J on points longer than a point block: the F'F point pass loops
+    over the long point's tiles, the slab pass's threads walk its 1,100
+    rows."""
+    args = _spread_ftf_inputs(dtype, 5, 0, counts=_long_spread_counts())
+    assert int(np.diff(args[2].numpy()).max()) > 4 * kn.POINT_BLOCK
+    _hold_spread_ftf(kernel_path, args)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_emulated_spread_ftf_run_levels_of_a_deep_tree(kernel_path_small_chunk, dtype):
+    """8J's camera levels at width 45 over its runs, the kernels built with
+    a chunk of SMALL_CHUNK items and the plan cut to match: 3 cameras of
+    about 2,000 rows take two levels of runs and more."""
+    args = _spread_ftf_inputs(dtype, 3, 0, counts=_long_spread_counts() + 4, seed=1)
+    assert len(args[-1].run_levels) >= 2
+    _hold_spread_ftf(kernel_path_small_chunk, args)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("te,C,tf,P", [(3, 5, 3, 400), (1, 3, 5, 400), (2, 7, 6, 400),
+                                       (3, 16, 9, 400), (3, 400, 9, 12)])
+def test_emulated_spread_slab_is_the_first_designs_sums(kernel_path, te, C, tf, P, dtype):
+    """The slab pass of segment_spread_sum (row 8) against the first
+    design's sums bit for bit, at widths te*C*tf of 45, 15, 84, 432 and
+    10,800 values: 45 and 15 not a whole number of 16-byte groups in either
+    dtype (16-byte groups cross the slabs' edges, single values at a
+    stretch's edges), 10,800 wider than a block's stretch of shared memory
+    (each point's slab in pieces); camera ids outside [0, C) on both sides,
+    points without rows and one of 1,100 rows, and rows past pt_start[P]
+    (no point's)."""
+    dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
+    rng = np.random.default_rng(te * C * tf)
+    counts = _long_spread_counts()[:P]
+    pt_start = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+    B = int(pt_start[-1]) + 5
+    cam = torch.as_tensor(rng.integers(-1, C + 2, B).astype(np.int32))
+    Y = torch.as_tensor(rng.standard_normal((B, te * tf))).to(dt)
+    kn.reset_counts()
+    A = kernel_path(kn.segment_spread_sum, Y, cam, pt_start, C, te, tf)
+    assert kn.segment_spread_sum.launches == 1
+    assert torch.equal(A, _parent_spread(Y, cam, pt_start, C, te, tf))
 
 
 def test_emulated_spread_ftf_refuses_what_it_does_not_take(kernel_path):
-    """Jc rows wider than the kernel stages, or no camera plan: the wrapper
-    raises before anything launches."""
+    """Jc rows of another camera model than r = 2 rows of tf = 9, or no row
+    plan: the wrapper raises before anything launches."""
     Y, cam, pt_start, C, te, tf, Jc, r, plan = _spread_ftf_inputs("float64", 4, 150)
     kn.reset_counts()
-    with pytest.raises(ValueError, match="at most 32"):
+    with pytest.raises(ValueError, match="r = 2 Jc rows of tf = 9"):
         kernel_path(kn.segment_spread_sum, Y, cam, pt_start, C, te, tf,
                     torch.cat([Jc, Jc], dim=1), 4, plan)
-    with pytest.raises(ValueError, match="camera plan"):
+    with pytest.raises(ValueError, match="camera runs"):
         kernel_path(kn.segment_spread_sum, Y, cam, pt_start, C, te, tf, Jc, r, None)
     assert kn.segment_spread_ftf.launches == 0
 

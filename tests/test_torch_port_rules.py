@@ -107,9 +107,7 @@ def test_kernel_wrapper_given_cuda_tensors_does_not_run_the_plain_version(
         i32 = dict(dtype=torch.int32, device="cuda")
         plan = type("Plan", (), dict(
             B=B, P=P, C=C, cam_idx=torch.zeros(B, **i32),
-            pt_idx=torch.zeros(B, **i32), pt_start=torch.zeros(P + 1, **i32),
-            cam_rows=torch.zeros(B, **i32), cam_chunk_start=torch.zeros(2, **i32),
-            cam_chunk_first=torch.zeros(C + 1, **i32), n_cam_chunks=1))
+            pt_idx=torch.zeros(B, **i32), pt_start=torch.zeros(P + 1, **i32)))
         f64 = dict(dtype=torch.float64, device="cuda")
         JT = torch.zeros(kn.LANES, B, **f64)
         rT = torch.zeros(kn.R, B, **f64)
@@ -159,9 +157,7 @@ def test_spread_ftf_given_cuda_tensors_does_not_run_the_plain_version(monkeypatc
     with FakeTensorMode(allow_non_fake_inputs=True):
         B, P, C = 6, 3, 2
         i32 = dict(dtype=torch.int32, device="cuda")
-        plan = type("Plan", (), dict(
-            cam_rows=torch.zeros(B, **i32), cam_chunk_start=torch.zeros(2, **i32),
-            cam_chunk_first=torch.zeros(C + 1, **i32), n_cam_chunks=1))
+        plan = type("Plan", (), dict(B=B, C=C, pt_start=torch.zeros(P + 1, **i32)))
         f64 = dict(dtype=torch.float64, device="cuda")
         with pytest.raises(RuntimeError, match="nvcc not found"):
             kn.segment_spread_sum(torch.zeros(B, 27, **f64), torch.zeros(B, **i32),
