@@ -1,12 +1,15 @@
 """ceres_tpu_torch: the PyTorch and CUDA port of ceres_tpu for an NVIDIA H100.
 
-The port runs the public `solve()` with Levenberg-Marquardt and
-DENSE_SCHUR or ITERATIVE_SCHUR, in the fused-loop form, through
-hand-written CUDA kernels (ops/kernels.py, csrc/): on the fused jt path
-for BAL bundle adjustment (models/bal.py), angle-axis or quaternion
-cameras, with or without a robust loss; on the flat path for other
-programs such as the libmv bundle adjuster (models/libmv.py). It imports
-torch and numpy only: nothing of jax and nothing of ceres_tpu.
+The port runs the public `solve()` in the fused-loop form with
+Levenberg-Marquardt over DENSE_SCHUR, ITERATIVE_SCHUR, CGNR, DENSE_QR or
+DENSE_NORMAL_CHOLESKY, and with DOGLEG (traditional or subspace) over the
+exact ones, through hand-written CUDA kernels (ops/kernels.py, csrc/): on
+the fused jt path for BAL bundle adjustment (models/bal.py), angle-axis or
+quaternion cameras, with or without a robust loss; on the flat path for
+other programs such as the libmv bundle adjuster (models/libmv.py); the
+dense solvers for small problems without eliminable blocks, such as the
+More-Garbow-Hillstrom corpus (models/mgh.py). It imports torch and numpy
+only: nothing of jax and nothing of ceres_tpu.
 """
 from .cost_function import AutoDiffCostFunction, CostFunction
 from .loss import (
@@ -35,6 +38,7 @@ from .problem import ParameterBlockArray, Problem
 from .solver import solve
 from .summary import IterationSummary, Summary
 from .types import (
+    DoglegType,
     LinearSolverType,
     MinimizerType,
     PreconditionerType,
@@ -48,6 +52,7 @@ __all__ = [
     "CauchyLoss",
     "ComposedLoss",
     "CostFunction",
+    "DoglegType",
     "EigenQuaternionManifold",
     "EuclideanManifold",
     "HuberLoss",

@@ -917,3 +917,93 @@ class FlatSchurOps(_FlatOpsBase):
 
     def fused_post_eval_f(self, vflat, u):
         return self.fused_post_eval(self.plans_f, self.pm.f_fams, vflat, u)
+
+
+class FlatJacobianOps(_FlatOpsBase):
+    """Flattened J and J' products over the whole tangent (flatops.py:1271):
+    the CGNR path, bsr.right_multiply and bsr.left_multiply over the
+    per-(kind, slot) plans, in the global tangent layout.
+
+    On a BAL-shaped program (one kind of r = 2 rows, two slots: a camera
+    family of t = 9 and a point family of t = 3 whose ids are sorted, as
+    the program sorts its rows) the CGNR product (J_s'J_s) x is one launch
+    of normal_matvec (kernel 4) over the transposed lanes JT (24, B) and a
+    row plan built once (`make_kernel_matvec`); any other program takes
+    the product chain right/left. Unlike the JAX qualification
+    (flatops.py:1339), both dtypes take the kernel."""
+
+    def __init__(self, meta, program):
+        super().__init__(meta.kinds, program.device)
+        self.meta = meta
+        self.fams = tuple((f.tangent_offset, f.num_var, f.t, f.block_id_offset)
+                          for f in meta.families)
+        self.plans = self._build(self._slots())
+        self.kernel_slots = self._kernel_slots()
+        self.plan = None
+        if self.kernel_slots is not None:
+            pe, pf = self.kernel_slots
+            self.plan = build_row_plan(pe.local.cpu().numpy(), pf.local.cpu().numpy(),
+                                       pe.nv, pf.nv, program.device)
+
+    def _slots(self):
+        for k, kind in enumerate(self.meta.kinds):
+            for s, slot in enumerate(kind.slots):
+                fi = slot.family_index
+                off, nv, t, bid_off = self.fams[fi]
+                yield k, s, fi, off, nv, t, slot.block_ids - bid_off
+
+    def _kernel_slots(self):
+        """(point plan, camera plan) of a program normal_matvec takes, or
+        None (flatops.py:1333-1339, without its float32 condition)."""
+        if len(self.kinds) != 1 or len(self.plans[0]) != 2 or self.kinds[0].r != kn.R:
+            return None
+        a, b = self.plans[0]
+        pe, pf = (a, b) if a.t == kn.TE else (b, a)
+        if (pe.t, pf.t) != (kn.TE, kn.TF) or not pe.srt:
+            return None
+        return pe, pf
+
+    def right(self, vflat, x):
+        """J x."""
+        return self._right(self.plans, vflat, x)
+
+    def left(self, vflat, u):
+        """J'u."""
+        return self._left(self.plans, self.fams, vflat, u)
+
+    def fused_post_eval_all(self, vflat, u):
+        """(gradient, diag(J'J), per-family J'J blocks) in one reduction
+        pass per slot."""
+        return self.fused_post_eval(self.plans, self.fams, vflat, u)
+
+    def kernel_lanes(self, vflat):
+        """JT (24, B), the unscaled Jacobian lanes normal_matvec reads
+        (layout in csrc/common.cuh), or None for a program it does not
+        take. Built once per evaluation."""
+        if self.kernel_slots is None:
+            return None
+        pe, pf = self.kernel_slots
+        return torch.cat([vflat[0][pf.s].T, vflat[0][pe.s].T]).contiguous()
+
+    def make_kernel_matvec(self, JT, scale):
+        """(J_s'J_s) x in the tangent layout through normal_matvec, the
+        Jacobi scales folded into its small operands as
+        JTSchurOps.make_kernel_suite_raw's `normal` does; None without JT."""
+        if JT is None:
+            return None
+        pe, pf = self.kernel_slots
+        P, C = pe.nv, pf.nv
+        se = scale[pe.off:pe.off + P * kn.TE].reshape(P, kn.TE)
+        sf = scale[pf.off:pf.off + C * kn.TF].reshape(C, kn.TF)
+        plan = self.plan
+        e_first = pe.off < pf.off
+
+        def matvec(x):
+            xc = x[pf.off:pf.off + C * kn.TF].reshape(C, kn.TF)
+            xp = x[pe.off:pe.off + P * kn.TE].reshape(P, kn.TE)
+            cam, ptv = kn.normal_matvec(JT, (sf * xc).contiguous(),
+                                        (se * xp).contiguous(), plan)
+            cam, ptv = (sf * cam).reshape(-1), (se * ptv).reshape(-1)
+            return torch.cat([ptv, cam] if e_first else [cam, ptv])
+
+        return matvec

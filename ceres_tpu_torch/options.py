@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 
 from .types import (
+    DoglegType,
     LinearSolverType,
     MinimizerType,
     PreconditionerType,
@@ -18,11 +19,19 @@ from .types import (
 )
 
 
-# The preconditioners of the ITERATIVE_SCHUR path; JACOBI runs as
-# SCHUR_JACOBI, as in the JAX fused loop (fused_lm.py:237-239).
+# The preconditioners of the ITERATIVE_SCHUR and CGNR paths: on
+# ITERATIVE_SCHUR JACOBI runs as SCHUR_JACOBI, as in the JAX fused loop
+# (fused_lm.py:237-239); on CGNR both are the block-Jacobi preconditioner
+# of J'J (fused_lm.py:161).
 _ITERATIVE_PRECONDITIONERS = (PreconditionerType.SCHUR_JACOBI,
                               PreconditionerType.JACOBI,
                               PreconditionerType.IDENTITY)
+_PORTED_SOLVERS = (LinearSolverType.DENSE_SCHUR, LinearSolverType.ITERATIVE_SCHUR,
+                   LinearSolverType.CGNR, LinearSolverType.DENSE_QR,
+                   LinearSolverType.DENSE_NORMAL_CHOLESKY)
+# DOGLEG runs on the exact solvers only (fused_lm.py:1925-1929)
+_DOGLEG_SOLVERS = (LinearSolverType.DENSE_SCHUR, LinearSolverType.DENSE_QR,
+                   LinearSolverType.DENSE_NORMAL_CHOLESKY)
 
 
 @dataclasses.dataclass
@@ -30,6 +39,7 @@ class Options:
     minimizer_type: MinimizerType = MinimizerType.TRUST_REGION
     trust_region_strategy_type: TrustRegionStrategyType = (
         TrustRegionStrategyType.LEVENBERG_MARQUARDT)
+    dogleg_type: DoglegType = DoglegType.TRADITIONAL_DOGLEG
 
     # Trust region
     use_nonmonotonic_steps: bool = False
@@ -107,17 +117,17 @@ class Options:
         """Raise NotImplementedError for what this slice does not run."""
         if self.minimizer_type != MinimizerType.TRUST_REGION:
             raise not_ported(f"minimizer_type={self.minimizer_type}", 6)
-        if (self.trust_region_strategy_type
-                != TrustRegionStrategyType.LEVENBERG_MARQUARDT):
-            raise not_ported(
-                f"trust_region_strategy_type={self.trust_region_strategy_type}", 6)
-        if self.linear_solver_type not in (LinearSolverType.DENSE_SCHUR,
-                                           LinearSolverType.ITERATIVE_SCHUR):
+        if self.linear_solver_type not in _PORTED_SOLVERS:
             raise not_ported(f"linear_solver_type={self.linear_solver_type}", 6)
-        if self.linear_solver_type == LinearSolverType.ITERATIVE_SCHUR:
+        if (self.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG
+                and self.linear_solver_type not in _DOGLEG_SOLVERS):
+            raise not_ported(f"DOGLEG with {self.linear_solver_type}", 6)
+        if self.linear_solver_type in (LinearSolverType.ITERATIVE_SCHUR,
+                                       LinearSolverType.CGNR):
             if self.preconditioner_type not in _ITERATIVE_PRECONDITIONERS:
                 raise not_ported(
                     f"preconditioner_type={self.preconditioner_type}", 6)
+        if self.linear_solver_type == LinearSolverType.ITERATIVE_SCHUR:
             if self.use_spse_initialization:
                 raise not_ported("use_spse_initialization", 6)
             if self.use_explicit_schur_complement:

@@ -17,9 +17,10 @@ Layout, as in the JAX package:
 `_eval_core` is the plain evaluation: the cost function's own residual,
 differentiated by torch.func, its Jacobian taken to the tangent space
 through each manifold's PlusJacobian and corrected for the kind's robust
-loss (`loss.correct_residuals_and_jacobians`); the flat Schur path
-evaluates through it. The jt path evaluates through the eval_fused kernel
-instead (ops/flatops.py).
+loss (`loss.correct_residuals_and_jacobians`); the flat Schur path and
+CGNR evaluate through it, and the dense solvers through it with the dense
+Jacobian scattered from its blocks (ops/bsr.py). The jt path evaluates
+through the eval_fused kernel instead (ops/flatops.py).
 """
 from __future__ import annotations
 
@@ -111,6 +112,7 @@ class CompiledProgram:
         self.device = resolve_device(device)
         self.fixed_cost = 0.0
         self._index = {}
+        self._dense = None  # (meta, dense index), built on first request
         self._build()
 
     def _build(self):
@@ -214,9 +216,11 @@ class CompiledProgram:
                     self.family_table(xc, fam))
         return out
 
-    def _eval_core(self, x: torch.Tensor):
+    def _eval_core(self, x: torch.Tensor, dense_jac: bool = False):
         """Plain evaluation: {"cost": f64 scalar, "residuals": (N,),
-        "block_jacs": [kind][slot] (B, r, t)} in the compute dtype, with
+        "block_jacs": [kind][slot] (B, r, t)} in the compute dtype, and with
+        `dense_jac` "jacobian", the dense (N, tangent) float64 Jacobian
+        (program.py:565, the `dense_jac` branch), with
         tangent-space Jacobians (J_ambient PlusJacobian) and the kind's
         loss applied by the corrector: the cost is 1/2 sum rho(|r|^2), the
         residuals and Jacobians the corrected ones (program.py:620-642).
@@ -256,10 +260,24 @@ class CompiledProgram:
             else:
                 total = total + torch.sum(cost_b.to(torch.float64))
             res_chunks.append(res.reshape(-1))
-        return {"cost": total + self.fixed_cost,
-                "residuals": torch.cat(res_chunks) if res_chunks
-                else torch.zeros((0,), dtype=self.compute_dtype, device=x.device),
-                "block_jacs": block_jacs}
+        out = {"cost": total + self.fixed_cost,
+               "residuals": torch.cat(res_chunks) if res_chunks
+               else torch.zeros((0,), dtype=self.compute_dtype, device=x.device),
+               "block_jacs": block_jacs}
+        if dense_jac:
+            out["jacobian"] = self.dense_jacobian(block_jacs)
+        return out
+
+    def dense_jacobian(self, block_jacs) -> torch.Tensor:
+        """The dense (N, tangent) float64 Jacobian of the blocks
+        (bsr.to_dense), through an index built once."""
+        from .ops import bsr
+
+        if self._dense is None:
+            meta = bsr.build_meta(self)
+            self._dense = (meta, bsr.dense_index(meta, self.device))
+        meta, index = self._dense
+        return bsr.to_dense(meta, block_jacs, index, self.num_residuals)
 
     # ------------------------------------------------------- step application
 

@@ -3,9 +3,12 @@
 
 `solve` runs on the CUDA device unless the caller passes device="cpu", in
 which case every kernel runs its plain PyTorch version. With no CUDA
-device and no device="cpu", it raises. The port runs a DENSE_SCHUR or an
-ITERATIVE_SCHUR (SCHUR_JACOBI, JACOBI or IDENTITY preconditioner)
-Levenberg-Marquardt solve in the fused-loop form; anything else raises
+device and no device="cpu", it raises. The port runs a trust-region solve
+in the fused-loop form: Levenberg-Marquardt over DENSE_SCHUR,
+ITERATIVE_SCHUR, CGNR (SCHUR_JACOBI, JACOBI or IDENTITY preconditioner on
+both iterative solvers), DENSE_QR or DENSE_NORMAL_CHOLESKY, and DOGLEG
+over the exact ones; a Schur solver on a problem without eliminable blocks
+falls back as the JAX package's does. Anything else raises
 NotImplementedError naming the later slice (types.not_ported).
 """
 from __future__ import annotations
@@ -26,29 +29,38 @@ from .types import LinearSolverType, PreconditionerType, TerminationType, not_po
 
 def _pick_linear_solver(options: Options, program: CompiledProgram,
                         summary: Summary):
-    """SetupLinearSolver for DENSE_SCHUR and ITERATIVE_SCHUR
-    (trust_region_preprocessor.cc): returns (tier, e_families)."""
+    """SetupLinearSolver (trust_region_preprocessor.cc:161-259, the JAX
+    solver.py:29-86) with the fallback of a Schur solver on a problem
+    without e-blocks (LinearSolverForZeroEBlocks): DENSE_SCHUR takes
+    DENSE_QR, ITERATIVE_SCHUR takes CGNR. Sets the summary's solver used;
+    returns (tier, e_families or None)."""
     from .utils import ordering as ordering_mod
 
-    given = options.linear_solver_type
-    tier = {LinearSolverType.DENSE_SCHUR: "schur_dense",
-            LinearSolverType.ITERATIVE_SCHUR: "schur_iterative"}.get(given)
+    LS = LinearSolverType
+    given = used = options.linear_solver_type
+    e_fams = None
+    if given in (LS.DENSE_SCHUR, LS.ITERATIVE_SCHUR):
+        e_fams = ordering_mod.eligible_e_sets(program) or None
+        if e_fams:
+            summary.schur_structure_given = summary.schur_structure_used = (
+                _schur_structure_string(program, e_fams))
+        else:
+            used = {LS.DENSE_SCHUR: LS.DENSE_QR, LS.ITERATIVE_SCHUR: LS.CGNR}[given]
+    tier = {LS.DENSE_SCHUR: "schur_dense", LS.ITERATIVE_SCHUR: "schur_iterative",
+            LS.CGNR: "bsr", LS.DENSE_QR: "dense_qr",
+            LS.DENSE_NORMAL_CHOLESKY: "dense_normal_cholesky"}.get(used)
     if tier is None:
-        raise not_ported(f"linear_solver_type={given}", 6)
-    e_fams = ordering_mod.eligible_e_sets(program)
-    if not e_fams:
-        # the DENSE_QR / CGNR fallback for a problem without e-blocks
-        raise not_ported(f"{given} without eliminable blocks", 6)
-    summary.schur_structure_given = summary.schur_structure_used = (
-        _schur_structure_string(program, e_fams))
+        raise not_ported(f"linear_solver_type={used}", 6)
+    summary.linear_solver_type_used = used
     return tier, e_fams
 
 
-def _preconditioner_used(options: Options) -> PreconditionerType:
-    """As the JAX solver reports it (solver.py:310): the given type for an
-    iterative solver, IDENTITY for an exact one. The iterative-Schur step
-    runs JACOBI as SCHUR_JACOBI (fused_lm.py:237-239)."""
-    if options.linear_solver_type == LinearSolverType.ITERATIVE_SCHUR:
+def _preconditioner_used(used: LinearSolverType,
+                         options: Options) -> PreconditionerType:
+    """As the JAX solver reports it (solver.py:310-313): the given type for
+    an iterative solver, IDENTITY for an exact one. The iterative-Schur
+    step runs JACOBI as SCHUR_JACOBI (fused_lm.py:237-239)."""
+    if used in (LinearSolverType.ITERATIVE_SCHUR, LinearSolverType.CGNR):
         return options.preconditioner_type
     return PreconditionerType.IDENTITY
 
@@ -109,8 +121,8 @@ def solve(options: Options, problem: Problem, summary: Optional[Summary] = None,
         return summary
 
     tier, e_fams = _pick_linear_solver(options, program, summary)
-    summary.linear_solver_type_used = options.linear_solver_type
-    summary.preconditioner_type_used = _preconditioner_used(options)
+    summary.preconditioner_type_used = _preconditioner_used(
+        summary.linear_solver_type_used, options)
     fused = build_fused_minimizer(program, options, tier, e_families=e_fams)
     summary.preprocessor_time_in_seconds = time.monotonic() - t_start
 

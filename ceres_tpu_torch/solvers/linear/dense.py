@@ -1,15 +1,24 @@
-"""The reduced-system Cholesky of the dense-Schur step (counterpart of the
-parts of ceres_tpu/solvers/linear/dense.py and the `_factor` /
-`_compute_step_kernel` solves of ceres_tpu/solvers/fused_lm.py).
+"""The dense linear solvers of the trust-region step (counterpart of
+ceres_tpu/solvers/linear/dense.py) and the reduced-system Cholesky of the
+dense-Schur step (the `_factor` / `_compute_step_kernel` solves of
+ceres_tpu/solvers/fused_lm.py).
 
-The reduced camera system is small (144 x 144 at BAL-16) and outside every
-kernel of the JAX package, so torch.linalg factors it. Nothing here waits
-for the device: a failed factorisation turns into NaN, which the LM loop
-reads as an invalid step.
+Both systems are small (the reduced camera system is 144 x 144 at BAL-16;
+DENSE_QR and DENSE_NORMAL_CHOLESKY run on problems of a few hundred
+columns) and the JAX package factors them outside every kernel, so
+torch.linalg factors them here. Nothing here waits for the device: a
+failed factorisation turns into NaN, which the LM loop reads as an
+invalid step.
+
+`qr_solve` and `normal_cholesky_solve` return y minimising
+|J y - r|^2 + |D y|^2; the caller negates it (step = -y,
+levenberg_marquardt_strategy.cc:113-133).
 """
 from __future__ import annotations
 
 import torch
+
+from ...types import not_ported
 
 
 def cholesky_lower(S: torch.Tensor) -> torch.Tensor:
@@ -37,3 +46,27 @@ def reduced_solve(S: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     z = Linv.T @ (Linv @ rhs)
     resid = rhs - S @ z
     return z + Linv.T @ (Linv @ resid)
+
+
+def qr_solve(J: torch.Tensor, r: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """DENSE_QR: the QR factorisation of the stacked [J; diag(D)] system
+    (dense.py:22)."""
+    n = J.shape[1]
+    A = torch.cat([J, torch.diag(D)])
+    b = torch.cat([r, r.new_zeros((n,))])
+    Q, R = torch.linalg.qr(A)
+    return torch.linalg.solve_triangular(R, (Q.T @ b)[:, None], upper=True)[:, 0]
+
+
+def normal_cholesky_solve(J: torch.Tensor, r: torch.Tensor,
+                          D: torch.Tensor) -> torch.Tensor:
+    """DENSE_NORMAL_CHOLESKY: the Cholesky factorisation of J'J + D'D
+    (dense.py:32)."""
+    A = J.T @ J + torch.diag(D * D)
+    L = cholesky_lower(A)
+    return torch.cholesky_solve((J.T @ r)[:, None], L, upper=False)[:, 0]
+
+
+def normal_cholesky_solve_mixed(J, r, D, refinement_steps: int = 3):
+    """The float32 factor with float64 refinement (dense.py:42)."""
+    raise not_ported("mixed-precision dense solves", 5)

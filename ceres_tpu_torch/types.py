@@ -1,7 +1,6 @@
 """Public enums of the slice (counterpart of ceres_tpu/types.py).
 
-Only the enums that the DENSE_SCHUR and ITERATIVE_SCHUR
-Levenberg-Marquardt paths read.
+Only the enums that the trust-region paths of the port read.
 Names and members match the JAX package, so options written for one
 package read the same in the other.
 """
@@ -54,6 +53,11 @@ class TrustRegionStrategyType(_StrEnum):
     DOGLEG = enum.auto()
 
 
+class DoglegType(_StrEnum):
+    TRADITIONAL_DOGLEG = enum.auto()
+    SUBSPACE_DOGLEG = enum.auto()
+
+
 class TerminationType(_StrEnum):
     CONVERGENCE = enum.auto()
     NO_CONVERGENCE = enum.auto()
@@ -67,7 +71,9 @@ class TerminationType(_StrEnum):
 LATER_SLICES = {
     4: "a device-resident LM loop (CUDA graphs)",
     5: 'evaluation_dtype="mixed" and mixed-precision solves',
-    6: "the remaining linear solvers, preconditioners, minimizers and modeling API",
+    6: "the sparse linear solvers, the remaining preconditioners, the host LM "
+       "loop, dogleg on the iterative solvers, line search, bounds, inner "
+       "iterations, user orderings and the rest of the modeling API",
     9: "multi-device: the mesh half of parallel/sharded_ba.py, parallel/mesh.py "
        "and parallel/sharded_program.py",
 }

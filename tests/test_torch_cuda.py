@@ -693,3 +693,114 @@ def test_robust_quaternion_solve_on_card_matches_cpu(card):
     assert len(out.iterations) == len(ref.iterations)
     for a, c in zip(ref.iterations, out.iterations):
         assert c.cost == pytest.approx(a.cost, rel=1e-9)
+
+
+def _rows_match_within_rounding(out, ref, twin):
+    """The same rows and CG counts; each row's cost within 1e-9 relative, or
+    4x the CPU's own one-ulp sensitivity (the solve from cameras one ulp
+    away: `twin`) where that is larger, as chip_smoke.py's card_against_cpu."""
+    assert len(out.iterations) == len(ref.iterations)
+    assert ([r.linear_solver_iterations for r in out.iterations]
+            == [r.linear_solver_iterations for r in ref.iterations])
+    for a, c, u in zip(ref.iterations, out.iterations, twin.iterations):
+        sens = abs(u.cost - a.cost) / abs(a.cost)
+        assert c.cost == pytest.approx(a.cost, rel=max(1e-9, 4 * sens))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_cgnr_kernel_matvec_matches_plain_on_card(card, dtype):
+    """CGNR's (J_s'J_s) x through normal_matvec on the card against the same
+    product through its plain version on the CPU, at the card's lanes and
+    the same scales and x: 1e-11 relative in float64, 1e-4 in float32; one
+    launch a product."""
+    from ceres_tpu_torch.solvers.fused_lm import CgnrStepOps
+
+    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.CGNR)
+    ops = {}
+    for dev in (card, torch.device("cpu")):
+        prog = CompiledProgram(tbal.build_problem_batched(small_bal())[0], dtype,
+                               device=dev)
+        ops[dev.type] = CgnrStepOps(prog, opts)
+    _, vrep = ops["cuda"].evaluate(prog.initial_state().to(card))
+    rng = np.random.default_rng(4)
+    s = torch.as_tensor(rng.uniform(0.5, 1.5, prog.tangent_size)).to(prog.compute_dtype)
+    x = torch.as_tensor(rng.standard_normal(prog.tangent_size)).to(prog.compute_dtype)
+    kn.reset_counts()
+    out = ops["cuda"].flat.make_kernel_matvec(vrep.jt, s.to(card))(x.to(card)).cpu()
+    assert kn.normal_matvec.launches == 1 and kn.normal_matvec.plain_calls == 0
+    ref = ops["cpu"].flat.make_kernel_matvec(vrep.jt.cpu(), s)(x)
+    assert (out - ref).abs().max() <= REL_LIMIT[ref.dtype] * ref.abs().max()
+
+
+def _bal_problem(b):
+    return tbal.build_problem_batched(tbal.from_arrays(
+        b.cameras, b.points, b.camera_index, b.point_index, b.observations))[0]
+
+
+@pytest.mark.parametrize("prec,iterations", [("JACOBI", 8), ("IDENTITY", 3)])
+def test_cgnr_solve_on_card_matches_cpu(card, prec, iterations):
+    """CGNR on the card (normal_matvec, the segment sums, the gather) and on
+    the CPU, float64: the same rows and CG counts, each row's cost within
+    1e-9 or 4x the CPU's one-ulp sensitivity. IDENTITY is cut to 3 LM
+    iterations: its fourth takes ~50 unpreconditioned CG iterations, whose
+    count follows rounding (the card took 49 where the CPU took 48)."""
+    b = small_bal()
+    ulp = tbal.from_arrays(np.nextafter(b.cameras, np.inf), b.points, b.camera_index,
+                           b.point_index, b.observations)
+    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.CGNR,
+                       preconditioner_type=ctt.PreconditionerType[prec],
+                       max_num_iterations=iterations)
+    ref = ctt.solve(opts, _bal_problem(b), device="cpu")
+    twin = ctt.solve(opts, _bal_problem(ulp), device="cpu")
+    kn.reset_counts()
+    out = ctt.solve(opts, _bal_problem(b))
+    n_it = len(out.iterations) - 1
+    path = ("normal_matvec", "segment_block_sum", "segment_block_expand",
+            "unsorted_segment_sum")
+    for k in kn.KERNELS:
+        assert k.plain_calls == 0, k.__name__
+        assert (k.launches >= n_it) if k.__name__ in path else k.launches == 0, k.__name__
+    assert kn.normal_matvec.launches >= sum(r.linear_solver_iterations
+                                            for r in out.iterations)
+    _rows_match_within_rounding(out, ref, twin)
+
+
+@pytest.mark.parametrize("dogleg", ["TRADITIONAL_DOGLEG", "SUBSPACE_DOGLEG"])
+def test_dogleg_dense_schur_on_card_matches_cpu(card, dogleg):
+    """DENSE_SCHUR with dogleg from radius 1 (the dogleg path binds) on the
+    card, through the flat Schur path's kernels, and on the CPU: the same
+    rows, each cost and radius to 1e-9 relative."""
+    b = small_bal()
+    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
+                       trust_region_strategy_type=ctt.TrustRegionStrategyType.DOGLEG,
+                       dogleg_type=ctt.DoglegType[dogleg], initial_trust_region_radius=1.0)
+    ref = ctt.solve(opts, _bal_problem(b), device="cpu")
+    kn.reset_counts()
+    out = ctt.solve(opts, _bal_problem(b))
+    assert kn.segment_spread_sum.launches >= len(out.iterations) - 1
+    assert kn.eval_fused.launches == 0 and kn.schur_assembly.launches == 0
+    assert len(out.iterations) == len(ref.iterations)
+    for a, c in zip(ref.iterations, out.iterations):
+        assert c.cost == pytest.approx(a.cost, rel=1e-9)
+        assert c.trust_region_radius == pytest.approx(a.trust_region_radius, rel=1e-9)
+
+
+@pytest.mark.parametrize("lst", ["DENSE_QR", "DENSE_NORMAL_CHOLESKY"])
+@pytest.mark.parametrize("number", [1, 8, 19])
+def test_mgh_dense_solve_on_card_matches_cpu(card, lst, number):
+    """MGH #1, #8 and #19 with a dense solver on the card and on the CPU:
+    both reach the optimum, 2 * final cost within 1e-8 relative (or both
+    under 1e-20 for Rosenbrock's zero); no kernel runs."""
+    from ceres_tpu_torch.models import mgh
+
+    over = {"linear_solver_type": ctt.LinearSolverType[lst]}
+    p = mgh.PROBLEMS[number - 1]
+    ok_ref, ref, _ = mgh.solve_problem(p, options_overrides=over, device="cpu")
+    kn.reset_counts()
+    ok, out, s = mgh.solve_problem(p, options_overrides=over)
+    assert ok and ok_ref and s.device_kind != "cpu"
+    assert all(k.launches == 0 and k.plain_calls == 0 for k in kn.KERNELS)
+    if p.unconstrained_optimal_cost == 0.0:
+        assert out < 1e-20 and ref < 1e-20
+    else:
+        assert out == pytest.approx(ref, rel=1e-8)

@@ -129,7 +129,14 @@ _PT = ctt.PreconditionerType
 @pytest.mark.parametrize("kw,slice_no", [
     (dict(linear_solver_type=_IS,
           preconditioner_type=_PT.SCHUR_POWER_SERIES_EXPANSION), 6),
-    (dict(linear_solver_type=ctt.LinearSolverType.CGNR), 6),
+    (dict(linear_solver_type=ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY), 6),
+    (dict(linear_solver_type=_IS,
+          trust_region_strategy_type=ctt.TrustRegionStrategyType.DOGLEG), 6),
+    (dict(linear_solver_type=ctt.LinearSolverType.CGNR,
+          trust_region_strategy_type=ctt.TrustRegionStrategyType.DOGLEG), 6),
+    (dict(linear_solver_type=ctt.LinearSolverType.CGNR,
+          preconditioner_type=_PT.CLUSTER_JACOBI), 6),
+    (dict(linear_solver_type=ctt.LinearSolverType.SPARSE_SCHUR), 6),
     (dict(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
           evaluation_dtype="mixed"), 5),
     (dict(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,

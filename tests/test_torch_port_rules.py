@@ -22,6 +22,7 @@ def test_import_loads_no_jax_and_no_ceres_tpu():
     code = (
         "import sys, ceres_tpu_torch, ceres_tpu_torch.solver, "
         "ceres_tpu_torch.models.bal, ceres_tpu_torch.models.libmv, "
+        "ceres_tpu_torch.models.mgh, ceres_tpu_torch.models.test_problems, "
         "ceres_tpu_torch.ops.build, ceres_tpu_torch.parallel.sharded_ba, "
         "ceres_tpu_torch.loss, ceres_tpu_torch.manifolds, ceres_tpu_torch.rotation\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
