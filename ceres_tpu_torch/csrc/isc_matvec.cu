@@ -1,6 +1,7 @@
 // isc_matvec: the implicit Schur product of the ITERATIVE_SCHUR CG, once
 // per CG iteration, without its D_f^2 term:
-//   fz_b = J_f,b z[cam_b]                      (2 values per row)
+//   fz_b = J_f,b z[cam_b]                      (2 values per row; 0 for a
+//                                               constant camera, cam_b >= C)
 //   u_p  = minv_p sum_{rows b of p} J_e,b' fz_b (3 values per point)
 //   q_b  = fz_b - J_e,b u_{pt_b}
 //   cam[c] = sum_{rows of c} J_f,b' q_b         (C, 9)
@@ -44,6 +45,7 @@ struct IscMatvec {
   };
   const T* JT;
   long long B;
+  int C;
   const int* cam_idx;
   const T* zp;    // (C, kPad) z, padded
   const T* minv;  // (P, 9)
@@ -53,8 +55,9 @@ struct IscMatvec {
 
   __device__ __forceinline__ void load(long long b, Reg& g) const {
     load_row(JT, B, b, g.j);
-    T zv[kPad<T, kTF>];
-    load_padded<T, kTF>(zp + (long long)__ldg(cam_idx + b) * kPad<T, kTF>, zv);
+    T zv[kPad<T, kTF>] = {};
+    const int c = __ldg(cam_idx + b);
+    if (c < C) load_padded<T, kTF>(zp + (long long)c * kPad<T, kTF>, zv);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       T acc = T(0);
@@ -103,7 +106,7 @@ int isc_launch(const T* JT, int B, int C, const int* cam_idx, const int* cam_pos
     CT_LAUNCH(pad, ceil_div((long long)C * kPad<T, kTF>, 256), 256, stream, z, C, zp);
   }
   if (n_pt_blocks > 0) {
-    const Body body{JT, B, cam_idx, zp, minv, emit_u, u, {cam_pos, w}};
+    const Body body{JT, B, C, cam_idx, zp, minv, emit_u, u, {cam_pos, w}};
     auto pass = point_pass_kernel<T, Body>;
     CT_LAUNCH(pass, n_pt_blocks, kBlock, stream, body, pt_start, pt_block);
   }
@@ -115,8 +118,9 @@ int isc_launch(const T* JT, int B, int C, const int* cam_idx, const int* cam_pos
 
 // z (C, 9), minv (P, 9) row-major -> cam_out (C, 9) and, when emit_u,
 // u (P, 3). Rows sorted by point (pt_start covers B); pt_block
-// (n_pt_blocks + 1,) the first point of each point block; cam_pos (B,) each
-// row's place in camera order; levels, sizes (host arrays of n_levels) and
+// (n_pt_blocks + 1,) the first point of each point block; cam_idx (B,) each
+// row's camera, C or more for a constant camera; cam_pos (B,) each row's
+// place in camera order, -1 for a constant camera's; levels, sizes (host arrays of n_levels) and
 // cam_first (C + 1,) the camera plan's levels. Workspace, 16-byte aligned:
 // w (B, s) and zp (C, s), s = 12 floats or 10 doubles; work (sum of sizes, 9).
 #define CT_ISC_ENTRY(NAME, T)                                                  \

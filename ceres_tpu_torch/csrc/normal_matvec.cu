@@ -1,5 +1,7 @@
 // normal_matvec: (J'J) x for the e/f split, one pass over J.
 //   jv_b = J_f,b x_c[cam_b] + J_e,b x_p[pt_b]       (2 values per row)
+//   (x_c[cam_b] = 0 for a row of a constant camera, cam_b >= C, whose
+//   row adds to pt only)
 //   cam[c] = sum_{rows of c} J_f' jv   (C, 9)
 //   pt[p]  = sum_{rows of p} J_e' jv   (P, 3)
 //
@@ -38,6 +40,7 @@ struct NormalMatvec {
   };
   const T* JT;
   long long B;
+  int C;
   const int* cam_idx;
   const int* pt_idx;
   const T* xcp;  // (C, kPad) x_c, padded
@@ -47,8 +50,9 @@ struct NormalMatvec {
 
   __device__ __forceinline__ void load(long long b, Reg& g) const {
     load_row(JT, B, b, g.j);
-    T xv[kPad<T, kTF>];
-    load_padded<T, kTF>(xcp + (long long)__ldg(cam_idx + b) * kPad<T, kTF>, xv);
+    T xv[kPad<T, kTF>] = {};
+    const int c = __ldg(cam_idx + b);
+    if (c < C) load_padded<T, kTF>(xcp + (long long)c * kPad<T, kTF>, xv);
     const T* x = xp + (long long)__ldg(pt_idx + b) * kTE;
     T xe[kTE] = {__ldg(x), __ldg(x + 1), __ldg(x + 2)};
 #pragma unroll
@@ -87,7 +91,7 @@ int normal_launch(const T* JT, int B, int C, const int* cam_idx, const int* pt_i
     CT_LAUNCH(pad, ceil_div((long long)C * kPad<T, kTF>, 256), 256, stream, xc, C, xcp);
   }
   if (n_pt_blocks > 0) {
-    const Body body{JT, B, cam_idx, pt_idx, xcp, xp, pt_out, {cam_pos, w}};
+    const Body body{JT, B, C, cam_idx, pt_idx, xcp, xp, pt_out, {cam_pos, w}};
     auto pass = point_pass_kernel<T, Body>;
     CT_LAUNCH(pass, n_pt_blocks, kBlock, stream, body, pt_start, pt_block);
   }
@@ -99,7 +103,9 @@ int normal_launch(const T* JT, int B, int C, const int* cam_idx, const int* pt_i
 
 // xc (C, 9), xp (P, 3) -> cam_out (C, 9), pt_out (P, 3). Rows sorted by
 // point (pt_start covers B); pt_block (n_pt_blocks + 1,) the first point of
-// each point block; cam_pos (B,) each row's place in camera order; levels,
+// each point block; cam_idx (B,) each row's camera, C or more for a
+// constant camera; cam_pos (B,) each row's place in camera order, -1 for a
+// constant camera's; levels,
 // sizes (host arrays of n_levels) and cam_first (C + 1,) the camera plan's
 // levels. Workspace, 16-byte aligned: w (B, s) and xcp (C, s), s = 12
 // floats or 10 doubles; work (sum of sizes, 9).

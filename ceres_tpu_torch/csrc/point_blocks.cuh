@@ -42,6 +42,10 @@
 //    camera's chunks and hands each sum to a store (a camera table, or a
 //    body's own layout: the mirrored 9 x 9 blocks of rows 3, 5 and 8J).
 //    Row 3's camera-pair sums go through the same levels.
+// A row of a constant camera (the sentinel, camera id C or more) takes part
+// in the point pass only: its place in camera order (cam_pos) is -1 and
+// it writes no camera values; a run of such rows has run_pos -1 and forms
+// none. No camera pass reads it.
 // No atomics anywhere: every sum has a fixed order, so a solve repeats bit
 // for bit, and each point's values are summed in row order.
 #pragma once
@@ -112,7 +116,7 @@ __global__ void pad_kernel(const T* __restrict__ in, int n, T* __restrict__ out)
 // rows and written at the run's place in camera order (RowPlan.run_*).
 template <typename T>
 struct CamRows {
-  const int* cam_pos;  // (B,)
+  const int* cam_pos;  // (B,) each row's place in camera order, or -1
   T* w;                // (B, kPad)
 };
 template <typename T>
@@ -121,7 +125,7 @@ struct CamRuns {
   const int* tile_run;    // (n_tiles + 1,) first run of each tile
   const int* run_start;   // (n_runs + 1,) each run's first place in run order
   const int* run_slot;    // (B,) each row's place in run order: (tile, camera, row)
-  const int* run_pos;     // (n_runs,) each run's place in camera order
+  const int* run_pos;     // (n_runs,) each run's place in camera order, or -1
   T* w;                   // (n_runs, kPad)
 };
 
@@ -185,18 +189,20 @@ struct MirrorStore {
 };
 
 // Rows r0 .. r0 + m (thread tid < m holds row r0 + tid in g) write their
-// camera values, padded, at their places in camera order.
+// camera values, padded, at their places in camera order; a row of the
+// sentinel (place -1) writes none.
 template <typename T, class Body>
 __device__ __forceinline__ void camera_rows(const Body& body, long long r0, int m,
                                             const typename Body::Reg& g, const T* u) {
   constexpr int NC = Body::kCam, S = kPad<T, NC>;
   const int tid = threadIdx.x;
-  if (tid < m) {
+  const int pos = tid < m ? __ldg(body.cam.cam_pos + r0 + tid) : -1;
+  if (pos >= 0) {
     T v[S];
     body.camera_values(g, u, v);
 #pragma unroll
     for (int a = NC; a < S; ++a) v[a] = T(0);
-    store_padded<T, NC>(body.cam.w + (long long)__ldg(body.cam.cam_pos + r0 + tid) * S, v);
+    store_padded<T, NC>(body.cam.w + (long long)pos * S, v);
   }
 }
 
@@ -206,8 +212,8 @@ __device__ __forceinline__ void camera_rows(const Body& body, long long r0, int 
 // place in the tile's run order in sh, forms each (run, item) from the
 // run's rows (contiguous there, in row order) and writes the run's row:
 // its J_f is dead before the block waits, and only what its point values
-// need stays in registers. Every thread of the block calls it; sh is free
-// on entry.
+// need stays in registers. A run of the sentinel (place -1) is staged but
+// forms nothing. Every thread of the block calls it; sh is free on entry.
 template <typename T, class Body>
 __device__ __forceinline__ void tile_rows(const Body& body, int tile, long long r0, int m,
                                           typename Body::Reg& g, T* sh) {
@@ -240,8 +246,9 @@ __device__ __forceinline__ void tile_rows(const Body& body, int tile, long long 
       const int a = tid % NI;
       const auto e = body.entry(a);
       for (int q = tid / NI; q < nq; q += QS)
-        body.run_put(sh + rs[q] * NS, rs[q + 1] - rs[q], a, e,
-                     body.cam.w + (long long)rp[q] * S);
+        if (rp[q] >= 0)
+          body.run_put(sh + rs[q] * NS, rs[q + 1] - rs[q], a, e,
+                       body.cam.w + (long long)rp[q] * S);
     }
     __syncthreads();
   }

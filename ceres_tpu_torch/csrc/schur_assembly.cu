@@ -11,7 +11,9 @@
 //   FtF  (C, 9x9)  = sum_{rows of c} Jsf' Jsf,
 //   U    (t_full)  = A' u, i.e. U[c] = sum_{rows of c} Y_b' u[p_b],
 // with t_full = 9 C. The caller forms S = blockdiag(FtF) + D_f^2 - AtA and
-// rhs = b_f - U (ceres_tpu/solvers/fused_lm.py:938-946).
+// rhs = b_f - U (ceres_tpu/solvers/fused_lm.py:938-946). A row of a
+// constant camera (c >= C) has Jsf = 0: the pair plan holds no pair of
+// it, its runs (run_pos -1) form nothing, and it reads no camera scale.
 //
 // Replaces the Pallas kernel schur_assembly in mode="dense"
 // (ceres_tpu/ops/pallas_kernels.py:1281, pallas_call at :1546).
@@ -91,6 +93,7 @@ struct SchurAssembly {
   };
   const T* JT;
   long long B;
+  int C;
   const int* cam_idx;
   const int* pt_idx;
   const T* sc;  // (C, 9)
@@ -104,11 +107,14 @@ struct SchurAssembly {
     Row<T> j;
     load_row(JT, B, b, j);
     const long long c = __ldg(cam_idx + b), p = __ldg(pt_idx + b);
+    T scv[kTF] = {};
+    if (c < C)
+#pragma unroll
+      for (int a = 0; a < kTF; ++a) scv[a] = __ldg(sc + c * kTF + a);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int a = 0; a < kTF; ++a)
-        g.s[i * kTF + a] = j.f[i * kTF + a] * __ldg(sc + c * kTF + a);
+      for (int a = 0; a < kTF; ++a) g.s[i * kTF + a] = j.f[i * kTF + a] * scv[a];
     T jsp[2][kTE], k[kTE * kTE], up[kTE];
 #pragma unroll
     for (int q = 0; q < kTE; ++q) {
@@ -344,7 +350,7 @@ int schur_launch(const T* JT, int B, int C, const int* cam_idx, const int* pt_id
   using Body = SchurAssembly<T>;
   if (!aligned16(Y) || n_pair_levels < 1) return (int)cudaErrorInvalidValue;
   if (n_pt_blocks > 0) {
-    const Body body{JT, B, cam_idx, pt_idx, sc, sp, K, u, Y,
+    const Body body{JT, B, C, cam_idx, pt_idx, sc, sp, K, u, Y,
                     {tile_first, tile_run, run_start, run_slot, run_pos, w}};
     auto pass = point_pass_kernel<T, Body>;
     CT_LAUNCH(pass, n_pt_blocks, kBlock, stream, body, pt_start, pt_block);

@@ -260,6 +260,41 @@ def perturb(bal: BALProblem, rotation_sigma=0.0, translation_sigma=0.0,
                       bal.observations)
 
 
+def read_bal_file(path) -> BALProblem:
+    """The BAL text format (bal_problem.cc, bal.py:186-210): a header, the
+    observations, then the parameters."""
+    with open(path) as f:
+        tokens = f.read().split()
+    num_cameras, num_points, num_obs = (int(t) for t in tokens[:3])
+    body = tokens[3:]
+    obs = np.asarray(body[:4 * num_obs], dtype=np.float64).reshape(num_obs, 4)
+    rest = np.asarray(body[4 * num_obs:4 * num_obs + 9 * num_cameras + 3 * num_points],
+                      dtype=np.float64)
+    return BALProblem(rest[:9 * num_cameras].reshape(num_cameras, 9),
+                      rest[9 * num_cameras:].reshape(num_points, 3),
+                      obs[:, 0].astype(np.int32), obs[:, 1].astype(np.int32),
+                      np.ascontiguousarray(obs[:, 2:]))
+
+
+def build_problem(bal: BALProblem, loss=None, use_huber=False):
+    """A Problem built one block at a time, Ceres style (bal.py:266-284):
+    one parameter block per camera and point, one residual block per
+    observation. Returns (problem, camera blocks, point blocks), the
+    (9,) and (3,) arrays the solution is written back into. For large
+    problems build_problem_batched adds the same blocks without per-block
+    Python."""
+    cams = [np.ascontiguousarray(bal.cameras[i]) for i in range(bal.num_cameras)]
+    pts = [np.ascontiguousarray(bal.points[j]) for j in range(bal.num_points)]
+    if use_huber and loss is None:
+        loss = HuberLoss(1.0)
+    p = Problem()
+    for k in range(bal.num_observations):
+        p.add_residual_block(SNAVELY_COST, loss,
+                             [cams[bal.camera_index[k]], pts[bal.point_index[k]]],
+                             data=bal.observations[k])
+    return p, cams, pts
+
+
 def build_problem_batched(bal: BALProblem, loss=None, use_huber=False):
     """Parameter block arrays plus one batched residual add; returns
     (problem, camera_array, point_array). The solution is written back

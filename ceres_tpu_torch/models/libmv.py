@@ -23,7 +23,6 @@ import torch
 from ..cost_function import AutoDiffCostFunction
 from ..problem import Problem
 from ..rotation import angle_axis_rotate_point, rotation_matrix_to_angle_axis
-from ..types import not_ported
 
 # intrinsics block layout (libmv_bundle_adjuster.cc OFFSET_*):
 # focal, ppx, ppy, k1, k2, k3, p1, p2
@@ -129,11 +128,9 @@ def build_problem(lp: LibmvProblem, refine_intrinsics: Optional[bool] = None):
     (problem, cameras (n, 6), points (n, 3), intrinsics (1, 8)), the arrays
     the solution is written back into. refine_intrinsics defaults to the
     markers' space, as the example's flags do: image-space markers refine
-    the intrinsics; holding them constant is a later slice."""
+    the intrinsics, normalized ones hold them constant (libmv.py:126-160)."""
     if refine_intrinsics is None:
         refine_intrinsics = lp.is_image_space
-    if not refine_intrinsics:
-        raise not_ported("constant intrinsics (refine_intrinsics=False)", 6)
     cams = np.ascontiguousarray(lp.cameras, dtype=np.float64)
     pts = np.ascontiguousarray(lp.points, dtype=np.float64)
     intr = np.array(lp.intrinsics, dtype=np.float64).reshape(1, INTRINSICS_SIZE)
@@ -141,6 +138,8 @@ def build_problem(lp: LibmvProblem, refine_intrinsics: Optional[bool] = None):
     cam_arr = p.add_parameter_block_array(cams)
     pt_arr = p.add_parameter_block_array(pts)
     intr_arr = p.add_parameter_block_array(intr)
+    if not refine_intrinsics:
+        p.set_parameter_block_array_constant(intr_arr)
     zeros = np.zeros(len(lp.marker_cam), np.int64)
     p.add_residual_block_batch(
         LIBMV_COST, None,

@@ -28,7 +28,7 @@ from ..cost_function import AutoDiffCostFunction
 from ..options import Options
 from ..problem import Problem
 from ..solver import solve
-from ..types import LinearSolverType, not_ported
+from ..types import LinearSolverType
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,16 +263,22 @@ PROBLEMS: List[MGHProblem] = [
 
 
 def build_problem(p: MGHProblem, constrained: bool = False, trial: int = 0):
-    """(Problem, x): x (1, n) the one parameter block, initial_x scaled by
-    10^trial as in the reference example; solve writes the answer into it."""
-    if constrained:
-        raise not_ported("bounds (the constrained MGH problems)", 6)
+    """(Problem, x): x (1, n), initial_x scaled by 10^trial as in the
+    reference example; its row is the one parameter block, added with the
+    per-block API and, when constrained, the certified bounds set per
+    coordinate (mgh.py:258-272). solve writes the answer into x."""
     x = np.asarray(p.initial_x, np.float64)[None, :] * (10.0 ** trial)
+    block = x[0]
     prob = Problem()
     n = len(p.initial_x)
-    arr = prob.add_parameter_block_array(x)
-    cost = AutoDiffCostFunction(p.residual, p.num_residuals, [n])
-    prob.add_residual_block_batch(cost, None, [(arr, np.zeros(1, np.int64))])
+    prob.add_residual_block(AutoDiffCostFunction(p.residual, p.num_residuals, [n]),
+                            None, [block])
+    if constrained:
+        if p.lower_bounds is None:
+            raise ValueError(f"problem {p.number} has no certified bounds")
+        for i, (lo, hi) in enumerate(zip(p.lower_bounds, p.upper_bounds)):
+            prob.set_parameter_lower_bound(block, i, lo)
+            prob.set_parameter_upper_bound(block, i, hi)
     return prob, x
 
 

@@ -5,7 +5,8 @@ tangent span, per kind and slot the variable-block id of every row. Arrays
 are numpy; the planning they feed runs once per compiled program. The
 dense (N, tangent) Jacobian of the DENSE_QR and DENSE_NORMAL_CHOLESKY
 steps is scattered from the blocks through an index built once
-(`dense_index`, `to_dense`).
+(`dense_index`, `to_dense`); Problem.evaluate's CRS Jacobian is built
+from the blocks on the host without it (`to_crs`).
 """
 from __future__ import annotations
 
@@ -48,6 +49,10 @@ class BlockJacobianMeta:
     families: Tuple[FamilyMeta, ...]
     tangent_size: int
 
+    @property
+    def num_rows(self) -> int:
+        return sum(k.B * k.r for k in self.kinds)
+
 
 def build_meta(program) -> BlockJacobianMeta:
     """The symbolic phase, done once per compiled program
@@ -83,11 +88,7 @@ def dense_index(meta: BlockJacobianMeta, device) -> Tuple[Tuple[torch.Tensor, ..
             kind.B, kind.r)
         per_slot = []
         for slot in kind.slots:
-            fm = meta.families[slot.family_index]
-            local = slot.block_ids - fm.block_id_offset
-            cols = np.where((local < fm.num_var)[:, None],
-                            fm.tangent_offset + local[:, None] * fm.t
-                            + np.arange(fm.t, dtype=np.int64), T)
+            cols = _block_columns(meta, slot)
             flat = rows[:, :, None] * (T + 1) + cols[:, None, :]
             per_slot.append(torch.as_tensor(flat.reshape(-1), device=device))
         out.append(tuple(per_slot))
@@ -106,3 +107,70 @@ def to_dense(meta: BlockJacobianMeta, block_jacs, index, num_rows: int) -> torch
         for J, ix in zip(jacs, idx):
             flat.index_add_(0, ix, J.reshape(-1).to(torch.float64))
     return flat.reshape(num_rows, T + 1)[:, :T]
+
+
+def _block_columns(meta: BlockJacobianMeta, slot: SlotMeta) -> np.ndarray:
+    """(B, t) tangent columns of a slot's blocks, the tangent size for a
+    constant block."""
+    fm = meta.families[slot.family_index]
+    local = slot.block_ids - fm.block_id_offset
+    return np.where((local < fm.num_var)[:, None],
+                    fm.tangent_offset + local[:, None] * fm.t
+                    + np.arange(fm.t, dtype=np.int64), meta.tangent_size)
+
+
+@dataclasses.dataclass
+class CRSMatrix:
+    """Compressed-row sparse matrix (crs_matrix.h): `rows` the (num_rows +
+    1,) row pointers, `cols` and `values` each row's columns, ascending,
+    and entries."""
+
+    num_rows: int
+    num_cols: int
+    rows: np.ndarray
+    cols: np.ndarray
+    values: np.ndarray
+
+    @property
+    def nnz(self) -> int:
+        return int(self.values.size)
+
+    def to_dense(self) -> np.ndarray:
+        out = np.zeros((self.num_rows, self.num_cols), self.values.dtype)
+        r = np.repeat(np.arange(self.num_rows), np.diff(self.rows.astype(np.int64)))
+        out[r, self.cols] = self.values
+        return out
+
+
+def to_crs(meta: BlockJacobianMeta, values) -> CRSMatrix:
+    """The tangent-space Jacobian as a CRSMatrix from the block Jacobians
+    values[kind][slot] (B, r, t) (numpy), without the dense matrix
+    (bsr.py:372-413): COO entries of the variable blocks, sorted by row
+    and column, the entries of a block that appears in two slots of a
+    residual summed."""
+    rows_l, cols_l, vals_l = [], [], []
+    for k, kind in enumerate(meta.kinds):
+        row_base = kind.row_offset + np.arange(kind.B * kind.r, dtype=np.int64).reshape(
+            kind.B, kind.r)
+        for s, slot in enumerate(kind.slots):
+            v = np.asarray(values[k][s])
+            rr = np.broadcast_to(row_base[:, :, None], v.shape)
+            cc = np.broadcast_to(_block_columns(meta, slot)[:, None, :], v.shape)
+            keep = cc < meta.tangent_size
+            rows_l.append(rr[keep])
+            cols_l.append(cc[keep])
+            vals_l.append(v[keep])
+    rows = np.concatenate(rows_l) if rows_l else np.zeros(0, np.int64)
+    cols = np.concatenate(cols_l) if cols_l else np.zeros(0, np.int64)
+    vals = np.concatenate(vals_l) if vals_l else np.zeros(0, np.float64)
+    order = np.lexsort((cols, rows))
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    if rows.size:
+        new = np.empty(rows.size, bool)
+        new[0] = True
+        new[1:] = (rows[1:] != rows[:-1]) | (cols[1:] != cols[:-1])
+        vals = np.add.reduceat(vals, np.flatnonzero(new))
+        rows, cols = rows[new], cols[new]
+    rowptr = np.zeros(meta.num_rows + 1, np.int64)
+    rowptr[1:] = np.cumsum(np.bincount(rows, minlength=meta.num_rows))
+    return CRSMatrix(meta.num_rows, meta.tangent_size, rowptr, cols.astype(np.int32), vals)

@@ -80,15 +80,23 @@ class PairPlan:
 
 @dataclasses.dataclass
 class RowPlan:
+    """The rows of a program the jt kernels take, sorted by point, and
+    their camera plans. A row whose camera id is C or more is a row of a
+    constant camera (the sentinel): eval_fused reads that camera's row of
+    the camera table (n_cams rows), the point passes take the row, and no
+    camera pass does: it has no place in camera order (cam_pos -1), it
+    belongs to no run that reaches a camera (run_pos -1), and no pair of
+    the pair plan holds it."""
+
     B: int
     P: int
     C: int
     pt_idx: torch.Tensor  # (B,) int32, nondecreasing
-    cam_idx: torch.Tensor  # (B,) int32
+    cam_idx: torch.Tensor  # (B,) int32, in [0, n_cams); C and above: constant
     pt_start: torch.Tensor  # (P+1,) int32: rows of point p are [p], [p+1])
-    cam_rows: torch.Tensor  # (B,) int32: rows ordered by camera (stable)
+    cam_rows: torch.Tensor  # (B,) int32: rows ordered by camera (stable), sentinel last
     cam_chunk_start: torch.Tensor  # (n+1,) int32 offsets into cam_rows
-    cam_pos: torch.Tensor  # (B,) int32: each row's place in cam_rows (its inverse)
+    cam_pos: torch.Tensor  # (B,) int32: each row's place in cam_rows, -1 for the sentinel
     # the fixed tree of a camera sum over rows in camera order: level 0 is
     # cam_chunk_start, each further level chunks a camera's partials of the
     # level before (SegmentPlan.level_starts); cam_level_first (C+1,) int32
@@ -108,13 +116,16 @@ class RowPlan:
     # run_start[q] .. run_start[q+1], row b sits at place run_slot[b]
     run_start: torch.Tensor  # (n_runs+1,) int32
     run_slot: torch.Tensor  # (B,) int32
-    run_pos: torch.Tensor  # (n_runs,) int32 each run's place in camera order
+    run_pos: torch.Tensor  # (n_runs,) int32 each run's place in camera order, or -1
     # the camera sum's tree over the runs in camera order, as cam_levels
     run_levels: Tuple[torch.Tensor, ...]
     run_level_first: torch.Tensor
+    n_cams: int  # rows of the camera table eval_fused reads, at least C
     pairs: Optional[PairPlan] = None  # the dense-Schur pair plan, on request
 
     def __post_init__(self):
+        if self.n_cams < self.C:
+            raise ValueError(f"a camera table of {self.n_cams} rows for {self.C} cameras")
         # the levels as the kernels pass them, checked and built once: their
         # chunk counts, and host arrays of those counts and of the levels'
         # device pointers
@@ -216,8 +227,8 @@ def _point_blocks(pt_start: np.ndarray, cap: int) -> np.ndarray:
 def _runs(tile, keys, key_rows, n_tiles: int, num_keys: int):
     """The runs of one key within one tile of rows, for each row's tile
     `tile` and key `keys` (B,) and the rows in key order, stable
-    (`key_rows`): (tile_run, run_start, run_slot, run_pos, counts of runs
-    per key), int64. Runs are found in key order, along key_rows, where a
+    (`key_rows`): (tile_run, run_start, run_slot, run_pos, each run's key,
+    counts of runs per key), int64. Runs are found in key order, along key_rows, where a
     key's rows come in row order and so tile by tile; then ordered by tile,
     key within a tile: the rows in run order, (tile, key, row), are the
     places run_start[q] .. run_start[q+1] of run q, row b at place
@@ -236,7 +247,7 @@ def _runs(tile, keys, key_rows, n_tiles: int, num_keys: int):
                       + np.arange(B)]] = np.arange(B)
     tile_run = np.concatenate([[0], np.cumsum(np.bincount(tile[first],
                                                           minlength=n_tiles))])
-    return (tile_run, run_start, run_slot, order,
+    return (tile_run, run_start, run_slot, order, key[first[order]],
             np.bincount(key[first], minlength=num_keys))
 
 
@@ -244,7 +255,9 @@ def _camera_runs(pt_start, pt_block, cam_idx, cam_rows, C: int):
     """The runs of one camera within one tile of rows (RowPlan.run_*):
     (tile_first, tile_run, run_start, run_slot, run_pos, counts of runs per
     camera), int64. A tile is a point block's rows, or kn.POINT_BLOCK of
-    them in a block of one longer point."""
+    them in a block of one longer point. cam_idx holds C for the sentinel:
+    its runs come last in each tile and in camera order, and their run_pos
+    is -1."""
     cap = kn.POINT_BLOCK
     blk_rows = pt_start[pt_block]
     per_block = np.maximum(1, -(-np.diff(blk_rows) // cap))
@@ -253,7 +266,10 @@ def _camera_runs(pt_start, pt_block, cam_idx, cam_rows, C: int):
     t0 = blk_rows[owner] + (np.arange(tile_first[-1]) - tile_first[owner]) * cap
     t1 = np.minimum(t0 + cap, blk_rows[owner + 1])
     tile = np.repeat(np.arange(t0.shape[0]), t1 - t0)
-    return (tile_first, *_runs(tile, cam_idx, cam_rows, t0.shape[0], C))
+    tile_run, run_start, run_slot, run_pos, run_key, per_cam = _runs(
+        tile, cam_idx, cam_rows, t0.shape[0], C + 1)
+    return (tile_first, tile_run, run_start, run_slot,
+            np.where(run_key < C, run_pos, -1), per_cam[:C])
 
 
 def _dev_i32(a, device) -> torch.Tensor:
@@ -264,37 +280,53 @@ def _dev_i32(a, device) -> torch.Tensor:
 
 
 def build_row_plan(pt_idx: np.ndarray, cam_idx: np.ndarray, P: int, C: int,
-                   device) -> RowPlan:
+                   device, n_cams: int) -> RowPlan:
+    """The row plan of rows sorted by point: pt_idx in [0, P), cam_idx in
+    [0, n_cams), ids of C and above being rows of a constant camera
+    (RowPlan)."""
     pt_idx = np.asarray(pt_idx, np.int64)
     cam_idx = np.asarray(cam_idx, np.int64)
     if np.any(pt_idx[1:] < pt_idx[:-1]):
         raise ValueError("the row plan needs rows sorted by point")
+    if pt_idx.size and (pt_idx[0] < 0 or pt_idx[-1] >= P):
+        raise ValueError("a row's point is out of range")
+    if cam_idx.size and (cam_idx.min() < 0 or cam_idx.max() >= n_cams):
+        raise ValueError("a row's camera is out of range")
     B = pt_idx.shape[0]
     counts = np.bincount(pt_idx, minlength=P)
     pt_start = np.concatenate([[0], np.cumsum(counts)])
-    cam_rows = np.argsort(cam_idx, kind="stable")
+    cam = np.minimum(cam_idx, C)  # the sentinel C sorts last
+    cam_rows = np.argsort(cam, kind="stable")
     cam_pos = np.empty(B, np.int64)
     cam_pos[cam_rows] = np.arange(B)
-    starts, firsts = _chunk_levels(np.bincount(cam_idx, minlength=C))
+    cam_pos[cam == C] = -1
+    starts, firsts = _chunk_levels(np.bincount(cam, minlength=C + 1)[:C])
 
     def dev(a):
         return _dev_i32(a, device)
 
     cam_levels = tuple(dev(a) for a in starts)
     pt_block = _point_blocks(pt_start, kn.POINT_BLOCK)
-    *runs, runs_per_cam = _camera_runs(pt_start, pt_block, cam_idx, cam_rows, C)
+    *runs, runs_per_cam = _camera_runs(pt_start, pt_block, cam, cam_rows, C)
     run_starts, run_firsts = _chunk_levels(runs_per_cam)
+
+    def dev_signed(a):  # places of -1 for the sentinel
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
+
+    tile_first, tile_run, run_start, run_slot, run_pos = runs
     return RowPlan(B, P, C, dev(pt_idx), dev(cam_idx), dev(pt_start),
-                   dev(cam_rows), cam_levels[0], dev(cam_pos),
+                   dev(cam_rows), cam_levels[0], dev_signed(cam_pos),
                    cam_levels, dev(firsts[-1]), dev(pt_block),
-                   *(dev(a) for a in runs), tuple(dev(a) for a in run_starts),
-                   dev(run_firsts[-1]))
+                   dev(tile_first), dev(tile_run), dev(run_start), dev(run_slot),
+                   dev_signed(run_pos), tuple(dev(a) for a in run_starts),
+                   dev(run_firsts[-1]), n_cams=n_cams)
 
 
 def _build_pair_plan(pt_idx, cam_idx, pt_start, C: int, device) -> PairPlan:
     """Each pair (a, b) of two rows of one point once, a the row of the
     lower camera (the earlier row within one camera), ordered by
-    camera-pair key and point, with the levels of its sum by key."""
+    camera-pair key and point, with the levels of its sum by key. A pair
+    with a row of a constant camera (id C or above) is left out."""
     pt_idx = np.asarray(pt_idx, np.int64)
     cam_idx = np.asarray(cam_idx, np.int64)
     pt_start = np.asarray(pt_start, np.int64)
@@ -305,7 +337,7 @@ def _build_pair_plan(pt_idx, cam_idx, pt_start, C: int, device) -> PairPlan:
     local = np.arange(pair_a.shape[0], dtype=np.int64) - np.repeat(first, m)
     pair_b = pt_start[pt_idx[pair_a]] + local
     ca, cb = cam_idx[pair_a], cam_idx[pair_b]
-    keep = (ca < cb) | ((ca == cb) & (pair_a < pair_b))
+    keep = ((ca < cb) | ((ca == cb) & (pair_a < pair_b))) & (cb < C)
     pair_a, pair_b, ca, cb = pair_a[keep], pair_b[keep], ca[keep], cb[keep]
     # the row-by-row index of (ca, cb) in the upper triangle of C x C
     key = ca * C - ca * (ca - 1) // 2 + (cb - ca)
@@ -434,11 +466,12 @@ class JTQual(NamedTuple):
     loss: object  # loss.LossChain
 
 
-def jt_refusal(pm: pt.PartitionedMeta, program) -> Optional[str]:
+def jt_refusal(pm: pt.PartitionedMeta, program, options=None) -> Optional[str]:
     """Why the fused jt-mode path does not take this program, or None
     when it does. It takes what the eval_fused kernel computes, on either
     device alike: one kind of two slots, one point (e) and one camera (f)
-    family of tangent sizes 3 and 9, rows sorted by point, (B, 2)
+    family of tangent sizes 3 and 9, rows sorted by point, every point
+    variable (a constant camera is the row plan's sentinel), (B, 2)
     observations, and
       - the residual snavely_residual_rows with Euclidean cameras (9) and
         points (3), or snavely_quat_residual_rows with cameras of 10 under
@@ -446,6 +479,9 @@ def jt_refusal(pm: pt.PartitionedMeta, program) -> Optional[str]:
         Euclidean points;
       - no loss, TrivialLoss, or a loss that loss.flatten_loss reduces to
         the kernel's chain.
+    With `options`, use_mixed_precision_solves is refused too: the mixed
+    dense-Schur step refines through the flat products, as the JAX loop's
+    does (fused_lm.py:295, :628, :982).
     Every other program takes the flat path: a user's own residual_rows,
     a user LossFunction subclass, any other manifold (the JAX
     qualification of flatops.py:685-710 and :842-894, without its float32
@@ -468,6 +504,10 @@ def jt_refusal(pm: pt.PartitionedMeta, program) -> Optional[str]:
                  if s.family_index == pm.e_family_indices[0])
     if np.any(e_ids[1:] < e_ids[:-1]):
         return "rows not sorted by point"
+    if np.any(e_ids - fe.block_id_offset >= fe.num_var):
+        return "a constant point block"
+    if options is not None and options.use_mixed_precision_solves:
+        return "mixed-precision solves"
     pff = program.families[pm.f_family_indices[0]]
     pfe = program.families[pm.e_family_indices[0]]
     model = kn.eval_model(getattr(pkind.cost, "residual_rows", None))
@@ -483,7 +523,8 @@ def jt_refusal(pm: pt.PartitionedMeta, program) -> Optional[str]:
         return "quaternion cameras not of 10 under the quaternion camera manifold"
     if flatten_loss(pkind.loss) is None:
         return "a loss the kernel's loss chain does not take"
-    if pkind.data is None or tuple(pkind.data.shape) != (pkind.B, kn.R):
+    if (not isinstance(pkind.data, torch.Tensor)
+            or tuple(pkind.data.shape) != (pkind.B, kn.R)):
         return "observation data other than (B, 2)"
     return None
 
@@ -506,10 +547,12 @@ class JTSchurOps:
         self.sf = next(i for i, s in enumerate(kind.slots) if s.family_index == f_fi)
         fe, ff = pm.base.families[e_fi], pm.base.families[f_fi]
         pt_local = kind.slots[self.se].block_ids - fe.block_id_offset
-        cam_local = kind.slots[self.sf].block_ids - ff.block_id_offset
+        # each row's row of the camera table: a constant camera's is C or
+        # more, the row plan's sentinel
+        cam_slot = program.kinds[0].slots[self.sf]
         self.P, self.C = fe.num_var, ff.num_var
-        self.plan = build_row_plan(pt_local, cam_local, self.P, self.C,
-                                   program.device)
+        self.plan = build_row_plan(pt_local, cam_slot.pos_in_family, self.P, self.C,
+                                   program.device, n_cams=cam_slot.family.count)
 
     # -- evaluation (pallas_kernels.eval_fused) ----------------------------
 
@@ -525,8 +568,9 @@ class JTSchurOps:
 
     def eval_fused_x(self, program, q: JTQual, x: torch.Tensor):
         """Fused evaluation at state x: (cost f64 0-d, rT (2, B), JT (24, B)),
-        the camera table read at its ambient width, the Jacobian lanes in
-        tangent coordinates, residuals and lanes corrected for the loss."""
+        the camera table (its constant cameras too) read at its ambient
+        width, the Jacobian lanes in tangent coordinates, residuals and
+        lanes corrected for the loss."""
         dt = program.compute_dtype
         cams = program.family_table(x, q.fam_f).to(dt).contiguous()
         pts = program.family_table(x, q.fam_e).to(dt).contiguous()
@@ -687,7 +731,7 @@ def _segment_runs(ids: np.ndarray, num_keys: int):
     whole = start[1:] <= (start[:-1] // T + 1) * T + kn.SEG_HALO
     rows = np.arange(B, dtype=np.int64)
     tile = np.where(whole[ids], start[ids] // T, rows // T)
-    tile_run, run_start, _, _, per_key = _runs(tile, ids, rows, -(-B // T), num_keys)
+    tile_run, run_start, _, _, _, per_key = _runs(tile, ids, rows, -(-B // T), num_keys)
     # the runs (in key order, as the rows): each one's key, and its partial
     # where its key has several runs
     run_key = np.repeat(np.arange(num_keys, dtype=np.int64), per_key)
@@ -754,9 +798,13 @@ class _FlatOpsBase:
 
     def _build(self, slot_info):
         """slot_info: (k, s, fi, off, nv, t, block ids (B,) local to the
-        family, sentinel >= nv) for every participating slot."""
+        family, sentinel >= nv) for every participating slot. A slot of a
+        family with no variable block (a constant array) gets no plan: no
+        product or reduction reads or writes it."""
         plans: List[List[SlotPlanFlat]] = [[] for _ in self.kinds]
         for (k, s, fi, off, nv, t, bid) in slot_info:
+            if nv == 0:
+                continue
             local = np.minimum(np.maximum(np.asarray(bid, np.int64), 0), nv)
             seg = build_segment_plan(local, nv + 1, self.device)
             plans[k].append(SlotPlanFlat(s, fi, off, nv, t, seg.ids,
@@ -942,8 +990,10 @@ class FlatJacobianOps(_FlatOpsBase):
         self.plan = None
         if self.kernel_slots is not None:
             pe, pf = self.kernel_slots
+            # a constant camera's rows hold the sentinel id nv; no
+            # eval_fused reads a camera table through this plan
             self.plan = build_row_plan(pe.local.cpu().numpy(), pf.local.cpu().numpy(),
-                                       pe.nv, pf.nv, program.device)
+                                       pe.nv, pf.nv, program.device, n_cams=pf.nv + 1)
 
     def _slots(self):
         for k, kind in enumerate(self.meta.kinds):
@@ -961,6 +1011,8 @@ class FlatJacobianOps(_FlatOpsBase):
         pe, pf = (a, b) if a.t == kn.TE else (b, a)
         if (pe.t, pf.t) != (kn.TE, kn.TF) or not pe.srt:
             return None
+        if int(pe.seg.seg_start[-1]) != int(pe.seg.seg_start[pe.nv]):
+            return None  # a constant point: the row plan's points are all variable
         return pe, pf
 
     def right(self, vflat, x):

@@ -18,7 +18,11 @@ transposed, as JT (24, B) (layout in csrc/common.cuh), residuals as rT
 (2, B). Their `plan` argument is a flatops.RowPlan: rows sorted by point,
 the point segments and blocks, the camera plans (each row's place in
 camera order, the runs of one camera within a tile of rows, their trees of
-levels) and, for schur_assembly, the point-pair plan.
+levels) and, for schur_assembly, the point-pair plan. A row whose camera
+id is C or more belongs to a constant camera (the sentinel): eval_fused
+reads its camera from the camera table, every point-side sum takes the
+row, with no camera step (x_c, z and the camera scales are zero there),
+and no camera-side sum does; the plain versions follow the same rule.
 
 The flat-path kernels (6-9) take any width: segment sums of (B, w) rows
 by block id through a flatops.SegmentPlan (6 sorted, 9 unsorted), the
@@ -87,9 +91,15 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 
 def _check_plan(plan, device) -> None:
-    """Each row's camera and point and each point's first row."""
+    """Each row's camera and point and each point's first row. The values
+    were checked when flatops.build_row_plan built the plan (a point in
+    [0, P), a camera in [0, n_cams)); here, that the camera table is at
+    least as long as the cameras the kernels read by id."""
     i32 = torch.int32
     B, P = plan.B, plan.P
+    if not 0 <= plan.C <= plan.n_cams:
+        raise ValueError(f"a row plan of {plan.C} cameras over a camera table of "
+                         f"{plan.n_cams} rows")
     _check(plan.cam_idx, "plan.cam_idx", i32, (B,), device)
     _check(plan.pt_idx, "plan.pt_idx", i32, (B,), device)
     _check(plan.pt_start, "plan.pt_start", i32, (P + 1,), device)
@@ -168,8 +178,15 @@ def _split_jt(JT: torch.Tensor):
 
 
 def _camera_sum(plan, contrib: torch.Tensor) -> torch.Tensor:
-    out = contrib.new_zeros((plan.C,) + tuple(contrib.shape[1:]))
-    return out.index_add_(0, plan.cam_idx.long(), contrib)
+    """The sum by camera of per-row values, the sentinel's rows left out."""
+    out = contrib.new_zeros((plan.C + 1,) + tuple(contrib.shape[1:]))
+    return out.index_add_(0, _sentinel_cams(plan.cam_idx, plan.C), contrib)[:plan.C]
+
+
+def _camera_rows(plan, table: torch.Tensor) -> torch.Tensor:
+    """Each row's row of a per-camera table (C, w), zero for the sentinel."""
+    padded = torch.cat([table, table.new_zeros((1,) + tuple(table.shape[1:]))])
+    return padded[_sentinel_cams(plan.cam_idx, plan.C)]
 
 
 def _point_sum(plan, contrib: torch.Tensor) -> torch.Tensor:
@@ -249,7 +266,7 @@ eval_fused_loss_plain = eval_fused_quat_plain = eval_fused_plain
 
 def eval_fused(cams, pts, obs, plan, rows_fn, loss=None):
     """(cost (1,) f64, rT (2, B), JT (24, B)) of a Snavely residual at
-    cameras (C, 9) (snavely_residual_rows) or (C, 10)
+    cameras (n_cams, 9) (snavely_residual_rows) or (n_cams, 10)
     (snavely_quat_residual_rows, tangent lanes), points (P, 3),
     observations (B, 2), with `loss` a loss.LossChain (None or empty: the
     trivial loss). The cost is sum |r|^2, or sum rho(|r|^2) with a loss.
@@ -304,12 +321,11 @@ def _eval_fused_launch(cams, pts, obs, plan, rows_fn, loss):
     dev = cams.device
     dt = _dtype_of(cams)
     fn = _entry("ct_eval_fused", dt)
-    B, P, C = plan.B, plan.P, plan.C
-    _check(cams, "cams", dt, (C, _CAM_SIZE[model]), dev)
+    B, P = plan.B, plan.P
+    _check_plan(plan, dev)
+    _check(cams, "cams", dt, (plan.n_cams, _CAM_SIZE[model]), dev)
     _check(pts, "pts", dt, (P, TE), dev)
     _check(obs, "obs", dt, (B, R), dev)
-    _check(plan.cam_idx, "plan.cam_idx", torch.int32, (B,), dev)
-    _check(plan.pt_idx, "plan.pt_idx", torch.int32, (B,), dev)
     desc = LossDesc(len(chain.ops))
     for k, op in enumerate(chain.ops):
         desc.code[k], desc.a[k], desc.b[k] = op.code, op.a, op.b
@@ -404,16 +420,15 @@ def schur_assembly_plain(JT, sc, sp, K, u, plan):
     """Straight from the definition: the dense A (P*3, C*9) of the
     eliminated system, then A'A and A'u."""
     Jf, Je = _split_jt(JT)
-    cam = plan.cam_idx.long()
     pt = plan.pt_idx.long()
-    Jsf = Jf * sc[cam][:, None, :]
+    Jsf = Jf * _camera_rows(plan, sc)[:, None, :]
     Jsp = Je * sp[pt][:, None, :]
     W = torch.einsum("bik,bia->bka", Jsp, Jsf)  # (B, 3, 9)
     Y = torch.einsum("bmk,bka->bma", K.reshape(-1, TE, TE)[pt], W)
     P, C = plan.P, plan.C
-    A = JT.new_zeros((P, C, TE, TF))
-    A.index_put_((pt, cam), Y, accumulate=True)
-    A = A.permute(0, 2, 1, 3).reshape(P * TE, C * TF)
+    A = JT.new_zeros((P, C + 1, TE, TF))  # column C takes the sentinel
+    A.index_put_((pt, _sentinel_cams(plan.cam_idx, C)), Y, accumulate=True)
+    A = A[:, :C].permute(0, 2, 1, 3).reshape(P * TE, C * TF)
     ata = A.T @ A
     U = A.T @ u.reshape(-1)
     ftf = _camera_sum(plan, torch.einsum("bia,bic->bac", Jsf, Jsf).reshape(-1, TF * TF))
@@ -477,9 +492,8 @@ def schur_assembly(JT, sc, sp, K, u, plan):
 
 def normal_matvec_plain(JT, xc, xp, plan):
     Jf, Je = _split_jt(JT)
-    cam = plan.cam_idx.long()
     pt = plan.pt_idx.long()
-    jv = torch.einsum("bia,ba->bi", Jf, xc[cam]) + torch.einsum(
+    jv = torch.einsum("bia,ba->bi", Jf, _camera_rows(plan, xc)) + torch.einsum(
         "bik,bk->bi", Je, xp[pt])
     cam_out = _camera_sum(plan, torch.einsum("bia,bi->ba", Jf, jv))
     pt_out = _point_sum(plan, torch.einsum("bik,bi->bk", Je, jv))
@@ -525,9 +539,8 @@ def normal_matvec(JT, xc, xp, plan):
 
 def isc_matvec_plain(JT, z, minv, plan, emit_u=False):
     Jf, Je = _split_jt(JT)
-    cam = plan.cam_idx.long()
     pt = plan.pt_idx.long()
-    fz = torch.einsum("bia,ba->bi", Jf, z[cam])
+    fz = torch.einsum("bia,ba->bi", Jf, _camera_rows(plan, z))
     etfz = _point_sum(plan, torch.einsum("bik,bi->bk", Je, fz))
     u = (minv.reshape(-1, TE, TE) @ etfz.unsqueeze(2)).squeeze(2)
     q = fz - torch.einsum("bik,bk->bi", Je, u[pt])
@@ -766,7 +779,8 @@ def segment_block_expand(vals, ids):
 
 
 def _sentinel_cams(cam_ids, C):
-    """cam_ids as int64 with every id outside [0, C) set to C."""
+    """cam_ids as int64 with every id outside [0, C) set to C (the
+    sentinel of a constant camera)."""
     cam = cam_ids.long()
     return torch.where((cam >= 0) & (cam < C), cam, C)
 

@@ -8,6 +8,7 @@ slice of the port brings.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable, List, Optional
 
 from .types import (
     DoglegType,
@@ -57,9 +58,19 @@ class Options:
     parameter_tolerance: float = 1e-8
     jacobi_scaling: bool = True
 
+    # Bounds: the projected Armijo backtracking on the step scale of a
+    # bounded problem (fused_lm.py:1494-1528)
+    min_line_search_step_size: float = 1e-9
+    line_search_sufficient_function_decrease: float = 1e-4
+    max_num_line_search_step_size_iterations: int = 20
+
     # "float64" or "float32": the dtype of residuals and Jacobians; the
-    # solver state and the host-side control flow stay float64.
+    # solver state and the host-side control flow stay float64. "mixed":
+    # a float32 solve to its own end, then up to
+    # `mixed_precision_polish_iterations` float64 iterations from there
+    # (solver.py:172-210).
     evaluation_dtype: str = "float64"
+    mixed_precision_polish_iterations: int = 5
 
     # The port runs the fused-loop form only; "NEVER" (the host loop)
     # is a later slice.
@@ -77,8 +88,13 @@ class Options:
     max_num_spse_iterations: int = 5
     eta: float = 1e-1
     use_inner_iterations: bool = False
-    linear_solver_ordering: object = None
+    # groups of parameter blocks or arrays; group 0 is eliminated first
+    linear_solver_ordering: Optional[List[List[Any]]] = None
     minimizer_progress_to_stdout: bool = False
+    # the host loop's: raise naming port slice 6
+    callbacks: List[Callable] = dataclasses.field(default_factory=list)
+    update_state_every_iteration: bool = False
+    evaluation_callback: Optional[Any] = None
 
     def is_valid(self) -> "tuple[bool, str]":
         for name, lo in [
@@ -108,6 +124,12 @@ class Options:
             return False, "min_trust_region_radius > max_trust_region_radius"
         if self.min_lm_diagonal > self.max_lm_diagonal:
             return False, "min_lm_diagonal > max_lm_diagonal"
+        if (self.linear_solver_type in (LinearSolverType.DENSE_SCHUR,
+                                        LinearSolverType.SPARSE_SCHUR,
+                                        LinearSolverType.ITERATIVE_SCHUR)
+                and self.linear_solver_ordering is not None
+                and any(len(g) == 0 for g in self.linear_solver_ordering)):
+            return False, "linear_solver_ordering contains an empty group"
         if self.use_mixed_precision_solves and self.linear_solver_type in (
                 LinearSolverType.ITERATIVE_SCHUR, LinearSolverType.CGNR):
             return False, "mixed precision solves not supported with iterative solvers"
@@ -132,13 +154,13 @@ class Options:
                 raise not_ported("use_spse_initialization", 6)
             if self.use_explicit_schur_complement:
                 raise not_ported("use_explicit_schur_complement", 6)
-        if self.evaluation_dtype == "mixed" or self.use_mixed_precision_solves:
-            raise not_ported("mixed-precision evaluation or solves", 5)
         if self.fused_loop.upper() == "NEVER":
             raise not_ported("the host LM loop (fused_loop='NEVER')", 6)
         if self.use_inner_iterations:
             raise not_ported("inner iterations", 6)
-        if self.linear_solver_ordering is not None:
-            raise not_ported("a user linear_solver_ordering", 6)
-        if self.minimizer_progress_to_stdout:
-            raise not_ported("minimizer_progress_to_stdout", 6)
+        if self.callbacks:
+            raise not_ported("user IterationCallbacks (Options.callbacks)", 6)
+        if self.evaluation_callback is not None:
+            raise not_ported("an EvaluationCallback", 6)
+        if self.update_state_every_iteration:
+            raise not_ported("update_state_every_iteration", 6)

@@ -114,7 +114,7 @@ def build_point_plan(cam_idx, pt_idx, P: int, C: int, device=None) -> PointPlan:
     card unless device="cpu"."""
     dev = resolve_device(device)
     ci, pi = _host(cam_idx), _host(pt_idx)
-    return PointPlan(fo.build_row_plan(pi, ci, P, C, dev),
+    return PointPlan(fo.build_row_plan(pi, ci, P, C, dev, n_cams=C),
                      fo.build_segment_plan(pi, P, dev))
 
 

@@ -40,7 +40,11 @@ def _pick_linear_solver(options: Options, program: CompiledProgram,
     given = used = options.linear_solver_type
     e_fams = None
     if given in (LS.DENSE_SCHUR, LS.ITERATIVE_SCHUR):
-        e_fams = ordering_mod.eligible_e_sets(program) or None
+        if options.linear_solver_ordering is not None:
+            e_fams = ordering_mod.e_set_from_user_ordering(
+                program, options.linear_solver_ordering) or None
+        else:
+            e_fams = ordering_mod.eligible_e_sets(program) or None
         if e_fams:
             summary.schur_structure_given = summary.schur_structure_used = (
                 _schur_structure_string(program, e_fams))
@@ -78,6 +82,44 @@ def _schur_structure_string(program, e_fams) -> str:
     return f"{uniq(rows)},{uniq(e_sizes)},{uniq(f_sizes)}"
 
 
+def _solve_mixed(options: Options, problem: Problem, summary: Summary,
+                 t_start: float, device) -> Summary:
+    """evaluation_dtype="mixed" (solver.py:172-210): a float32 solve to its
+    own end, then up to mixed_precision_polish_iterations float64
+    iterations from its answer. The summary joins both phases: the first
+    one's initial cost and rows, then the second one's rows, steps and
+    result. The two phases share one iterate, the float32 answer, which
+    the JAX package's merged summary holds twice (as the float64 phase's
+    row 0, counted as a successful step again); here the merged rows and
+    step counts hold it once, and each phase keeps its own iteration
+    numbers."""
+    import dataclasses
+
+    s32 = solve(dataclasses.replace(options, evaluation_dtype="float32"), problem,
+                Summary(), device)
+    if not s32.is_solution_usable():
+        summary.__dict__.update(s32.__dict__)
+        return summary
+    polish = min(options.mixed_precision_polish_iterations, options.max_num_iterations)
+    s64 = solve(dataclasses.replace(options, evaluation_dtype="float64",
+                                    max_num_iterations=polish), problem, Summary(), device)
+    summary.__dict__.update(s64.__dict__)
+    summary.initial_cost = s32.initial_cost
+    summary.iterations = list(s32.iterations) + list(s64.iterations[1:])
+    # s64's row 0, the shared iterate, counted as a successful step there
+    summary.num_successful_steps = s32.num_successful_steps + s64.num_successful_steps - 1
+    summary.num_unsuccessful_steps = (s32.num_unsuccessful_steps
+                                      + s64.num_unsuccessful_steps)
+    summary.num_host_syncs = s32.num_host_syncs + s64.num_host_syncs
+    summary.minimizer_time_in_seconds = (s32.minimizer_time_in_seconds
+                                         + s64.minimizer_time_in_seconds)
+    summary.total_time_in_seconds = time.monotonic() - t_start
+    summary.message = (f"mixed-precision schedule: f32 phase "
+                       f"({len(s32.iterations)} its) + f64 polish "
+                       f"({len(s64.iterations)} its). " + s64.message)
+    return summary
+
+
 def solve(options: Options, problem: Problem, summary: Optional[Summary] = None,
           device=None) -> Summary:
     """ceres::Solve (solver.h:1119): minimizes, writes the solution back
@@ -93,6 +135,8 @@ def solve(options: Options, problem: Problem, summary: Optional[Summary] = None,
         summary.termination_type = TerminationType.FAILURE
         return summary
     options.check_supported()
+    if options.evaluation_dtype == "mixed":
+        return _solve_mixed(options, problem, summary, t_start, dev)
 
     summary.minimizer_type = options.minimizer_type
     summary.linear_solver_type_given = options.linear_solver_type
@@ -102,18 +146,27 @@ def solve(options: Options, problem: Problem, summary: Optional[Summary] = None,
     summary.num_parameters = problem.num_parameters()
     summary.num_residual_blocks = problem.num_residual_blocks()
     summary.num_residuals = problem.num_residuals()
+    summary.num_effective_parameters = sum(b.tangent_size
+                                           for b in problem.parameter_blocks())
     summary.device_kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                            else "cpu")
     summary.num_devices = 1
 
     program = CompiledProgram(problem, options.evaluation_dtype, device=dev)
     summary.fixed_cost = program.fixed_cost
+    summary.num_parameter_blocks_reduced = sum(f.count for f in program.families)
     summary.num_parameters_reduced = program.state_size
     summary.num_effective_parameters_reduced = program.tangent_size
+    summary.num_residual_blocks_reduced = sum(k.B for k in program.kinds)
     summary.num_residuals_reduced = program.num_residuals
+    summary.is_constrained = program.has_bounds()
 
     if program.num_residuals == 0 or program.tangent_size == 0:
-        summary.initial_cost = summary.final_cost = program.fixed_cost
+        # nothing to optimize (solver.py:270-281)
+        cost = program.fixed_cost
+        if program.num_residuals:
+            cost = float(program.evaluate_cost(program.initial_state()))
+        summary.initial_cost = summary.final_cost = cost
         summary.termination_type = TerminationType.CONVERGENCE
         summary.message = ("Function tolerance reached. No non-constant "
                            "parameter blocks found.")

@@ -27,9 +27,14 @@ the step is rejected. Semantics kept from the JAX body: LM diagonal
 clamping, model-cost validity, non-monotonic step evaluation, the radius
 rules (the dogleg ones and its mu under DOGLEG), the invalid-step bound,
 the gradient/function/parameter/radius tolerances and the termination
-taxonomy. The iterative steps (ITERATIVE_SCHUR, CGNR) add one sync per CG
-iteration (solvers/linear/cg.py), dogleg one per test of its Gauss-Newton
-point. Every sync is counted in `Summary.num_host_syncs`. A loop that
+taxonomy. A bounded program starts from x0 projected onto its box, masks
+the Jacobi scale of the coordinates held on a bound (the active set), and
+backtracks each step by a projected Armijo line search on cost-only
+evaluations (fused_lm.py:1358-1378, :1494-1528). The iterative steps
+(ITERATIVE_SCHUR, CGNR) add one sync per CG iteration
+(solvers/linear/cg.py), dogleg one per test of its Gauss-Newton point, the
+line search one per probe. Every sync is counted in
+`Summary.num_host_syncs`. A loop that
 stays on the device is ROADMAP.md port slice 4.
 """
 from __future__ import annotations
@@ -53,7 +58,8 @@ from ..types import (
     not_ported,
 )
 from .linear.cg import conjugate_gradients
-from .linear.dense import normal_cholesky_solve, qr_solve, reduced_solve
+from .linear.dense import (normal_cholesky_solve, normal_cholesky_solve_mixed,
+                           qr_solve, reduced_solve)
 
 _DBL_MAX = float(np.finfo(np.float64).max)
 
@@ -414,10 +420,15 @@ class FlatDenseSchurStepOps(_FlatStepOps):
     per-block K = L^{-1}, assemble A = K W densely (segment_spread_sum on
     rows sorted by the e-block) and S = scaled F'F + D_f^2 + the cross
     terms of two f-blocks of one residual - A'A, solve the reduced
-    system, back-substitute through A."""
+    system, back-substitute through A. With use_mixed_precision_solves
+    and a float64 evaluation, the system is assembled and factored in
+    float32 and the step refined in float64 through the flat products
+    (fused_lm.py:982-1020)."""
 
     def __init__(self, program, options: Options, e_families):
         super().__init__(program, e_families)
+        self.mixed = options.use_mixed_precision_solves
+        self.refine = max(1, options.max_num_refinement_iterations)
 
     def _scaled_K(self, ete, se, d2e):
         """Per e family K = L^{-1} of scaled E'E + D_e^2, (nv, t*t)."""
@@ -509,16 +520,42 @@ class FlatDenseSchurStepOps(_FlatStepOps):
                     S[p1.off:p1.off + p1.nv * p1.t] += rows[:p1.nv].reshape(-1, f_size)
         return K_e, A, S - A.T @ A
 
-    def compute_step(self, vrep: FlatForm, aux, g, scale_c, D2_c, fetch):
-        """(step, model cost change, linear iterations = 1) of
-        (J_s'J_s + D^2) y = -J_s'r (fused_lm.py:818-854, :1017-1027)."""
+    def _solve(self, K_e, A, S, b):
+        """y of (J_s'J_s + D^2) y = b through the eliminated system
+        (fused_lm.py:844-854)."""
         pm = self.pm
-        K_e, A, S = self._assemble(vrep, aux, scale_c, D2_c)
-        b = scale_c * g
         u_b = self._kmatvec(K_e, pt.extract_e(pm, b))
         z = reduced_solve(S, pt.extract_f(pm, b) - A.T @ u_b)
         y_e = self._kmatvec(K_e, u_b - A @ z, transpose=True)
-        step = -pt.combine(pm, y_e, z)
+        return pt.combine(pm, y_e, z)
+
+    def _normal64(self, vflat, scale_c, D2_c, v):
+        """(J_s'J_s + D^2) v through the flat products (fused_lm.py:1004-1010)."""
+        fl, pm = self.flat, self.pm
+        sv = scale_c * v
+        jv = fl.right_e(vflat, pt.extract_e(pm, sv)) + fl.right_f(vflat, pt.extract_f(pm, sv))
+        return scale_c * pt.combine(pm, fl.left_e(vflat, jv), fl.left_f(vflat, jv)) + D2_c * v
+
+    def compute_step(self, vrep: FlatForm, aux, g, scale_c, D2_c, fetch):
+        """(step, model cost change, linear iterations = 1) of
+        (J_s'J_s + D^2) y = -J_s'r (fused_lm.py:818-854, :982-1027)."""
+        b = scale_c * g
+        if self.mixed and g.dtype == torch.float64:
+            f32 = torch.float32
+            vrep32 = FlatForm(tuple(tuple(J.to(f32) for J in jacs) for jacs in vrep.vflat),
+                              vrep.r.to(f32))
+            aux32 = tuple([blk.to(f32) for blk in part] for part in aux)
+            factors = self._assemble(vrep32, aux32, scale_c.to(f32), D2_c.to(f32))
+
+            def solve(rhs):
+                return self._solve(*factors, rhs.to(f32)).to(torch.float64)
+
+            y = solve(b)
+            for _ in range(self.refine):
+                y = y + solve(b - self._normal64(vrep.vflat, scale_c, D2_c, y))
+        else:
+            y = self._solve(*self._assemble(vrep, aux, scale_c, D2_c), b)
+        step = -y
         # exact-solve identity: -m(d) = -1/2 g_s'd + 1/2 d'D^2 d
         return step, -0.5 * torch.dot(b, step) + 0.5 * torch.dot(D2_c * step, step), 1
 
@@ -581,12 +618,21 @@ class DenseStepOps:
     """The dense-Jacobian step, DENSE_QR or DENSE_NORMAL_CHOLESKY
     (fused_lm.py:1100-1139): J assembled densely in float64 at each
     evaluation, the scaled system solved by torch.linalg as the JAX
-    package solves it outside any kernel."""
+    package solves it outside any kernel; DENSE_NORMAL_CHOLESKY with
+    use_mixed_precision_solves factors in float32 and refines in float64
+    (solvers/linear/dense.normal_cholesky_solve_mixed)."""
 
     def __init__(self, program, options: Options, tier: str):
         self.program = program
         self.solve = {"dense_qr": qr_solve,
                       "dense_normal_cholesky": normal_cholesky_solve}[tier]
+        if tier == "dense_normal_cholesky" and options.use_mixed_precision_solves:
+            steps = max(1, options.max_num_refinement_iterations)
+
+            def solve(J, r, D):
+                return normal_cholesky_solve_mixed(J, r, D, refinement_steps=steps)
+
+            self.solve = solve
 
     def evaluate(self, x):
         """(cost f64 0-d, DenseForm) at state x."""
@@ -775,6 +821,58 @@ class FusedTrustRegionMinimizer:
         summary.num_host_syncs += 1
         return torch.stack([s.to(torch.float64).reshape(()) for s in scalars]).tolist()
 
+    def _active_mask(self):
+        """For a bounded program, mask(x, g): 0 on the tangent coordinates
+        that sit on a bound with the gradient pushing outward, else 1
+        (fused_lm.py:1368-1378); None without bounds."""
+        program = self.program
+        if not program.has_bounds():
+            return None
+        tmap_np, lo_np, hi_np = program.tangent_box()
+        dev = program.device
+        tmap = torch.as_tensor(tmap_np, device=dev)
+        lo, hi = torch.as_tensor(lo_np, device=dev), torch.as_tensor(hi_np, device=dev)
+        boxed = tmap >= 0
+        take = torch.clamp(tmap, min=0)
+
+        def mask(x, g):
+            xv = torch.where(boxed, x[take], torch.zeros_like(lo))
+            g64 = g.to(torch.float64)
+            active = boxed & (((xv <= lo) & (g64 > 0.0)) | ((xv >= hi) & (g64 < 0.0)))
+            return torch.where(active, 0.0, 1.0).to(torch.float64)
+
+        return mask
+
+    def _line_search(self, x, cost, g, delta, valid_t, summary: Summary):
+        """The projected Armijo backtracking of a bounded step
+        (fused_lm.py:1494-1528): the step scale halves from 1 until the
+        cost of the projected point satisfies Armijo's condition, the
+        scale falls under min_line_search_step_size or the probes run
+        out; the scale kept is the last Armijo one or the best probe's,
+        1 if none was finite and better. Each probe is a cost-only
+        evaluation and one host sync, whose first also reads whether the
+        step is valid (an invalid step skips the search)."""
+        opts, program = self.options, self.program
+        slope_t = torch.dot(g.to(torch.float64), delta)
+        sdec = opts.line_search_sufficient_function_decrease
+        ss, best_s, best_c = 1.0, -1.0, cost
+        for i in range(int(opts.max_num_line_search_step_size_iterations)):
+            probe_t = program.evaluate_cost(program.plus(x, ss * delta))
+            if i == 0:
+                valid, slope, probe = self._fetch(summary, valid_t, slope_t, probe_t)
+                if valid == 0.0:
+                    break
+            else:
+                (probe,) = self._fetch(summary, probe_t)
+            finite = np.isfinite(probe)
+            armijo = finite and probe <= cost + sdec * ss * slope
+            if armijo or (finite and probe < best_c):
+                best_s, best_c = ss, probe
+            ss *= 0.5
+            if armijo or ss < opts.min_line_search_step_size:
+                break
+        return (best_s if best_s > 0.0 else 1.0) * delta
+
     def minimize(self, x0: torch.Tensor, summary: Summary) -> torch.Tensor:
         opts, ops = self.options, self.ops
         cdt = self.program.compute_dtype
@@ -782,6 +880,11 @@ class FusedTrustRegionMinimizer:
         min_d, max_d = opts.min_lm_diagonal, opts.max_lm_diagonal
         max_steps = (opts.max_consecutive_nonmonotonic_steps
                      if opts.use_nonmonotonic_steps else 0)
+        active_mask = self._active_mask()
+        if active_mask is not None:
+            # project x0 onto the box (fused_lm.py:1358-1366)
+            x0 = self.program.plus(x0, torch.zeros(self.program.tangent_size,
+                                                   dtype=torch.float64, device=x0.device))
 
         cost_t, vrep = ops.evaluate(x0)
         g, sqn_c, aux = ops.post_eval(vrep)
@@ -806,7 +909,7 @@ class FusedTrustRegionMinimizer:
         rows = [IterationSummary(
             iteration=0, cost=cost, gradient_norm=gnorm, gradient_max_norm=gmax,
             trust_region_radius=radius, step_is_valid=True,
-            step_is_successful=True, linear_solver_iterations=0)]
+            step_is_successful=True, linear_solver_iterations=0, eta=opts.eta)]
         x = x0
         decrease_factor = 2.0
         dogleg = getattr(ops, "strategy", "lm") == "dogleg"
@@ -821,23 +924,31 @@ class FusedTrustRegionMinimizer:
             it += 1
             # -- the step (levenberg_marquardt_strategy.cc:69-120, or
             # -- dogleg_strategy.cc, fused_lm.py:1468-1475) -----------------
-            diag = torch.clamp(scale * scale * sqn, min_d, max_d)
+            if active_mask is not None:
+                escale = scale * active_mask(x, g)
+                escale_c = escale.to(cdt)
+            else:
+                escale, escale_c = scale, scale_c
+            diag = torch.clamp(escale * escale * sqn, min_d, max_d)
 
             def fetch(*sc):
                 return self._fetch(summary, *sc)
 
             if dogleg:
                 step, mcc_c, lin_iters, dl_norm_t, mu_new = ops.compute_dogleg_step(
-                    vrep, aux, g, scale_c, diag, radius, mu, fetch)
+                    vrep, aux, g, escale_c, diag, radius, mu, fetch)
                 extra = (dl_norm_t,)
             else:
                 D2_c = (diag / radius).to(cdt)
-                step, mcc_c, lin_iters = ops.compute_step(vrep, aux, g, scale_c, D2_c,
+                step, mcc_c, lin_iters = ops.compute_step(vrep, aux, g, escale_c, D2_c,
                                                           fetch)
                 extra = ()
             mcc_t = mcc_c.to(torch.float64)
             valid_t = torch.isfinite(step).all() & (mcc_t > 0.0)
-            cand_x = self.program.plus(x, step.to(torch.float64) * scale)
+            delta = step.to(torch.float64) * escale
+            if active_mask is not None and opts.max_num_line_search_step_size_iterations > 0:
+                delta = self._line_search(x, cost, g, delta, valid_t, summary)
+            cand_x = self.program.plus(x, delta)
             cand_cost_t, cand_vrep = ops.evaluate(cand_x)
             cand_g, cand_sqn, cand_aux = ops.post_eval(cand_vrep)
             cgnorm_t, cgmax_t = _grad_norms(self.program, cand_x, cand_g)
@@ -915,7 +1026,7 @@ class FusedTrustRegionMinimizer:
                 step_norm=step_norm if valid else 0.0,
                 relative_decrease=rel_dec if valid else 0.0,
                 trust_region_radius=radius_new, linear_solver_iterations=lin_iters,
-                step_is_valid=valid, step_is_successful=success))
+                step_is_valid=valid, step_is_successful=success, eta=opts.eta))
             radius, decrease_factor = radius_new, decrease_new
             if dogleg:
                 if success:
@@ -945,6 +1056,11 @@ class FusedTrustRegionMinimizer:
         summary.num_linear_solves = n_it
         summary.num_jacobian_evaluations += n_it + 1
         summary.num_residual_evaluations += n_it + 1
+        if opts.minimizer_progress_to_stdout:  # fused_lm.py:1762-1766
+            from ..callbacks import trust_region_log_line
+
+            for row in rows:
+                print(trust_region_log_line(row))
         last = rows[n_it]
         if term == _INIT_FAILURE:
             summary.message = "Initial residual and Jacobian evaluation failed."
@@ -994,8 +1110,8 @@ def build_fused_minimizer(program, options: Options, tier: str, e_families=None)
     (fused_lm.py:1921-1963): CGNR ("bsr"), DENSE_QR ("dense_qr"),
     DENSE_NORMAL_CHOLESKY ("dense_normal_cholesky"), or a Schur tier, its
     jt step for a program the jt path takes under Levenberg-Marquardt, its
-    flat step for any other program and under DOGLEG (which leaves the jt
-    path, fused_lm.py:294-298, :633-636). DOGLEG wraps an exact step; on
+    flat step for any other program, under DOGLEG and with mixed-precision
+    solves (which leave the jt path, fused_lm.py:294-298, :628-636). DOGLEG wraps an exact step; on
     an iterative tier, where the JAX package takes its host loop, it
     raises."""
     dogleg = options.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG
@@ -1008,7 +1124,8 @@ def build_fused_minimizer(program, options: Options, tier: str, e_families=None)
     elif tier in _STEP_OPS:
         jt_ops, flat_ops = _STEP_OPS[tier]
         pm = pt.build_partition(bsr.build_meta(program), e_families)
-        cls = jt_ops if not dogleg and fo.jt_refusal(pm, program) is None else flat_ops
+        cls = (jt_ops if not dogleg and fo.jt_refusal(pm, program, options) is None
+               else flat_ops)
         ops = cls(program, options, e_families)
     else:
         raise NotImplementedError(f"fused tier {tier!r} is not ported")

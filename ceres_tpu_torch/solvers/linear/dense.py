@@ -18,8 +18,6 @@ from __future__ import annotations
 
 import torch
 
-from ...types import not_ported
-
 
 def cholesky_lower(S: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of S, all NaN where S is not positive
@@ -67,6 +65,21 @@ def normal_cholesky_solve(J: torch.Tensor, r: torch.Tensor,
     return torch.cholesky_solve((J.T @ r)[:, None], L, upper=False)[:, 0]
 
 
-def normal_cholesky_solve_mixed(J, r, D, refinement_steps: int = 3):
-    """The float32 factor with float64 refinement (dense.py:42)."""
-    raise not_ported("mixed-precision dense solves", 5)
+def normal_cholesky_solve_mixed(J: torch.Tensor, r: torch.Tensor, D: torch.Tensor,
+                                refinement_steps: int = 3) -> torch.Tensor:
+    """DENSE_NORMAL_CHOLESKY in mixed precision (dense.py:42-62, the
+    RefinedDenseCholesky of dense_cholesky.h:198-249): J'J + D'D formed in
+    float64, factored in float32, and `refinement_steps` passes of float64
+    iterative refinement through the float32 factor."""
+    A = J.T @ J + torch.diag(D * D)
+    rhs = J.T @ r
+    L32 = cholesky_lower(A.to(torch.float32))
+
+    def solve32(b):
+        return torch.cholesky_solve(b.to(torch.float32)[:, None], L32,
+                                    upper=False)[:, 0].to(torch.float64)
+
+    y = solve32(rhs)
+    for _ in range(refinement_steps):
+        y = y + solve32(rhs - A @ y)
+    return y

@@ -3,8 +3,9 @@
 Same fields and report for what the port fills, plus `num_host_syncs`:
 the LM loop waits for the device once per iteration (and once before the
 first), the iterative-Schur step once more per CG iteration, and each
-wait is counted here. `linear_solver_iterations` of a row is its CG
-iteration count (1 for the dense-Schur step).
+wait is counted here, with one per probe of a bounded problem's line
+search. `linear_solver_iterations` of a row is its CG iteration count (1
+for the dense-Schur step).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from .types import (
 class IterationSummary:
     iteration: int = 0
     step_is_valid: bool = False
+    step_is_nonmonotonic: bool = False
     step_is_successful: bool = False
     cost: float = 0.0
     cost_change: float = 0.0
@@ -32,7 +34,15 @@ class IterationSummary:
     step_norm: float = 0.0
     relative_decrease: float = 0.0
     trust_region_radius: float = 0.0
+    eta: float = 0.0
+    step_size: float = 0.0
+    line_search_function_evaluations: int = 0
+    line_search_gradient_evaluations: int = 0
+    line_search_iterations: int = 0
     linear_solver_iterations: int = 0
+    iteration_time_in_seconds: float = 0.0
+    step_solver_time_in_seconds: float = 0.0
+    cumulative_time_in_seconds: float = 0.0
 
 
 @dataclasses.dataclass
@@ -59,11 +69,15 @@ class Summary:
 
     num_parameter_blocks: int = 0
     num_parameters: int = 0
+    num_effective_parameters: int = 0
     num_residual_blocks: int = 0
     num_residuals: int = 0
+    num_parameter_blocks_reduced: int = 0
     num_parameters_reduced: int = 0
     num_effective_parameters_reduced: int = 0
+    num_residual_blocks_reduced: int = 0
     num_residuals_reduced: int = 0
+    is_constrained: bool = False
 
     linear_solver_type_given: Optional[LinearSolverType] = None
     linear_solver_type_used: Optional[LinearSolverType] = None

@@ -1,6 +1,7 @@
 """Public enums of the slice (counterpart of ceres_tpu/types.py).
 
-Only the enums that the trust-region paths of the port read.
+Only the enums that the trust-region paths, the cost functions and the
+callbacks of the port read.
 Names and members match the JAX package, so options written for one
 package read the same in the other.
 """
@@ -66,14 +67,27 @@ class TerminationType(_StrEnum):
     USER_FAILURE = enum.auto()
 
 
+class CallbackReturnType(_StrEnum):
+    SOLVER_CONTINUE = enum.auto()
+    SOLVER_ABORT = enum.auto()
+    SOLVER_TERMINATE_SUCCESSFULLY = enum.auto()
+
+
+class NumericDiffMethodType(_StrEnum):
+    CENTRAL = enum.auto()
+    FORWARD = enum.auto()
+    RIDDERS = enum.auto()
+
+
 # Later slices of the port, as ROADMAP.md numbers them. Features outside
 # this slice raise NotImplementedError naming the slice that brings them.
 LATER_SLICES = {
     4: "a device-resident LM loop (CUDA graphs)",
-    5: 'evaluation_dtype="mixed" and mixed-precision solves',
-    6: "the sparse linear solvers, the remaining preconditioners, the host LM "
-       "loop, dogleg on the iterative solvers, line search, bounds, inner "
-       "iterations, user orderings and the rest of the modeling API",
+    6: "the host LM loop with user IterationCallbacks, EvaluationCallbacks "
+       "and update_state_every_iteration, the sparse linear solvers, the "
+       "remaining preconditioners, dogleg on the iterative solvers, line "
+       "search, inner iterations, SphereManifold, LineManifold and "
+       "AutoDiffManifold, and unsorted rows",
     9: "multi-device: the mesh half of parallel/sharded_ba.py, parallel/mesh.py "
        "and parallel/sharded_program.py",
 }

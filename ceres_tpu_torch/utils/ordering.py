@@ -6,7 +6,7 @@ residual kind has two slots inside it; for BA this picks the points.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional, Sequence
 
 
 def eligible_e_sets(program) -> List[int]:
@@ -35,3 +35,32 @@ def eligible_e_sets(program) -> List[int]:
                        key=lambda fi: families[fi].num_var * families[fi].tsize)
         chosen.discard(smallest)
     return sorted(chosen)
+
+
+def e_set_from_user_ordering(program, ordering: Sequence[Sequence]) -> Optional[List[int]]:
+    """The e-family set of a user ordering (ordering.py:120-157): group 0
+    is eliminated, and must cover whole families. An entry is a parameter
+    array (an individual block) or a ParameterBlockArray handle, which
+    covers its family. None for an ordering of fewer than two groups."""
+    if not ordering or len(ordering) < 2:
+        return None
+    arr_to_fam = {id(f.array): fi for fi, f in enumerate(program.families)
+                  if f.array is not None}
+    ids = set()
+    chosen_blocks = set()
+    for values in ordering[0]:
+        fi = arr_to_fam.get(id(values))
+        if fi is not None:
+            ids.add(fi)
+            continue
+        blk = program.problem.parameter_block_for(values)
+        ids.add(program._block_pos[id(blk)][0])
+        chosen_blocks.add(id(blk))
+    for fi in ids:
+        fam = program.families[fi]
+        if fam.array is not None:
+            continue
+        if any(id(b) not in chosen_blocks for b in fam.blocks[:fam.num_var]):
+            raise ValueError("linear_solver_ordering group 0 must cover whole "
+                             "(size, manifold) families")
+    return sorted(ids)

@@ -45,7 +45,14 @@ Venice shape in float32; CGNR on libmv16 through the flat chain, card
 against CPU; DENSE_SCHUR with TRADITIONAL and SUBSPACE dogleg on BAL-16
 against the JAX package's answers (scripts/dogleg16_golden.py); and the
 More-Garbow-Hillstrom corpus with DENSE_QR and DENSE_NORMAL_CHOLESKY on
-the card (17 of 19), against the same solves on the CPU.
+the card (17 of 19), against the same solves on the CPU. And the paths of
+the modeling API (modeling_phase), against the JAX
+package's answers (scripts/modeling16_golden.py): gauge-fixed BAL-16 built
+one block at a time (a constant camera, the row plan's sentinel, through
+rows 1-4b), box-bounded BAL-16, evaluation_dtype="mixed", mixed-precision
+solves, libmv16 with constant intrinsics, a user ordering, and the nine
+constrained MGH problems; with rows 1-4b, 6, 7 and 9 held against their
+plain versions and timed at the sentinel inputs.
 
     python3 chip_smoke.py
 
@@ -113,6 +120,63 @@ LIBMV16_CGNR_CARD_VS_CPU_ITERATIONS = 10
 # of 1e4 every step is the Gauss-Newton point, so the two agree)
 DOGLEG16_GOLDEN = {"TRADITIONAL_DOGLEG": 52121.22854470117,
                    "SUBSPACE_DOGLEG": 52121.22854470117}
+# scripts/modeling16_golden.py: the JAX package's answers on the paths of
+# the modeling phase, (final cost, summary rows), on the CPU with the fused
+# loop: (a) BAL-16 built one block at a time, camera 0 constant; (b)
+# BAL-16 with a box on the points, per coordinate the 5th to 95th
+# percentile of the start (BOX_PERCENTILES), float32 run to convergence
+# (BOX_F32_TO_CONVERGENCE, the golden's "_converged" line); (c)
+# evaluation_dtype="mixed";
+# (d) use_mixed_precision_solves; (e) libmv16 with constant intrinsics;
+# (f) the user ordering [[points], [cameras]]. Its float32 solves are held
+# to their own answers; its mixed schedule's rows hold the shared iterate
+# twice (the port's once)
+MODELING16_GOLDEN = {
+    "bal16_gauge_dense_f64": (51931.99114668563, 22),
+    "bal16_gauge_dense_f32": (51932.0, 23),
+    "bal16_gauge_iterative_f64": (52312.799713299595, 14),
+    "bal16_gauge_iterative_f32": (52312.66015625, 49),
+    "bal16_bounds_dense_f64": (52026.880074942426, 32),
+    "bal16_bounds_dense_f32": (51931.51171875, 70),
+    "bal16_mixed_dense": (51931.100523447356, 19),
+    "bal16_mixed_iterative": (51931.14477628934, 26),
+    "bal16_mixed_solves_dense_f64": (51931.10068292243, 17),
+    "libmv16_const_intrinsics_dense_f64": (51911.15182028923, 19),
+    "libmv16_const_intrinsics_iterative_f64": (51911.257333382135, 22),
+    "bal16_ordering_dense_f64": (51931.10068031216, 17),
+}
+# the coordinates of the box-bounded answer on a bound in the JAX package's
+# float64 and float32 solves (141 and 160 of 66,318: under 1%); the float64
+# count is gated, the float32 one only logged: which coordinates a float32
+# solve leaves exactly on a bound follows its rounding
+BOUNDS16_ON_BOUND = {"float64": 141, "float32": 160}
+BOX_PERCENTILES = (5.0, 95.0)
+# the float32 box-bounded solve runs to convergence: with the default
+# options it stops on the function tolerance while its cost still falls by
+# ~1e-6 a row, at a place that follows float32 rounding (the port's and the
+# JAX package's part by 6.5e-5 there, scripts/bounds16_f32_witness.py)
+BOX_F32_TO_CONVERGENCE = dict(function_tolerance=1e-12, max_num_iterations=200)
+# the JAX package's 2 * final cost of each constrained MGH problem (all
+# nine solved by the reference's 4-digit criterion), per dense solver
+MGH_CONSTRAINED_GOLDEN = {
+    "DENSE_QR": {3: 1.5125936724383832e-10, 4: 783.999999295184, 5: 0.0,
+                 7: 0.9904221209613995, 9: 1.127932769618641e-08,
+                 12: 3.099815343228943e-06, 14: 1.5567008004385652,
+                 16: 88860.47976750063, 18: 0.0005320986590782367},
+    "DENSE_NORMAL_CHOLESKY": {3: 1.5125936724383832e-10, 4: 783.999999295184, 5: 0.0,
+                              7: 0.9904221209613995, 9: 1.127932769618641e-08,
+                              12: 3.0998153432288427e-06, 14: 1.5567008004385652,
+                              16: 88860.4797675009, 18: 0.0005320986590782369},
+    "DENSE_NORMAL_CHOLESKY_mixed": {3: 1.5125936724382232e-10, 4: 783.999999295184,
+                                    5: 0.0, 7: 0.9904221209613995,
+                                    9: 1.127932769618641e-08,
+                                    12: 3.0998153432290727e-06,
+                                    14: 1.5567008004385652, 16: 88860.47976750093,
+                                    18: 0.0005320986590782357},
+}
+# the card against the CPU on the modeling paths, cut in depth: a BAL-16
+# DENSE_SCHUR LM iteration takes seconds on the card's host
+MODELING_CARD_VS_CPU_ITERATIONS = 4
 # the MGH problems that miss the optimum at trial 0, in both packages: #2
 # stops at the local minimum 48.98, #16 crawls (tests/test_mgh.py:10-17)
 MGH_MISSES = (2, 16)
@@ -181,19 +245,27 @@ ROW_PATH = {"1": "bal16_dense_f64", "1L": "bal16_huber_dense_f64",
             "8J": "specialized_v1_f64", "9": "libmv16_dense_f64"}
 # a row's other shapes, and its further cases (case, key suffix[, their
 # own shapes])
-ROW_VARIANTS = {"1": ["venice"], "1L": ["venice"], "1Q": ["venice"], "2": ["venice"],
-                "3": ["c120"], "4": ["venice"], "4b": ["venice"], "6": ["libmv_venice"],
+ROW_VARIANTS = {"1": ["venice", "bal16_gauge"], "1L": ["venice"], "1Q": ["venice"],
+                "2": ["venice", "bal16_gauge"], "3": ["c120", "bal16_gauge"],
+                "3b": ["bal16_gauge"], "4": ["venice", "bal16_gauge"],
+                "4b": ["venice", "bal16_gauge"], "6": ["libmv_venice"],
                 "7": ["libmv_venice"], "9": ["libmv_venice"]}
 # (rows 6 and 9 also at the widths each CG iteration of the flat
 # ITERATIVE_SCHUR step sums: w = 3 over the points, w = 8 over libmv's one
 # intrinsics key, w = 6 over the cameras)
 # (row 4 also at the inputs of BAL-16 CGNR's first CG iteration)
+# (rows 1, 2, 3, 3b, 4 and 4b also at gauge-fixed BAL-16's, camera 0
+# constant: the row plan's sentinel; rows 6, 7 and 9 at its camera slot's
+# flat plan, whose sentinel key takes camera 0's rows)
 ROW_CASES = {"4": [("normal_matvec_cgnr", "_cgnr", ["bal16"])],
              "6": [("segment_block_sum_one_key", "_one_key"),
                    ("segment_block_sum_w3", "_w3"),
-                   ("segment_block_sum_one_key_w8", "_one_key_w8")],
-             "7": [(f"segment_block_expand_t{t}", f"_t{t}") for t in (3, 8, 9)],
-             "9": [("unsorted_segment_sum_w6", "_w6")]}
+                   ("segment_block_sum_one_key_w8", "_one_key_w8"),
+                   ("segment_block_sum_sentinel", "_sentinel", ["bal16_gauge"])],
+             "7": [(f"segment_block_expand_t{t}", f"_t{t}") for t in (3, 8, 9)]
+             + [("segment_block_expand_sentinel", "_sentinel", ["bal16_gauge"])],
+             "9": [("unsorted_segment_sum_w6", "_w6"),
+                   ("unsorted_segment_sum_sentinel", "_sentinel", ["bal16_gauge"])]}
 # why no single PyTorch call computes each kernel's function
 NO_LIBRARY_CALL = {
     "eval_fused": "no PyTorch call evaluates a residual and its Jacobian",
@@ -275,6 +347,9 @@ CASES = {"eval_fused": "eval_fused", "post_eval_fused": "post_eval_fused",
          "segment_block_sum_one_key_w8": "segment_block_sum",
          "unsorted_segment_sum": "unsorted_segment_sum",
          "unsorted_segment_sum_w6": "unsorted_segment_sum",
+         "unsorted_segment_sum_sentinel": "unsorted_segment_sum",
+         "segment_block_sum_sentinel": "segment_block_sum",
+         "segment_block_expand_sentinel": "segment_block_expand",
          "segment_block_expand": "segment_block_expand",
          **{f"segment_block_expand_t{t}": "segment_block_expand" for t in (3, 8, 9)},
          "segment_spread_sum": "segment_spread_sum",
@@ -355,6 +430,75 @@ def libmv_venice():
 
     b = bal.synthetic_bal_large(**VENICE)
     return libmv_instance(b, bal.perturb(b, **VENICE_PERTURB))
+
+
+def gauge_fixed_problem(bal, b, constant=(0,)):
+    """Path (a) of the modeling phase: the BAL arrays of b (copied: a solve
+    writes into them) built one block at a time (bal.build_problem), the
+    cameras numbered in `constant` held constant (the gauge). Returns
+    (problem, camera blocks, point blocks)."""
+    p, cams, pts = bal.build_problem(bal.from_arrays(
+        b.cameras, b.points, b.camera_index, b.point_index, b.observations))
+    for c in constant:
+        p.set_parameter_block_constant(cams[c])
+    return p, cams, pts
+
+
+def sentinel_cases(dtype, device, constant=(0,), num_cameras=6, num_points=120):
+    """Each kernel's arguments at a small gauge-fixed BAL problem built one
+    block at a time (gauge_fixed_problem, the cameras in `constant` held
+    constant): rows 1, 2, 3, 3b, 4 and 4b at its row plan, whose sentinel
+    (camera ids C and above) holds those cameras' rows, with random
+    camera and point operands; rows 6, 7 and 9 at its camera slot's flat
+    plan, whose sentinel key C takes them (9 over the rows as they lie, 6
+    over them sorted by camera, 7 gathering a table with its zero last
+    row). tests/test_torch_kernels_emulated.py, tests/test_torch_cuda.py
+    and scripts/sentinel_asan.py run them."""
+    from ceres_tpu_torch.models import bal
+    from ceres_tpu_torch.ops import flatops as fo
+    from ceres_tpu_torch.ops import kernels as kn
+    from ceres_tpu_torch.program import CompiledProgram
+    from ceres_tpu_torch.solvers.fused_lm import DenseSchurStepOps, FlatDenseSchurStepOps
+    import ceres_tpu_torch as ctt
+
+    b = bal.perturb(bal.synthetic_bal(num_cameras=num_cameras, num_points=num_points,
+                                      visibility=0.5, seed=4), 0.01, 0.05, 0.05, seed=1)
+    prog = CompiledProgram(gauge_fixed_problem(bal, b, constant)[0], dtype, device=device)
+    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR)
+    ops = DenseSchurStepOps(prog, opts, [1])
+    plan, q, dt = ops.flat.plan, ops._jt_qual, prog.compute_dtype
+    x = prog.initial_state()
+    cams = prog.family_table(x, q.fam_f).to(dt).contiguous()
+    pts = prog.family_table(x, q.fam_e).to(dt).contiguous()
+    _, rT, JT = kn.eval_fused_plain(cams, pts, prog.kinds[0].data, plan, q.rows_fn)
+    rng = np.random.default_rng(0)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.uniform(0.5, 1.5, shape)).to(device, dt)
+
+    P, C = plan.P, plan.C
+    A = rand(P, 3, 3)
+    minv = (A @ A.transpose(1, 2)).reshape(P, 9).contiguous()
+    pcam = FlatDenseSchurStepOps(prog, opts, [1]).flat.plans_f[0][0]
+    local = pcam.local.cpu().numpy()
+    order = np.argsort(local, kind="stable")
+    rows = torch.as_tensor(rng.standard_normal((local.shape[0], 99))).to(device, dt)
+    return {
+        "eval_fused": (cams, pts, prog.kinds[0].data, plan, q.rows_fn),
+        "post_eval_fused": (JT, rT, plan),
+        "schur_assembly": (JT, rand(C, 9), rand(P, 3),
+                           torch.tril(rand(P, 3, 3)).reshape(P, 9).contiguous(),
+                           rand(P, 3), plan),
+        "normal_matvec": (JT, rand(C, 9), rand(P, 3), plan),
+        "isc_matvec": (JT, rand(C, 9), minv, plan, True),
+        "schur_jacobi_blocks": (JT, rand(P, 3), minv, plan),
+        "unsorted_segment_sum": (rows, pcam.seg),
+        "segment_block_sum": (rows[torch.as_tensor(order, device=rows.device)].contiguous(),
+                              fo.build_segment_plan(local[order], pcam.nv + 1, device)),
+        "segment_block_expand": (torch.cat([rand(C, 9), torch.zeros((1, 9), dtype=dt,
+                                                                    device=device)]),
+                                 pcam.local),
+    }
 
 
 def fresh(lp):
@@ -775,12 +919,14 @@ def main():
     paths = {}
 
     def drive(path, opts, problem, device=None, flat=False, variant="eval_fused",
-              kernels=None):
+              kernels=None, extra_evaluations=0):
         """One main-path run with the counts set to 0 just before it and
         read just after; `flat` for a program of the flat path; on the jt
         path `variant` is the eval_fused wrapper of the program's model and
         loss, launched exactly once per summary row (the first evaluation
-        and one per LM iteration), the other variants never. `kernels`, if
+        and one per LM iteration) and `extra_evaluations` more (the mixed
+        schedule's float64 phase re-evaluates the iterate the two phases
+        share, which its summary holds once), the other variants never. `kernels`, if
         given, are the path's kernels (each launched at least once per LM
         iteration, every other kernel never, normal_matvec at least once per
         CG iteration)."""
@@ -819,9 +965,10 @@ def main():
                 kernels = tuple(variant if k == "eval_fused" else k for k in (
                     ITERATIVE_PATH if opts.linear_solver_type == IS else DENSE_PATH))
                 others = set(FLAT_DENSE_PATH) | set(EVAL_VARIANTS) - {variant}
-                check(launches[variant] == len(s.iterations),
+                n_eval = len(s.iterations) + extra_evaluations
+                check(launches[variant] == n_eval,
                       f"{path}: {variant} launched {launches[variant]} times for "
-                      f"{len(s.iterations)} evaluations")
+                      f"{n_eval} evaluations")
             check(n_it >= 1 and all(launches[k] >= n_it for k in kernels),
                   f"{path}: a kernel of the path launched fewer than once per "
                   f"iteration: {launches}")
@@ -1078,6 +1225,11 @@ def main():
     cgnr_dogleg_mgh_phase(ctt, bal, libmv, kn, dev, card, paths, drive,
                           card_against_cpu, check_and_time, lp16, ulp16)
 
+    # -- the modeling API ------------------------------------------------------
+    log("phase", f"the modeling API from {time.monotonic() - t_start:.1f} s")
+    modeling_phase(ctt, bal, libmv, kn, dev, card, paths, drive, check_and_time,
+                   kernel_inputs, b16, lp16, rng)
+
     # -- the Venice shape ------------------------------------------------------
     log("phase", f"the Venice shape from {time.monotonic() - t_start:.1f} s")
     t0 = time.monotonic()
@@ -1191,7 +1343,8 @@ def main():
     for shp in ("libmv16", "libmv_venice"):
         for dtn in ("float64", "float32"):
             parts = []
-            for case in ["segment_block_expand"] + [c for c, _ in ROW_CASES["7"]]:
+            for case in ["segment_block_expand"] + [c for c, _, *own in ROW_CASES["7"]
+                                                    if not own]:
                 tm = timings[(case, shp, dtn)]
                 parts.append(f"{case}: {tm['ms']:.4f} ms, index_select "
                              f"{tm['library_ms']:.4f} ms ({tm['ms'] / tm['library_ms']:.2f}x), "
@@ -1442,6 +1595,251 @@ def cgnr_dogleg_mgh_phase(ctt, bal, libmv, kn, dev, card, paths, drive,
             f"{card_s:.1f} s on the card ({1e3 * card_s / max(rows, 1):.3f} ms a row), "
             f"{cpu_s:.1f} s on the CPU; {card}")
         check(misses == list(MGH_MISSES), f"{path}: misses {misses}")
+        check(all(v == 0 for v in launches.values()) and all(
+            v == 0 for v in plain_calls.values()), f"{path}: a kernel ran: {launches}")
+
+
+def modeling_phase(ctt, bal, libmv, kn, dev, card, paths, drive, check_and_time,
+                   kernel_inputs, b16, lp16, rng):
+    """The modeling API's paths on the card, each against the JAX package's
+    answer (scripts/modeling16_golden.py, MODELING16_GOLDEN; float64 within
+    1e-6, float32 within 1e-5 of its own dtype's): (a) BAL-16 built one
+    block at a time with camera 0 constant, DENSE_SCHUR and ITERATIVE_SCHUR
+    in both dtypes, the jt path with the sentinel camera; (b) BAL-16 with a
+    box on the points, DENSE_SCHUR in both dtypes: every point inside the
+    box, the float64 answer with as many coordinates on a bound as the JAX
+    one; (c) evaluation_dtype="mixed", DENSE_SCHUR and ITERATIVE_SCHUR;
+    (d) use_mixed_precision_solves, DENSE_SCHUR (the flat path); (e)
+    libmv16 with constant intrinsics, DENSE_SCHUR and ITERATIVE_SCHUR (the
+    flat path, the constant family in no plan); (f) the user ordering
+    [[points], [cameras]], the rows of the default ordering bit for bit;
+    (g) the nine constrained MGH problems with DENSE_QR,
+    DENSE_NORMAL_CHOLESKY and that with mixed solves, on the card and the
+    CPU. (a), (b) and (e) also on the CPU for MODELING_CARD_VS_CPU_ITERATIONS
+    rows: the same rows, each cost within 1e-9. First, rows 1, 2, 3, 3b, 4
+    and 4b at gauge-fixed BAL-16's first-iteration inputs, and rows 6, 7
+    and 9 at its camera slot's flat plan (the sentinel key), against their
+    plain versions, timed. Also the per-block build's time beside the
+    batched one's."""
+    from ceres_tpu_torch.models import mgh
+    from ceres_tpu_torch.ops import flatops as fo
+    from ceres_tpu_torch.ops import partition as pt
+    from ceres_tpu_torch.program import CompiledProgram
+    from ceres_tpu_torch.solver import _pick_linear_solver
+    from ceres_tpu_torch.solvers.fused_lm import FlatDenseSchurStepOps
+    from ceres_tpu_torch.summary import Summary
+
+    DS = ctt.LinearSolverType.DENSE_SCHUR
+    IS = ctt.LinearSolverType.ITERATIVE_SCHUR
+    SJ = ctt.PreconditionerType.SCHUR_JACOBI
+
+    # -- the per-block build of BAL-16 beside the batched one ---------------------
+    t0 = time.monotonic()
+    gauge16 = gauge_fixed_problem(bal, b16)[0]
+    t_block = time.monotonic() - t0
+    t0 = time.monotonic()
+    CompiledProgram(gauge16, device=dev)
+    t_block_compile = time.monotonic() - t0
+    t0 = time.monotonic()
+    batched16 = bal.build_problem_batched(bal.from_arrays(
+        b16.cameras, b16.points, b16.camera_index, b16.point_index, b16.observations))[0]
+    t_batched = time.monotonic() - t0
+    t0 = time.monotonic()
+    CompiledProgram(batched16, device=dev)
+    t_batched_compile = time.monotonic() - t0
+    log("build bal16", f"one block at a time: {gauge16.num_residual_blocks()} residual "
+        f"blocks in {t_block:.3f} s, compiled in {t_block_compile:.3f} s; batched: "
+        f"{t_batched:.4f} s, compiled in {t_batched_compile:.3f} s (host); {card}")
+    del gauge16, batched16
+
+    # -- rows 1-4b at the sentinel camera, 6, 7 and 9 at the sentinel key ---------
+    for dtn in ("float64", "float32"):
+        prog = CompiledProgram(gauge_fixed_problem(bal, b16)[0], dtn, device=dev)
+        opts = ctt.Options(linear_solver_type=DS)
+        args = kernel_inputs(prog, opts, True, rng)
+        plan = args["post_eval_fused"][2]
+        check(plan.n_cams == plan.C + 1 and int((plan.cam_pos < 0).sum()) > 0,
+              "gauge-fixed BAL-16: no sentinel camera in the row plan")
+        check_and_time("bal16_gauge", dtn, {k: args[k] for k in (
+            "eval_fused", "post_eval_fused", "schur_assembly", "normal_matvec",
+            "isc_matvec", "schur_jacobi_blocks")}, 100, 10)
+        _, e_fams = _pick_linear_solver(opts, prog, Summary())
+        ops = FlatDenseSchurStepOps(prog, opts, e_fams)
+        fl = ops.flat
+        pcam = fl.plans_f[0][0]
+        _, vrep = ops.evaluate(prog.initial_state())
+        g, sqn, aux = ops.post_eval(vrep)
+        contrib = fl.post_contrib(fl._jac(vrep.vflat, 0, pcam), fl._rows(vrep.r, 0))
+        local = pcam.local.cpu().numpy()
+        order = np.argsort(local, kind="stable")
+        srt = fo.build_segment_plan(local[order], pcam.nv + 1, dev)
+        scale_c = (1.0 / (1.0 + torch.sqrt(sqn.to(torch.float64)))).to(prog.compute_dtype)
+        sf = pt.extract_f(ops.pm, scale_c)[:pcam.nv * pcam.t].reshape(pcam.nv, pcam.t)
+        table = torch.cat([sf, sf.new_zeros((1, pcam.t))])
+        check(int((pcam.local == pcam.nv).sum()) > 0,
+              "gauge-fixed BAL-16: no sentinel key in the camera slot's plan")
+        check_and_time("bal16_gauge", dtn, {
+            "unsorted_segment_sum_sentinel": (contrib, pcam.seg),
+            "segment_block_sum_sentinel": (
+                contrib[torch.as_tensor(order, device=dev)].contiguous(), srt),
+            "segment_block_expand_sentinel": (table, pcam.local)}, 100, 10)
+        del prog, args, ops, vrep, aux, contrib
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def gate(path, s, dtn, extra=""):
+        golden, rows = MODELING16_GOLDEN[path]
+        gap = (s.final_cost - golden) / golden
+        limit = 1e-6 if dtn == "float64" else 1e-5
+        paths[path]["gap_to_golden"] = gap
+        check(s.termination_type == ctt.TerminationType.CONVERGENCE,
+              f"{path}: did not converge: {s.message}")
+        check(abs(gap) <= limit, f"{path}: final cost off the JAX package's by {gap:.3e}")
+        log(f"solve {path}", f"final cost {s.final_cost!r} in {len(s.iterations)} rows "
+            f"(the JAX package's: {golden!r} in {rows}), relative gap {gap:.3e} (limit "
+            f"{limit:.0e}); {paths[path]['host_syncs']} host syncs; "
+            f"{paths[path]['ms_per_iteration']:.3f} ms per LM iteration{extra}; {card}")
+
+    def card_vs_cpu(path, opts, problem_fn, **kw):
+        """The same solve cut to MODELING_CARD_VS_CPU_ITERATIONS rows on the
+        card (through drive) and the CPU: the same rows and CG counts, each
+        cost within 1e-9."""
+        opts = dataclasses.replace(opts, max_num_iterations=MODELING_CARD_VS_CPU_ITERATIONS)
+        s_card, _ = drive(path, opts, problem_fn(), **kw)
+        t0 = time.monotonic()
+        s_cpu = ctt.solve(opts, problem_fn(), device="cpu")
+        cpu_s = time.monotonic() - t0
+        rows_card = [(r.linear_solver_iterations, r.cost) for r in s_card.iterations]
+        rows_cpu = [(r.linear_solver_iterations, r.cost) for r in s_cpu.iterations]
+        gaps = [abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(rows_card, rows_cpu)]
+        paths[path].update(cpu_rows=rows_cpu, relative_cost_gaps_to_cpu=gaps, cpu_s=cpu_s)
+        log(f"{path}", f"card rows {rows_card}; cpu rows {rows_cpu} ({cpu_s:.1f} s); "
+            f"relative cost gap per row {', '.join(f'{g:.3e}' for g in gaps)} (limit "
+            f"1e-9); {card}")
+        check(len(rows_card) == len(rows_cpu)
+              and [a[0] for a in rows_card] == [b[0] for b in rows_cpu],
+              f"{path}: card and CPU rows or CG counts differ")
+        check(all(g <= 1e-9 for g in gaps), f"{path}: card and CPU costs differ: {gaps}")
+
+    # -- (a) gauge-fixed BAL-16, built one block at a time --------------------------
+    for lst, name in ((DS, "dense"), (IS, "iterative")):
+        for dtn in ("float64", "float32"):
+            path = f"bal16_gauge_{name}_{TAG[dtn]}"
+            s, _ = drive(path, ctt.Options(linear_solver_type=lst, preconditioner_type=SJ,
+                                           evaluation_dtype=dtn),
+                         gauge_fixed_problem(bal, b16)[0])
+            gate(path, s, dtn, f"; {s.num_effective_parameters_reduced} tangent "
+                 f"coordinates")
+    card_vs_cpu("bal16_gauge_dense_f64_card_vs_cpu", ctt.Options(linear_solver_type=DS),
+                lambda: gauge_fixed_problem(bal, b16)[0])
+
+    # -- (b) box-bounded BAL-16 ----------------------------------------------------
+    lo, hi = (np.percentile(b16.points, q, axis=0) for q in BOX_PERCENTILES)
+    clipped = float(np.mean((b16.points < lo) | (b16.points > hi)))
+
+    def bounded_problem():
+        p, _, pts = bal.build_problem_batched(bal.from_arrays(
+            b16.cameras, b16.points, b16.camera_index, b16.point_index, b16.observations))
+        p.set_parameter_block_array_bounds(p.parameter_block_arrays()[1], lower=lo,
+                                           upper=hi)
+        return p, pts
+
+    for dtn in ("float64", "float32"):
+        path = f"bal16_bounds_dense_{TAG[dtn]}"
+        p, pts = bounded_problem()
+        s, res = drive(path, ctt.Options(
+            linear_solver_type=DS, evaluation_dtype=dtn,
+            **(BOX_F32_TO_CONVERGENCE if dtn == "float32" else {})), p)
+        inside = bool(np.all((pts >= lo) & (pts <= hi)))
+        on = int(np.sum((pts == lo) | (pts == hi)))
+        res.update(inside_box=inside, on_bound=on, clipped_at_start=clipped,
+                   is_constrained=s.is_constrained)
+        gate(path, s, dtn, f"; start clipped {clipped:.4f} of the point coordinates, "
+             f"answer on a bound {on} (the JAX package's {BOUNDS16_ON_BOUND[dtn]}), every "
+             f"point inside the box {inside}")
+        check(inside and s.is_constrained, f"{path}: a point left its box")
+        check(dtn == "float32" or on == BOUNDS16_ON_BOUND[dtn],
+              f"{path}: {on} coordinates on a bound, the JAX package {BOUNDS16_ON_BOUND[dtn]}")
+    card_vs_cpu("bal16_bounds_dense_f64_card_vs_cpu", ctt.Options(linear_solver_type=DS),
+                lambda: bounded_problem()[0])
+
+    # -- (c) evaluation_dtype="mixed" ---------------------------------------------
+    for lst, name in ((DS, "dense"), (IS, "iterative")):
+        path = f"bal16_mixed_{name}"
+        s, res = drive(path, ctt.Options(linear_solver_type=lst, preconditioner_type=SJ,
+                                         evaluation_dtype="mixed"),
+                       bal.build_problem_batched(bal.bal16())[0], extra_evaluations=1)
+        res["phases"] = re.findall(r"\((\d+) its\)", s.message)
+        gate(path, s, "float64", f"; {s.message[:60]}")
+
+    # -- (d) mixed-precision solves: the flat dense-Schur step ------------------------
+    path = "bal16_mixed_solves_dense_f64"
+    s, _ = drive(path, ctt.Options(linear_solver_type=DS, use_mixed_precision_solves=True),
+                 bal.build_problem_batched(bal.bal16())[0], flat=True)
+    gate(path, s, "float64")
+
+    # -- (e) libmv16 with constant intrinsics ------------------------------------------
+    for lst, name in ((DS, "dense"), (IS, "iterative")):
+        path = f"libmv16_const_intrinsics_{name}_f64"
+        problem, _, _, intr = libmv.build_problem(fresh(lp16), refine_intrinsics=False)
+        before = intr.copy()
+        s, _ = drive(path, ctt.Options(linear_solver_type=lst, preconditioner_type=SJ),
+                     problem, flat=True)
+        gate(path, s, "float64", f"; structure {s.schur_structure_used}")
+        check(np.array_equal(intr, before), f"{path}: the constant intrinsics moved")
+    card_vs_cpu("libmv16_const_intrinsics_dense_f64_card_vs_cpu",
+                ctt.Options(linear_solver_type=DS),
+                lambda: libmv.build_problem(fresh(lp16), refine_intrinsics=False)[0],
+                flat=True)
+
+    # -- (f) the user ordering -----------------------------------------------------
+    path = "bal16_ordering_dense_f64"
+    p = bal.build_problem_batched(bal.bal16())[0]
+    arrays = p.parameter_block_arrays()
+    s, _ = drive(path, ctt.Options(linear_solver_type=DS,
+                                   linear_solver_ordering=[[arrays[1]], [arrays[0]]]), p)
+    default = ctt.solve(ctt.Options(linear_solver_type=DS),
+                        bal.build_problem_batched(bal.bal16())[0])
+    same = [r.cost for r in s.iterations] == [r.cost for r in default.iterations]
+    gate(path, s, "float64", f"; the rows of the default ordering bit for bit {same}")
+    check(same, f"{path}: the rows differ from the default ordering's")
+
+    # -- (g) the constrained MGH problems, on the card and the CPU --------------------
+    for config, golden in MGH_CONSTRAINED_GOLDEN.items():
+        lst = config.split("_mixed")[0]
+        over = {"linear_solver_type": ctt.LinearSolverType[lst],
+                "use_mixed_precision_solves": config.endswith("_mixed")}
+        path = "mgh_constrained_" + config.lower()
+        kn.reset_counts()
+        t0 = time.monotonic()
+        card_runs = {n: mgh.solve_problem(next(p for p in mgh.PROBLEMS if p.number == n),
+                                          True, options_overrides=over, device=dev)
+                     for n in golden}
+        torch.cuda.synchronize()
+        card_s = time.monotonic() - t0
+        launches, plain_calls = counts(kn)
+        cpu_runs = {n: mgh.solve_problem(next(p for p in mgh.PROBLEMS if p.number == n),
+                                         True, options_overrides=over, device="cpu")
+                    for n in golden}
+        gaps = {}
+        for n, want in golden.items():
+            ok, achieved, s = card_runs[n]
+            ok_cpu, achieved_cpu, _ = cpu_runs[n]
+            gaps[n] = (abs(achieved - want) / want if want else achieved,
+                       abs(achieved - achieved_cpu) / abs(achieved_cpu)
+                       if achieved_cpu else achieved)
+            check(ok and ok_cpu and s.is_constrained, f"{path} #{n}: not solved")
+            check(gaps[n][0] <= 1e-8 and gaps[n][1] <= 1e-8,
+                  f"{path} #{n}: 2 * final cost {achieved!r} against the JAX package's "
+                  f"{want!r} and the CPU's {achieved_cpu!r}")
+        rows = sum(len(s.iterations) for _, _, s in card_runs.values())
+        paths[path] = {"achieved": {n: a for n, (_, a, _) in card_runs.items()},
+                       "gaps_to_golden_and_cpu": gaps, "card_s": card_s,
+                       "summary_rows": rows, "launches": launches,
+                       "plain_calls": plain_calls}
+        log(f"solve {path}", f"all nine solved; relative gaps to the JAX package's 2 * "
+            f"final cost and to the CPU's by problem (for a zero optimum the value) "
+            f"{json.dumps(gaps)}; {rows} summary rows in {card_s:.1f} s on the card; {card}")
         check(all(v == 0 for v in launches.values()) and all(
             v == 0 for v in plain_calls.values()), f"{path}: a kernel ran: {launches}")
 
@@ -2114,8 +2512,11 @@ def work(case, args):
         JT, sc, sp, K, u = args[:5]
         es = JT.element_size()
         byts = nbytes(JT, sc, sp, K, u) + idx + es * ((9 * C) ** 2 + 81 * C + 9 * C)
-        m = torch.diff(plan.pt_start.long())
-        NP = int(torch.sum(m * m))  # ordered row pairs of a point, a == b too
+        # ordered pairs of a point's rows of variable cameras, a == b too (a
+        # constant camera's rows, the sentinel, form no pair)
+        m = torch.zeros(P, dtype=torch.long, device=plan.pt_idx.device).index_add_(
+            0, plan.pt_idx.long(), (plan.cam_idx < C).long())
+        NP = int(torch.sum(m * m))
         # per row: scaling 24, W 108, Y 162, FtF (45 of 81) 180, U 54;
         # Y_a'Y_b once per unordered pair a != b, 45 of 81 entries for a == b
         return byts, 528 * B + 486 * (NP - B) // 2 + 270 * B

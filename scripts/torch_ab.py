@@ -216,7 +216,8 @@ def child(tree: Path, kernels_only: bool, only_eval_spread: bool) -> None:
                         ("venice", bal.synthetic_bal_large(**cs.VENICE), 20)):
         order = np.argsort(b.point_index, kind="stable")
         plan = fo.build_row_plan(b.point_index[order], b.camera_index[order],
-                                 b.num_points, b.num_cameras, "cuda")
+                                 b.num_points, b.num_cameras, "cuda",
+                                 n_cams=b.num_cameras)
         gen = torch.Generator(device="cuda").manual_seed(0)
         for dt in (torch.float64, torch.float32):
             JT = torch.randn((kn.LANES, plan.B), generator=gen, device="cuda", dtype=dt)

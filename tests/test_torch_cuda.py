@@ -214,7 +214,7 @@ def _isc_long_inputs(card, dtype, emit_u):
     pt = np.repeat(np.arange(P), counts)
     B = pt.shape[0]
     cam = np.where(rng.uniform(size=B) < 0.85, 0, rng.integers(1, C, B))
-    plan = fo.build_row_plan(pt, cam, P, C, card)
+    plan = fo.build_row_plan(pt, cam, P, C, card, n_cams=C)
     assert len(plan.cam_levels) == 2
     dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
     JT = torch.as_tensor(rng.standard_normal((kn.LANES, B)), device=card).to(dt)
@@ -257,7 +257,7 @@ def _point_block_inputs(card, name, dtype):
     pt = np.repeat(np.arange(P), counts)
     B = pt.shape[0]
     cam = np.where(rng.uniform(size=B) < 0.85, 0, rng.integers(1, C, B))
-    plan = fo.build_row_plan(pt, cam, P, C, card)
+    plan = fo.build_row_plan(pt, cam, P, C, card, n_cams=C)
     assert len(plan.cam_levels) == 3 and len(plan.run_levels) == 2
     assert B % kn.POINT_BLOCK
     dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
@@ -804,3 +804,128 @@ def test_mgh_dense_solve_on_card_matches_cpu(card, lst, number):
         assert out < 1e-20 and ref < 1e-20
     else:
         assert out == pytest.approx(ref, rel=1e-8)
+
+
+@pytest.mark.parametrize("constant", [(0,), (2, 5)])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_kernels_with_a_constant_camera_on_card(card, dtype, constant):
+    """Rows 1, 2, 3, 3b, 4, 4b at a plan with constant cameras (the
+    sentinel), rows 6, 7 and 9 at the sentinel key
+    (chip_smoke.sentinel_cases), kernel against plain version on the card:
+    1e-11 [1e-4] of each output's largest entry, by the working dtype
+    (eval_fused's cost is a float64 sum in both), the gather exactly."""
+    import chip_smoke
+
+    limit_dt = REL_LIMIT[getattr(torch, dtype)]
+    for name, args in chip_smoke.sentinel_cases(dtype, card, constant).items():
+        kn.reset_counts()
+        out = chip_smoke.as_tuple(getattr(kn, name)(*args))
+        ref = chip_smoke.as_tuple(getattr(kn, name + "_plain")(*args))
+        assert getattr(kn, name).launches == 1, name
+        for o, r in zip(out, ref):
+            if r is None:
+                continue
+            err = (o.double() - r.double()).abs().max().item()
+            limit = 0.0 if name == "segment_block_expand" else limit_dt
+            assert err <= limit * r.double().abs().max().item(), name
+
+
+@pytest.mark.parametrize("lst", ["DENSE_SCHUR", "ITERATIVE_SCHUR"])
+def test_gauge_fixed_solve_on_card_matches_cpu(card, lst):
+    """BA built one block at a time with camera 0 constant, on the card's
+    jt kernels and on the CPU: the same rows and CG counts, each cost to
+    1e-9 relative; the constant camera unchanged."""
+    import chip_smoke
+
+    b = small_bal()
+    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType[lst], max_num_iterations=8)
+    ref = ctt.solve(opts, chip_smoke.gauge_fixed_problem(tbal, b)[0], device="cpu")
+    p, cams, _ = chip_smoke.gauge_fixed_problem(tbal, b)
+    before = cams[0].copy()
+    kn.reset_counts()
+    out = ctt.solve(opts, p)
+    assert kn.eval_fused.launches == len(out.iterations)
+    assert ([r.linear_solver_iterations for r in out.iterations]
+            == [r.linear_solver_iterations for r in ref.iterations])
+    for a, c in zip(ref.iterations, out.iterations):
+        assert c.cost == pytest.approx(a.cost, rel=1e-9)
+    np.testing.assert_array_equal(cams[0], before)
+
+
+def test_bounded_solve_on_card_matches_cpu(card):
+    """BA with a box on the points (5th to 95th percentile of the start):
+    the same rows on the card and the CPU, each cost to 1e-9 relative, and
+    every point inside the box."""
+    b = small_bal()
+    lo, hi = (np.percentile(b.points, q, axis=0) for q in (5.0, 95.0))
+
+    def problem():
+        p, _, pts = tbal.build_problem_batched(tbal.from_arrays(
+            b.cameras, b.points, b.camera_index, b.point_index, b.observations))
+        p.set_parameter_block_array_bounds(p.parameter_block_arrays()[1], lower=lo,
+                                           upper=hi)
+        return p, pts
+
+    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
+                       max_num_iterations=10)
+    ref = ctt.solve(opts, problem()[0], device="cpu")
+    p, pts = problem()
+    out = ctt.solve(opts, p)
+    assert len(out.iterations) == len(ref.iterations)
+    for a, c in zip(ref.iterations, out.iterations):
+        assert c.cost == pytest.approx(a.cost, rel=1e-9)
+    assert np.all(pts >= lo) and np.all(pts <= hi)
+
+
+@pytest.mark.parametrize("number", [7, 14])
+def test_constrained_mgh_on_card_matches_cpu(card, number):
+    """Constrained MGH #7 and #14 with DENSE_NORMAL_CHOLESKY and mixed
+    solves on the card and the CPU: both solved, 2 * final cost within
+    1e-8 relative; no kernel runs."""
+    from ceres_tpu_torch.models import mgh
+
+    over = {"linear_solver_type": ctt.LinearSolverType.DENSE_NORMAL_CHOLESKY,
+            "use_mixed_precision_solves": True}
+    p = mgh.PROBLEMS[number - 1]
+    ok_ref, ref, _ = mgh.solve_problem(p, True, options_overrides=over, device="cpu")
+    kn.reset_counts()
+    ok, out, s = mgh.solve_problem(p, True, options_overrides=over)
+    assert ok and ok_ref and s.is_constrained
+    assert all(k.launches == 0 and k.plain_calls == 0 for k in kn.KERNELS)
+    assert out == pytest.approx(ref, rel=1e-8)
+
+
+def test_problem_evaluation_on_card_matches_cpu(card):
+    """Problem.evaluate (dense and CRS) and evaluate_residual_block with
+    no device argument run on the card: autodiff with a loss, central
+    differences and a normal prior, each output within 1e-12 of the
+    CPU's."""
+    from ceres_tpu_torch.cost_function import (
+        AutoDiffCostFunction,
+        NormalPrior,
+        NumericDiffCostFunction,
+    )
+
+    def f(x, y):
+        return torch.stack([x[0] * y[1] - 1.0, torch.sin(x[1]) + y[0], x[0] + x[1] * y[1]])
+
+    p = ctt.Problem()
+    x, y = np.asarray([0.5, -1.5]), np.asarray([2.0, 0.25])
+    blocks = [p.add_residual_block(AutoDiffCostFunction(f, 3, [2, 2]), ctt.CauchyLoss(0.5),
+                                   [x, y]),
+              p.add_residual_block(NumericDiffCostFunction(f, 3, [2, 2]), None, [y, x]),
+              p.add_residual_block(NormalPrior(np.eye(2) * 3.0, np.ones(2)), None, [y])]
+    for rb in blocks:
+        on_card, on_cpu = p.evaluate_residual_block(rb), p.evaluate_residual_block(
+            rb, device="cpu")
+        assert on_card[0] == pytest.approx(on_cpu[0], rel=1e-12)
+        np.testing.assert_allclose(on_card[1], on_cpu[1], rtol=1e-12, atol=1e-14)
+        for a, c in zip(on_card[2], on_cpu[2]):
+            np.testing.assert_allclose(a, c, rtol=1e-12, atol=1e-14)
+    card_out = p.evaluate(residuals=True, gradient=True, jacobian=True)
+    cpu_out = p.evaluate(residuals=True, gradient=True, jacobian=True, device="cpu")
+    assert card_out[0] == pytest.approx(cpu_out[0], rel=1e-12)
+    for a, c in zip(card_out[1:], cpu_out[1:]):
+        np.testing.assert_allclose(a, c, rtol=1e-12, atol=1e-14)
+    crs_card = p.evaluate(jacobian=True, jacobian_format="crs")[1]
+    np.testing.assert_allclose(crs_card.to_dense(), cpu_out[3], rtol=1e-12, atol=1e-14)

@@ -76,13 +76,6 @@ def test_normal_cholesky_of_a_singular_system_is_nan():
     assert torch.isnan(y).all()
 
 
-def test_mixed_precision_dense_solve_names_slice_5():
-    p = systems()["random"]
-    with pytest.raises(NotImplementedError, match="port slice 5"):
-        tdense.normal_cholesky_solve_mixed(torch.as_tensor(p.J), torch.as_tensor(p.b),
-                                           torch.as_tensor(p.D))
-
-
 def _bal():
     return jbal.perturb(jbal.synthetic_bal(num_cameras=5, num_points=40, visibility=0.6,
                                            seed=2), 0.01, 0.05, 0.05, seed=1)

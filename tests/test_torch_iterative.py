@@ -128,7 +128,7 @@ def test_kernel_suite_folds_the_jacobi_scales(schur_setup):
 
 
 def _port_plan_and_jt(Jf, Je, pt, cam, P, C):
-    plan = fo.build_row_plan(pt, cam, P, C, "cpu")
+    plan = fo.build_row_plan(pt, cam, P, C, "cpu", n_cams=C)
     B = pt.shape[0]
     JT = np.concatenate([Jf.transpose(1, 2, 0).reshape(18, B),
                          Je.transpose(1, 2, 0).reshape(6, B)])

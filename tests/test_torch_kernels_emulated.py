@@ -386,7 +386,7 @@ def _spread_ftf_inputs(dtype, C, B, counts=None, seed=None):
         pt = np.repeat(np.arange(P), counts)
         B = pt.shape[0]
     cam = rng.integers(0, C + 1, B)
-    rows = fo.build_row_plan(pt, cam, P, C + 1, "cpu")
+    rows = fo.build_row_plan(pt, cam, P, C + 1, "cpu", n_cams=C + 1)
     plan = dataclasses.replace(rows, C=C,
                                run_level_first=rows.run_level_first[:C + 1].contiguous())
     Y = torch.as_tensor(rng.standard_normal((B, 27))).to(dt)
@@ -505,7 +505,7 @@ def _isc_long_inputs(dtype, emit_u):
 
     dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
     pt, cam, P, C = _structure("long_track")
-    plan = fo.build_row_plan(pt, cam, P, C, "cpu")
+    plan = fo.build_row_plan(pt, cam, P, C, "cpu", n_cams=C)
     assert len(plan.cam_levels) == 2 and int(np.bincount(cam)[0]) > kn.CHUNK ** 2
     rng = np.random.default_rng(11)
     JT = torch.as_tensor(rng.standard_normal((kn.LANES, pt.shape[0]))).to(dt)
@@ -575,7 +575,7 @@ def _point_block_inputs(name, dtype, structure="long_tracks"):
 
     dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
     pt, cam, P, C = _structure(structure)
-    plan = fo.build_row_plan(pt, cam, P, C, "cpu")
+    plan = fo.build_row_plan(pt, cam, P, C, "cpu", n_cams=C)
     rng = np.random.default_rng(13)
     B = pt.shape[0]
     JT = torch.as_tensor(rng.standard_normal((kn.LANES, B))).to(dt)
@@ -653,7 +653,7 @@ def _schur_jacobi_inputs(dtype):
 
     dt = {"float64": torch.float64, "float32": torch.float32}[dtype]
     pt, cam, P, C = _structure("long_tracks")
-    plan = fo.build_row_plan(pt, cam, P, C, "cpu")
+    plan = fo.build_row_plan(pt, cam, P, C, "cpu", n_cams=C)
     rng = np.random.default_rng(19)
     JT = torch.as_tensor(rng.standard_normal((kn.LANES, pt.shape[0]))).to(dt)
     se = torch.as_tensor(rng.uniform(0.5, 1.5, (P, 3))).to(dt)
@@ -674,7 +674,7 @@ def _schur_assembly_inputs(dtype, C, counts, seed=2):
     P = counts.shape[0]
     pt = np.repeat(np.arange(P), counts)
     B = pt.shape[0]
-    plan = fo.build_row_plan(pt, rng.integers(0, C, B), P, C, "cpu")
+    plan = fo.build_row_plan(pt, rng.integers(0, C, B), P, C, "cpu", n_cams=C)
 
     def rand(*shape):
         return torch.as_tensor(rng.uniform(0.5, 1.5, shape)).to(dt)
@@ -888,3 +888,34 @@ def test_emulated_unsorted_segment_sum_deep_trees(kernel_path_small_chunk, dtype
     plan = fo.build_segment_plan(ids, 31, "cpu")
     assert len(plan.level_starts) == 5
     _run_and_hold(kernel_path_small_chunk, "unsorted_segment_sum", (x, plan))
+
+
+@pytest.mark.parametrize("constant", [(0,), (2, 5)])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("name", ["eval_fused", "post_eval_fused", "schur_assembly",
+                                  "normal_matvec", "isc_matvec", "schur_jacobi_blocks",
+                                  "unsorted_segment_sum", "segment_block_sum",
+                                  "segment_block_expand"])
+def test_emulated_kernels_with_a_constant_camera(kernel_path, name, dtype, constant):
+    """Rows 1, 2, 3, 3b, 4, 4b, 6, 7 and 9 at a plan with constant cameras
+    (the sentinel), against their plain versions, relative to each
+    output's largest entry: 1e-12 in float64, 1e-5 in float32; the gather
+    exactly. The plain versions are held to the sums with those rows out
+    of every camera sum in tests/test_torch_sentinel.py."""
+    import chip_smoke
+
+    args = chip_smoke.sentinel_cases(dtype, "cpu", constant)[name]
+    wrapper, plain = getattr(kn, name), getattr(kn, name + "_plain")
+    kn.reset_counts()
+    out = kernel_path(wrapper, *args)
+    ref = plain(*args)
+    assert wrapper.launches == 1 and wrapper.plain_calls == 0
+    if isinstance(out, torch.Tensor):
+        out, ref = (out,), (ref,)
+    for o, r in zip(out, ref):
+        if r is None:
+            continue
+        assert o.shape == r.shape
+        err = (o.double() - r.double()).abs().max().item()
+        limit = 0.0 if name == "segment_block_expand" else LIMIT[r.dtype]
+        assert err <= limit * r.double().abs().max().item()

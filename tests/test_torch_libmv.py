@@ -129,11 +129,6 @@ def test_read_libmv_file_matches_jax(tmp_path, big_endian):
     assert out.marker_cam.shape == (12,)
 
 
-def test_refine_intrinsics_false_raises_naming_slice_6():
-    with pytest.raises(NotImplementedError, match="port slice 6"):
-        tlibmv.build_problem(small_libmv(), refine_intrinsics=False)
-
-
 def test_schur_ordering_eliminates_the_points():
     """eligible_e_sets picks the points (P*3 > C*6 + 8) and leaves two f
     families, cameras and the intrinsics; the summary's structure is

@@ -90,11 +90,3 @@ def test_build_problem_returns_the_block_solve_writes():
                               max_num_iterations=200), prob, device="cpu")
     assert s.termination_type == ctt.TerminationType.CONVERGENCE
     np.testing.assert_allclose(x, [[1.0, 1.0]], rtol=1e-8)
-
-
-def test_constrained_mgh_names_slice_6():
-    """The constrained variants need bounds: port slice 6."""
-    with pytest.raises(NotImplementedError, match="port slice 6"):
-        tmgh.build_problem(tmgh.PROBLEMS[2], constrained=True)
-    with pytest.raises(NotImplementedError, match="port slice 6"):
-        tmgh.run_suite(constrained=True, device="cpu")

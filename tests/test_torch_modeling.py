@@ -138,7 +138,11 @@ _PT = ctt.PreconditionerType
           preconditioner_type=_PT.CLUSTER_JACOBI), 6),
     (dict(linear_solver_type=ctt.LinearSolverType.SPARSE_SCHUR), 6),
     (dict(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
-          evaluation_dtype="mixed"), 5),
+          callbacks=[lambda it: None]), 6),
+    (dict(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
+          evaluation_callback=object()), 6),
+    (dict(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
+          update_state_every_iteration=True), 6),
     (dict(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
           fused_loop="NEVER"), 6),
     (dict(linear_solver_type=_IS, preconditioner_type=_PT.CLUSTER_JACOBI), 6),
@@ -146,7 +150,6 @@ _PT = ctt.PreconditionerType
     (dict(linear_solver_type=_IS, preconditioner_type=_PT.SUBSET), 6),
     (dict(linear_solver_type=_IS, use_spse_initialization=True), 6),
     (dict(linear_solver_type=_IS, use_explicit_schur_complement=True), 6),
-    (dict(linear_solver_type=_IS, evaluation_dtype="mixed"), 5),
 ])
 def test_unported_options_raise_naming_the_slice(kw, slice_no):
     problem = tbal.build_problem_batched(tbal.from_arrays(*_arrays(small_bal())))[0]

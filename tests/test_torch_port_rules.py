@@ -89,6 +89,22 @@ def test_compiled_program_without_cpu_request_raises_when_no_card(monkeypatch):
     assert CompiledProgram(problem, device="cpu").device == torch.device("cpu")
 
 
+def test_problem_evaluation_without_cpu_request_raises_when_no_card(monkeypatch):
+    """Problem.evaluate and Problem.evaluate_residual_block run on the card
+    unless asked for the CPU."""
+    from ceres_tpu_torch.cost_function import AutoDiffCostFunction
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    problem = ctt.Problem()
+    rb = problem.add_residual_block(AutoDiffCostFunction(lambda x: x - 1.0, 2, [2]),
+                                    None, [np.asarray([3.0, 0.0])])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        problem.evaluate()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        problem.evaluate_residual_block(rb)
+    assert problem.evaluate_residual_block(rb, device="cpu")[0] == 2.5
+
+
 def test_kernel_wrapper_given_cuda_tensors_does_not_run_the_plain_version(
         monkeypatch):
     """Fake CUDA tensors stand in for a card: the wrapper goes to its kernel
@@ -212,7 +228,7 @@ def test_kernel_wrapper_checks_its_inputs():
 
     order = np.argsort(b.point_index, kind="stable")
     plan = build_row_plan(b.point_index[order], b.camera_index[order],
-                          b.num_points, b.num_cameras, "cpu")
+                          b.num_points, b.num_cameras, "cpu", n_cams=b.num_cameras)
     assert kn._on_cpu(torch.zeros(1))
     with pytest.raises(ValueError, match="no kernel for device"):
         kn._on_cpu(torch.zeros(1, device="meta"))

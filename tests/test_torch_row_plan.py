@@ -40,7 +40,7 @@ _NAMES = ["long_track", "long_tracks", "venice_like"]
 @pytest.mark.parametrize("name", _NAMES)
 def test_cam_pos_is_the_inverse_of_cam_rows(name):
     pt, cam, P, C = _structure(name)
-    plan = fo.build_row_plan(pt, cam, P, C, "cpu")
+    plan = fo.build_row_plan(pt, cam, P, C, "cpu", n_cams=C)
     rows, pos = plan.cam_rows.numpy(), plan.cam_pos.numpy()
     B = pt.shape[0]
     assert np.array_equal(pos[rows], np.arange(B))
@@ -57,7 +57,7 @@ def test_point_blocks_cover_every_row_once_and_split_no_point(name):
     holds at most kn.POINT_BLOCK rows and points, or one point of more rows
     (the block that loops). Greedy: the next point would not have fit."""
     pt, cam, P, C = _structure(name)
-    plan = fo.build_row_plan(pt, cam, P, C, "cpu")
+    plan = fo.build_row_plan(pt, cam, P, C, "cpu", n_cams=C)
     blk, start = plan.pt_block.numpy().astype(np.int64), plan.pt_start.numpy()
     cap = kn.POINT_BLOCK
     assert blk[0] == 0 and blk[-1] == P and np.all(np.diff(blk) >= 1)
@@ -81,7 +81,7 @@ def test_camera_levels_sum_each_camera_in_a_fixed_tree(name):
     at most kn.CHUNK items of one camera; summing values through the levels
     and the last level's per-camera chunks gives each camera's sum."""
     pt, cam, P, C = _structure(name)
-    plan = fo.build_row_plan(pt, cam, P, C, "cpu")
+    plan = fo.build_row_plan(pt, cam, P, C, "cpu", n_cams=C)
     assert plan.cam_levels[0] is plan.cam_chunk_start
     assert plan.cam_level_sizes[0] == plan.cam_chunk_start.shape[0] - 1
     if name != "venice_like":
@@ -111,7 +111,7 @@ def test_camera_levels_host_arrays_are_built_once_and_follow_the_levels(name):
     import torch
 
     pt, cam, P, C = _structure(name)
-    plan = fo.build_row_plan(pt, cam, P, C, "cpu")
+    plan = fo.build_row_plan(pt, cam, P, C, "cpu", n_cams=C)
     levels = plan.cam_levels
     assert plan.cam_level_sizes == tuple(int(s.shape[0]) - 1 for s in levels)
     assert list(plan.cam_level_counts) == list(plan.cam_level_sizes)
@@ -147,7 +147,7 @@ def test_camera_runs_cover_every_row_once_by_tile_and_camera(name):
     within a camera); summing values through the run levels and the last
     level's per-camera chunks gives each camera's sum."""
     pt, cam, P, C = _structure(name)
-    plan = fo.build_row_plan(pt, cam, P, C, "cpu")
+    plan = fo.build_row_plan(pt, cam, P, C, "cpu", n_cams=C)
     B = pt.shape[0]
     t0, t1 = _tiles(plan)
     assert plan.n_tiles == t0.shape[0] and t1[-1] == B
@@ -198,7 +198,7 @@ def test_run_levels_host_arrays_are_built_once_and_follow_the_levels(name):
     import torch
 
     pt, cam, P, C = _structure(name)
-    plan = fo.build_row_plan(pt, cam, P, C, "cpu")
+    plan = fo.build_row_plan(pt, cam, P, C, "cpu", n_cams=C)
     levels = plan.run_levels
     assert plan.run_level_sizes == tuple(int(s.shape[0]) - 1 for s in levels)
     assert list(plan.run_level_counts) == list(plan.run_level_sizes)
@@ -322,7 +322,7 @@ def test_pair_plan_holds_each_unordered_pair_once_by_key(name):
     chunks of at most kn.CHUNK, and summing values through the levels and
     the last level's per-key chunks gives each key's sum."""
     pt, cam, P, C = _structure(name)
-    plan = fo.build_row_plan(pt, cam, P, C, "cpu")
+    plan = fo.build_row_plan(pt, cam, P, C, "cpu", n_cams=C)
     assert plan.pairs is None
     pairs = plan.ensure_pairs()
     assert plan.ensure_pairs() is pairs
@@ -363,7 +363,7 @@ def test_pair_levels_host_arrays_are_built_once_and_follow_the_levels():
     import torch
 
     pt, cam, P, C = _structure("long_track")
-    pairs = fo.build_row_plan(pt, cam, P, C, "cpu").ensure_pairs()
+    pairs = fo.build_row_plan(pt, cam, P, C, "cpu", n_cams=C).ensure_pairs()
     levels = pairs.pair_levels
     assert len(levels) == 2  # camera 0 holds ~130,000 pairs of the 600-row point
     assert pairs.pair_level_sizes == tuple(int(s.shape[0]) - 1 for s in levels)
