@@ -3,9 +3,12 @@
 The port's Problem takes parameter blocks one at a time or as arrays,
 held constant or bounded, with autodiff, analytic, numeric-diff,
 conditioned and normal-prior cost functions. It runs the public `solve()`
-in the fused-loop form with Levenberg-Marquardt over DENSE_SCHUR, ITERATIVE_SCHUR, CGNR, DENSE_QR or
-DENSE_NORMAL_CHOLESKY, and with DOGLEG (traditional or subspace) over the
-exact ones, through hand-written CUDA kernels (ops/kernels.py, csrc/): on
+with Levenberg-Marquardt over DENSE_SCHUR, ITERATIVE_SCHUR, CGNR, DENSE_QR
+or DENSE_NORMAL_CHOLESKY, and with DOGLEG (traditional or subspace) over
+the exact ones, in the fused loop or, as the JAX package picks it, the
+host loop with user IterationCallbacks, an EvaluationCallback,
+update_state_every_iteration, iteration dumps and a solve time limit,
+through hand-written CUDA kernels (ops/kernels.py, csrc/): on
 the fused jt path for BAL bundle adjustment (models/bal.py), angle-axis or
 quaternion cameras, with or without a robust loss; on the flat path for
 other programs such as the libmv bundle adjuster (models/libmv.py); the
@@ -38,11 +41,14 @@ from .loss import (
     TukeyLoss,
 )
 from .manifolds import (
+    AutoDiffManifold,
     EigenQuaternionManifold,
     EuclideanManifold,
+    LineManifold,
     Manifold,
     ProductManifold,
     QuaternionManifold,
+    SphereManifold,
     SubsetManifold,
 )
 from .options import Options
@@ -52,7 +58,9 @@ from .summary import IterationSummary, Summary
 from .types import (
     CallbackReturnType,
     DoglegType,
+    LinearSolverTerminationType,
     LinearSolverType,
+    LoggingType,
     MinimizerType,
     NumericDiffMethodType,
     PreconditionerType,
@@ -64,6 +72,7 @@ __all__ = [
     "AnalyticCostFunction",
     "ArctanLoss",
     "AutoDiffCostFunction",
+    "AutoDiffManifold",
     "CallbackReturnType",
     "CauchyLoss",
     "ComposedLoss",
@@ -76,8 +85,11 @@ __all__ = [
     "HuberLoss",
     "IterationCallback",
     "IterationSummary",
+    "LineManifold",
+    "LinearSolverTerminationType",
     "LinearSolverType",
     "LossFunction",
+    "LoggingType",
     "LossFunctionWrapper",
     "Manifold",
     "MinimizerType",
@@ -94,6 +106,7 @@ __all__ = [
     "ResidualBlock",
     "ScaledLoss",
     "SoftLOneLoss",
+    "SphereManifold",
     "SubsetManifold",
     "Summary",
     "TerminationType",

@@ -3,14 +3,18 @@ ceres_tpu/callbacks.py; iteration_callback.h:194, callbacks.cc:45-75).
 
 The fused loop prints `trust_region_log_line` for each row of the summary
 after the solve when Options.minimizer_progress_to_stdout is set, as the
-JAX fused loop does (fused_lm.py:1762-1766). User IterationCallbacks and
-EvaluationCallbacks run in the host loop, a later slice of the port:
-Options.callbacks and Options.evaluation_callback raise naming it.
+JAX fused loop does (fused_lm.py:1762-1766). The host loop
+(solvers/trust_region.py) calls `run_callbacks` on each row as it is
+made: the log line, the state written back into the problem's arrays
+under update_state_every_iteration, then the user IterationCallbacks in
+order; the EvaluationCallback runs before each Jacobian evaluation there.
 """
 from __future__ import annotations
 
-from .summary import IterationSummary
-from .types import CallbackReturnType
+from typing import Optional
+
+from .summary import IterationSummary, Summary
+from .types import CallbackReturnType, LoggingType, TerminationType
 
 
 class IterationCallback:
@@ -49,3 +53,35 @@ def line_search_log_line(s: IterationSummary) -> str:
         f"iter_time {s.iteration_time_in_seconds: .2e}  "
         f"total_time {s.cumulative_time_in_seconds: .2e}"
     )
+
+
+def run_callbacks(options, it_summary: IterationSummary, summary: Summary,
+                  program, x) -> Optional[TerminationType]:
+    """Logging, the state update and the user callbacks of one row
+    (minimizer.cc RunCallbacks, the JAX callbacks.py:54); the termination
+    type a callback asks for, else None. `x` is the solver state on the
+    device, read only to write it back."""
+    if (options.logging_type == LoggingType.PER_MINIMIZER_ITERATION
+            and options.minimizer_progress_to_stdout):
+        print(trust_region_log_line(it_summary))
+    if options.update_state_every_iteration:
+        program.write_state(x)
+    for cb in options.callbacks:
+        ret = cb(it_summary)
+        if program.problem.structure_version != program.structure_version:
+            # the reference leaves a mid-solve mutation undefined
+            # (problem.h: "may not modify the problem while Solve is
+            # running"); fail loudly rather than solve a stale structure
+            raise RuntimeError(
+                "Problem structure was modified during Solve() (inside an "
+                "IterationCallback). Mutating the problem mid-solve is not "
+                "supported: return SOLVER_TERMINATE_SUCCESSFULLY from the "
+                "callback, mutate, and call solve() again (the compiled "
+                "program is cached and rebuilt only on structural change).")
+        if ret == CallbackReturnType.SOLVER_ABORT:
+            summary.message = "User callback returned SOLVER_ABORT."
+            return TerminationType.USER_FAILURE
+        if ret == CallbackReturnType.SOLVER_TERMINATE_SUCCESSFULLY:
+            summary.message = "User callback returned SOLVER_TERMINATE_SUCCESSFULLY."
+            return TerminationType.USER_SUCCESS
+    return None

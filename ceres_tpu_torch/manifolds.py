@@ -7,8 +7,10 @@ and their products. Each acts on one block: `plus`, `minus` and their
 Jacobians take single (ambient,) and (tangent,) vectors, and batch under
 torch.func.vmap. `plus_jacobian_columns_rows` gives the PlusJacobian's
 columns for many blocks at once, in the transposed row form (ambient,
-rows) that the JAX fused kernel feeds as jvp tangents. Sphere, Line and
-AutoDiffManifold are ROADMAP.md port slice 6.
+rows) that the JAX fused kernel feeds as jvp tangents. SphereManifold,
+LineManifold and AutoDiffManifold have no such form: a program with one
+takes the flat path (ops/flatops.jt_refusal), their Jacobians by
+torch.func.jacfwd of plus and minus.
 """
 from __future__ import annotations
 
@@ -287,3 +289,119 @@ class ProductManifold(Manifold):
 
     def batch_key(self):
         return ("Product",) + tuple(m.batch_key() for m in self.manifolds)
+
+
+def _householder_vector(x):
+    """The Householder vector v (v[-1] = 1) and beta with
+    (I - beta v v') x = |x| e_last (householder_vector.h:48-82, Golub
+    5.1.1 with the last element as pivot)."""
+    sigma = torch.sum(x[:-1] * x[:-1])
+    x_pivot = x[-1]
+    trivial = sigma <= float(np.finfo(np.float64).eps)
+    mu = torch.sqrt(x_pivot * x_pivot + torch.where(trivial, torch.zeros_like(sigma), sigma))
+    v_pivot = torch.where(x_pivot <= 0.0, x_pivot - mu, -sigma / (x_pivot + mu))
+    safe_v_pivot = torch.where(trivial, torch.ones_like(v_pivot), v_pivot)
+    beta = torch.where(
+        trivial,
+        torch.where(x_pivot < 0.0, torch.full_like(sigma, 2.0), torch.zeros_like(sigma)),
+        2.0 * safe_v_pivot * safe_v_pivot / (sigma + safe_v_pivot * safe_v_pivot))
+    head = torch.where(trivial, x[:-1], x[:-1] / safe_v_pivot)
+    return torch.cat([head, torch.ones_like(x[-1:])]), beta
+
+
+def _exp_map_point(delta):
+    """[sin(|d|)/|d| d; cos(|d|)], the point of the unit sphere at tangent
+    delta from the pole e_last (1 and e_last at delta = 0)."""
+    norm2 = torch.sum(delta * delta)
+    pos = norm2 > 0
+    safe = torch.sqrt(torch.where(pos, norm2, torch.ones_like(norm2)))
+    one = torch.ones_like(norm2)
+    sin_by = torch.where(pos, torch.sin(safe) / safe, one)
+    return torch.cat([sin_by * delta, torch.where(pos, torch.cos(safe), one)[None]])
+
+
+def _reflect(v, beta, y):
+    """(I - beta v v') y."""
+    return y - beta * v * torch.dot(v, y)
+
+
+class SphereManifold(Manifold):
+    """A vector on the (n-1)-sphere of radius |x| (sphere_manifold.h:86):
+    the tangent step through the exponential map in x's Householder frame."""
+
+    def __init__(self, size: int):
+        if size < 2:
+            raise ValueError("SphereManifold needs ambient size >= 2")
+        self.ambient_size = size
+        self.tangent_size = size - 1
+
+    def plus(self, x, delta):
+        v, beta = _householder_vector(x)
+        return torch.sqrt(torch.sum(x * x)) * _reflect(v, beta, _exp_map_point(delta))
+
+    def minus(self, y, x):
+        v, beta = _householder_vector(x)
+        nx = torch.sqrt(torch.sum(x * x))
+        hy = _reflect(v, beta, y) / torch.where(nx > 0, nx, torch.ones_like(nx))
+        u = hy[:-1]
+        return _atan2_over_s(torch.sum(u * u), hy[-1]) * u
+
+    def batch_key(self):
+        return ("Sphere", self.ambient_size)
+
+
+class LineManifold(Manifold):
+    """A line in R^n as (origin, direction) (line_manifold.h:76), tangent
+    2(n - 1): the origin moves in the hyperplane orthogonal to the
+    direction, the direction on its sphere, both in the direction's
+    Householder frame."""
+
+    def __init__(self, n: int):
+        if n < 2:
+            raise ValueError("LineManifold needs spatial dim >= 2")
+        self.n = n
+        self.ambient_size = 2 * n
+        self.tangent_size = 2 * (n - 1)
+
+    def plus(self, x, delta):
+        n = self.n
+        origin, direction = x[:n], x[n:]
+        v, beta = _householder_vector(direction)
+        new_origin = origin + _reflect(v, beta, torch.cat([delta[:n - 1],
+                                                           delta.new_zeros((1,))]))
+        nd = torch.sqrt(torch.sum(direction * direction))
+        new_direction = nd * _reflect(v, beta, _exp_map_point(delta[n - 1:]))
+        return torch.cat([new_origin, new_direction])
+
+    def minus(self, y, x):
+        n = self.n
+        v, beta = _householder_vector(x[n:])
+        t_origin = _reflect(v, beta, y[:n] - x[:n])[:n - 1]
+        ndx = torch.sqrt(torch.sum(x[n:] * x[n:]))
+        hy = _reflect(v, beta, y[n:]) / torch.where(ndx > 0, ndx, torch.ones_like(ndx))
+        u = hy[:-1]
+        return torch.cat([t_origin, _atan2_over_s(torch.sum(u * u), hy[-1]) * u])
+
+    def batch_key(self):
+        return ("Line", self.n)
+
+
+class AutoDiffManifold(Manifold):
+    """A manifold of the user's plus and minus (autodiff_manifold.h): both
+    plain torch functions of single blocks, traceable by torch.func; the
+    Jacobians by forward-mode differentiation (Manifold.plus_jacobian)."""
+
+    def __init__(self, plus_fn, minus_fn, ambient_size: int, tangent_size: int):
+        self._plus = plus_fn
+        self._minus = minus_fn
+        self.ambient_size = ambient_size
+        self.tangent_size = tangent_size
+
+    def plus(self, x, delta):
+        return self._plus(x, delta)
+
+    def minus(self, y, x):
+        return self._minus(y, x)
+
+    def batch_key(self):
+        return ("AutoDiff", id(self._plus), id(self._minus))

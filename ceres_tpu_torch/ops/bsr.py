@@ -7,6 +7,10 @@ dense (N, tangent) Jacobian of the DENSE_QR and DENSE_NORMAL_CHOLESKY
 steps is scattered from the blocks through an index built once
 (`dense_index`, `to_dense`); Problem.evaluate's CRS Jacobian is built
 from the blocks on the host without it (`to_crs`).
+
+The linear-operator ops over the block values (bsr.py:138-293: J v, J'u,
+diag(J'J), column scaling, the block-Jacobi blocks of J'J and their
+inverse) are ops/flatops.FlatJacobianOps's, over its kernels.
 """
 from __future__ import annotations
 

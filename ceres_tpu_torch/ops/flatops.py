@@ -867,35 +867,72 @@ class _FlatOpsBase:
         return _concat([tab[:nv].reshape(-1) for tab, (_, nv, _, _) in zip(tables, fams)],
                        u)
 
-    def fused_post_eval(self, plans, fams, vflat, u):
+    def fused_post_eval(self, plans, fams, vflat, u, with_blocks=True):
         """ONE segment reduction per (kind, slot) of the concatenated
-        gradient J'u, squared column norms diag(J'J) and J'J diagonal
-        blocks (flatops.py:539). Returns (g, sqn, [blocks (nv, t*t)]) in
-        this partition's layout."""
+        gradient J'u, squared column norms diag(J'J) and, with
+        `with_blocks`, J'J diagonal blocks (flatops.py:539). Returns (g,
+        sqn, [blocks (nv, t*t)] or None) in this partition's layout."""
         tables = [None] * len(fams)
         for k in range(len(self.kinds)):
             if not plans[k]:
                 continue
             rows = self._rows(u, k)
             for pe in plans[k]:
-                contrib = self.post_contrib(self._jac(vflat, k, pe), rows)
+                contrib = self.post_contrib(self._jac(vflat, k, pe), rows, with_blocks)
                 tables[pe.fi] = self._reduce_rows(tables[pe.fi], pe, contrib)
-        tables = _zero_if_none(tables, [(nv + 1, 2 * t + t * t) for (_, nv, t, _) in fams],
-                               u)
+        w = (lambda t: 2 * t + t * t) if with_blocks else (lambda t: 2 * t)
+        tables = _zero_if_none(tables, [(nv + 1, w(t)) for (_, nv, t, _) in fams], u)
         g = _concat([tab[:nv, :t].reshape(-1)
                      for tab, (_, nv, t, _) in zip(tables, fams)], u)
         sqn = _concat([tab[:nv, t:2 * t].reshape(-1)
                        for tab, (_, nv, t, _) in zip(tables, fams)], u)
+        if not with_blocks:
+            return g, sqn, None
         return g, sqn, [tab[:nv, 2 * t:] for tab, (_, nv, t, _) in zip(tables, fams)]
 
     @staticmethod
-    def post_contrib(J, rows):
+    def post_contrib(J, rows, with_blocks=True):
         """(B, 2t + t*t) per row: J'u, diag(J'J) and the J'J block, for
-        J (B, r, t) and residual rows (B, r)."""
-        return torch.cat([torch.sum(J * rows[:, :, None], dim=1),
-                          torch.sum(J * J, dim=1),
-                          small_matmul(J.transpose(1, 2), J).reshape(J.shape[0], -1)],
-                         dim=1)
+        J (B, r, t) and residual rows (B, r); (B, 2t) without the block."""
+        parts = [torch.sum(J * rows[:, :, None], dim=1), torch.sum(J * J, dim=1)]
+        if with_blocks:
+            parts.append(small_matmul(J.transpose(1, 2), J).reshape(J.shape[0], -1))
+        return torch.cat(parts, dim=1)
+
+    @staticmethod
+    def flatten(values):
+        """(B, r*t) views of the block values [kind][slot] (B, r, t)
+        (flatops.py:449)."""
+        return tuple(tuple(V.reshape(V.shape[0], -1) for V in jacs) for jacs in values)
+
+    def _scale_plans(self, plans, vflat, scale, out):
+        """Into out[k][s]: the blocks of each plan's slot times its rows'
+        column scales (bsr.scale_columns), scale in the plans' layout."""
+        for k, kind in enumerate(self.kinds):
+            for pe in plans[k]:
+                out[k][pe.s] = (self._jac(vflat, k, pe)
+                                * self._gather(scale, pe)[:, None, :]).reshape(kind.B, -1)
+
+    def block_jtj(self, plans, fams, vflat):
+        """Per family (nv, t*t): the diagonal blocks of J'J over the plans'
+        columns, one reduction per (kind, slot) (flatops.py:597)."""
+        tables = [None] * len(fams)
+        for k in range(len(self.kinds)):
+            for pe in plans[k]:
+                J = self._jac(vflat, k, pe)
+                tables[pe.fi] = self._reduce_rows(
+                    tables[pe.fi], pe, small_matmul(J.transpose(1, 2), J).reshape(J.shape[0], -1))
+        tables = _zero_if_none(tables, [(nv + 1, t * t) for (_, nv, t, _) in fams],
+                               vflat[0][0])
+        return [tab[:nv] for tab, (_, nv, _, _) in zip(tables, fams)]
+
+    @staticmethod
+    def inverse_flats(fams, blocks, D):
+        """Per family (nv, t*t): the inverses of blocks + diag(D)^2, D in
+        the families' layout (the Cholesky solves of flatops.py:657)."""
+        return [spd_inverse_flat(blk + torch.diag_embed(
+            (D[off:off + nv * t] ** 2).reshape(nv, t)).reshape(nv, t * t), t)
+            for (off, nv, t, _), blk in zip(fams, blocks)]
 
     @staticmethod
     def scaled_blocks(fams, blocks, scale, D2):
@@ -932,7 +969,8 @@ class FlatSchurOps(_FlatOpsBase):
     path of every program that `jt_refusal` turns away."""
 
     def __init__(self, pm: pt.PartitionedMeta, program):
-        super().__init__(pm.base.kinds, program.device)
+        # `program`: a CompiledProgram, or the torch.device of its tensors
+        super().__init__(pm.base.kinds, getattr(program, "device", program))
         self.pm = pm
         self.plans_e = self._build(self._slots(pm.e_family_indices, pm.e_fams))
         self.plans_f = self._build(self._slots(pm.f_family_indices, pm.f_fams))
@@ -966,6 +1004,74 @@ class FlatSchurOps(_FlatOpsBase):
     def fused_post_eval_f(self, vflat, u):
         return self.fused_post_eval(self.plans_f, self.pm.f_fams, vflat, u)
 
+    # -- the host loop's operations (bsr_kernels.py:62, implicit_schur.py)
+
+    def right(self, vflat, v):
+        """J v for v in the global tangent layout."""
+        pm = self.pm
+        return self.right_e(vflat, pt.extract_e(pm, v)) + self.right_f(vflat, pt.extract_f(pm, v))
+
+    def left(self, vflat, u):
+        """J'u in the global tangent layout."""
+        return pt.combine(self.pm, self.left_e(vflat, u), self.left_f(vflat, u))
+
+    def gradient_and_norms(self, vflat, u):
+        """(J'u, diag(J'J)) in the global tangent layout, one reduction per
+        (kind, slot)."""
+        pm = self.pm
+        g_e, sqn_e, _ = self.fused_post_eval(self.plans_e, pm.e_fams, vflat, u, False)
+        g_f, sqn_f, _ = self.fused_post_eval(self.plans_f, pm.f_fams, vflat, u, False)
+        return pt.combine(pm, g_e, g_f), pt.combine(pm, sqn_e, sqn_f)
+
+    def scale_columns(self, vflat, scale):
+        """vflat of J diag(scale), scale in the global tangent layout."""
+        out = [list(jacs) for jacs in vflat]
+        self._scale_plans(self.plans_e, vflat, pt.extract_e(self.pm, scale), out)
+        self._scale_plans(self.plans_f, vflat, pt.extract_f(self.pm, scale), out)
+        return tuple(tuple(jacs) for jacs in out)
+
+    def block_ete(self, vflat):
+        """Per e family (nv, t*t): the diagonal blocks of E'E."""
+        return self.block_jtj(self.plans_e, self.pm.e_fams, vflat)
+
+    def block_ftf(self, vflat):
+        """Per f family (nv, t*t): the diagonal blocks of F'F."""
+        return self.block_jtj(self.plans_f, self.pm.f_fams, vflat)
+
+    def minv_apply(self, minv, v):
+        """(E'E + D_e^2)^{-1} v from its inverse blocks (flatops.py:803)."""
+        return self.apply_inverse_rows(self.pm.e_fams, minv, v)
+
+    def schur_multiply(self, vflat, minv, D_f, z):
+        """S z = F'F z + D_f^2 z - F'E (E'E + D_e^2)^{-1} E'F z through four
+        products (flatops.py:806)."""
+        fz = self.right_f(vflat, z)
+        etfz = self.left_e(vflat, fz)
+        e_part = self.right_e(vflat, self.minv_apply(minv, etfz))
+        return self.left_f(vflat, fz - e_part) + (D_f * D_f) * z
+
+    def schur_jacobi_blocks(self, vflat, minv, D_f):
+        """Per f family (nv, t*t): the diagonal blocks of S, F'F + D_f^2
+        less each row's W' M^{-1} W, W = E_b'F_b (implicit_schur.py:70;
+        exact when an (e, f) block pair shares at most one row)."""
+        pm = self.pm
+        tables = []
+        for (off, nv, t, _), blk in zip(pm.f_fams, self.block_ftf(vflat)):
+            d2 = (D_f[off:off + nv * t] ** 2).reshape(nv, t)
+            tables.append(torch.cat([blk + torch.diag_embed(d2).reshape(nv, t * t),
+                                     blk.new_zeros((1, t * t))]))
+        for k, kind in enumerate(self.kinds):
+            if not self.plans_e[k] or not self.plans_f[k]:
+                continue
+            pe = self.plans_e[k][0]
+            Je = self._jac(vflat, k, pe)
+            minv_rows = self._expand(minv[pe.fi], pe).reshape(kind.B, pe.t, pe.t)
+            for pf in self.plans_f[k]:
+                W = small_matmul(Je.transpose(1, 2), self._jac(vflat, k, pf))
+                corr = small_matmul(W.transpose(1, 2), small_matmul(minv_rows, W))
+                tables[pf.fi] = self._reduce_rows(tables[pf.fi], pf, -corr.reshape(kind.B, -1))
+        return [tab[:nv] for tab, (_, nv, _, _) in zip(tables, pm.f_fams)]
+
 
 class FlatJacobianOps(_FlatOpsBase):
     """Flattened J and J' products over the whole tangent (flatops.py:1271):
@@ -981,7 +1087,9 @@ class FlatJacobianOps(_FlatOpsBase):
     (flatops.py:1339), both dtypes take the kernel."""
 
     def __init__(self, meta, program):
-        super().__init__(meta.kinds, program.device)
+        # `program`: a CompiledProgram, or the torch.device of its tensors
+        device = getattr(program, "device", program)
+        super().__init__(meta.kinds, device)
         self.meta = meta
         self.fams = tuple((f.tangent_offset, f.num_var, f.t, f.block_id_offset)
                           for f in meta.families)
@@ -993,7 +1101,7 @@ class FlatJacobianOps(_FlatOpsBase):
             # a constant camera's rows hold the sentinel id nv; no
             # eval_fused reads a camera table through this plan
             self.plan = build_row_plan(pe.local.cpu().numpy(), pf.local.cpu().numpy(),
-                                       pe.nv, pf.nv, program.device, n_cams=pf.nv + 1)
+                                       pe.nv, pf.nv, device, n_cams=pf.nv + 1)
 
     def _slots(self):
         for k, kind in enumerate(self.meta.kinds):
@@ -1027,6 +1135,25 @@ class FlatJacobianOps(_FlatOpsBase):
         """(gradient, diag(J'J), per-family J'J blocks) in one reduction
         pass per slot."""
         return self.fused_post_eval(self.plans, self.fams, vflat, u)
+
+    def gradient_and_norms(self, vflat, u):
+        """(J'u, diag(J'J)), one reduction per (kind, slot)."""
+        g, sqn, _ = self.fused_post_eval(self.plans, self.fams, vflat, u, False)
+        return g, sqn
+
+    def scale_columns(self, vflat, scale):
+        """vflat of J diag(scale)."""
+        out = [list(jacs) for jacs in vflat]
+        self._scale_plans(self.plans, vflat, scale, out)
+        return tuple(tuple(jacs) for jacs in out)
+
+    def block_jtj_all(self, vflat):
+        """Per family (nv, t*t): the diagonal blocks of J'J."""
+        return self.block_jtj(self.plans, self.fams, vflat)
+
+    def normal_multiply(self, vflat, D, x):
+        """(J'J + D^2) x through the product chain (flatops.py:1324)."""
+        return self.left(vflat, self.right(vflat, x)) + (D * D) * x
 
     def kernel_lanes(self, vflat):
         """JT (24, B), the unscaled Jacobian lanes normal_matvec reads

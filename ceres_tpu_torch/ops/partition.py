@@ -1,12 +1,17 @@
 """The e/f partition of the block Jacobian, J = [E F] (counterpart of
 ceres_tpu/ops/partition.py). E-columns are the eliminated blocks (points),
 F-columns the rest (cameras).
+
+The partitioned products E y, F z, E'u, F'u and the diagonal blocks of
+E'E and F'F (partition.py:150-250) are ops/flatops.FlatSchurOps's, over
+its kernels.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import bsr
@@ -24,6 +29,10 @@ class PartitionedMeta:
     @property
     def f_size(self) -> int:
         return sum(nv * t for _, nv, t, _ in self.f_fams)
+
+    @property
+    def e_size(self) -> int:
+        return sum(nv * t for _, nv, t, _ in self.e_fams)
 
 
 def build_partition(meta: bsr.BlockJacobianMeta,
@@ -78,3 +87,22 @@ def combine(pm: PartitionedMeta, y_e: torch.Tensor,
         start = pm.base.families[fi].tangent_offset
         out[start:start + nv * t] = z_f[off:off + nv * t]
     return out
+
+
+def slot_layouts(pm: PartitionedMeta, e: bool):
+    """(k, s, partition family index, (B,) local block ids with the
+    sentinel nv for a constant block) of every slot in the e or the f
+    partition that holds a variable block."""
+    fam_indices, fams = ((pm.e_family_indices, pm.e_fams) if e
+                         else (pm.f_family_indices, pm.f_fams))
+    fam_indices = list(fam_indices)
+    for k, kind in enumerate(pm.base.kinds):
+        for s, slot in enumerate(kind.slots):
+            if slot.family_index not in fam_indices:
+                continue
+            fi = fam_indices.index(slot.family_index)
+            nv = fams[fi][1]
+            local = slot.block_ids - pm.base.families[slot.family_index].block_id_offset
+            var = (local >= 0) & (local < nv)
+            if var.any():
+                yield k, s, fi, np.where(var, local, nv)

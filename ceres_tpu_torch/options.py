@@ -1,6 +1,6 @@
 """Solver options and their validation (counterpart of ceres_tpu/options.py).
 
-The fields are those the slice reads, with the JAX package's names and
+The fields are those the port reads, with the JAX package's names and
 defaults. `is_valid` mirrors the JAX validation for these fields;
 `check_supported` raises NotImplementedError for a request that a later
 slice of the port brings.
@@ -8,11 +8,13 @@ slice of the port brings.
 from __future__ import annotations
 
 import dataclasses
+import tempfile
 from typing import Any, Callable, List, Optional
 
 from .types import (
     DoglegType,
     LinearSolverType,
+    LoggingType,
     MinimizerType,
     PreconditionerType,
     TrustRegionStrategyType,
@@ -21,17 +23,14 @@ from .types import (
 
 
 # The preconditioners of the ITERATIVE_SCHUR and CGNR paths: on
-# ITERATIVE_SCHUR JACOBI runs as SCHUR_JACOBI, as in the JAX fused loop
-# (fused_lm.py:237-239); on CGNR both are the block-Jacobi preconditioner
-# of J'J (fused_lm.py:161).
+# ITERATIVE_SCHUR JACOBI runs as SCHUR_JACOBI, as in the JAX package
+# (fused_lm.py:237-239, bsr_kernels.py:174-175); on CGNR both are the
+# block-Jacobi preconditioner of J'J (fused_lm.py:161, bsr_kernels.py:107-111).
 _ITERATIVE_PRECONDITIONERS = (PreconditionerType.SCHUR_JACOBI,
                               PreconditionerType.JACOBI,
                               PreconditionerType.IDENTITY)
 _PORTED_SOLVERS = (LinearSolverType.DENSE_SCHUR, LinearSolverType.ITERATIVE_SCHUR,
                    LinearSolverType.CGNR, LinearSolverType.DENSE_QR,
-                   LinearSolverType.DENSE_NORMAL_CHOLESKY)
-# DOGLEG runs on the exact solvers only (fused_lm.py:1925-1929)
-_DOGLEG_SOLVERS = (LinearSolverType.DENSE_SCHUR, LinearSolverType.DENSE_QR,
                    LinearSolverType.DENSE_NORMAL_CHOLESKY)
 
 
@@ -46,6 +45,7 @@ class Options:
     use_nonmonotonic_steps: bool = False
     max_consecutive_nonmonotonic_steps: int = 5
     max_num_iterations: int = 50
+    max_solver_time_in_seconds: float = 1e9
     initial_trust_region_radius: float = 1e4
     max_trust_region_radius: float = 1e16
     min_trust_region_radius: float = 1e-32
@@ -72,9 +72,14 @@ class Options:
     evaluation_dtype: str = "float64"
     mixed_precision_polish_iterations: int = 5
 
-    # The port runs the fused-loop form only; "NEVER" (the host loop)
-    # is a later slice.
+    # The minimizer (solver.py `_maybe_build_fused`): "ALWAYS" the fused
+    # loop, "NEVER" the host loop (solvers/trust_region.py), "AUTO" the
+    # fused loop from `fused_loop_min_residuals` residuals up, for the
+    # configurations it takes (no callbacks, no iteration dumps, no finite
+    # max_solver_time_in_seconds, DOGLEG on an exact solver only), the
+    # host loop otherwise, as the JAX package picks (options.py:90-100).
     fused_loop: str = "AUTO"
+    fused_loop_min_residuals: int = 8192
 
     # Linear solver
     linear_solver_type: LinearSolverType = LinearSolverType.SPARSE_NORMAL_CHOLESKY
@@ -90,15 +95,24 @@ class Options:
     use_inner_iterations: bool = False
     # groups of parameter blocks or arrays; group 0 is eliminated first
     linear_solver_ordering: Optional[List[List[Any]]] = None
+
+    # Logging, callbacks and dumps: the host loop's (callbacks.py,
+    # solvers/trust_region.py)
+    logging_type: LoggingType = LoggingType.PER_MINIMIZER_ITERATION
     minimizer_progress_to_stdout: bool = False
-    # the host loop's: raise naming port slice 6
     callbacks: List[Callable] = dataclasses.field(default_factory=list)
     update_state_every_iteration: bool = False
-    evaluation_callback: Optional[Any] = None
+    evaluation_callback: Optional[Any] = None  # .prepare_for_evaluation(...)
+    trust_region_minimizer_iterations_to_dump: List[int] = dataclasses.field(
+        default_factory=list)
+    # the JAX default is "/tmp"; here the temporary directory TMPDIR names
+    trust_region_problem_dump_directory: str = dataclasses.field(
+        default_factory=tempfile.gettempdir)
 
     def is_valid(self) -> "tuple[bool, str]":
         for name, lo in [
             ("max_num_iterations", 0),
+            ("max_solver_time_in_seconds", 0.0),
             ("function_tolerance", 0.0),
             ("gradient_tolerance", 0.0),
             ("parameter_tolerance", 0.0),
@@ -124,6 +138,11 @@ class Options:
             return False, "min_trust_region_radius > max_trust_region_radius"
         if self.min_lm_diagonal > self.max_lm_diagonal:
             return False, "min_lm_diagonal > max_lm_diagonal"
+        if (self.minimizer_type == MinimizerType.TRUST_REGION
+                and self.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG
+                and self.linear_solver_type in (LinearSolverType.ITERATIVE_SCHUR,
+                                                LinearSolverType.CGNR)):
+            return False, "DOGLEG only supports exact factorization-based linear solvers"
         if (self.linear_solver_type in (LinearSolverType.DENSE_SCHUR,
                                         LinearSolverType.SPARSE_SCHUR,
                                         LinearSolverType.ITERATIVE_SCHUR)
@@ -141,9 +160,6 @@ class Options:
             raise not_ported(f"minimizer_type={self.minimizer_type}", 6)
         if self.linear_solver_type not in _PORTED_SOLVERS:
             raise not_ported(f"linear_solver_type={self.linear_solver_type}", 6)
-        if (self.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG
-                and self.linear_solver_type not in _DOGLEG_SOLVERS):
-            raise not_ported(f"DOGLEG with {self.linear_solver_type}", 6)
         if self.linear_solver_type in (LinearSolverType.ITERATIVE_SCHUR,
                                        LinearSolverType.CGNR):
             if self.preconditioner_type not in _ITERATIVE_PRECONDITIONERS:
@@ -154,13 +170,5 @@ class Options:
                 raise not_ported("use_spse_initialization", 6)
             if self.use_explicit_schur_complement:
                 raise not_ported("use_explicit_schur_complement", 6)
-        if self.fused_loop.upper() == "NEVER":
-            raise not_ported("the host LM loop (fused_loop='NEVER')", 6)
         if self.use_inner_iterations:
             raise not_ported("inner iterations", 6)
-        if self.callbacks:
-            raise not_ported("user IterationCallbacks (Options.callbacks)", 6)
-        if self.evaluation_callback is not None:
-            raise not_ported("an EvaluationCallback", 6)
-        if self.update_state_every_iteration:
-            raise not_ported("update_state_every_iteration", 6)

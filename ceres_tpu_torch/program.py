@@ -141,6 +141,8 @@ class CompiledProgram:
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
         self.problem = problem
+        # the callbacks check it against the problem's (callbacks.py)
+        self.structure_version = problem.structure_version
         self.compute_dtype = _DTYPES[compute_dtype]
         self.device = resolve_device(device)
         self.apply_loss = apply_loss

@@ -3,12 +3,19 @@
 
 `solve` runs on the CUDA device unless the caller passes device="cpu", in
 which case every kernel runs its plain PyTorch version. With no CUDA
-device and no device="cpu", it raises. The port runs a trust-region solve
-in the fused-loop form: Levenberg-Marquardt over DENSE_SCHUR,
-ITERATIVE_SCHUR, CGNR (SCHUR_JACOBI, JACOBI or IDENTITY preconditioner on
-both iterative solvers), DENSE_QR or DENSE_NORMAL_CHOLESKY, and DOGLEG
-over the exact ones; a Schur solver on a problem without eliminable blocks
-falls back as the JAX package's does. Anything else raises
+device and no device="cpu", it raises. The minimizer is picked as the
+JAX package picks it (`_maybe_build_fused`): the fused loop
+(solvers/fused_lm.py) for Options.fused_loop="ALWAYS", and under "AUTO"
+for problems of at least `fused_loop_min_residuals` residuals in its
+subset; the host loop (solvers/trust_region.py) for "NEVER", smaller
+problems, user callbacks, an EvaluationCallback,
+update_state_every_iteration, iteration dumps or a finite
+max_solver_time_in_seconds. Both run Levenberg-Marquardt or dogleg over
+DENSE_SCHUR, ITERATIVE_SCHUR, CGNR (SCHUR_JACOBI, JACOBI or IDENTITY
+preconditioner on both iterative solvers), DENSE_QR or
+DENSE_NORMAL_CHOLESKY; DOGLEG with an iterative solver fails validation
+as in the JAX package; a Schur solver on a problem without eliminable
+blocks falls back as the JAX package's does. Anything else raises
 NotImplementedError naming the later slice (types.not_ported).
 """
 from __future__ import annotations
@@ -80,6 +87,47 @@ def _schur_structure_string(program, e_fams) -> str:
     f_sizes = [f.tsize for i, f in enumerate(program.families)
                if i not in e_set and f.num_var]
     return f"{uniq(rows)},{uniq(e_sizes)},{uniq(f_sizes)}"
+
+
+def _maybe_build_fused(options: Options, program: CompiledProgram, tier: str, e_fams):
+    """The fused minimizer where the configuration is in its subset, None
+    for the host loop (solver.py:122-171)."""
+    mode = options.fused_loop.upper()
+    if mode == "NEVER":
+        return None
+    if mode == "AUTO" and program.num_residuals < options.fused_loop_min_residuals:
+        return None
+    if (options.callbacks or options.update_state_every_iteration
+            or options.evaluation_callback is not None
+            or options.trust_region_minimizer_iterations_to_dump
+            or options.max_solver_time_in_seconds < 1e6):
+        return None
+    return build_fused_minimizer(program, options, tier, e_families=e_fams)
+
+
+def _host_minimizer(options: Options, program: CompiledProgram, tier: str, e_fams,
+                    summary: Summary):
+    """The host loop over its kernels (solver.py:323-402):
+    DenseTrustRegionKernels for DENSE_QR and DENSE_NORMAL_CHOLESKY,
+    BlockTrustRegionKernels for the rest."""
+    from .solvers.bsr_kernels import BlockTrustRegionKernels
+    from .solvers.linear import dense as dense_mod
+    from .solvers.trust_region import DenseTrustRegionKernels, TrustRegionMinimizer
+
+    if tier in ("dense_qr", "dense_normal_cholesky"):
+        solve_fn = dense_mod.qr_solve if tier == "dense_qr" else dense_mod.normal_cholesky_solve
+        if tier == "dense_normal_cholesky" and options.use_mixed_precision_solves:
+            steps = max(1, options.max_num_refinement_iterations)
+
+            def solve_fn(J, r, D):
+                return dense_mod.normal_cholesky_solve_mixed(J, r, D, refinement_steps=steps)
+
+        kernels = DenseTrustRegionKernels(program, solve_fn, options)
+    else:
+        step_solver = {"bsr": "CGNR", "schur_dense": "DENSE_SCHUR",
+                       "schur_iterative": "ITERATIVE_SCHUR"}[tier]
+        kernels = BlockTrustRegionKernels(program, options, step_solver, e_families=e_fams)
+    return TrustRegionMinimizer(program, kernels, options, summary)
 
 
 def _solve_mixed(options: Options, problem: Problem, summary: Summary,
@@ -176,17 +224,23 @@ def solve(options: Options, problem: Problem, summary: Optional[Summary] = None,
     tier, e_fams = _pick_linear_solver(options, program, summary)
     summary.preconditioner_type_used = _preconditioner_used(
         summary.linear_solver_type_used, options)
-    fused = build_fused_minimizer(program, options, tier, e_families=e_fams)
+    minimizer = _maybe_build_fused(options, program, tier, e_fams)
+    host = minimizer is None
+    if host:
+        minimizer = _host_minimizer(options, program, tier, e_fams, summary)
     summary.preprocessor_time_in_seconds = time.monotonic() - t_start
 
     t_min = time.monotonic()
-    x_final = fused.minimize(program.initial_state(), summary)
+    if host:
+        x_final = minimizer.minimize(program.initial_state())
+    else:
+        x_final = minimizer.minimize(program.initial_state(), summary)
     summary.minimizer_time_in_seconds = time.monotonic() - t_min
 
     t_post = time.monotonic()
     program.write_state(x_final)
-    if np.isfinite(fused.x_cost):
-        summary.final_cost = fused.x_cost
+    if np.isfinite(minimizer.x_cost):
+        summary.final_cost = minimizer.x_cost
     summary.postprocessor_time_in_seconds = time.monotonic() - t_post
     summary.total_time_in_seconds = time.monotonic() - t_start
     return summary

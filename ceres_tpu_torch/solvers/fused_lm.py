@@ -60,6 +60,7 @@ from ..types import (
 from .linear.cg import conjugate_gradients
 from .linear.dense import (normal_cholesky_solve, normal_cholesky_solve_mixed,
                            qr_solve, reduced_solve)
+from .trust_region import TrustRegionStepEvaluator, active_set_mask, grad_norms
 
 _DBL_MAX = float(np.finfo(np.float64).max)
 
@@ -70,42 +71,6 @@ _PARAM_TOL = 3
 _FUNC_TOL = 4
 _INVALID_STEPS = 5
 _INIT_FAILURE = 6
-
-
-class _SEState:
-    """TrustRegionStepEvaluator state (trust_region_step_evaluator.{h,cc})."""
-
-    def __init__(self, cost):
-        self.minimum = self.current = self.reference = self.candidate = cost
-        self.acc_ref = self.acc_cand = 0.0
-        self.count = 0
-
-    def quality(self, cost, mcc):
-        with np.errstate(all="ignore"):
-            rel = (np.float64(self.current) - cost) / np.float64(mcc)
-            hist = (np.float64(self.reference) - cost) / (
-                np.float64(self.acc_ref) + mcc)
-            q = float(np.maximum(rel, hist))
-        return -_DBL_MAX if cost >= _DBL_MAX else q
-
-    def accepted(self, cost, mcc, max_steps: int):
-        self.current = cost
-        acc_cand = self.acc_cand + mcc
-        acc_ref = self.acc_ref + mcc
-        is_min = cost < self.minimum
-        if is_min:
-            self.minimum = cost
-            self.count = 0
-        else:
-            self.count += 1
-        if is_min or cost > self.candidate:
-            self.candidate = cost
-            acc_cand = 0.0
-        self.acc_cand = acc_cand
-        self.acc_ref = acc_ref
-        if self.count == max_steps:
-            self.reference = self.candidate
-            self.acc_ref = self.acc_cand
 
 
 class JTForm(NamedTuple):
@@ -798,16 +763,6 @@ class DoglegStepOps:
         return step, mcc, 1, dl_norm, mu
 
 
-def _grad_norms(program, x, g):
-    """|x - Plus(x, -g)| and its max norm, in the ambient space
-    (fused_lm.py:1396-1400)."""
-    dx = x - program.plus(x, -g.to(torch.float64))
-    if dx.numel() == 0:
-        z = torch.zeros((), dtype=torch.float64, device=x.device)
-        return z, z
-    return torch.linalg.vector_norm(dx), torch.max(torch.abs(dx))
-
-
 class FusedTrustRegionMinimizer:
     """LM or dogleg over a step adapter with one host sync per iteration."""
 
@@ -820,28 +775,6 @@ class FusedTrustRegionMinimizer:
     def _fetch(self, summary: Summary, *scalars):
         summary.num_host_syncs += 1
         return torch.stack([s.to(torch.float64).reshape(()) for s in scalars]).tolist()
-
-    def _active_mask(self):
-        """For a bounded program, mask(x, g): 0 on the tangent coordinates
-        that sit on a bound with the gradient pushing outward, else 1
-        (fused_lm.py:1368-1378); None without bounds."""
-        program = self.program
-        if not program.has_bounds():
-            return None
-        tmap_np, lo_np, hi_np = program.tangent_box()
-        dev = program.device
-        tmap = torch.as_tensor(tmap_np, device=dev)
-        lo, hi = torch.as_tensor(lo_np, device=dev), torch.as_tensor(hi_np, device=dev)
-        boxed = tmap >= 0
-        take = torch.clamp(tmap, min=0)
-
-        def mask(x, g):
-            xv = torch.where(boxed, x[take], torch.zeros_like(lo))
-            g64 = g.to(torch.float64)
-            active = boxed & (((xv <= lo) & (g64 > 0.0)) | ((xv >= hi) & (g64 < 0.0)))
-            return torch.where(active, 0.0, 1.0).to(torch.float64)
-
-        return mask
 
     def _line_search(self, x, cost, g, delta, valid_t, summary: Summary):
         """The projected Armijo backtracking of a bounded step
@@ -880,7 +813,7 @@ class FusedTrustRegionMinimizer:
         min_d, max_d = opts.min_lm_diagonal, opts.max_lm_diagonal
         max_steps = (opts.max_consecutive_nonmonotonic_steps
                      if opts.use_nonmonotonic_steps else 0)
-        active_mask = self._active_mask()
+        active_mask = active_set_mask(self.program)
         if active_mask is not None:
             # project x0 onto the box (fused_lm.py:1358-1366)
             x0 = self.program.plus(x0, torch.zeros(self.program.tangent_size,
@@ -894,7 +827,7 @@ class FusedTrustRegionMinimizer:
         else:
             scale = torch.ones_like(sqn)
         scale_c = scale.to(cdt)
-        gnorm_t, gmax_t = _grad_norms(self.program, x0, g)
+        gnorm_t, gmax_t = grad_norms(self.program, x0, g)
         cost, gnorm, gmax = self._fetch(summary, cost_t, gnorm_t, gmax_t)
 
         radius = float(opts.initial_trust_region_radius)
@@ -914,7 +847,7 @@ class FusedTrustRegionMinimizer:
         decrease_factor = 2.0
         dogleg = getattr(ops, "strategy", "lm") == "dogleg"
         mu = 1e-8  # dogleg's Gauss-Newton regularization (fused_lm.py:134)
-        se = _SEState(cost)
+        se = TrustRegionStepEvaluator(cost, max_steps)
         num_invalid = 0
         any_success = False
         min_cost, best_x = cost, x0
@@ -951,7 +884,7 @@ class FusedTrustRegionMinimizer:
             cand_x = self.program.plus(x, delta)
             cand_cost_t, cand_vrep = ops.evaluate(cand_x)
             cand_g, cand_sqn, cand_aux = ops.post_eval(cand_vrep)
-            cgnorm_t, cgmax_t = _grad_norms(self.program, cand_x, cand_g)
+            cgnorm_t, cgmax_t = grad_norms(self.program, cand_x, cand_g)
             (valid_f, mcc, cand_cost, step_norm, x_norm, cgnorm,
              cgmax, *dl_norm) = self._fetch(
                 summary, valid_t, mcc_t, cand_cost_t,
@@ -979,14 +912,14 @@ class FusedTrustRegionMinimizer:
             breaking = term != _RUNNING
 
             # -- accept / reject --------------------------------------------
-            rel_dec = se.quality(cand_cost, mcc)
+            rel_dec = se.step_quality(cand_cost, mcc)
             success = valid and not breaking and rel_dec > opts.min_relative_decrease
             if success:
                 old_min = min_cost
                 x, cost, vrep = cand_x, cand_cost, cand_vrep
                 g, aux, sqn = cand_g, cand_aux, cand_sqn.to(torch.float64)
                 gnorm, gmax = cgnorm, cgmax
-                se.accepted(cand_cost, mcc, max_steps)
+                se.step_accepted(cand_cost, mcc)
                 if cand_cost < old_min:
                     min_cost = cand_cost
                 if cand_cost <= old_min:
@@ -1112,11 +1045,11 @@ def build_fused_minimizer(program, options: Options, tier: str, e_families=None)
     jt step for a program the jt path takes under Levenberg-Marquardt, its
     flat step for any other program, under DOGLEG and with mixed-precision
     solves (which leave the jt path, fused_lm.py:294-298, :628-636). DOGLEG wraps an exact step; on
-    an iterative tier, where the JAX package takes its host loop, it
-    raises."""
+    an iterative tier it returns None, as the JAX factory does, and the
+    caller takes the host loop."""
     dogleg = options.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG
     if dogleg and tier not in _DOGLEG_TIERS:
-        raise not_ported(f"DOGLEG with the {tier} step", 6)
+        return None
     if tier == "bsr":
         ops = CgnrStepOps(program, options)
     elif tier in ("dense_qr", "dense_normal_cholesky"):

@@ -20,10 +20,11 @@ import torch
 
 
 def cholesky_lower(S: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of S, all NaN where S is not positive
-    definite (cholesky_ex reports failure without a host sync)."""
+    """Lower Cholesky factor of S (..., n, n), all NaN for a matrix that
+    is not positive definite (cholesky_ex reports failure without a host
+    sync)."""
     L, info = torch.linalg.cholesky_ex(S)
-    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    return torch.where((info == 0)[..., None, None], L, torch.full_like(L, float("nan")))
 
 
 def tri_inverse_lower(L: torch.Tensor) -> torch.Tensor:

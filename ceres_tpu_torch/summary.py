@@ -1,11 +1,15 @@
 """IterationSummary and Summary (counterpart of ceres_tpu/summary.py).
 
 Same fields and report for what the port fills, plus `num_host_syncs`:
-the LM loop waits for the device once per iteration (and once before the
-first), the iterative-Schur step once more per CG iteration, and each
-wait is counted here, with one per probe of a bounded problem's line
+the fused LM loop waits for the device once per iteration (and once
+before the first), the host loop (solvers/trust_region.py) about three
+times per iteration, the iterative steps once more per CG iteration, and
+each wait is counted here, with one per probe of a bounded problem's line
 search. `linear_solver_iterations` of a row is its CG iteration count (1
-for the dense-Schur step).
+for the exact steps). The host loop also fills the per-row and per-phase
+times and counts (`jacobian_evaluation_time_in_seconds`,
+`linear_solver_time_in_seconds`, the rows' `iteration_time_in_seconds`,
+`step_solver_time_in_seconds` and `cumulative_time_in_seconds`).
 """
 from __future__ import annotations
 
@@ -61,8 +65,10 @@ class Summary:
     minimizer_time_in_seconds: float = 0.0
     postprocessor_time_in_seconds: float = 0.0
     total_time_in_seconds: float = 0.0
+    linear_solver_time_in_seconds: float = 0.0
     num_linear_solves: int = 0
     num_residual_evaluations: int = 0
+    jacobian_evaluation_time_in_seconds: float = 0.0
     num_jacobian_evaluations: int = 0
     # waits of the host for the device inside minimize()
     num_host_syncs: int = 0

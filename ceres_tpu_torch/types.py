@@ -73,6 +73,21 @@ class CallbackReturnType(_StrEnum):
     SOLVER_TERMINATE_SUCCESSFULLY = enum.auto()
 
 
+class LinearSolverTerminationType(_StrEnum):
+    """The outcome of one linear solve (linear_solver.h:57-74): FAILURE
+    shrinks the trust region and retries, FATAL_ERROR ends the solve."""
+
+    SUCCESS = enum.auto()
+    NO_CONVERGENCE = enum.auto()
+    FAILURE = enum.auto()
+    FATAL_ERROR = enum.auto()
+
+
+class LoggingType(_StrEnum):
+    SILENT = enum.auto()
+    PER_MINIMIZER_ITERATION = enum.auto()
+
+
 class NumericDiffMethodType(_StrEnum):
     CENTRAL = enum.auto()
     FORWARD = enum.auto()
@@ -83,11 +98,9 @@ class NumericDiffMethodType(_StrEnum):
 # this slice raise NotImplementedError naming the slice that brings them.
 LATER_SLICES = {
     4: "a device-resident LM loop (CUDA graphs)",
-    6: "the host LM loop with user IterationCallbacks, EvaluationCallbacks "
-       "and update_state_every_iteration, the sparse linear solvers, the "
-       "remaining preconditioners, dogleg on the iterative solvers, line "
-       "search, inner iterations, SphereManifold, LineManifold and "
-       "AutoDiffManifold, and unsorted rows",
+    6: "the sparse linear solvers, the explicit Schur complement, the "
+       "SCHUR_POWER_SERIES_EXPANSION, CLUSTER_* and SUBSET preconditioners, "
+       "line search and inner iterations",
     9: "multi-device: the mesh half of parallel/sharded_ba.py, parallel/mesh.py "
        "and parallel/sharded_program.py",
 }

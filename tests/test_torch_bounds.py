@@ -47,7 +47,8 @@ def bounded_solves():
                                   evaluation_dtype=dtype, fused_loop="ALWAYS"), jp)
         tp, tpts = bounded(ctt, tbal, b)
         kn.reset_counts()
-        s = ctt.solve(ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
+        s = ctt.solve(ctt.Options(fused_loop="ALWAYS",
+                                  linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
                                   evaluation_dtype=dtype), tp, device="cpu")
         out[dtype] = (ref, jpts, s, tpts, kn.eval_fused.plain_calls)
     return b, out
@@ -112,7 +113,8 @@ def test_x0_is_projected_and_active_coordinates_hold():
     p.set_parameter_block_array_bounds(arr, lower=[-1.0, -1.0], upper=[1.0, 1.0])
     p.add_residual_block_batch(ctt.AutoDiffCostFunction(lambda x: x - 3.0, 2, [2]), None,
                                [(arr, np.zeros(1, np.int64))])
-    s = ctt.solve(ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_QR), p,
+    s = ctt.solve(ctt.Options(fused_loop="ALWAYS",
+                              linear_solver_type=ctt.LinearSolverType.DENSE_QR), p,
                   device="cpu")
     assert s.initial_cost == pytest.approx(0.5 * (4.0 + 16.0))
     np.testing.assert_allclose(v, [[1.0, 1.0]])

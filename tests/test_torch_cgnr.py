@@ -5,9 +5,9 @@ fused post-evaluation, the scale-folded (J_s'J_s) x of normal_matvec
 (kernel 4), the whole solve with the JACOBI and IDENTITY preconditioners,
 the fallback of ITERATIVE_SCHUR to CGNR on a problem without eliminable
 blocks, and CGNR on the libmv bundle adjuster through the flat chain. Each
-JAX solve passes fused_loop="ALWAYS" (its AUTO sends problems this small
-to the host loop, which the port does not have). Each tolerance is stated
-where it is used."""
+solve passes fused_loop="ALWAYS" in both packages (their AUTO sends
+problems this small to the host loop, which tests/test_torch_trust_region.py
+holds). Each tolerance is stated where it is used."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -127,7 +127,7 @@ def _cgnr_pair(b, prec, dtype="float64"):
                               preconditioner_type=ct.PreconditionerType[prec],
                               evaluation_dtype=dtype, fused_loop="ALWAYS"), jax_ba(b))
     kn.reset_counts()
-    s = ctt.solve(ctt.Options(linear_solver_type=CGNR,
+    s = ctt.solve(ctt.Options(fused_loop="ALWAYS", linear_solver_type=CGNR,
                               preconditioner_type=ctt.PreconditionerType[prec],
                               evaluation_dtype=dtype), port_ba(b), device="cpu")
     return ref, s, {k.__name__: k.plain_calls for k in kn.KERNELS}
@@ -197,7 +197,7 @@ def test_schur_jacobi_runs_as_jacobi_on_cgnr(solved):
     JACOBI (fused_lm.py:161): the same rows bit for bit; the type used is
     the given one."""
     b, res = solved
-    s = ctt.solve(ctt.Options(linear_solver_type=CGNR,
+    s = ctt.solve(ctt.Options(fused_loop="ALWAYS", linear_solver_type=CGNR,
                               preconditioner_type=ctt.PreconditionerType.SCHUR_JACOBI),
                   port_ba(b), device="cpu")
     assert [r.cost for r in s.iterations] == [r.cost for r in res["JACOBI"][1].iterations]
@@ -259,7 +259,7 @@ def test_libmv_cgnr_takes_the_flat_chain_and_matches_jax():
                                         fused_loop="ALWAYS"),
                              jlibmv.build_problem(jax_lp(p))[0]) for p in (lp, ulp))
     kn.reset_counts()
-    out = ctt.solve(ctt.Options(linear_solver_type=CGNR),
+    out = ctt.solve(ctt.Options(fused_loop="ALWAYS", linear_solver_type=CGNR),
                     tlibmv.build_problem(chip_smoke.fresh(lp))[0], device="cpu")
     assert out.termination_type.name == ref.termination_type.name
     assert len(out.iterations) == len(ref.iterations) == len(ref_ulp.iterations)

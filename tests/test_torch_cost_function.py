@@ -180,7 +180,8 @@ def test_cost_functions_batched_in_a_solve_match_jax(method):
     tp, tmc = _curve(ctt, torch, method)
     ref = ct.solve(ct.Options(linear_solver_type=ct.LinearSolverType.DENSE_QR,
                               fused_loop="ALWAYS"), jp)
-    out = ctt.solve(ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_QR), tp,
+    out = ctt.solve(ctt.Options(fused_loop="ALWAYS",
+                                linear_solver_type=ctt.LinearSolverType.DENSE_QR), tp,
                     device="cpu")
     assert out.termination_type.name == ref.termination_type.name
     assert len(out.iterations) == len(ref.iterations)

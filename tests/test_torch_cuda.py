@@ -117,7 +117,7 @@ def test_solve_on_card_matches_cpu(card):
     Each solve gets its own copy of the arrays it writes back into."""
     b = small_bal()
     arrays = (b.cameras, b.points, b.camera_index, b.point_index, b.observations)
-    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR)
+    opts = ctt.Options(fused_loop="ALWAYS", linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR)
     ref = ctt.solve(opts, tbal.build_problem_batched(tbal.from_arrays(*arrays))[0],
                     device="cpu")
     kn.reset_counts()
@@ -183,7 +183,7 @@ def test_iterative_solve_on_card_matches_cpu(card):
     of the path launch, the dense assembly does not."""
     b = small_bal()
     arrays = (b.cameras, b.points, b.camera_index, b.point_index, b.observations)
-    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR)
+    opts = ctt.Options(fused_loop="ALWAYS", linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR)
     ref = ctt.solve(opts, tbal.build_problem_batched(tbal.from_arrays(*arrays))[0],
                     device="cpu")
     kn.reset_counts()
@@ -468,7 +468,7 @@ def test_libmv_solve_on_card_matches_cpu(card, solver):
     lp = small_libmv()
     ulp = chip_smoke.fresh(lp)
     ulp.cameras = np.nextafter(lp.cameras, np.inf)
-    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType[solver])
+    opts = ctt.Options(fused_loop="ALWAYS", linear_solver_type=ctt.LinearSolverType[solver])
     ref = ctt.solve(opts, libmv.build_problem(chip_smoke.fresh(lp))[0], device="cpu")
     twin = ctt.solve(opts, libmv.build_problem(ulp)[0], device="cpu")
     kn.reset_counts()
@@ -679,7 +679,7 @@ def test_robust_quaternion_solve_on_card_matches_cpu(card):
     b = tbal.perturb(tbal.synthetic_bal(num_cameras=6, num_points=80, visibility=0.4,
                                         seed=0), 0.02, 0.1, 0.1, seed=1)
     arrays = (b.cameras, b.points, b.camera_index, b.point_index, b.observations)
-    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR)
+    opts = ctt.Options(fused_loop="ALWAYS", linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR)
 
     def problem():
         return tbal.build_problem_batched_quat(tbal.from_arrays(*arrays),
@@ -747,7 +747,7 @@ def test_cgnr_solve_on_card_matches_cpu(card, prec, iterations):
     b = small_bal()
     ulp = tbal.from_arrays(np.nextafter(b.cameras, np.inf), b.points, b.camera_index,
                            b.point_index, b.observations)
-    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.CGNR,
+    opts = ctt.Options(fused_loop="ALWAYS", linear_solver_type=ctt.LinearSolverType.CGNR,
                        preconditioner_type=ctt.PreconditionerType[prec],
                        max_num_iterations=iterations)
     ref = ctt.solve(opts, _bal_problem(b), device="cpu")
@@ -771,7 +771,7 @@ def test_dogleg_dense_schur_on_card_matches_cpu(card, dogleg):
     card, through the flat Schur path's kernels, and on the CPU: the same
     rows, each cost and radius to 1e-9 relative."""
     b = small_bal()
-    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
+    opts = ctt.Options(fused_loop="ALWAYS", linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
                        trust_region_strategy_type=ctt.TrustRegionStrategyType.DOGLEG,
                        dogleg_type=ctt.DoglegType[dogleg], initial_trust_region_radius=1.0)
     ref = ctt.solve(opts, _bal_problem(b), device="cpu")
@@ -838,7 +838,8 @@ def test_gauge_fixed_solve_on_card_matches_cpu(card, lst):
     import chip_smoke
 
     b = small_bal()
-    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType[lst], max_num_iterations=8)
+    opts = ctt.Options(fused_loop="ALWAYS",
+                       linear_solver_type=ctt.LinearSolverType[lst], max_num_iterations=8)
     ref = ctt.solve(opts, chip_smoke.gauge_fixed_problem(tbal, b)[0], device="cpu")
     p, cams, _ = chip_smoke.gauge_fixed_problem(tbal, b)
     before = cams[0].copy()
@@ -866,7 +867,7 @@ def test_bounded_solve_on_card_matches_cpu(card):
                                            upper=hi)
         return p, pts
 
-    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
+    opts = ctt.Options(fused_loop="ALWAYS", linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
                        max_num_iterations=10)
     ref = ctt.solve(opts, problem()[0], device="cpu")
     p, pts = problem()
@@ -929,3 +930,59 @@ def test_problem_evaluation_on_card_matches_cpu(card):
         np.testing.assert_allclose(a, c, rtol=1e-12, atol=1e-14)
     crs_card = p.evaluate(jacobian=True, jacobian_format="crs")[1]
     np.testing.assert_allclose(crs_card.to_dense(), cpu_out[3], rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.parametrize("lst", ["DENSE_QR", "DENSE_SCHUR", "ITERATIVE_SCHUR", "CGNR"])
+def test_host_loop_on_card_matches_cpu(card, lst):
+    """The host loop (AUTO takes it for this problem, under 8,192
+    residuals) on the card and the CPU: the same rows and CG counts, each
+    cost to 1e-9 relative; the block steps launch rows 6, 7 and 9 (CGNR
+    also row 4) and run no plain version, the dense one no kernel."""
+    b = small_bal()
+    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType[lst], max_num_iterations=8)
+
+    def problem():
+        return tbal.build_problem_batched(tbal.from_arrays(
+            b.cameras, b.points, b.camera_index, b.point_index, b.observations))[0]
+
+    ref = ctt.solve(opts, problem(), device="cpu")
+    kn.reset_counts()
+    out = ctt.solve(opts, problem())
+    assert out.num_host_syncs > 2 * (len(out.iterations) - 1)  # the host loop's
+    assert ([r.linear_solver_iterations for r in out.iterations]
+            == [r.linear_solver_iterations for r in ref.iterations])
+    for a, c in zip(ref.iterations, out.iterations):
+        assert c.cost == pytest.approx(a.cost, rel=1e-9)
+    assert all(k.plain_calls == 0 for k in kn.KERNELS)
+    block = ("segment_block_sum", "segment_block_expand", "unsorted_segment_sum")
+    for k in kn.KERNELS:
+        want = lst != "DENSE_QR" and (k.__name__ in block
+                                      or (lst == "CGNR" and k.__name__ == "normal_matvec"))
+        assert (k.launches > 0) == want, (k.__name__, k.launches)
+
+
+def test_host_loop_callbacks_on_card(card):
+    """An IterationCallback ending the host loop on the card at row 3 with
+    update_state_every_iteration: USER_SUCCESS in 4 rows, the points the
+    iterate at each callback (their cost on the CPU is the row's, 1e-9)."""
+    b = small_bal()
+    p, cams, pts = tbal.build_problem_batched(tbal.from_arrays(
+        b.cameras, b.points, b.camera_index, b.point_index, b.observations))
+    seen = []
+
+    def cb(it):
+        seen.append((it.cost, it.step_is_successful, cams.copy(), pts.copy()))
+        return (ctt.CallbackReturnType.SOLVER_TERMINATE_SUCCESSFULLY if it.iteration == 3
+                else ctt.CallbackReturnType.SOLVER_CONTINUE)
+
+    s = ctt.solve(ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
+                              callbacks=[cb], update_state_every_iteration=True), p)
+    assert s.termination_type == ctt.TerminationType.USER_SUCCESS and len(s.iterations) == 4
+    assert s.message == "User callback returned SOLVER_TERMINATE_SUCCESSFULLY."
+    for cost, ok, cams_i, pts_i in seen:
+        if not ok:
+            continue
+        q = tbal.build_problem_batched(tbal.from_arrays(
+            cams_i, pts_i, b.camera_index, b.point_index, b.observations))[0]
+        prog = CompiledProgram(q, device="cpu")
+        assert float(prog.evaluate_cost(prog.initial_state())) == pytest.approx(cost, rel=1e-9)

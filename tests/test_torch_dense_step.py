@@ -1,10 +1,10 @@
 """The DENSE_QR and DENSE_NORMAL_CHOLESKY steps of ceres_tpu_torch
 (solvers/fused_lm.DenseStepOps) against ceres_tpu's fused loop on the same
 problems, on the CPU, and the fallback of DENSE_SCHUR to DENSE_QR on a
-problem without eliminable blocks. float64; each JAX solve passes
-fused_loop="ALWAYS" (its AUTO sends problems this small to the host loop,
-which the port does not have). Each tolerance is stated where it is
-used."""
+problem without eliminable blocks. float64; each solve passes
+fused_loop="ALWAYS" in both packages (their AUTO sends problems this
+small to the host loop, which tests/test_torch_trust_region.py holds).
+Each tolerance is stated where it is used."""
 import numpy as np
 import pytest
 import torch
@@ -57,7 +57,8 @@ def ba_solved():
         ref = ct.solve(ct.Options(linear_solver_type=ct.LinearSolverType[lst],
                                   fused_loop="ALWAYS"), jax_ba(b))
         kn.reset_counts()
-        s = ctt.solve(ctt.Options(linear_solver_type=ctt.LinearSolverType[lst]),
+        s = ctt.solve(ctt.Options(fused_loop="ALWAYS",
+                                  linear_solver_type=ctt.LinearSolverType[lst]),
                       port_ba(b), device="cpu")
         out[lst] = (ref, s, {k.__name__: k.plain_calls for k in kn.KERNELS})
     return out
@@ -99,7 +100,8 @@ def test_dense_solve_on_mgh_matches_jax_row_for_row(lst, number):
         kw, linear_solver_type=ct.LinearSolverType[lst], fused_loop="ALWAYS"))
     _, _, out = tmgh.solve_problem(tmgh.PROBLEMS[number - 1], device="cpu",
                                    options_overrides=dict(
-                                       kw, linear_solver_type=ctt.LinearSolverType[lst]))
+                                       kw, linear_solver_type=ctt.LinearSolverType[lst],
+                                       fused_loop="ALWAYS"))
     assert_rows_match(out, ref, abs_=1e-20)
 
 
@@ -112,8 +114,9 @@ def test_dense_schur_without_e_blocks_falls_back_to_dense_qr():
     _, _, ref = jmgh.solve_problem(jmgh.PROBLEMS[p], options_overrides=dict(
         linear_solver_type=ct.LinearSolverType.DENSE_SCHUR, fused_loop="ALWAYS"))
     _, _, out = tmgh.solve_problem(tmgh.PROBLEMS[p], device="cpu", options_overrides=dict(
-        linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR))
-    _, _, qr = tmgh.solve_problem(tmgh.PROBLEMS[p], device="cpu")
+        linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR, fused_loop="ALWAYS"))
+    _, _, qr = tmgh.solve_problem(tmgh.PROBLEMS[p], device="cpu",
+                                  options_overrides=dict(fused_loop="ALWAYS"))
     assert out.linear_solver_type_given == ctt.LinearSolverType.DENSE_SCHUR
     assert out.linear_solver_type_used.name == ref.linear_solver_type_used.name == "DENSE_QR"
     assert out.schur_structure_used == ref.schur_structure_used == ""
@@ -125,7 +128,8 @@ def test_dense_solve_writes_back_its_solution():
     """solve writes the answer into the caller's parameter block, and its
     cost there is the final cost (1e-12 relative)."""
     prob, x = tmgh.build_problem(tmgh.PROBLEMS[18])
-    s = ctt.solve(ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_QR), prob,
+    s = ctt.solve(ctt.Options(fused_loop="ALWAYS",
+                              linear_solver_type=ctt.LinearSolverType.DENSE_QR), prob,
                   device="cpu")
     assert not np.array_equal(x[0], np.asarray(tmgh.PROBLEMS[18].initial_x))
     r = tmgh.PROBLEMS[18].residual(torch.as_tensor(x[0]))

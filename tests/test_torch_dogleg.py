@@ -35,7 +35,7 @@ def _pair(lst, dogleg):
     b = ba()
     ref = ct.solve(_opts(ct, lst, dogleg, fused_loop="ALWAYS"), jax_ba(b))
     kn.reset_counts()
-    s = ctt.solve(_opts(ctt, lst, dogleg), port_ba(b), device="cpu")
+    s = ctt.solve(_opts(ctt, lst, dogleg, fused_loop="ALWAYS"), port_ba(b), device="cpu")
     return ref, s, {k.__name__: k.plain_calls for k in kn.KERNELS}
 
 

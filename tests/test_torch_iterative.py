@@ -284,7 +284,8 @@ def test_iterative_program_builds_no_pair_plan():
     assert biggest == plan.B < plan.C * plan.C
     small = port_problem(small_bal())[0]
     dense = DenseSchurStepOps(CompiledProgram(small, "float64", device="cpu"),
-                              ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR),
+                              ctt.Options(fused_loop="ALWAYS",
+                                          linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR),
                               [1])
     assert dense.flat.plan.pairs is not None
 
@@ -305,7 +306,7 @@ def solved():
     for prec in ("SCHUR_JACOBI", "IDENTITY"):
         ref = _jax_solve(b, prec)
         kn.reset_counts()
-        s = ctt.solve(ctt.Options(linear_solver_type=IS,
+        s = ctt.solve(ctt.Options(fused_loop="ALWAYS", linear_solver_type=IS,
                                   preconditioner_type=ctt.PreconditionerType[prec]),
                       port_problem(b)[0], device="cpu")
         counts = {k.__name__: (k.launches, k.plain_calls) for k in kn.KERNELS}
@@ -375,7 +376,7 @@ def test_jacobi_runs_as_schur_jacobi(solved):
     """JACOBI takes the SCHUR_JACOBI step (fused_lm.py:237-239): the same
     rows bit for bit."""
     b, res = solved
-    s = ctt.solve(ctt.Options(linear_solver_type=IS,
+    s = ctt.solve(ctt.Options(fused_loop="ALWAYS", linear_solver_type=IS,
                               preconditioner_type=ctt.PreconditionerType.JACOBI),
                   port_problem(b)[0], device="cpu")
     ref = res["SCHUR_JACOBI"][1]
@@ -387,7 +388,8 @@ def test_iterative_float32_solve_reaches_the_float64_cost(solved):
     """evaluation_dtype="float32" runs the same path in float32: its final
     cost is within 1e-5 relative of the float64 solve's."""
     b, res = solved
-    s32 = ctt.solve(ctt.Options(linear_solver_type=IS, evaluation_dtype="float32"),
+    s32 = ctt.solve(ctt.Options(fused_loop="ALWAYS",
+                                linear_solver_type=IS, evaluation_dtype="float32"),
                     port_problem(b)[0], device="cpu")
     assert s32.is_solution_usable()
     assert s32.final_cost == pytest.approx(res["SCHUR_JACOBI"][1].final_cost, rel=1e-5)

@@ -173,7 +173,7 @@ def _jax_solve(problem, lst, dtype):
 
 def _port_solve(problem, lst, dtype):
     kn.reset_counts()
-    s = ctt.solve(ctt.Options(linear_solver_type=ctt.LinearSolverType[lst],
+    s = ctt.solve(ctt.Options(fused_loop="ALWAYS", linear_solver_type=ctt.LinearSolverType[lst],
                               preconditioner_type=ctt.PreconditionerType.SCHUR_JACOBI,
                               evaluation_dtype=dtype), problem, device="cpu")
     return s, {k.__name__: (k.launches, k.plain_calls) for k in kn.KERNELS}

@@ -134,3 +134,104 @@ def test_quaternion_plus_preserves_norm_and_subset_holds_constants():
     assert y.tolist() == [1.0, 12.0, 3.0, 24.0]
     with pytest.raises(ValueError, match="out of range"):
         tm.SubsetManifold(3, [3])
+
+
+# -- SphereManifold, LineManifold and AutoDiffManifold (the host loop's
+# -- slice): no rows form, so a program with one takes the flat path
+
+def _autodiff_pair():
+    return (jm.AutoDiffManifold(lambda x, d: x * jnp.exp(d),
+                                lambda y, x: jnp.log(y / x), 2, 2),
+            tm.AutoDiffManifold(lambda x, d: x * torch.exp(d),
+                                lambda y, x: torch.log(y / x), 2, 2))
+
+
+HOST_PAIRS = {
+    "Sphere4": (jm.SphereManifold(4), tm.SphereManifold(4)),
+    "Sphere3": (jm.SphereManifold(3), tm.SphereManifold(3)),
+    "Line3": (jm.LineManifold(3), tm.LineManifold(3)),
+    "Line2": (jm.LineManifold(2), tm.LineManifold(2)),
+    "AutoDiff": _autodiff_pair(),
+}
+
+
+def _host_state(name, m, seed):
+    """x on the manifold (unit sphere point, unit line direction, positive
+    AutoDiff coordinates), a tangent d, and a y near x."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(m.ambient_size)
+    if name.startswith("Sphere"):
+        x /= np.linalg.norm(x)
+    elif name.startswith("Line"):
+        n = m.ambient_size // 2
+        x[n:] /= np.linalg.norm(x[n:])
+    else:
+        x = np.abs(x) + 0.5
+    d = rng.standard_normal(m.tangent_size) * 0.3
+    return x, d
+
+
+_JAX_ALL = {}
+
+
+def _jax_all(name):
+    """One jitted JAX function per manifold: (plus, minus, PlusJacobian,
+    MinusJacobian) at (x, d, y), compiled once for all seeds."""
+    if name not in _JAX_ALL:
+        m = HOST_PAIRS[name][0]
+        _JAX_ALL[name] = jax.jit(lambda x, d, y: (m.plus(x, d), m.minus(y, x),
+                                                  m.plus_jacobian(x), m.minus_jacobian(x)))
+    return _JAX_ALL[name]
+
+
+@pytest.mark.parametrize("name", list(HOST_PAIRS))
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_host_loop_manifolds_match_jax(name, seed):
+    """plus, minus and both Jacobians on the same numpy inputs, 1e-12
+    relative to the values' scale; the pivot of the Householder frame on
+    both of its branches (x_last > 0 and < 0 over the seeds) and at the
+    pole (x = e_last, the trivial branch)."""
+    jmf, tmf = HOST_PAIRS[name]
+    assert (tmf.ambient_size, tmf.tangent_size) == (jmf.ambient_size, jmf.tangent_size)
+    assert not tmf.supports_rows_columns
+    x, d = _host_state(name, jmf, seed)
+    y = np.array(_jax_all(name)(jnp.asarray(x), jnp.asarray(d * 0.5), jnp.asarray(x))[0])
+    points = [x]
+    if name.startswith("Sphere"):
+        pole = np.zeros(jmf.ambient_size)
+        pole[-1] = 1.0
+        points.append(pole)
+    for x in points:
+        tx, td, ty = (torch.as_tensor(a) for a in (x, d, y))
+        jx, jd, jy = (jnp.asarray(a) for a in (x, d, y))
+        refs = _jax_all(name)(jx, jd, jy)
+        outs = (tmf.plus(tx, td), tmf.minus(ty, tx), tmf.plus_jacobian(tx),
+                tmf.minus_jacobian(tx))
+        for out, ref in zip(outs, refs):
+            out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
+            assert out.shape == ref.shape
+            assert np.abs(out - ref).max() <= 1e-12 * max(np.abs(ref).max(), 1.0)
+
+
+@pytest.mark.parametrize("name", list(HOST_PAIRS))
+def test_host_loop_manifold_axioms_and_batching(name):
+    """Plus(x, 0) = x, Minus(Plus(x, d), x) = d, MinusJacobian
+    PlusJacobian = I, and torch.func.vmap over blocks as the program
+    batches a family (1e-12 against the JAX vmap)."""
+    jmf, m = HOST_PAIRS[name]
+    x, d = (torch.as_tensor(a) for a in _host_state(name, m, 4))
+    zero = torch.zeros(m.tangent_size, dtype=torch.float64)
+    torch.testing.assert_close(m.plus(x, zero), x, rtol=0, atol=1e-12)
+    torch.testing.assert_close(m.minus(m.plus(x, d), x), d, rtol=0, atol=1e-9)
+    torch.testing.assert_close(m.minus_jacobian(x) @ m.plus_jacobian(x),
+                               torch.eye(m.tangent_size, dtype=torch.float64),
+                               rtol=0, atol=1e-9)
+    X = np.stack([_host_state(name, m, s)[0] for s in range(6)])
+    D = np.stack([_host_state(name, m, s)[1] for s in range(6)])
+    refs = jax.jit(jax.vmap(lambda x, d: (jmf.plus_jacobian(x), jmf.plus(x, d))))(
+        jnp.asarray(X), jnp.asarray(D))
+    outs = (torch.func.vmap(m.plus_jacobian)(torch.as_tensor(X)),
+            torch.func.vmap(m.plus)(torch.as_tensor(X), torch.as_tensor(D)))
+    for out, ref in zip(outs, refs):
+        out, ref = out.numpy(), np.asarray(ref)
+        assert np.abs(out - ref).max() <= 1e-12 * max(np.abs(ref).max(), 1.0)

@@ -57,7 +57,8 @@ def _pair(b, lst, **kw):
                               fused_loop="ALWAYS", **kw),
                    jbal.build_problem_batched(jbal.BALProblem(*_arrays(b)))[0])
     kn.reset_counts()
-    out = ctt.solve(ctt.Options(linear_solver_type=ctt.LinearSolverType[lst], **kw),
+    out = ctt.solve(ctt.Options(fused_loop="ALWAYS",
+                                linear_solver_type=ctt.LinearSolverType[lst], **kw),
                     tbal.build_problem_batched(tbal.BALProblem(*_arrays(b)))[0],
                     device="cpu")
     return ref, out, {k.__name__: k.plain_calls for k in kn.KERNELS}
@@ -131,10 +132,13 @@ def test_mixed_summary_joins_its_phases():
     b = small_ba()
     opts = dict(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR)
     p = tbal.build_problem_batched(tbal.BALProblem(*_arrays(b)))[0]
-    mixed = ctt.solve(ctt.Options(evaluation_dtype="mixed", **opts), p, device="cpu")
+    mixed = ctt.solve(ctt.Options(fused_loop="ALWAYS",
+                                  evaluation_dtype="mixed", **opts), p, device="cpu")
     p = tbal.build_problem_batched(tbal.BALProblem(*_arrays(b)))[0]
-    s32 = ctt.solve(ctt.Options(evaluation_dtype="float32", **opts), p, device="cpu")
-    s64 = ctt.solve(ctt.Options(evaluation_dtype="float64", max_num_iterations=5, **opts),
+    s32 = ctt.solve(ctt.Options(fused_loop="ALWAYS",
+                                evaluation_dtype="float32", **opts), p, device="cpu")
+    s64 = ctt.solve(ctt.Options(fused_loop="ALWAYS",
+                                evaluation_dtype="float64", max_num_iterations=5, **opts),
                     p, device="cpu")
     assert [r.cost for r in mixed.iterations] == (
         [r.cost for r in s32.iterations] + [r.cost for r in s64.iterations[1:]])
@@ -150,7 +154,8 @@ def test_progress_lines_match_jax(capsys):
     from ceres_tpu.callbacks import trust_region_log_line as jline
 
     b = small_ba()
-    s = ctt.solve(ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
+    s = ctt.solve(ctt.Options(fused_loop="ALWAYS",
+                              linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
                               minimizer_progress_to_stdout=True),
                   tbal.build_problem_batched(tbal.BALProblem(*_arrays(b)))[0], device="cpu")
     lines = capsys.readouterr().out.strip().splitlines()

@@ -16,6 +16,7 @@ import ceres_tpu_torch as ctt
 from ceres_tpu_torch import rotation as trot
 from ceres_tpu_torch.models import bal as tbal
 from ceres_tpu_torch.program import CompiledProgram
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def small_bal(seed=0):
@@ -107,7 +108,8 @@ def test_options_validation_matches_jax():
                dict(evaluation_dtype="float16"),
                dict(min_trust_region_radius=1e20, max_trust_region_radius=1e10),
                dict(eta=0.0), dict(use_mixed_precision_solves=True,
-                                   linear_solver_type="ITERATIVE_SCHUR")]:
+                                   linear_solver_type="ITERATIVE_SCHUR"),
+               dict(max_solver_time_in_seconds=-1.0)]:
         ok_ref, _ = ct.Options(**_enums(ct, kw)).is_valid()
         ok, _ = ctt.Options(**_enums(ctt, kw)).is_valid()
         assert ok == ok_ref is False
@@ -130,21 +132,9 @@ _PT = ctt.PreconditionerType
     (dict(linear_solver_type=_IS,
           preconditioner_type=_PT.SCHUR_POWER_SERIES_EXPANSION), 6),
     (dict(linear_solver_type=ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY), 6),
-    (dict(linear_solver_type=_IS,
-          trust_region_strategy_type=ctt.TrustRegionStrategyType.DOGLEG), 6),
-    (dict(linear_solver_type=ctt.LinearSolverType.CGNR,
-          trust_region_strategy_type=ctt.TrustRegionStrategyType.DOGLEG), 6),
     (dict(linear_solver_type=ctt.LinearSolverType.CGNR,
           preconditioner_type=_PT.CLUSTER_JACOBI), 6),
     (dict(linear_solver_type=ctt.LinearSolverType.SPARSE_SCHUR), 6),
-    (dict(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
-          callbacks=[lambda it: None]), 6),
-    (dict(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
-          evaluation_callback=object()), 6),
-    (dict(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
-          update_state_every_iteration=True), 6),
-    (dict(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
-          fused_loop="NEVER"), 6),
     (dict(linear_solver_type=_IS, preconditioner_type=_PT.CLUSTER_JACOBI), 6),
     (dict(linear_solver_type=_IS, preconditioner_type=_PT.CLUSTER_TRIDIAGONAL), 6),
     (dict(linear_solver_type=_IS, preconditioner_type=_PT.SUBSET), 6),
@@ -159,3 +149,62 @@ def test_unported_options_raise_naming_the_slice(kw, slice_no):
 
 def _arrays(b):
     return b.cameras, b.points, b.camera_index, b.point_index, b.observations
+
+
+class _Counting:
+    """An EvaluationCallback of either package that counts its calls."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def prepare_for_evaluation(self, evaluate_jacobians, new_evaluation_point):
+        self.calls += 1
+
+
+_DS = "DENSE_SCHUR"
+
+
+@pytest.mark.parametrize("case", [
+    "dogleg_iterative_schur", "dogleg_cgnr", "callbacks", "evaluation_callback",
+    "update_state_every_iteration", "fused_loop_never"])
+def test_host_loop_options_match_jax(case):
+    """The six options that ran only in the JAX package's host loop, on
+    small_bal() in both packages: DOGLEG with ITERATIVE_SCHUR or CGNR
+    fails the JAX package's validation, and the port's, with its message;
+    the others run the host loop to the JAX package's rows, each row's
+    cost within 1e-9 relative, the same termination and message, the
+    evaluation callback called as often, the state written back."""
+    kw = {"dogleg_iterative_schur": dict(linear_solver_type="ITERATIVE_SCHUR", dogleg=True),
+          "dogleg_cgnr": dict(linear_solver_type="CGNR", dogleg=True),
+          "callbacks": dict(callbacks=[lambda it: None]),
+          "evaluation_callback": dict(evaluation_callback=True),
+          "update_state_every_iteration": dict(update_state_every_iteration=True),
+          "fused_loop_never": dict(fused_loop="NEVER")}[case]
+    runs = []
+    for pkg, build in [(ct, lambda b: jbal.build_problem_batched(jbal.BALProblem(
+            b.cameras.copy(), b.points.copy(), b.camera_index, b.point_index,
+            b.observations))), (ctt, lambda b: tbal.build_problem_batched(
+            tbal.from_arrays(*_arrays(b))))]:
+        opts = dict(kw)
+        opts["linear_solver_type"] = pkg.LinearSolverType[opts.get("linear_solver_type", _DS)]
+        if opts.pop("dogleg", False):
+            opts["trust_region_strategy_type"] = pkg.TrustRegionStrategyType.DOGLEG
+        if opts.get("evaluation_callback"):
+            opts["evaluation_callback"] = _Counting()
+        problem, cams, pts = build(small_bal())
+        extra = {} if pkg is ct else {"device": "cpu"}
+        s = pkg.solve(pkg.Options(**opts), problem, **extra)
+        runs.append((s, opts.get("evaluation_callback"), np.array(pts)))
+    (ref, ref_cb, ref_pts), (out, cb, out_pts) = runs
+    assert out.termination_type.name == ref.termination_type.name
+    assert out.message == ref.message
+    if case.startswith("dogleg"):
+        assert out.termination_type == ctt.TerminationType.FAILURE
+        assert out.message == "DOGLEG only supports exact factorization-based linear solvers"
+        return
+    assert len(out.iterations) == len(ref.iterations)
+    for a, c in zip(ref.iterations, out.iterations):
+        assert c.cost == pytest.approx(a.cost, rel=1e-9)
+    if cb is not None:
+        assert cb.calls == ref_cb.calls == out.num_jacobian_evaluations
+    np.testing.assert_allclose(out_pts, ref_pts, rtol=1e-9, atol=1e-12)

@@ -58,11 +58,24 @@ def test_solve_without_cpu_request_raises_when_no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     b = tbal.synthetic_bal(num_cameras=3, num_points=20, visibility=0.6, seed=2)
     problem = tbal.build_problem_batched(b)[0]
-    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR)
+    opts = ctt.Options(fused_loop="ALWAYS", linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ctt.solve(opts, problem)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ctt.solve(opts, problem, device="cuda")
+
+
+@pytest.mark.parametrize("kw", [dict(fused_loop="NEVER"), dict()])
+def test_host_loop_solve_without_cpu_request_raises_when_no_card(monkeypatch, kw):
+    """The host loop's entry point, under fused_loop="NEVER" and under AUTO
+    (which takes it for a problem this small): no card and no
+    device="cpu" raises; it does not run on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    b = tbal.synthetic_bal(num_cameras=3, num_points=20, visibility=0.6, seed=2)
+    problem = tbal.build_problem_batched(b)[0]
+    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ctt.solve(opts, problem)
 
 
 def test_libmv_solve_without_cpu_request_raises_when_no_card(monkeypatch):
@@ -73,7 +86,7 @@ def test_libmv_solve_without_cpu_request_raises_when_no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     b = tbal.synthetic_bal(num_cameras=3, num_points=20, visibility=0.6, seed=2)
     problem = libmv.build_problem(chip_smoke.libmv_instance(b, b))[0]
-    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR)
+    opts = ctt.Options(fused_loop="ALWAYS", linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ctt.solve(opts, problem)
 

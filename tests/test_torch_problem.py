@@ -205,7 +205,7 @@ def test_repeated_solve_reads_fresh_values():
     p = ctt.Problem()
     x = np.array([5.0, 5.0])
     p.add_residual_block(quad_cost(), None, [x])
-    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_QR,
+    opts = ctt.Options(fused_loop="ALWAYS", linear_solver_type=ctt.LinearSolverType.DENSE_QR,
                        max_num_iterations=20)
     assert ctt.solve(opts, p, device=CPU).is_solution_usable()
     np.testing.assert_allclose(x, 1.0, atol=1e-8)
@@ -238,7 +238,7 @@ def _copy(b):
 def test_batched_matches_per_block():
     b = tbal.perturb(tbal.synthetic_bal(num_cameras=5, num_points=40, visibility=0.5,
                                         noise=0.2, seed=3), 0.02, 0.1, 0.1)
-    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
+    opts = ctt.Options(fused_loop="ALWAYS", linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
                        max_num_iterations=40)
     s1 = ctt.solve(opts, tbal.build_problem(_copy(b))[0], device=CPU)
     s2 = ctt.solve(opts, tbal.build_problem_batched(_copy(b))[0], device=CPU)
@@ -251,7 +251,7 @@ def test_batched_writes_back_into_2d_arrays():
                                         noise=0.1, seed=5), 0.02, 0.1, 0.1)
     p, cam_values, _ = tbal.build_problem_batched(b)
     before = cam_values.copy()
-    ctt.solve(ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
+    ctt.solve(ctt.Options(fused_loop="ALWAYS", linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
                           max_num_iterations=10), p, device=CPU)
     assert not np.allclose(cam_values, before)
 
@@ -264,7 +264,7 @@ def test_batched_constant_array_contributes_fixed_cost():
     p.add_residual_block_batch(cost, None, [(xs, np.arange(3))])
     p.add_residual_block_batch(cost, None, [(ys, np.arange(3))])
     p.set_parameter_block_array_constant(ys)
-    s = ctt.solve(ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_QR,
+    s = ctt.solve(ctt.Options(fused_loop="ALWAYS", linear_solver_type=ctt.LinearSolverType.DENSE_QR,
                               max_num_iterations=30), p, device=CPU)
     np.testing.assert_allclose(s.fixed_cost, 0.5 * 3 * 2 * 16.0)
     np.testing.assert_allclose(s.final_cost, s.fixed_cost, atol=1e-9)
@@ -278,7 +278,7 @@ def test_batched_with_manifold_and_bounds():
     cost = AutoDiffCostFunction(lambda v, t: v - t, 4, [4])
     p.add_residual_block_batch(cost, None, [(qs, np.arange(4))],
                                data=np.tile(target, (4, 1)))
-    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_QR,
+    opts = ctt.Options(fused_loop="ALWAYS", linear_solver_type=ctt.LinearSolverType.DENSE_QR,
                        max_num_iterations=40)
     assert ctt.solve(opts, p, device=CPU).final_cost < 1e-12
     np.testing.assert_allclose(np.linalg.norm(q, axis=1), 1.0, atol=1e-10)
@@ -466,7 +466,7 @@ def _solve_pair(jprob, tprob, lst, dtype="float64", **kw):
     if "t_ordering" in tk:
         tk["linear_solver_ordering"] = tk.pop("t_ordering")
     kn.reset_counts()
-    out = ctt.solve(ctt.Options(linear_solver_type=ctt.LinearSolverType[lst],
+    out = ctt.solve(ctt.Options(fused_loop="ALWAYS", linear_solver_type=ctt.LinearSolverType[lst],
                                 evaluation_dtype=dtype, **tk), tprob, device=CPU)
     return ref, out, {k.__name__: k.plain_calls for k in kn.KERNELS}
 
@@ -513,7 +513,8 @@ def test_gauge_fixed_camera_stays_put():
     p, cams, _ = tbal.build_problem(_copy(_small_ba()))
     before = cams[0].copy()
     p.set_parameter_block_constant(cams[0])
-    ctt.solve(ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR), p,
+    ctt.solve(ctt.Options(fused_loop="ALWAYS",
+                          linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR), p,
               device=CPU)
     np.testing.assert_array_equal(cams[0], before)
 
@@ -528,7 +529,8 @@ def test_user_ordering_matches_default_and_jax():
     to = [[tp.parameter_block_arrays()[1]], [tp.parameter_block_arrays()[0]]]
     ref, out, _ = _solve_pair(jp, tp, "DENSE_SCHUR", j_ordering=jo, t_ordering=to)
     assert_rows(out, ref)
-    default = ctt.solve(ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR),
+    default = ctt.solve(ctt.Options(fused_loop="ALWAYS",
+                                    linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR),
                         tbal.build_problem_batched(_copy(b))[0], device=CPU)
     assert [r.cost for r in out.iterations] == [r.cost for r in default.iterations]
 

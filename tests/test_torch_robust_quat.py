@@ -195,7 +195,8 @@ def solve_pair(model, loss_name, dtype="float64"):
     ref = ct.solve(ct.Options(linear_solver_type=ct.LinearSolverType.DENSE_SCHUR,
                               fused_loop="ALWAYS"), jp)
     kn.reset_counts()
-    out = ctt.solve(ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
+    out = ctt.solve(ctt.Options(fused_loop="ALWAYS",
+                                linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
                                 evaluation_dtype=dtype), tp, device="cpu")
     counts = {k.__name__: k.plain_calls for k in kn.KERNELS}
     return ref, out, counts
@@ -223,7 +224,8 @@ def test_quaternion_solve_keeps_unit_quaternions_and_writes_back():
                           b.observations)
     p, cams, pts = tbal.build_problem_batched_quat(tb, ctt.HuberLoss(1.0))
     start = cams.copy()
-    s = ctt.solve(ctt.Options(linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR),
+    s = ctt.solve(ctt.Options(fused_loop="ALWAYS",
+                              linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR),
                   p, device="cpu")
     assert s.termination_type.name == "CONVERGENCE"
     assert s.num_effective_parameters_reduced == 9 * 6 + 3 * b.num_points
@@ -243,7 +245,8 @@ def test_float32_robust_solve_reaches_the_float64_cost():
     (tests/test_fused_lm.py:462-464)."""
     _, out64, _ = solve_pair("angle_axis", "huber")
     _, tp = problems("angle_axis", "huber")
-    out32 = ctt.solve(ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
+    out32 = ctt.solve(ctt.Options(fused_loop="ALWAYS",
+                                  linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
                                   evaluation_dtype="float32"), tp, device="cpu")
     assert out32.is_solution_usable()
     assert out32.final_cost == pytest.approx(out64.final_cost, rel=5e-3)
@@ -320,7 +323,7 @@ def test_refused_programs_take_the_flat_path_and_solve(case):
     solves stop after 10 iterations."""
     cost, loss = ((_copied_snavely_cost(), None) if case == "copied_residual_rows"
                   else (None, _MyLoss()))
-    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
+    opts = ctt.Options(fused_loop="ALWAYS", linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
                        max_num_iterations=10)
     kn.reset_counts()
     flat = ctt.solve(opts, _custom_problem(cost=cost, loss=loss), device="cpu")

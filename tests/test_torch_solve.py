@@ -35,7 +35,8 @@ def solved():
                               fused_loop="NEVER"), jprob)
     tprob, tcams, tpts = port_problem(b)
     kn.reset_counts()
-    out = ctt.solve(ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR),
+    out = ctt.solve(ctt.Options(fused_loop="ALWAYS",
+                                linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR),
                     tprob, device="cpu")
     counts = {k.__name__: (k.launches, k.plain_calls) for k in kn.KERNELS}
     return dict(b=b, ref=ref, out=out, jcams=jcams, jpts=jpts, tcams=tcams,
@@ -90,7 +91,8 @@ def test_float32_solve_reaches_the_float64_cost(solved):
     with the f32 reduced solve plus one refinement pass; its final cost is
     within 1e-5 relative of the float64 solve's."""
     tprob, _, _ = port_problem(solved["b"])
-    s32 = ctt.solve(ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
+    s32 = ctt.solve(ctt.Options(fused_loop="ALWAYS",
+                                linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
                                 evaluation_dtype="float32"), tprob, device="cpu")
     assert s32.is_solution_usable()
     assert s32.final_cost == pytest.approx(solved["out"].final_cost, rel=1e-5)
