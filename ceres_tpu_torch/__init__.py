@@ -7,7 +7,11 @@ with Levenberg-Marquardt over DENSE_SCHUR, ITERATIVE_SCHUR, CGNR, DENSE_QR
 or DENSE_NORMAL_CHOLESKY, and with DOGLEG (traditional or subspace) over
 the exact ones, in the fused loop or, as the JAX package picks it, the
 host loop with user IterationCallbacks, an EvaluationCallback,
-update_state_every_iteration, iteration dumps and a solve time limit,
+update_state_every_iteration, iteration dumps and a solve time limit; the
+host loop also runs the sparse direct solvers SPARSE_NORMAL_CHOLESKY (the
+default) and SPARSE_SCHUR and the SUBSET preconditioner, factoring on the
+host with the port's own native sparse Cholesky (native/), for bundle
+adjustment and the pose graphs of models/pose_graph.py;
 through hand-written CUDA kernels (ops/kernels.py, csrc/): on
 the fused jt path for BAL bundle adjustment (models/bal.py), angle-axis or
 quaternion cameras, with or without a robust loss; on the flat path for

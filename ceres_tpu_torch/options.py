@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import tempfile
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Sequence
 
 from .types import (
     DoglegType,
@@ -26,12 +26,13 @@ from .types import (
 # ITERATIVE_SCHUR JACOBI runs as SCHUR_JACOBI, as in the JAX package
 # (fused_lm.py:237-239, bsr_kernels.py:174-175); on CGNR both are the
 # block-Jacobi preconditioner of J'J (fused_lm.py:161, bsr_kernels.py:107-111).
+# SUBSET takes the host loop: on CGNR with its residual blocks it is
+# (Q'Q + D^2)^{-1}; on ITERATIVE_SCHUR, and on CGNR without them, it runs
+# as IDENTITY, as in the JAX host loop (bsr_kernels.py:107-111, :174-190).
 _ITERATIVE_PRECONDITIONERS = (PreconditionerType.SCHUR_JACOBI,
                               PreconditionerType.JACOBI,
-                              PreconditionerType.IDENTITY)
-_PORTED_SOLVERS = (LinearSolverType.DENSE_SCHUR, LinearSolverType.ITERATIVE_SCHUR,
-                   LinearSolverType.CGNR, LinearSolverType.DENSE_QR,
-                   LinearSolverType.DENSE_NORMAL_CHOLESKY)
+                              PreconditionerType.IDENTITY,
+                              PreconditionerType.SUBSET)
 
 
 @dataclasses.dataclass
@@ -92,9 +93,15 @@ class Options:
     use_spse_initialization: bool = False
     max_num_spse_iterations: int = 5
     eta: float = 1e-1
+    # SPARSE_NORMAL_CHOLESKY: analyze the numeric pattern of J'J anew at
+    # every solve (dynamic_sparse_normal_cholesky_solver.cc)
+    dynamic_sparsity: bool = False
     use_inner_iterations: bool = False
     # groups of parameter blocks or arrays; group 0 is eliminated first
     linear_solver_ordering: Optional[List[List[Any]]] = None
+    # SUBSET on CGNR: the ids (Problem.add_residual_block's) of the residual
+    # blocks whose rows form the preconditioner
+    residual_blocks_for_subset_preconditioner: Optional[Sequence[int]] = None
 
     # Logging, callbacks and dumps: the host loop's (callbacks.py,
     # solvers/trust_region.py)
@@ -152,14 +159,15 @@ class Options:
         if self.use_mixed_precision_solves and self.linear_solver_type in (
                 LinearSolverType.ITERATIVE_SCHUR, LinearSolverType.CGNR):
             return False, "mixed precision solves not supported with iterative solvers"
+        if (self.dynamic_sparsity
+                and self.linear_solver_type != LinearSolverType.SPARSE_NORMAL_CHOLESKY):
+            return False, "dynamic_sparsity is only supported with SPARSE_NORMAL_CHOLESKY"
         return True, ""
 
     def check_supported(self) -> None:
         """Raise NotImplementedError for what this slice does not run."""
         if self.minimizer_type != MinimizerType.TRUST_REGION:
             raise not_ported(f"minimizer_type={self.minimizer_type}", 6)
-        if self.linear_solver_type not in _PORTED_SOLVERS:
-            raise not_ported(f"linear_solver_type={self.linear_solver_type}", 6)
         if self.linear_solver_type in (LinearSolverType.ITERATIVE_SCHUR,
                                        LinearSolverType.CGNR):
             if self.preconditioner_type not in _ITERATIVE_PRECONDITIONERS:

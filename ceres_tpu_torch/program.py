@@ -93,6 +93,9 @@ class Kind:
     row_offset: int
     B: int
     r: int
+    # (B,) the residual block id of each row (Problem.add_residual_block's),
+    # None for a batch of residual blocks (one id for all its rows)
+    rb_ids: Optional[np.ndarray] = None
 
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
@@ -229,17 +232,19 @@ class CompiledProgram:
         self.kinds: List[Kind] = []
         self._row_off = 0
 
-        def add_kind(cost, loss, slots, data, B):
+        def add_kind(cost, loss, slots, data, B, rb_ids=None):
             perm = _sort_perm(slots) if self.sort_rows else None
             if perm is not None:
                 slots = [dataclasses.replace(s, pos_in_family=s.pos_in_family[perm])
                          for s in slots]
                 if data is not None:
                     data = tree_map(lambda a: np.asarray(a)[perm], data)
+                if rb_ids is not None:
+                    rb_ids = rb_ids[perm]
             r = cost.num_residuals
             self.kinds.append(Kind(cost=cost, loss=loss if self.apply_loss else None,
                                    slots=slots, data=self._data_tensor(data),
-                                   row_offset=self._row_off, B=B, r=r))
+                                   row_offset=self._row_off, B=B, r=r, rb_ids=rb_ids))
             self._row_off += B * r
 
         groups: Dict[tuple, list] = {}
@@ -261,7 +266,8 @@ class CompiledProgram:
                                      "or none")
                 data = tree_stack([rb.data for rb in rbs],
                                   lambda leaves: np.stack([np.asarray(a) for a in leaves]))
-            add_kind(rbs[0].cost, rbs[0].loss, slots, data, len(rbs))
+            add_kind(rbs[0].cost, rbs[0].loss, slots, data, len(rbs),
+                     np.array([rb.rb_id for rb in rbs], np.int64))
 
         self.batched_fixed = []
         for rec in records:

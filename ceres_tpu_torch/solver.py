@@ -13,9 +13,13 @@ update_state_every_iteration, iteration dumps or a finite
 max_solver_time_in_seconds. Both run Levenberg-Marquardt or dogleg over
 DENSE_SCHUR, ITERATIVE_SCHUR, CGNR (SCHUR_JACOBI, JACOBI or IDENTITY
 preconditioner on both iterative solvers), DENSE_QR or
-DENSE_NORMAL_CHOLESKY; DOGLEG with an iterative solver fails validation
-as in the JAX package; a Schur solver on a problem without eliminable
-blocks falls back as the JAX package's does. Anything else raises
+DENSE_NORMAL_CHOLESKY; the host loop alone, as in the JAX package, runs
+the sparse direct solvers SPARSE_NORMAL_CHOLESKY (the Options default;
+dynamic sparsity and mixed-precision solves) and SPARSE_SCHUR, whose
+factorization runs on the host (ceres_tpu_torch/native), and the SUBSET
+preconditioner. DOGLEG with an iterative solver fails validation as in
+the JAX package; a Schur solver on a problem without eliminable blocks
+falls back as the JAX package's does. Anything else raises
 NotImplementedError naming the later slice (types.not_ported).
 """
 from __future__ import annotations
@@ -31,7 +35,7 @@ from .problem import Problem
 from .program import CompiledProgram, resolve_device
 from .solvers.fused_lm import build_fused_minimizer
 from .summary import Summary
-from .types import LinearSolverType, PreconditionerType, TerminationType, not_ported
+from .types import LinearSolverType, PreconditionerType, TerminationType
 
 
 def _pick_linear_solver(options: Options, program: CompiledProgram,
@@ -39,14 +43,15 @@ def _pick_linear_solver(options: Options, program: CompiledProgram,
     """SetupLinearSolver (trust_region_preprocessor.cc:161-259, the JAX
     solver.py:29-86) with the fallback of a Schur solver on a problem
     without e-blocks (LinearSolverForZeroEBlocks): DENSE_SCHUR takes
-    DENSE_QR, ITERATIVE_SCHUR takes CGNR. Sets the summary's solver used;
-    returns (tier, e_families or None)."""
+    DENSE_QR, SPARSE_SCHUR takes SPARSE_NORMAL_CHOLESKY, ITERATIVE_SCHUR
+    takes CGNR. Sets the summary's solver used; returns (tier, e_families
+    or None)."""
     from .utils import ordering as ordering_mod
 
     LS = LinearSolverType
     given = used = options.linear_solver_type
     e_fams = None
-    if given in (LS.DENSE_SCHUR, LS.ITERATIVE_SCHUR):
+    if given in (LS.DENSE_SCHUR, LS.SPARSE_SCHUR, LS.ITERATIVE_SCHUR):
         if options.linear_solver_ordering is not None:
             e_fams = ordering_mod.e_set_from_user_ordering(
                 program, options.linear_solver_ordering) or None
@@ -56,12 +61,12 @@ def _pick_linear_solver(options: Options, program: CompiledProgram,
             summary.schur_structure_given = summary.schur_structure_used = (
                 _schur_structure_string(program, e_fams))
         else:
-            used = {LS.DENSE_SCHUR: LS.DENSE_QR, LS.ITERATIVE_SCHUR: LS.CGNR}[given]
-    tier = {LS.DENSE_SCHUR: "schur_dense", LS.ITERATIVE_SCHUR: "schur_iterative",
-            LS.CGNR: "bsr", LS.DENSE_QR: "dense_qr",
-            LS.DENSE_NORMAL_CHOLESKY: "dense_normal_cholesky"}.get(used)
-    if tier is None:
-        raise not_ported(f"linear_solver_type={used}", 6)
+            used = {LS.DENSE_SCHUR: LS.DENSE_QR, LS.SPARSE_SCHUR: LS.SPARSE_NORMAL_CHOLESKY,
+                    LS.ITERATIVE_SCHUR: LS.CGNR}[given]
+    tier = {LS.DENSE_SCHUR: "schur_dense", LS.SPARSE_SCHUR: "schur_sparse",
+            LS.ITERATIVE_SCHUR: "schur_iterative", LS.CGNR: "bsr",
+            LS.SPARSE_NORMAL_CHOLESKY: "bsr_sparse", LS.DENSE_QR: "dense_qr",
+            LS.DENSE_NORMAL_CHOLESKY: "dense_normal_cholesky"}[used]
     summary.linear_solver_type_used = used
     return tier, e_fams
 
@@ -91,9 +96,10 @@ def _schur_structure_string(program, e_fams) -> str:
 
 def _maybe_build_fused(options: Options, program: CompiledProgram, tier: str, e_fams):
     """The fused minimizer where the configuration is in its subset, None
-    for the host loop (solver.py:122-171)."""
+    for the host loop (solver.py:122-171): the sparse tiers, which factor
+    on the host, always take the host loop."""
     mode = options.fused_loop.upper()
-    if mode == "NEVER":
+    if mode == "NEVER" or tier in ("bsr_sparse", "schur_sparse"):
         return None
     if mode == "AUTO" and program.num_residuals < options.fused_loop_min_residuals:
         return None
@@ -125,7 +131,9 @@ def _host_minimizer(options: Options, program: CompiledProgram, tier: str, e_fam
         kernels = DenseTrustRegionKernels(program, solve_fn, options)
     else:
         step_solver = {"bsr": "CGNR", "schur_dense": "DENSE_SCHUR",
-                       "schur_iterative": "ITERATIVE_SCHUR"}[tier]
+                       "schur_iterative": "ITERATIVE_SCHUR",
+                       "bsr_sparse": "SPARSE_NORMAL_CHOLESKY",
+                       "schur_sparse": "SPARSE_SCHUR"}[tier]
         kernels = BlockTrustRegionKernels(program, options, step_solver, e_families=e_fams)
     return TrustRegionMinimizer(program, kernels, options, summary)
 

@@ -1050,6 +1050,9 @@ def build_fused_minimizer(program, options: Options, tier: str, e_families=None)
     dogleg = options.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG
     if dogleg and tier not in _DOGLEG_TIERS:
         return None
+    if (options.preconditioner_type == PreconditionerType.SUBSET
+            and tier in ("bsr", "schur_iterative")):
+        return None  # the JAX factory's None for SUBSET (fused_lm.py:1932-1943)
     if tier == "bsr":
         ops = CgnrStepOps(program, options)
     elif tier in ("dense_qr", "dense_normal_cholesky"):

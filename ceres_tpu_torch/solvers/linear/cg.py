@@ -15,6 +15,11 @@ caller's `fetch`, which counts it (`Summary.num_host_syncs`). The check
 before the first iteration (zero right-hand side) travels with the first
 iteration's fetch. A loop that stays on the device is ROADMAP.md port
 slice 4.
+
+`conjugate_gradients_host` is the JAX package's variant for a
+preconditioner applied on the host (the SUBSET preconditioner's native
+triangular solves): its semantics, with the vectors kept on the device and
+the preconditioner moving its vector to the host and back.
 """
 from __future__ import annotations
 
@@ -47,9 +52,11 @@ def conjugate_gradients(
     residual_reset_period: int = 10,
     r_tolerance: float = -1.0,
     q_tolerance: float = -1.0,
+    host_variant: bool = False,
 ) -> CGResult:
     """Solve lhs(x) = rhs. `fetch(*scalars) -> list of floats` brings device
-    scalars to the host; every call is one host sync."""
+    scalars to the host; every call is one host sync. `host_variant`:
+    conjugate_gradients_host's semantics (below)."""
     if preconditioner is None:
         preconditioner = lambda v: v
 
@@ -90,6 +97,8 @@ def conjugate_gradients(
             r = r - alpha * q
         Q1 = -torch.dot(x, rhs + r)
         zeta = it * (Q1 - Q0) / Q1
+        if host_variant:
+            zeta = torch.where(Q1 != 0.0, zeta, torch.zeros_like(zeta))
         norm_r = torch.linalg.vector_norm(r)
         conv = (((zeta < q_tolerance) | (norm_r <= tol_r))
                 & (it >= min_num_iterations))
@@ -114,4 +123,18 @@ def conjugate_gradients(
             break
     if zero_rhs:  # |b| == 0 -> solution 0
         x, term = torch.zeros_like(x), CG_SUCCESS
+        if host_variant:
+            it = 0
     return CGResult(x, it, term, norm_r)
+
+
+def conjugate_gradients_host(lhs: Callable, rhs: torch.Tensor, x0: torch.Tensor,
+                             preconditioner: Optional[Callable] = None, *,
+                             fetch: Callable, **kw) -> CGResult:
+    """The JAX package's `conjugate_gradients_host` (cg.py:37-115): the
+    iteration of `conjugate_gradients`, but a zero right-hand side returns
+    after no iteration and a zero model value Q1 counts as converged
+    (zeta = 0). The vectors stay on the device; `preconditioner` may take
+    its vector to the host and back (counting that sync itself)."""
+    return conjugate_gradients(lhs, rhs, x0, preconditioner, fetch=fetch,
+                               host_variant=True, **kw)

@@ -9,7 +9,7 @@ same cases. Control flow (accept or reject, tolerances, radius, the
 callbacks) runs on the host on float64 scalars; the array work runs on
 the device through a kernels object: `DenseTrustRegionKernels` here for
 DENSE_QR and DENSE_NORMAL_CHOLESKY, `BlockTrustRegionKernels`
-(solvers/bsr_kernels.py) for the Schur solvers and CGNR. Each reads what
+(solvers/bsr_kernels.py) for the Schur, sparse and CGNR solvers. Each reads what
 the host needs in one fetch per step: the evaluation's cost and gradient
 norms, the step's finiteness and model cost change, the candidate's cost
 and norms, so an LM iteration waits for the device about three times, a
@@ -237,6 +237,8 @@ class TrustRegionMinimizer:
     def __init__(self, program, kernels, options: Options, summary: Summary):
         self.program = program
         self.k = kernels
+        if hasattr(kernels, "to_host"):  # the sparse steps bring values to the host
+            kernels.to_host = self.to_host
         self.options = options
         self.summary = summary
         self.x_cost = float("nan")

@@ -98,9 +98,8 @@ class NumericDiffMethodType(_StrEnum):
 # this slice raise NotImplementedError naming the slice that brings them.
 LATER_SLICES = {
     4: "a device-resident LM loop (CUDA graphs)",
-    6: "the sparse linear solvers, the explicit Schur complement, the "
-       "SCHUR_POWER_SERIES_EXPANSION, CLUSTER_* and SUBSET preconditioners, "
-       "line search and inner iterations",
+    6: "the explicit Schur complement, the SCHUR_POWER_SERIES_EXPANSION and "
+       "CLUSTER_* preconditioners, line search and inner iterations",
     9: "multi-device: the mesh half of parallel/sharded_ba.py, parallel/mesh.py "
        "and parallel/sharded_program.py",
 }

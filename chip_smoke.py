@@ -52,7 +52,16 @@ one block at a time (a constant camera, the row plan's sentinel, through
 rows 1-4b), box-bounded BAL-16, evaluation_dtype="mixed", mixed-precision
 solves, libmv16 with constant intrinsics, a user ordering, and the nine
 constrained MGH problems; with rows 1-4b, 6, 7 and 9 held against their
-plain versions and timed at the sentinel inputs.
+plain versions and timed at the sentinel inputs. And the sparse direct
+solvers (sparse_phase) in the host loop, against the JAX package's answers
+(scripts/sparse16_golden.py): BAL-16 SPARSE_SCHUR in both dtypes,
+SPARSE_NORMAL_CHOLESKY (the default options, dynamic sparsity,
+mixed-precision solves), BAL-16 built per block with CGNR + SUBSET, 3D and
+2D pose graphs of 2,500 and 3,500 poses; libmv16 and the 2,048-camera
+instance with SPARSE_SCHUR on the card against the CPU; rows 6 and 7 held
+against their plain versions and timed at the assembly's inputs; each run's
+host factorization time, bytes from the device, Cholesky tier and a repeat
+bit for bit.
 
     python3 chip_smoke.py
 
@@ -61,6 +70,7 @@ device is available. Its last line is {"ok": true, "device": {...}}; the
 line before it lists every ported TPU kernel with its launches, error and
 times. Imports nothing of jax and nothing of ceres_tpu.
 """
+import copy
 import dataclasses
 import gc
 import json
@@ -87,8 +97,9 @@ LIBMV16_GOLDEN_ROWS = 22
 # Cut in depth to 10, and the DENSE_SCHUR one (22 rows, to convergence)
 # to 10 too, to keep the run within time beside the host loop's phase:
 # at the full depths their two CPU solves each took 66 and 76 s on the
-# chip machine's host
-LIBMV16_CARD_VS_CPU_ITERATIONS = 10
+# chip machine's host. Cut again to 6 beside the sparse phase (port slice
+# 14), whose card-against-CPU solves take ~1.5 min of the host
+LIBMV16_CARD_VS_CPU_ITERATIONS = 6
 # scripts/specialized16_golden.py: the JAX package's lm_step_schur_k on
 # BAL-16 (rows sorted by point, radius 1e4) in float64, the cost after 5,
 # 10, 15 and 20 LM iterations
@@ -116,9 +127,10 @@ ROBUST_F32_REL = 5e-3
 # and float32
 CGNR16_GOLDEN = {"float64": 51931.26916069753, "float32": 51931.2734375}
 # the BAL-16 and libmv16 CGNR solves of card against CPU, cut in depth: the
-# CPU solves of libmv16 take 1-2 s an LM iteration on the card's host
-CGNR16_CARD_VS_CPU_ITERATIONS = 15
-LIBMV16_CGNR_CARD_VS_CPU_ITERATIONS = 10
+# CPU solves of libmv16 take 1-2 s an LM iteration on the card's host (cut
+# from 15 and 10 beside the sparse phase)
+CGNR16_CARD_VS_CPU_ITERATIONS = 8
+LIBMV16_CGNR_CARD_VS_CPU_ITERATIONS = 6
 # scripts/dogleg16_golden.py: the JAX package's BAL-16 DENSE_SCHUR solves
 # with DOGLEG in float64 (CONVERGENCE, 17 rows each; from the default radius
 # of 1e4 every step is the Gauss-Newton point, so the two agree)
@@ -217,13 +229,49 @@ MANIFOLD_GOLDEN = {
                                               -0.2989028583036928, 0.24908094557569405]),
 }
 # the host loop's card-against-CPU solves, cut in depth as the fused ones
-HOST_CARD_VS_CPU_ITERATIONS = 15
+HOST_CARD_VS_CPU_ITERATIONS = 8  # 15 until the sparse phase came
 # the Venice shape in the host loop: LM iterations of each solve
 HOST_VENICE_LM_ITERATIONS = 3
 # the kernels of the host loop's block steps (solvers/bsr_kernels.py): the
 # flat products gather by row 7 and sum by 6 (point ids) and 9 (camera
 # ids); DENSE_SCHUR also sums the blocks of W and F'F by 6
 HOST_PATH = ("segment_block_sum", "segment_block_expand", "unsorted_segment_sum")
+# scripts/sparse16_golden.py: the JAX package's answers with the sparse
+# direct solvers, (final cost, summary rows), in its host loop: (a) BAL-16
+# SPARSE_SCHUR; (b) SPARSE_NORMAL_CHOLESKY, default options, then dynamic
+# sparsity (DYNAMIC16_ITERATIONS iterations) and mixed-precision solves (3
+# refinements, 25 iterations);
+# (c) BAL-16 built per block, CGNR + SUBSET (SUBSET_DROP_MIN), eta 1e-2,
+# 35 iterations; (d) the pose graphs (POSE3D, POSE2D), default options
+SPARSE16_GOLDEN = {
+    "bal16_sparse_schur_f64": (51931.10068031217, 17),
+    "bal16_sparse_schur_f32": (51931.09765625, 17),
+    "bal16_snc_f64": (51931.10068031216, 17),
+    "bal16_snc_dynamic_f64": (61805.86030703291, 4),
+    "bal16_snc_mixed_f64": (51931.10068029502, 17),
+    "bal16_cgnr_subset_f64": (51931.14122680712, 17),
+    "pose3d_2500_snc_f64": (44.61189345024491, 21),
+    "pose2d_3500_snc_f64": (62.524154392499554, 16),
+}
+# the JAX CG counts of (c), a record beside the port's (CG counts follow
+# rounding)
+JAX_SUBSET16_CG = [0, 3, 5, 3, 3, 3, 2, 3, 3, 3, 3, 2, 2, 2, 2, 3, 4]
+# dynamic sparsity analyzes J'J's 66,462 columns anew at every step (~4 s on
+# the chip machine's host): its run is cut to this many LM iterations, and
+# not repeated (its assembly is SPARSE_NORMAL_CHOLESKY's, whose repeat is)
+DYNAMIC16_ITERATIONS = 3
+# the pose graphs: (poses, loop closures, noise, seed, max_num_iterations):
+# sphere2500's pose count in 3D, M3500's in 2D (pose_graph.synthetic_*)
+POSE3D = (2500, 250, 0.01, 0, 20)
+POSE2D = (3500, 350, 0.02, 0, 50)
+# SUBSET leaves one observation of each point seen at least this often out
+# of the preconditioner's rows (tests/test_bal_golden.py:104-143)
+SUBSET_DROP_MIN = 6
+# libmv16 SPARSE_SCHUR on the card against the CPU: its first rows
+LIBMV16_SPARSE_CARD_VS_CPU_ITERATIONS = 6
+# the sparse steps' flat products and their assembly of J'J or S: rows 6, 7
+# and 9; CGNR + SUBSET's matvec on a BAL program adds row 4
+SPARSE_PATH = HOST_PATH
 SPECIALIZED_K = 20  # LM iterations per call, as bench.py:147
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # peak rate of each type (NVIDIA H100 SXM data sheet, dense): float32
@@ -301,13 +349,22 @@ ROW_VARIANTS = {"1": ["venice", "bal16_gauge"], "1L": ["venice"], "1Q": ["venice
 # (rows 1, 2, 3, 3b, 4 and 4b also at gauge-fixed BAL-16's, camera 0
 # constant: the row plan's sentinel; rows 6, 7 and 9 at its camera slot's
 # flat plan, whose sentinel key takes camera 0's rows)
+# (rows 6 and 7 also at BAL-16 SPARSE_SCHUR's first step: the chunk sums
+# of the largest group of S's block pairs, 81 wide, the gather of the
+# pairs' W rows, 27 wide, and the gather of the summed blocks to their CSR
+# positions, 1 wide; row 6 at BAL-16 SPARSE_NORMAL_CHOLESKY's camera-camera
+# blocks of J'J, 81)
 ROW_CASES = {"4": [("normal_matvec_cgnr", "_cgnr", ["bal16"])],
              "6": [("segment_block_sum_one_key", "_one_key"),
                    ("segment_block_sum_w3", "_w3"),
                    ("segment_block_sum_one_key_w8", "_one_key_w8"),
-                   ("segment_block_sum_sentinel", "_sentinel", ["bal16_gauge"])],
+                   ("segment_block_sum_sentinel", "_sentinel", ["bal16_gauge"]),
+                   ("segment_block_sum_schur", "_schur", ["bal16_sparse"]),
+                   ("segment_block_sum_jtj", "_jtj", ["bal16_sparse"])],
              "7": [(f"segment_block_expand_t{t}", f"_t{t}") for t in (3, 8, 9)]
-             + [("segment_block_expand_sentinel", "_sentinel", ["bal16_gauge"])],
+             + [("segment_block_expand_sentinel", "_sentinel", ["bal16_gauge"]),
+                ("segment_block_expand_schur", "_schur", ["bal16_sparse"]),
+                ("segment_block_expand_csr", "_csr", ["bal16_sparse"])],
              "9": [("unsorted_segment_sum_w6", "_w6"),
                    ("unsorted_segment_sum_sentinel", "_sentinel", ["bal16_gauge"])]}
 # why no single PyTorch call computes each kernel's function
@@ -404,6 +461,10 @@ CASES = {"eval_fused": "eval_fused", "post_eval_fused": "post_eval_fused",
          "segment_block_sum_v2": "segment_block_sum",
          "schur_assembly_v2": "schur_assembly",
          "segment_block_sum_v2_etfz": "segment_block_sum",
+         "segment_block_sum_schur": "segment_block_sum",
+         "segment_block_sum_jtj": "segment_block_sum",
+         "segment_block_expand_schur": "segment_block_expand",
+         "segment_block_expand_csr": "segment_block_expand",
          **{f"eval_fused_{model}_{loss}": "eval_fused"
             for model in ("angle_axis", "quat") for loss in ROBUST_LOSSES}}
 
@@ -1283,6 +1344,13 @@ def main():
     log("phase", f"the host loop from {time.monotonic() - t_start:.1f} s")
     host_loop_phase(ctt, bal, kn, dev, card, paths, drive, card_against_cpu)
 
+    # -- the sparse direct solvers ------------------------------------------------
+    log("phase", f"the sparse solvers from {time.monotonic() - t_start:.1f} s")
+    t_sparse = time.monotonic()
+    sparse_phase(ctt, bal, libmv, kn, dev, card, paths, drive, card_against_cpu,
+                 check_and_time, lp16, ulp16)
+    log("phase", f"the sparse solvers took {time.monotonic() - t_sparse:.1f} s")
+
     # -- the Venice shape ------------------------------------------------------
     log("phase", f"the Venice shape from {time.monotonic() - t_start:.1f} s")
     t0 = time.monotonic()
@@ -1461,8 +1529,11 @@ def main():
                 timings[(case, "bal16_specialized", dtn)]["ms"] * (a * K + b)
                 for case, a, b in SPECIALIZED_CASES[path.split("_")[1]]) / K
             continue
-        shp = next(p for p in ("libmv_venice", "libmv16", "venice", "bal16")
-                   if path.startswith(p))
+        shp = next((p for p in ("libmv_venice", "libmv16", "venice", "bal16")
+                    if path.startswith(p)), None)
+        if shp is None:  # the pose graphs: no kernel timed at their shapes
+            untimed[path] = [k for k, n in res["launches"].items() if n]
+            continue
         total, missing = 0.0, []
         for k, n in res["launches"].items():
             key = (k, shp, dtn)
@@ -1938,6 +2009,207 @@ def host_loop_phase(ctt, bal, kn, dev, card, paths, drive, card_against_cpu):
         check(gap <= 1e-9 and x_gap <= 1e-8, f"{path}: off the JAX answer: {gap}, {x_gap}")
         check(all(g <= 1e-9 for g in gaps), f"{path}: card and CPU rows differ: {gaps}")
         check(np.max(np.abs(x_card - x_cpu)) <= 1e-9, f"{path}: card and CPU answers differ")
+
+
+def subset_ids(problem, b):
+    """The residual blocks of a per-block BAL problem but one observation of
+    each point seen at least SUBSET_DROP_MIN times."""
+    counts_ = np.bincount(np.asarray(b.point_index), minlength=b.num_points)
+    dropped, keep = set(), []
+    for rb, p in zip(problem.residual_blocks(), np.asarray(b.point_index)):
+        if counts_[p] >= SUBSET_DROP_MIN and p not in dropped:
+            dropped.add(p)
+            continue
+        keep.append(rb.rb_id)
+    return keep
+
+
+def sparse_kernel_inputs(ctt, bal, prog):
+    """The kernel cases of the sparse steps at BAL-16's first step (Jacobi
+    scales, an LM diagonal at radius 1e4): SPARSE_SCHUR's largest group of
+    block-pair products (81 wide) with its plan of chunks, the gather of the
+    pairs' W rows (27) and of the summed blocks to their CSR positions (1);
+    SPARSE_NORMAL_CHOLESKY's camera-camera products of J'J (81; the group of
+    the most rows a block, ~5,000 over BAL-16's 256 camera pairs). S is formed
+    in float64 at either evaluation dtype, J'J in the evaluation dtype."""
+    from ceres_tpu_torch.ops import partition as pt
+    from ceres_tpu_torch.solvers.bsr_kernels import BlockTrustRegionKernels
+    from ceres_tpu_torch.solvers.linear.implicit_schur import build_schur_system
+    from ceres_tpu_torch.utils import ordering
+
+    k = BlockTrustRegionKernels(prog, ctt.Options(), "SPARSE_SCHUR",
+                                e_families=ordering.eligible_e_sets(prog))
+    _, r, _, J, _, _ = k.eval_full(prog.initial_state())
+    scale = k.jacobi_scale(J)
+    D = torch.sqrt(k.lm_diagonal(J, scale) / 1e4).double()
+    vs = tuple(tuple(V.double() for V in jacs) for jacs in k.flat.scale_columns(J.vflat, scale))
+    sss = k.sparse
+    sys_ = build_schur_system(k.pm, vs, r.double(), pt.extract_e(k.pm, D), k.flat)
+    products = sss.products(vs, sys_.minv)
+    plan = sss.plan
+    g = max(plan.groups, key=lambda g: g.order.numel())
+    corr = next(m for m in g.members if m[0] == "corr")
+    flat = torch.cat([plan.group_sums(h, products).reshape(-1) for h in plan.groups])
+    snc = BlockTrustRegionKernels(prog, ctt.Options(), "SPARSE_NORMAL_CHOLESKY")
+    vs_j = snc.flat.scale_columns(J.vflat, scale)
+    ipc = snc.sparse.ipc
+    gj = max(ipc.plan.groups, key=lambda h: h.order.numel() / len(h.pairs))
+    kinds = prog.kinds
+    from ceres_tpu_torch.ops.inner_product import row_products
+    return {
+        "segment_block_sum_schur": (plan.group_products(g, products),
+                                    g.seg if g.chunk is None else g.chunk),
+        "segment_block_expand_schur": (sss._rows(vs, sys_.minv)[corr[1]][0], corr[3]),
+        "segment_block_expand_csr": (flat[:, None].contiguous(), plan.src),
+        "segment_block_sum_jtj": (ipc.plan.group_products(
+            gj, lambda m, ta, tb: row_products(kinds, vs_j, m, ta, tb)), gj.seg),
+    }
+
+
+def sparse_phase(ctt, bal, libmv, kn, dev, card, paths, drive, card_against_cpu,
+                 check_and_time, lp16, ulp16):
+    """Port slice 14's paths, the sparse direct solvers in the host loop on
+    the card, each against the JAX host loop's answer
+    (scripts/sparse16_golden.py, SPARSE16_GOLDEN): rows 6 and 7 held
+    against their plain versions at BAL-16 SPARSE_SCHUR's and
+    SPARSE_NORMAL_CHOLESKY's first step (sparse_kernel_inputs); BAL-16
+    SPARSE_SCHUR in float64 (within 1e-6, the same rows) and float32
+    (1e-5); SPARSE_NORMAL_CHOLESKY with the default options, dynamic
+    sparsity and mixed-precision solves (1e-6, the same rows); BAL-16
+    built per block with CGNR + SUBSET (1e-6; its CG counts logged beside
+    the JAX package's); the pose graphs of 2,500 poses (3D) and 3,500 (2D)
+    with the default options (1e-6, the same rows); libmv16 SPARSE_SCHUR
+    and the 2,048-camera instance with SPARSE_SCHUR for 5 LM iterations on
+    the card against the CPU. Each run logs ms per LM iteration, the host's
+    ms in factorizations and solves, the MB brought from the device per LM
+    iteration, the host syncs, the Cholesky tier, and each float64 run a
+    repeat bit for bit; at least one run takes the supernodal tier."""
+    from ceres_tpu_torch import native
+    from ceres_tpu_torch.models import pose_graph as pg
+    from ceres_tpu_torch.program import CompiledProgram
+
+    LS = ctt.LinearSolverType
+    SS, SNC = LS.SPARSE_SCHUR, LS.SPARSE_NORMAL_CHOLESKY
+    for dtn in ("float64", "float32"):
+        prog = CompiledProgram(bal.build_problem_batched(bal.bal16())[0], dtn, device=dev)
+        check_and_time("bal16_sparse", dtn, sparse_kernel_inputs(ctt, bal, prog), 100, 10)
+        del prog
+    tiers = {}
+
+    def sparse_drive(path, opts, problem_fn, kernels=SPARSE_PATH, repeat=True):
+        """drive() with the native counts, the JAX gate and, in float64 with
+        `repeat`, a repeat bit for bit."""
+        native.reset_stats()
+        s, res = drive(path, opts, problem_fn(), kernels=kernels)
+        st = dict(native.STATS)
+        n_it = max(res["iterations"], 1)
+        res.update(host_factor_ms_per_iteration=1e3 * st["factor_s"] / n_it,
+                   host_solve_ms_per_iteration=1e3 * st["solve_s"] / n_it,
+                   dtoh_mb_per_iteration=st["dtoh_bytes"] / 2**20 / n_it,
+                   factorizations=st["factorizations"], host_solves=st["solves"],
+                   cholesky_tier={t: st[t] for t in ("supernodal", "simplicial")})
+        for t in ("supernodal", "simplicial"):
+            tiers[t] = tiers.get(t, 0) + st[t]
+        dtn = opts.evaluation_dtype
+        cost, rows = SPARSE16_GOLDEN[path]
+        gap = (s.final_cost - cost) / cost
+        res["gap_to_golden"] = gap
+        limit = 1e-6 if dtn == "float64" else 1e-5
+        check(s.is_solution_usable(), f"{path}: solution not usable: {s.message}")
+        check(abs(gap) <= limit, f"{path}: final cost off the JAX host loop's by {gap:.3e}")
+        if dtn == "float64":
+            check(len(s.iterations) == rows,
+                  f"{path}: {len(s.iterations)} rows, the JAX host loop {rows}")
+        text = (f"final cost {s.final_cost!r} in {len(s.iterations)} rows (JAX host loop "
+                f"{cost!r} in {rows}), relative gap {gap:.3e} (limit {limit:.0e}); ")
+        if dtn == "float64" and repeat:
+            again = ctt.solve(opts, problem_fn())
+            res["repeat_bit_for_bit"] = ([r.cost for r in again.iterations]
+                                         == [r.cost for r in s.iterations])
+            check(res["repeat_bit_for_bit"], f"{path}: a repeated solve is not bit for bit "
+                  f"the first: {again.final_cost!r} against {s.final_cost!r}")
+        log(f"solve {path}", text + f"{res['ms_per_iteration']:.3f} ms per LM iteration, "
+            f"host factorizations {res['host_factor_ms_per_iteration']:.3f} ms and solves "
+            f"{res['host_solve_ms_per_iteration']:.3f} ms per LM iteration "
+            f"({st['factorizations']} factorizations, tiers {res['cholesky_tier']}), "
+            f"{res['dtoh_mb_per_iteration']:.3f} MB from the device per LM iteration, "
+            f"{res['host_syncs_per_iteration']:.2f} host syncs per LM iteration, repeat bit "
+            f"for bit {res.get('repeat_bit_for_bit', 'not run')}; {card}")
+        return s, res
+
+    def problem16():
+        return bal.build_problem_batched(bal.bal16())[0]
+
+    # -- BAL-16: SPARSE_SCHUR and SPARSE_NORMAL_CHOLESKY ---------------------------
+    for dtn in ("float64", "float32"):
+        sparse_drive("bal16_sparse_schur_" + TAG[dtn],
+                     ctt.Options(linear_solver_type=SS, evaluation_dtype=dtn), problem16)
+    sparse_drive("bal16_snc_f64", ctt.Options(), problem16)
+    sparse_drive("bal16_snc_dynamic_f64",
+                 ctt.Options(linear_solver_type=SNC, dynamic_sparsity=True, fused_loop="NEVER",
+                             max_num_iterations=DYNAMIC16_ITERATIONS), problem16, repeat=False)
+    sparse_drive("bal16_snc_mixed_f64",
+                 ctt.Options(linear_solver_type=SNC, use_mixed_precision_solves=True,
+                             max_num_refinement_iterations=3, fused_loop="NEVER",
+                             max_num_iterations=25), problem16)
+
+    # -- BAL-16 built per block: CGNR + SUBSET -------------------------------------
+    b16 = bal.bal16()
+    keep = subset_ids(bal.build_problem(bal.bal16())[0], b16)
+    opts = ctt.Options(linear_solver_type=LS.CGNR,
+                       preconditioner_type=ctt.PreconditionerType.SUBSET,
+                       residual_blocks_for_subset_preconditioner=keep, eta=1e-2,
+                       max_num_iterations=35, fused_loop="NEVER")
+    s, res = sparse_drive("bal16_cgnr_subset_f64", opts,
+                          lambda: bal.build_problem(bal.bal16())[0],
+                          kernels=("normal_matvec",) + SPARSE_PATH)
+    check(s.preconditioner_type_used == ctt.PreconditionerType.SUBSET,
+          f"bal16_cgnr_subset_f64: preconditioner used {s.preconditioner_type_used}")
+    log("cg bal16_cgnr_subset_f64", f"{len(keep)} of {b16.num_observations} residual "
+        f"blocks in the subset; CG iterations per row {res['linear_solver_iterations']}, "
+        f"the JAX package's {JAX_SUBSET16_CG} (a record: CG counts follow rounding)")
+
+    # -- the pose graphs ----------------------------------------------------------------
+    for path, dims in (("pose3d_2500_snc_f64", POSE3D), ("pose2d_3500_snc_f64", POSE2D)):
+        n, lc, noise, seed, its = dims
+        t0 = time.monotonic()
+        gen = pg.synthetic_3d if path.startswith("pose3d") else pg.synthetic_2d
+        build = pg.build_problem_3d if path.startswith("pose3d") else pg.build_problem_2d
+        poses, cons, _ = gen(num_poses=n, loop_closures=lc, noise=noise, seed=seed)
+        log(path, f"{n} poses, {len(cons)} edges, generated in "
+            f"{time.monotonic() - t0:.2f} s on the host")
+        s, res = sparse_drive(path, ctt.Options(max_num_iterations=its),
+                              lambda: build(copy.deepcopy(poses), cons)[0])
+        check(s.linear_solver_type_used == SNC, f"{path}: {s.linear_solver_type_used}")
+
+    check(tiers.get("supernodal", 0) > 0 and tiers.get("simplicial", 0) > 0,
+          f"the sparse runs took the Cholesky tiers {tiers}: not both")
+
+    # -- libmv16 and 2,048 cameras: SPARSE_SCHUR on the card against the CPU -------
+    native.reset_stats()
+    card_against_cpu("libmv16_sparse_schur_card_vs_cpu",
+                     ctt.Options(linear_solver_type=SS,
+                                 max_num_iterations=LIBMV16_SPARSE_CARD_VS_CPU_ITERATIONS),
+                     lambda: libmv.build_problem(fresh(lp16))[0],
+                     lambda: libmv.build_problem(fresh(ulp16))[0], kernels=SPARSE_PATH)
+    small = bal.perturb(bal.synthetic_bal_large(**SMALL_VENICE), **VENICE_PERTURB)
+    ulp = bal.from_arrays(np.nextafter(small.cameras, np.inf), small.points,
+                          small.camera_index, small.point_index, small.observations)
+
+    def small_problem(b=small):
+        return bal.build_problem_batched(bal.from_arrays(
+            b.cameras, b.points, b.camera_index, b.point_index, b.observations))[0]
+
+    native.reset_stats()
+    card_against_cpu("c2048_sparse_schur_f64",
+                     ctt.Options(linear_solver_type=SS,
+                                 max_num_iterations=SMALL_VENICE_LM_ITERATIONS),
+                     small_problem, lambda: small_problem(ulp), kernels=SPARSE_PATH)
+    st = dict(native.STATS)
+    log("solve c2048_sparse_schur_f64", f"host factorizations {1e3 * st['factor_s']:.1f} ms "
+        f"and solves {1e3 * st['solve_s']:.1f} ms over the card's and both CPU solves "
+        f"({st['factorizations']} factorizations; tiers supernodal {st['supernodal']}, "
+        f"simplicial {st['simplicial']}); {card}")
 
 
 def host_loop_venice(ctt, bal, card, paths, large_solves, problem_fn):

@@ -986,3 +986,78 @@ def test_host_loop_callbacks_on_card(card):
             cams_i, pts_i, b.camera_index, b.point_index, b.observations))[0]
         prog = CompiledProgram(q, device="cpu")
         assert float(prog.evaluate_cost(prog.initial_state())) == pytest.approx(cost, rel=1e-9)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(linear_solver_type="SPARSE_SCHUR"),
+    dict(linear_solver_type="SPARSE_SCHUR", evaluation_dtype="float32"),
+    dict(linear_solver_type="SPARSE_NORMAL_CHOLESKY"),
+    dict(linear_solver_type="SPARSE_NORMAL_CHOLESKY", dynamic_sparsity=True),
+    dict(linear_solver_type="SPARSE_NORMAL_CHOLESKY", use_mixed_precision_solves=True,
+         max_num_refinement_iterations=3),
+], ids=["sparse_schur", "sparse_schur_f32", "snc", "snc_dynamic", "snc_mixed"])
+def test_sparse_solvers_on_card_match_cpu(card, kw):
+    """The sparse direct solvers in the host loop on the card and the CPU:
+    the same rows, each cost to 1e-9 relative (float32: 1e-5); the values
+    of J'J or S summed by rows 6 and 7 (with 9 for the camera sums), no
+    plain version; a float64 repeat bit for bit."""
+    kw = dict(kw, linear_solver_type=ctt.LinearSolverType[kw["linear_solver_type"]])
+    b = small_bal()
+    opts = ctt.Options(max_num_iterations=8, **kw)
+
+    def problem():
+        return tbal.build_problem_batched(tbal.from_arrays(
+            b.cameras, b.points, b.camera_index, b.point_index, b.observations))[0]
+
+    ref = ctt.solve(opts, problem(), device="cpu")
+    kn.reset_counts()
+    out = ctt.solve(opts, problem())
+    assert len(out.iterations) == len(ref.iterations)
+    rel = 1e-5 if kw.get("evaluation_dtype") == "float32" else 1e-9
+    for a, c in zip(ref.iterations, out.iterations):
+        assert c.cost == pytest.approx(a.cost, rel=rel, abs=1e-30)
+    assert all(k.plain_calls == 0 for k in kn.KERNELS)
+    assert kn.segment_block_sum.launches > 0 and kn.segment_block_expand.launches > 0
+    if "evaluation_dtype" not in kw:
+        again = ctt.solve(opts, problem())
+        assert [r.cost for r in again.iterations] == [r.cost for r in out.iterations]
+
+
+def test_cgnr_subset_and_pose_graph_on_card_match_cpu(card):
+    """CGNR + SUBSET (a per-block BAL problem, one observation of 8 points
+    left out of the subset) and a 3D pose graph with the default options
+    on the card and the CPU: the same rows and CG counts, each cost to 1e-9."""
+    from ceres_tpu_torch.models import pose_graph as pg
+
+    b = tbal.perturb(tbal.synthetic_bal(num_cameras=8, num_points=150, visibility=0.8,
+                                        seed=0), 0.01, 0.05, 0.05, seed=1)
+    counts = np.bincount(b.point_index, minlength=b.num_points)
+
+    def bal_problem():
+        p = tbal.build_problem(tbal.from_arrays(
+            b.cameras, b.points, b.camera_index, b.point_index, b.observations))[0]
+        dropped, keep = set(), []
+        for rb, q in zip(p.residual_blocks(), b.point_index):
+            if counts[q] >= 6 and q not in dropped and len(dropped) < 8:
+                dropped.add(q)
+                continue
+            keep.append(rb.rb_id)
+        return p, ctt.Options(linear_solver_type=ctt.LinearSolverType.CGNR,
+                              preconditioner_type=ctt.PreconditionerType.SUBSET,
+                              residual_blocks_for_subset_preconditioner=keep, eta=1e-2)
+
+    poses, cons, _ = pg.synthetic_3d(num_poses=40, loop_closures=8, noise=0.01, seed=1)
+
+    def pose_problem():
+        import copy
+        return pg.build_problem_3d(copy.deepcopy(poses), cons)[0], ctt.Options()
+
+    for make in (bal_problem, pose_problem):
+        p, opts = make()
+        ref = ctt.solve(opts, p, device="cpu")
+        p, opts = make()
+        out = ctt.solve(opts, p)
+        assert len(out.iterations) == len(ref.iterations)
+        for a, c in zip(ref.iterations, out.iterations):
+            assert c.cost == pytest.approx(a.cost, rel=1e-9, abs=1e-30)
+            assert c.linear_solver_iterations == a.linear_solver_iterations

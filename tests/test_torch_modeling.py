@@ -131,13 +131,10 @@ _PT = ctt.PreconditionerType
 @pytest.mark.parametrize("kw,slice_no", [
     (dict(linear_solver_type=_IS,
           preconditioner_type=_PT.SCHUR_POWER_SERIES_EXPANSION), 6),
-    (dict(linear_solver_type=ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY), 6),
     (dict(linear_solver_type=ctt.LinearSolverType.CGNR,
           preconditioner_type=_PT.CLUSTER_JACOBI), 6),
-    (dict(linear_solver_type=ctt.LinearSolverType.SPARSE_SCHUR), 6),
     (dict(linear_solver_type=_IS, preconditioner_type=_PT.CLUSTER_JACOBI), 6),
     (dict(linear_solver_type=_IS, preconditioner_type=_PT.CLUSTER_TRIDIAGONAL), 6),
-    (dict(linear_solver_type=_IS, preconditioner_type=_PT.SUBSET), 6),
     (dict(linear_solver_type=_IS, use_spse_initialization=True), 6),
     (dict(linear_solver_type=_IS, use_explicit_schur_complement=True), 6),
 ])

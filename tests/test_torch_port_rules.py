@@ -24,7 +24,9 @@ def test_import_loads_no_jax_and_no_ceres_tpu():
         "ceres_tpu_torch.models.bal, ceres_tpu_torch.models.libmv, "
         "ceres_tpu_torch.models.mgh, ceres_tpu_torch.models.test_problems, "
         "ceres_tpu_torch.ops.build, ceres_tpu_torch.parallel.sharded_ba, "
-        "ceres_tpu_torch.loss, ceres_tpu_torch.manifolds, ceres_tpu_torch.rotation\n"
+        "ceres_tpu_torch.loss, ceres_tpu_torch.manifolds, ceres_tpu_torch.rotation, "
+        "ceres_tpu_torch.models.pose_graph, ceres_tpu_torch.native, "
+        "ceres_tpu_torch.ops.inner_product, ceres_tpu_torch.solvers.linear.sparse_schur\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'ceres_tpu' or m.startswith('ceres_tpu.')]\n"
         "print(bad)\n"
@@ -52,6 +54,41 @@ def test_sources_import_no_jax_and_no_ceres_tpu():
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "ceres_tpu"}, path
+
+
+def _docstring_ids(tree):
+    out = set()
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+                and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)):
+            out.add(id(body[0].value))
+    return out
+
+
+def test_sources_name_no_path_inside_the_jax_package():
+    """No string of the port's code (docstrings, which cite their JAX
+    counterparts, aside) names the JAX package's directory or a path in it,
+    so nothing reads a file there; no C++ or CUDA source of the port
+    includes one. The native sources build from the port's own copy."""
+    files = sorted((ROOT / "ceres_tpu_torch").rglob("*.py"))
+    assert ROOT / "ceres_tpu_torch" / "native" / "__init__.py" in files
+    for path in files:
+        tree = ast.parse(path.read_text())
+        docs = _docstring_ids(tree)
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docs):
+                v = node.value.replace("\\", "/")
+                assert v != "ceres_tpu" and "ceres_tpu/" not in v, (path, v)
+    sources = [p for ext in ("*.cu", "*.cuh", "*.cc", "*.h")
+               for p in (ROOT / "ceres_tpu_torch").rglob(ext)]
+    assert ROOT / "ceres_tpu_torch" / "native" / "sparse_cholesky.cc" in sources
+    for path in sources:
+        for line in path.read_text().splitlines():
+            if line.lstrip().startswith("#include"):
+                assert "ceres_tpu/" not in line, (path, line)
 
 
 def test_solve_without_cpu_request_raises_when_no_card(monkeypatch):

@@ -199,19 +199,21 @@ def _curve_fit(pkg, exp):
 
 @pytest.mark.parametrize("case,lst", [("powell", "DENSE_QR"),
                                       ("powell", "DENSE_NORMAL_CHOLESKY"),
-                                      ("curve_fit", "DENSE_QR")])
+                                      ("curve_fit", "DENSE_QR"),
+                                      ("powell", None)])
 def test_auto_picks_the_same_minimizer_as_jax(case, lst):
     """Powell's function and the curve fit of tests/test_solver.py with the
-    default options but the linear solver (the JAX default,
-    SPARSE_NORMAL_CHOLESKY, is a later slice of the port): AUTO takes the
-    host loop in both packages, so the same rows, each row's cost within
-    1e-10 relative (1e-30 absolute: Powell's cost falls to 0), and the same
-    answer (1e-8)."""
+    default options, with a dense linear solver or none given (the default,
+    SPARSE_NORMAL_CHOLESKY, which runs in the host loop only): AUTO takes
+    the host loop in both packages, so the same rows, each row's cost
+    within 1e-10 relative (1e-30 absolute: Powell's cost falls to 0), and
+    the same answer (1e-8)."""
     runs = []
     for pkg, fn in [(ct, jnp), (ctt, torch)]:
         p, xs = _powell(pkg) if case == "powell" else _curve_fit(pkg, fn.exp)
         extra = {} if pkg is ct else {"device": "cpu"}
-        opts = pkg.Options(linear_solver_type=pkg.LinearSolverType[lst], max_num_iterations=100)
+        kw = {} if lst is None else {"linear_solver_type": pkg.LinearSolverType[lst]}
+        opts = pkg.Options(max_num_iterations=100, **kw)
         runs.append((pkg.solve(opts, p, **extra), np.concatenate(xs)))
     (ref, jx), (s, tx) = runs
     assert s.termination_type.name == ref.termination_type.name == "CONVERGENCE"
