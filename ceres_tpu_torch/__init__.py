@@ -18,7 +18,10 @@ quaternion cameras, with or without a robust loss; on the flat path for
 other programs such as the libmv bundle adjuster (models/libmv.py); the
 dense solvers for small problems without eliminable blocks, such as the
 More-Garbow-Hillstrom corpus (models/mgh.py); in float64, float32 or the
-mixed schedule, with mixed-precision solves and box bounds. It imports
+mixed schedule, with mixed-precision solves and box bounds; ITERATIVE_SCHUR
+takes every preconditioner (SCHUR_JACOBI, the power series, the cluster
+ones over visibility clustering) and the explicit Schur complement, and
+check_gradients tests the user's Jacobians before a solve. It imports
 torch and numpy only: nothing of jax and nothing of ceres_tpu.
 """
 from .callbacks import EvaluationCallback, IterationCallback
@@ -31,6 +34,7 @@ from .cost_function import (
     NumericDiffCostFunction,
     cost_function_to_functor,
 )
+from .gradient_checker import GradientChecker
 from .loss import (
     ArctanLoss,
     CauchyLoss,
@@ -62,14 +66,19 @@ from .summary import IterationSummary, Summary
 from .types import (
     CallbackReturnType,
     DoglegType,
+    LineSearchDirectionType,
+    LineSearchInterpolationType,
+    LineSearchType,
     LinearSolverTerminationType,
     LinearSolverType,
     LoggingType,
     MinimizerType,
+    NonlinearConjugateGradientType,
     NumericDiffMethodType,
     PreconditionerType,
     TerminationType,
     TrustRegionStrategyType,
+    VisibilityClusteringType,
 )
 
 __all__ = [
@@ -86,10 +95,14 @@ __all__ = [
     "EigenQuaternionManifold",
     "EuclideanManifold",
     "EvaluationCallback",
+    "GradientChecker",
     "HuberLoss",
     "IterationCallback",
     "IterationSummary",
     "LineManifold",
+    "LineSearchDirectionType",
+    "LineSearchInterpolationType",
+    "LineSearchType",
     "LinearSolverTerminationType",
     "LinearSolverType",
     "LossFunction",
@@ -97,6 +110,7 @@ __all__ = [
     "LossFunctionWrapper",
     "Manifold",
     "MinimizerType",
+    "NonlinearConjugateGradientType",
     "NormalPrior",
     "NumericDiffCostFunction",
     "NumericDiffMethodType",
@@ -118,6 +132,7 @@ __all__ = [
     "TrivialLoss",
     "TrustRegionStrategyType",
     "TukeyLoss",
+    "VisibilityClusteringType",
     "cost_function_to_functor",
     "solve",
 ]

@@ -481,7 +481,9 @@ def jt_refusal(pm: pt.PartitionedMeta, program, options=None) -> Optional[str]:
         the kernel's chain.
     With `options`, use_mixed_precision_solves is refused too: the mixed
     dense-Schur step refines through the flat products, as the JAX loop's
-    does (fused_lm.py:295, :628, :982).
+    does (fused_lm.py:295, :628, :982); and so, on ITERATIVE_SCHUR, are
+    the power series, its initial guess and the cluster preconditioners,
+    which the JAX step runs on its flat lanes (fused_lm.py:294-298).
     Every other program takes the flat path: a user's own residual_rows,
     a user LossFunction subclass, any other manifold (the JAX
     qualification of flatops.py:685-710 and :842-894, without its float32
@@ -508,6 +510,12 @@ def jt_refusal(pm: pt.PartitionedMeta, program, options=None) -> Optional[str]:
         return "a constant point block"
     if options is not None and options.use_mixed_precision_solves:
         return "mixed-precision solves"
+    if options is not None and options.linear_solver_type.name == "ITERATIVE_SCHUR":
+        if options.use_spse_initialization:
+            return "the power series' initial guess"
+        if options.preconditioner_type.name in ("SCHUR_POWER_SERIES_EXPANSION",
+                                                "CLUSTER_JACOBI", "CLUSTER_TRIDIAGONAL"):
+            return f"the {options.preconditioner_type.name} preconditioner"
     pff = program.families[pm.f_family_indices[0]]
     pfe = program.families[pm.e_family_indices[0]]
     model = kn.eval_model(getattr(pkind.cost, "residual_rows", None))

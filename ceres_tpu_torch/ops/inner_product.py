@@ -12,7 +12,9 @@ gather (segment_block_expand, kernel 7) then writes every entry of the
 summed blocks to its CSR position, each position taking exactly one
 entry, and D^2 is added on the diagonal. The same plan assembles the
 sparse Schur complement (solvers/linear/sparse_schur.py), whose groups
-hold both its F'F rows and its observation-pair corrections.
+hold both its F'F rows and its observation-pair corrections; its base,
+`PairSumPlan`, the pair sums without the CSR layout, assembles the cluster
+preconditioners' blocks (solvers/linear/preconditioners.py).
 
 The CSR pattern is the JAX class's: every (row, column) some variable
 block pair of a row touches, the full symmetric matrix, rows and columns
@@ -44,20 +46,21 @@ class PairGroup(NamedTuple):
     pairs: np.ndarray  # (U,) int64 la * nv_b + lb of each pair
 
 
-class BlockCSRPlan:
-    """A symmetric n x n CSR matrix whose entries are sums of t_a x t_b
-    block products, planned once. `specs`: per group ((off_a, nv_a, t_a),
-    (off_b, nv_b, t_b), [(member, keys[, chunks])]), keys (N_m,) int64 the
-    block pair la * nv_b + lb of each of the member's products, in the
-    order they are formed, and chunks (N_m,) int64 the chunk of each, or -1
-    for none. A pair's products of one chunk are summed first, then the
-    pair's chunk sums (the eliminator's order, chunk by chunk: a chunk's
-    own Schur complement sums its F'F against its corrections before the
-    chunks' are added up, which keeps the cancellation local). Every (row,
-    column) of the matrix is one entry of one pair's block."""
+class PairSumPlan:
+    """Sums of t_a x t_b block products, one per block pair, planned once.
+    `specs`: per group ((off_a, nv_a, t_a), (off_b, nv_b, t_b), [(member,
+    keys[, chunks])]), keys (N_m,) int64 the block pair la * nv_b + lb of
+    each of the member's products, in the order they are formed, and
+    chunks (N_m,) int64 the chunk of each, or -1 for none. A pair's
+    products of one chunk are summed first, then the pair's chunk sums
+    (the eliminator's order, chunk by chunk: a chunk's own Schur
+    complement sums its F'F against its corrections before the chunks'
+    are added up, which keeps the cancellation local). `sums` returns the
+    pairs' blocks flattened and concatenated, group by group; entry i of
+    it is (rows[i], cols[i]) of the n x n matrix the blocks tile, and no
+    two entries share a (row, column)."""
 
-    def __init__(self, n: int, specs, device):
-        self.n = n
+    def __init__(self, specs, device):
         self.device = device
         self.groups: List[PairGroup] = []
         rows_l, cols_l = [], []
@@ -87,9 +90,41 @@ class BlockCSRPlan:
             c = off_b + (pairs % nv_b)[:, None, None] * tb + np.arange(tb)[None, None, :]
             rows_l.append(np.broadcast_to(r, (len(pairs), ta, tb)).reshape(-1))
             cols_l.append(np.broadcast_to(c, (len(pairs), ta, tb)).reshape(-1))
-        rows = np.concatenate(rows_l) if rows_l else np.zeros(0, np.int64)
-        cols = np.concatenate(cols_l) if cols_l else np.zeros(0, np.int64)
-        key = rows * n + cols
+        self.rows = np.concatenate(rows_l) if rows_l else np.zeros(0, np.int64)
+        self.cols = np.concatenate(cols_l) if cols_l else np.zeros(0, np.int64)
+
+    def sums(self, products: Callable) -> torch.Tensor:
+        """(entries,) each pair's products summed by kernel 6 (chunk by
+        chunk first, where the plan has chunks), flattened and concatenated.
+        `products(member, t_a, t_b)` forms a member's (N_m, t_a * t_b)
+        products."""
+        return torch.cat([self.group_sums(g, products).reshape(-1) for g in self.groups])
+
+    @staticmethod
+    def group_products(g: PairGroup, products: Callable) -> torch.Tensor:
+        """(N, t_a * t_b) a group's products in the order of their block
+        pair and chunk: the rows its first segment sum takes."""
+        return torch.cat([products(m, g.ta, g.tb) for m in g.members])[g.order].contiguous()
+
+    @classmethod
+    def group_sums(cls, g: PairGroup, products: Callable) -> torch.Tensor:
+        """(U, t_a * t_b) each pair's block: kernel 6 over its chunks'
+        products, then over the chunk sums."""
+        out = cls.group_products(g, products)
+        if g.chunk is not None:
+            out = kn.segment_block_sum(out, g.chunk)
+        return kn.segment_block_sum(out, g.seg)
+
+
+class BlockCSRPlan(PairSumPlan):
+    """A symmetric n x n CSR matrix whose entries are the pair sums of a
+    PairSumPlan: every (row, column) of the matrix is one entry of one
+    pair's block."""
+
+    def __init__(self, n: int, specs, device):
+        super().__init__(specs, device)
+        self.n = n
+        key = self.rows * n + self.cols
         src = np.argsort(key, kind="stable")
         key = key[src]
         if key.size and np.any(key[1:] == key[:-1]):
@@ -108,32 +143,12 @@ class BlockCSRPlan:
         self.diag = torch.as_tensor(diag, device=device)
 
     def values(self, products: Callable, D2: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(nnz,) the CSR values: each pair's products summed by kernel 6
-        (chunk by chunk first, where the plan has chunks), written to their
-        positions by kernel 7, plus D2 on the diagonal.
-        `products(member, t_a, t_b)` forms a member's (N_m, t_a * t_b)
-        products."""
-        flat = torch.cat([self.group_sums(g, products).reshape(-1) for g in self.groups])
-        vals = kn.segment_block_expand(flat[:, None], self.src)[:, 0]
+        """(nnz,) the CSR values: the pair sums written to their positions
+        by kernel 7, plus D2 on the diagonal."""
+        vals = kn.segment_block_expand(self.sums(products)[:, None], self.src)[:, 0]
         if D2 is not None:
             vals = vals.index_put((self.diag,), vals[self.diag] + D2.to(vals.dtype))
         return vals
-
-
-    @staticmethod
-    def group_products(g: PairGroup, products: Callable) -> torch.Tensor:
-        """(N, t_a * t_b) a group's products in the order of their block
-        pair and chunk: the rows its first segment sum takes."""
-        return torch.cat([products(m, g.ta, g.tb) for m in g.members])[g.order].contiguous()
-
-    @classmethod
-    def group_sums(cls, g: PairGroup, products: Callable) -> torch.Tensor:
-        """(U, t_a * t_b) each pair's block: kernel 6 over its chunks'
-        products, then over the chunk sums."""
-        out = cls.group_products(g, products)
-        if g.chunk is not None:
-            out = kn.segment_block_sum(out, g.chunk)
-        return kn.segment_block_sum(out, g.seg)
 
 
 def slot_blocks(meta: bsr.BlockJacobianMeta, kind_mask=None):

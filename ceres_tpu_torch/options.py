@@ -1,9 +1,11 @@
 """Solver options and their validation (counterpart of ceres_tpu/options.py).
 
-The fields are those the port reads, with the JAX package's names and
-defaults. `is_valid` mirrors the JAX validation for these fields;
-`check_supported` raises NotImplementedError for a request that a later
-slice of the port brings.
+Every field of the JAX Options, with its name and default (the dump
+directory defaults to the temporary directory instead of "/tmp").
+`is_valid` mirrors the JAX validation; `check_supported` raises
+NotImplementedError for a request that a later slice of the port brings:
+the line search and its fields, and inner iterations. `spse_tolerance`
+and `num_threads` are read by nothing, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -13,26 +15,28 @@ from typing import Any, Callable, List, Optional, Sequence
 
 from .types import (
     DoglegType,
+    LineSearchDirectionType,
+    LineSearchInterpolationType,
+    LineSearchType,
     LinearSolverType,
     LoggingType,
     MinimizerType,
+    NonlinearConjugateGradientType,
     PreconditionerType,
     TrustRegionStrategyType,
+    VisibilityClusteringType,
     not_ported,
 )
 
-
-# The preconditioners of the ITERATIVE_SCHUR and CGNR paths: on
-# ITERATIVE_SCHUR JACOBI runs as SCHUR_JACOBI, as in the JAX package
-# (fused_lm.py:237-239, bsr_kernels.py:174-175); on CGNR both are the
-# block-Jacobi preconditioner of J'J (fused_lm.py:161, bsr_kernels.py:107-111).
-# SUBSET takes the host loop: on CGNR with its residual blocks it is
-# (Q'Q + D^2)^{-1}; on ITERATIVE_SCHUR, and on CGNR without them, it runs
-# as IDENTITY, as in the JAX host loop (bsr_kernels.py:107-111, :174-190).
-_ITERATIVE_PRECONDITIONERS = (PreconditionerType.SCHUR_JACOBI,
-                              PreconditionerType.JACOBI,
-                              PreconditionerType.IDENTITY,
-                              PreconditionerType.SUBSET)
+# The fields of the line search (solver.h:81-260) that no trust-region
+# path reads; a value other than the default asks for slice 6.
+_LINE_SEARCH_FIELDS = (
+    "line_search_direction_type", "line_search_type",
+    "nonlinear_conjugate_gradient_type", "max_lbfgs_rank",
+    "use_approximate_eigenvalue_bfgs_scaling", "line_search_interpolation_type",
+    "max_line_search_step_contraction", "min_line_search_step_contraction",
+    "max_num_line_search_direction_restarts",
+    "line_search_sufficient_curvature_decrease", "max_line_search_step_expansion")
 
 
 @dataclasses.dataclass
@@ -41,6 +45,21 @@ class Options:
     trust_region_strategy_type: TrustRegionStrategyType = (
         TrustRegionStrategyType.LEVENBERG_MARQUARDT)
     dogleg_type: DoglegType = DoglegType.TRADITIONAL_DOGLEG
+
+    # Line search (solver.h:81-260): a later slice runs it
+    line_search_direction_type: LineSearchDirectionType = LineSearchDirectionType.LBFGS
+    line_search_type: LineSearchType = LineSearchType.WOLFE
+    nonlinear_conjugate_gradient_type: NonlinearConjugateGradientType = (
+        NonlinearConjugateGradientType.FLETCHER_REEVES)
+    max_lbfgs_rank: int = 20
+    use_approximate_eigenvalue_bfgs_scaling: bool = False
+    line_search_interpolation_type: LineSearchInterpolationType = (
+        LineSearchInterpolationType.CUBIC)
+    max_line_search_step_contraction: float = 1e-3
+    min_line_search_step_contraction: float = 0.6
+    max_num_line_search_direction_restarts: int = 5
+    line_search_sufficient_curvature_decrease: float = 0.9
+    max_line_search_step_expansion: float = 10.0
 
     # Trust region
     use_nonmonotonic_steps: bool = False
@@ -85,6 +104,9 @@ class Options:
     # Linear solver
     linear_solver_type: LinearSolverType = LinearSolverType.SPARSE_NORMAL_CHOLESKY
     preconditioner_type: PreconditionerType = PreconditionerType.JACOBI
+    # CLUSTER_JACOBI and CLUSTER_TRIDIAGONAL: how the cameras are clustered
+    visibility_clustering_type: VisibilityClusteringType = (
+        VisibilityClusteringType.CANONICAL_VIEWS)
     use_explicit_schur_complement: bool = False
     use_mixed_precision_solves: bool = False
     max_num_refinement_iterations: int = 0
@@ -92,11 +114,17 @@ class Options:
     max_linear_solver_iterations: int = 500
     use_spse_initialization: bool = False
     max_num_spse_iterations: int = 5
+    spse_tolerance: float = 0.1
     eta: float = 1e-1
     # SPARSE_NORMAL_CHOLESKY: analyze the numeric pattern of J'J anew at
     # every solve (dynamic_sparse_normal_cholesky_solver.cc)
     dynamic_sparsity: bool = False
+    # Inner iterations (solver.h:634-715): a later slice runs them
     use_inner_iterations: bool = False
+    inner_iteration_tolerance: float = 1e-3
+    inner_iteration_ordering: Optional[List[List[Any]]] = None
+    # accepted as in the JAX package; the card's parallelism is the kernels'
+    num_threads: int = 1
     # groups of parameter blocks or arrays; group 0 is eliminated first
     linear_solver_ordering: Optional[List[List[Any]]] = None
     # SUBSET on CGNR: the ids (Problem.add_residual_block's) of the residual
@@ -110,6 +138,13 @@ class Options:
     callbacks: List[Callable] = dataclasses.field(default_factory=list)
     update_state_every_iteration: bool = False
     evaluation_callback: Optional[Any] = None  # .prepare_for_evaluation(...)
+
+    # Gradient checking (solver.cc:768-780): each residual block's Jacobians
+    # against Ridders' numeric ones before the solve (gradient_checker.py)
+    check_gradients: bool = False
+    gradient_check_relative_precision: float = 1e-8
+    gradient_check_numeric_derivative_relative_step_size: float = 1e-6
+
     trust_region_minimizer_iterations_to_dump: List[int] = dataclasses.field(
         default_factory=list)
     # the JAX default is "/tmp"; here the temporary directory TMPDIR names
@@ -150,6 +185,13 @@ class Options:
                 and self.linear_solver_type in (LinearSolverType.ITERATIVE_SCHUR,
                                                 LinearSolverType.CGNR)):
             return False, "DOGLEG only supports exact factorization-based linear solvers"
+        if (self.minimizer_type == MinimizerType.LINE_SEARCH
+                and self.line_search_direction_type in (LineSearchDirectionType.BFGS,
+                                                        LineSearchDirectionType.LBFGS)
+                and self.line_search_type != LineSearchType.WOLFE):
+            return False, ("BFGS/LBFGS line search directions require WOLFE line "
+                           "search (Armijo does not guarantee the curvature "
+                           "condition needed for a valid secant update)")
         if (self.linear_solver_type in (LinearSolverType.DENSE_SCHUR,
                                         LinearSolverType.SPARSE_SCHUR,
                                         LinearSolverType.ITERATIVE_SCHUR)
@@ -168,15 +210,13 @@ class Options:
         """Raise NotImplementedError for what this slice does not run."""
         if self.minimizer_type != MinimizerType.TRUST_REGION:
             raise not_ported(f"minimizer_type={self.minimizer_type}", 6)
-        if self.linear_solver_type in (LinearSolverType.ITERATIVE_SCHUR,
-                                       LinearSolverType.CGNR):
-            if self.preconditioner_type not in _ITERATIVE_PRECONDITIONERS:
-                raise not_ported(
-                    f"preconditioner_type={self.preconditioner_type}", 6)
-        if self.linear_solver_type == LinearSolverType.ITERATIVE_SCHUR:
-            if self.use_spse_initialization:
-                raise not_ported("use_spse_initialization", 6)
-            if self.use_explicit_schur_complement:
-                raise not_ported("use_explicit_schur_complement", 6)
+        defaults = {f.name: f.default for f in dataclasses.fields(self)}
+        for name in _LINE_SEARCH_FIELDS:
+            if getattr(self, name) != defaults[name]:
+                raise not_ported(f"{name}={getattr(self, name)}", 6)
         if self.use_inner_iterations:
             raise not_ported("inner iterations", 6)
+        if self.inner_iteration_ordering is not None:
+            raise not_ported("inner_iteration_ordering", 6)
+        if self.inner_iteration_tolerance != defaults["inner_iteration_tolerance"]:
+            raise not_ported("inner_iteration_tolerance", 6)

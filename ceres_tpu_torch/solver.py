@@ -11,13 +11,16 @@ subset; the host loop (solvers/trust_region.py) for "NEVER", smaller
 problems, user callbacks, an EvaluationCallback,
 update_state_every_iteration, iteration dumps or a finite
 max_solver_time_in_seconds. Both run Levenberg-Marquardt or dogleg over
-DENSE_SCHUR, ITERATIVE_SCHUR, CGNR (SCHUR_JACOBI, JACOBI or IDENTITY
-preconditioner on both iterative solvers), DENSE_QR or
-DENSE_NORMAL_CHOLESKY; the host loop alone, as in the JAX package, runs
-the sparse direct solvers SPARSE_NORMAL_CHOLESKY (the Options default;
-dynamic sparsity and mixed-precision solves) and SPARSE_SCHUR, whose
-factorization runs on the host (ceres_tpu_torch/native), and the SUBSET
-preconditioner. DOGLEG with an iterative solver fails validation as in
+DENSE_SCHUR, ITERATIVE_SCHUR (SCHUR_JACOBI, JACOBI, IDENTITY, the power
+series or the cluster preconditioners, the power series' initial guess,
+the explicit Schur complement), CGNR (SCHUR_JACOBI, JACOBI or IDENTITY),
+DENSE_QR or DENSE_NORMAL_CHOLESKY; with check_gradients the user's
+Jacobians are tested first (gradient_checker.py); the host loop alone,
+as in the JAX package, runs the sparse direct solvers
+SPARSE_NORMAL_CHOLESKY (the Options default; dynamic sparsity and
+mixed-precision solves) and SPARSE_SCHUR, whose factorization runs on the
+host (ceres_tpu_torch/native), the SUBSET preconditioner, and CGNR with
+the power series or cluster preconditioners (as IDENTITY). DOGLEG with an iterative solver fails validation as in
 the JAX package; a Schur solver on a problem without eliminable blocks
 falls back as the JAX package's does. Anything else raises
 NotImplementedError naming the later slice (types.not_ported).
@@ -195,6 +198,8 @@ def solve(options: Options, problem: Problem, summary: Optional[Summary] = None,
         return _solve_mixed(options, problem, summary, t_start, dev)
 
     summary.minimizer_type = options.minimizer_type
+    summary.num_threads_given = options.num_threads
+    summary.num_threads_used = 1
     summary.linear_solver_type_given = options.linear_solver_type
     summary.preconditioner_type_given = options.preconditioner_type
     summary.trust_region_strategy_type = options.trust_region_strategy_type
@@ -207,6 +212,17 @@ def solve(options: Options, problem: Problem, summary: Optional[Summary] = None,
     summary.device_kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                            else "cpu")
     summary.num_devices = 1
+
+    if options.check_gradients:
+        from .gradient_checker import check_problem_gradients
+
+        ok, msg = check_problem_gradients(
+            problem, relative_precision=options.gradient_check_relative_precision,
+            relative_step_size=options.gradient_check_numeric_derivative_relative_step_size)
+        if not ok:
+            summary.message = msg
+            summary.termination_type = TerminationType.FAILURE
+            return summary
 
     program = CompiledProgram(problem, options.evaluation_dtype, device=dev)
     summary.fixed_cost = program.fixed_cost

@@ -25,8 +25,13 @@ minimizer's counted `to_host`; SUBSET's preconditioner is applied on the
 host once per CG iteration. Where a sparse factorization fails the step
 is NaN, as the JAX package's, and the loop counts it invalid. As in the
 JAX host loop, SUBSET runs as IDENTITY on ITERATIVE_SCHUR and on CGNR
-without its residual blocks. The explicit Schur complement and the other
-preconditioners are ROADMAP.md port slice 6.
+without its residual blocks, and CGNR runs the power series and the
+cluster preconditioners as IDENTITY. With use_explicit_schur_complement,
+S is formed on the card as SPARSE_SCHUR forms it (float64) and CG runs
+over it (sparse_schur.CSRMatvec: kernels 7 and 6) with SCHUR_JACOBI,
+whatever preconditioner is asked for, as the JAX host loop runs it
+(bsr_kernels.py:128-168). The cluster preconditioners' clusters are
+formed once, with the kernels (preconditioners.build_cluster).
 """
 from __future__ import annotations
 
@@ -39,12 +44,13 @@ from ..ops import bsr
 from ..ops import flatops as fo
 from ..ops import partition as pt
 from ..options import Options
-from ..types import PreconditionerType, not_ported
-from .linear.cg import conjugate_gradients_host
+from ..types import PreconditionerType
+from .linear.cg import conjugate_gradients, conjugate_gradients_host
 from .linear.cgnr import cgnr_solve
 from .linear.dense_schur import DenseSchurOps, dense_schur_solve
-from .linear.implicit_schur import iterative_schur_solve
-from .linear.preconditioners import SubsetPreconditioner
+from .linear.implicit_schur import (back_substitute, build_schur_system,
+                                    iterative_schur_solve, make_schur_jacobi_preconditioner)
+from .linear.preconditioners import SubsetPreconditioner, build_cluster
 from .linear.sparse_normal import SparseNormalCholeskySolver
 from .linear.sparse_schur import SparseSchurSolver
 from .trust_region import _CandidateMixin, grad_norms
@@ -73,14 +79,18 @@ class BlockTrustRegionKernels(_CandidateMixin):
         self.meta = bsr.build_meta(program)
         self.to_host = None
         self.subset = None
+        self.explicit = (step_solver == "ITERATIVE_SCHUR"
+                         and options.use_explicit_schur_complement)
+        self.cluster_structure = self.cluster_assembler = None
         prec = options.preconditioner_type
         if step_solver in ("DENSE_SCHUR", "ITERATIVE_SCHUR", "SPARSE_SCHUR"):
             self.pm = pt.build_partition(self.meta, e_families)
             self.flat = fo.FlatSchurOps(self.pm, program)
             if step_solver == "DENSE_SCHUR":
                 self.dense = DenseSchurOps(self.pm, self.flat)
-            elif step_solver == "SPARSE_SCHUR":
-                self.sparse = SparseSchurSolver(self.pm, self.flat)
+            elif step_solver == "SPARSE_SCHUR" or self.explicit:
+                self.sparse = SparseSchurSolver(self.pm, self.flat, factor=not self.explicit)
+                self.matvec = self.sparse.csr_matvec_fn() if self.explicit else None
         elif step_solver in ("CGNR", "SPARSE_NORMAL_CHOLESKY"):
             self.flat = fo.FlatJacobianOps(self.meta, program)
             if step_solver == "SPARSE_NORMAL_CHOLESKY":
@@ -96,13 +106,16 @@ class BlockTrustRegionKernels(_CandidateMixin):
         else:
             raise ValueError(f"unknown step solver {step_solver!r}")
         if step_solver == "ITERATIVE_SCHUR":
-            if options.use_explicit_schur_complement:
-                raise not_ported("use_explicit_schur_complement", 6)
             if prec == PreconditionerType.JACOBI:
                 prec = PreconditionerType.SCHUR_JACOBI  # block-diag(S), as JAX's
             if prec == PreconditionerType.SUBSET:
                 prec = PreconditionerType.IDENTITY  # none, as the JAX host loop's
             self.precond = prec.name
+            if not self.explicit and prec in (PreconditionerType.CLUSTER_JACOBI,
+                                              PreconditionerType.CLUSTER_TRIDIAGONAL):
+                self.cluster_structure, self.cluster_assembler = build_cluster(
+                    self.pm, self.flat, options.visibility_clustering_type,
+                    prec == PreconditionerType.CLUSTER_TRIDIAGONAL)
         else:
             # CGNR: block Jacobi of J'J for JACOBI and SCHUR_JACOBI
             self.precond = ("JACOBI" if prec in (PreconditionerType.JACOBI,
@@ -148,12 +161,18 @@ class BlockTrustRegionKernels(_CandidateMixin):
                 nan = torch.full((self.meta.tangent_size,), float("nan"),
                                  dtype=torch.float64, device=residuals.device)
                 return nan, nan, nan[0], 1
+        elif self.explicit:
+            y, iters = self._explicit_schur(vflat_s, residuals, D, fetch, cg)
         elif self.step_solver == "ITERATIVE_SCHUR":
             values_s = [[V.reshape(V.shape[0], J.values[k][s].shape[1], -1)
                          for s, V in enumerate(jacs)] for k, jacs in enumerate(vflat_s)]
             y, res = iterative_schur_solve(
                 self.pm, values_s, residuals, D, fetch=fetch,
-                preconditioner=self.precond, flat_ops=self.flat, **cg)
+                preconditioner=self.precond, spse_terms=opts.max_num_spse_iterations,
+                cluster_assembler=self.cluster_assembler,
+                cluster_structure=self.cluster_structure,
+                use_spse_initialization=opts.use_spse_initialization,
+                spse_init_terms=opts.max_num_spse_iterations, flat_ops=self.flat, **cg)
             iters = res.num_iterations
         elif self.subset is not None:
             y, iters = self._subset_cgnr(vflat_s, residuals, D, fetch, cg)
@@ -164,6 +183,23 @@ class BlockTrustRegionKernels(_CandidateMixin):
         step = -y
         mr = self.flat.right(vflat_s, step)
         return step, step * scale, -torch.dot(mr, residuals + mr / 2.0), iters
+
+    def _explicit_schur(self, vflat_s, residuals, D, fetch, cg):
+        """CG over the explicit S (bsr_kernels.py:128-168): S's CSR values
+        formed in float64 by SPARSE_SCHUR's plan, its product by kernels 7
+        and 6, SCHUR_JACOBI; the whole step in float64, as S is."""
+        pm = self.pm
+        vflat = tuple(tuple(V.to(torch.float64) for V in jacs) for jacs in vflat_s)
+        b, D = residuals.to(torch.float64), D.to(torch.float64)
+        D_e, D_f = pt.extract_e(pm, D), pt.extract_f(pm, D)
+        sys = build_schur_system(pm, vflat, b, D_e, self.flat)
+        svals = self.sparse.values(vflat, sys.minv, D_f)
+        res = conjugate_gradients(
+            lambda z: self.matvec(svals, z), sys.rhs, torch.zeros_like(sys.rhs),
+            make_schur_jacobi_preconditioner(pm, vflat, sys, D_f), fetch=fetch,
+            r_tolerance=-1.0, **cg)
+        y_e = back_substitute(pm, vflat, sys, res.x)
+        return pt.combine(pm, y_e, res.x), res.num_iterations
 
     def _subset_cgnr(self, vflat_s, residuals, D, fetch, cg):
         """CGNR preconditioned by SUBSET (bsr_kernels.py:269-325): Q'Q + D^2

@@ -6,9 +6,12 @@ The Schur steps have two forms each, as the JAX classes do: the jt form
 (`DenseSchurStepOps`, `IterativeSchurStepOps`) for the programs the fused
 jt-mode kernels take (BAL), and the flat form (`FlatDenseSchurStepOps`,
 `FlatIterativeSchurStepOps`) for every other program (the libmv bundle
-adjuster): a plain evaluation, flattened Jacobian blocks and the flat
-products of ops/flatops.FlatSchurOps. `CgnrStepOps` runs CGNR over the
-flat products of the whole Jacobian (ops/flatops.FlatJacobianOps), its
+adjuster) and for the power series and cluster preconditioners: a plain
+evaluation, flattened Jacobian blocks and the flat products of
+ops/flatops.FlatSchurOps. `ExplicitSchurStepOps` runs CG over the dense S
+of the flat dense-Schur step (use_explicit_schur_complement).
+`CgnrStepOps` runs CGNR over the flat products of the whole Jacobian
+(ops/flatops.FlatJacobianOps), its
 matvec through normal_matvec on a BAL-shaped program; `DenseStepOps` runs
 DENSE_QR and DENSE_NORMAL_CHOLESKY on the dense Jacobian; `DoglegStepOps`
 runs TRADITIONAL and SUBSPACE dogleg over an exact step.
@@ -55,7 +58,6 @@ from ..types import (
     PreconditionerType,
     TerminationType,
     TrustRegionStrategyType,
-    not_ported,
 )
 from .linear.cg import conjugate_gradients
 from .linear.dense import (normal_cholesky_solve, normal_cholesky_solve_mixed,
@@ -113,21 +115,31 @@ def _cg_options(ops, options: Options) -> None:
     ops.max_li = options.max_linear_solver_iterations
 
 
+# the preconditioners of the jt-mode ITERATIVE_SCHUR step; the others and
+# the SPSE initial guess take the flat step (fused_lm.py:294-298)
+_SCHUR_JACOBI_OR_NONE = (PreconditionerType.SCHUR_JACOBI, PreconditionerType.IDENTITY)
+_CLUSTER = (PreconditionerType.CLUSTER_JACOBI, PreconditionerType.CLUSTER_TRIDIAGONAL)
+
+
 def _iterative_options(ops, options: Options) -> None:
     """The ITERATIVE_SCHUR step's options; JACOBI runs as SCHUR_JACOBI
-    (fused_lm.py:237-239)."""
+    (fused_lm.py:237-239), the power series over
+    max(1, max_num_spse_iterations) terms (fused_lm.py:245-246)."""
     prec = options.preconditioner_type
     if prec == PreconditionerType.JACOBI:
         prec = PreconditionerType.SCHUR_JACOBI
-    if prec not in (PreconditionerType.SCHUR_JACOBI, PreconditionerType.IDENTITY):
-        raise not_ported(f"ITERATIVE_SCHUR with preconditioner {prec}", 6)
+    if prec not in _SCHUR_JACOBI_OR_NONE + _CLUSTER + (
+            PreconditionerType.SCHUR_POWER_SERIES_EXPANSION,):
+        raise ValueError(f"fused ITERATIVE_SCHUR: unsupported preconditioner {prec}")
     ops.precond = prec
+    ops.spse_terms = max(1, options.max_num_spse_iterations)
+    ops.spse_init = options.use_spse_initialization
     _cg_options(ops, options)
 
 
-def _cg(ops, lhs, rhs, precond, fetch):
+def _cg(ops, lhs, rhs, precond, fetch, x0=None):
     return conjugate_gradients(
-        lhs, rhs, torch.zeros_like(rhs), precond,
+        lhs, rhs, torch.zeros_like(rhs) if x0 is None else x0, precond,
         min_num_iterations=ops.min_li, max_num_iterations=ops.max_li,
         residual_reset_period=10, r_tolerance=-1.0, q_tolerance=ops.eta,
         fetch=fetch)
@@ -228,6 +240,8 @@ class IterativeSchurStepOps(_JTStepOps):
     def __init__(self, program, options: Options, e_families):
         super().__init__(program, e_families)
         _iterative_options(self, options)
+        if self.precond not in _SCHUR_JACOBI_OR_NONE or self.spse_init:
+            raise ValueError("the jt step runs SCHUR_JACOBI or IDENTITY alone")
 
     def compute_step(self, vrep: JTForm, aux, g, scale_c, D2_c, fetch):
         """(step, model cost change, CG iterations) of
@@ -315,11 +329,35 @@ class FlatIterativeSchurStepOps(_FlatStepOps):
     """Implicit-Schur PCG on the flat path (fused_lm.py:453-583 without
     the kernel suite): S z through the product chain of right/left
     products, SCHUR_JACOBI from the carried F'F blocks less the
-    per-observation W' M^{-1} W (fused_lm.py:354-409)."""
+    per-observation W' M^{-1} W (fused_lm.py:354-409), the power series
+    over it as preconditioner or initial guess (fused_lm.py:537-553), or
+    the cluster preconditioners from the scaled blocks
+    (fused_lm.py:411-450)."""
 
     def __init__(self, program, options: Options, e_families):
         super().__init__(program, e_families)
         _iterative_options(self, options)
+        if self.precond in _CLUSTER:
+            from .linear.preconditioners import build_cluster
+
+            self.cluster_structure, self.cluster_assembler = build_cluster(
+                self.pm, self.flat, options.visibility_clustering_type,
+                self.precond == PreconditionerType.CLUSTER_TRIDIAGONAL)
+
+    def _cluster_precond(self, vflat, scale_c, D2_c):
+        """CLUSTER_JACOBI / CLUSTER_TRIDIAGONAL from the scaled blocks (the
+        CG products stay on the flat ones)."""
+        from .linear.preconditioners import (make_cluster_preconditioner,
+                                             make_cluster_tridiagonal_preconditioner)
+
+        pm = self.pm
+        blocks = self.cluster_assembler(self.flat.scale_columns(vflat, scale_c),
+                                        torch.sqrt(pt.extract_e(pm, D2_c)),
+                                        torch.sqrt(pt.extract_f(pm, D2_c)))
+        make = (make_cluster_tridiagonal_preconditioner
+                if self.precond == PreconditionerType.CLUSTER_TRIDIAGONAL
+                else make_cluster_preconditioner)
+        return make(self.cluster_structure, lambda: blocks)
 
     def _schur_jacobi_inverses(self, vflat, ftf, minv_e, se, sf, d2f):
         fl = self.flat
@@ -363,14 +401,26 @@ class FlatIterativeSchurStepOps(_FlatStepOps):
             e_part = fl.right_e(vflat, se * minv(etfz))
             return sf * fl.left_f(vflat, fz - e_part) + d2f * z
 
-        precond = None
-        if self.precond == PreconditionerType.SCHUR_JACOBI:
+        precond, x0 = None, None
+        if self.precond in (PreconditionerType.SCHUR_JACOBI,
+                            PreconditionerType.SCHUR_POWER_SERIES_EXPANSION) or self.spse_init:
+            from .linear.preconditioners import power_series
+
             inv_f = self._schur_jacobi_inverses(vflat, ftf, minv_e, se, sf, d2f)
 
-            def precond(v):
+            def p_inv(v):
                 return fl.apply_inverse_rows(pm.f_fams, inv_f, v)
 
-        res = _cg(self, lhs, rhs, precond, fetch)
+            if self.precond == PreconditionerType.SCHUR_JACOBI:
+                precond = p_inv
+            elif self.precond == PreconditionerType.SCHUR_POWER_SERIES_EXPANSION:
+                precond = power_series(p_inv, lhs, self.spse_terms)
+            if self.spse_init:
+                x0 = power_series(p_inv, lhs, self.spse_terms)(rhs)
+        if self.precond in _CLUSTER:
+            precond = self._cluster_precond(vflat, scale_c, D2_c)
+
+        res = _cg(self, lhs, rhs, precond, fetch, x0)
         z = res.x
         # back substitution: y_e = Minv (E_s'b - E_s'F_s z)
         y_e = minv(etb - se * fl.left_e(vflat, fl.right_f(vflat, sf * z)))
@@ -525,6 +575,53 @@ class FlatDenseSchurStepOps(_FlatStepOps):
         return step, -0.5 * torch.dot(b, step) + 0.5 * torch.dot(D2_c * step, step), 1
 
 
+class ExplicitSchurStepOps(FlatDenseSchurStepOps):
+    """use_explicit_schur_complement in the fused loop
+    (fused_lm.py:1030-1095; schur_complement_solver.cc:338): S assembled
+    densely by the flat dense-Schur step (rows 8, 6, 7 and 9), PCG on it
+    with its product a plain matmul, as the JAX step's is a plain jnp.matmul
+    outside any kernel, and SCHUR_JACOBI blocks read off S's block diagonal
+    (JACOBI runs as SCHUR_JACOBI), or no preconditioner (IDENTITY)."""
+
+    def __init__(self, program, options: Options, e_families):
+        super().__init__(program, options, e_families)
+        prec = options.preconditioner_type
+        if prec == PreconditionerType.JACOBI:
+            prec = PreconditionerType.SCHUR_JACOBI
+        if prec not in _SCHUR_JACOBI_OR_NONE:
+            raise ValueError(
+                f"fused explicit-S ITERATIVE_SCHUR: unsupported preconditioner {prec}")
+        self.precond = prec
+        _cg_options(self, options)
+
+    def compute_step(self, vrep: FlatForm, aux, g, scale_c, D2_c, fetch):
+        """(step, model cost change, CG iterations)."""
+        fl, pm = self.flat, self.pm
+        K_e, A, S = self._assemble(vrep, aux, scale_c, D2_c)
+        b = scale_c * g
+        u_b = self._kmatvec(K_e, pt.extract_e(pm, b))
+        rhs = pt.extract_f(pm, b) - A.T @ u_b
+        precond = None
+        if self.precond == PreconditionerType.SCHUR_JACOBI:
+            inv_f = []
+            for (off, nv, t, _) in pm.f_fams:
+                blk = S[off:off + nv * t, off:off + nv * t].reshape(nv, t, nv, t)
+                diag = torch.diagonal(blk, dim1=0, dim2=2).permute(2, 0, 1)  # (nv, t, t)
+                inv_f.append(fo.spd_inverse_flat(diag.reshape(nv, t * t), t))
+
+            def precond(v):
+                return fl.apply_inverse_rows(pm.f_fams, inv_f, v)
+
+        res = _cg(self, lambda z: S @ z, rhs, precond, fetch)
+        z = res.x
+        y_e = self._kmatvec(K_e, u_b - A @ z, transpose=True)
+        step = -pt.combine(pm, y_e, z)
+        sstep = scale_c * step
+        mr = (fl.right_e(vrep.vflat, pt.extract_e(pm, sstep))
+              + fl.right_f(vrep.vflat, pt.extract_f(pm, sstep)))
+        return step, -torch.dot(mr, vrep.r + mr / 2.0), res.num_iterations
+
+
 class CgnrStepOps:
     """CGNR over the flat block Jacobian (cgnr_solver.cc, fused_lm.py:148-206):
     conjugate gradients on (J_s'J_s + D^2) y = -J_s'r with the Jacobi scales
@@ -539,7 +636,7 @@ class CgnrStepOps:
         prec = options.preconditioner_type
         if prec not in (PreconditionerType.JACOBI, PreconditionerType.SCHUR_JACOBI,
                         PreconditionerType.IDENTITY):
-            raise not_ported(f"CGNR with preconditioner {prec}", 6)
+            raise ValueError(f"fused CGNR: unsupported preconditioner {prec}")
         self.precond = prec != PreconditionerType.IDENTITY
         _cg_options(self, options)
 
@@ -1050,21 +1147,26 @@ def build_fused_minimizer(program, options: Options, tier: str, e_families=None)
     dogleg = options.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG
     if dogleg and tier not in _DOGLEG_TIERS:
         return None
-    if (options.preconditioner_type == PreconditionerType.SUBSET
-            and tier in ("bsr", "schur_iterative")):
-        return None  # the JAX factory's None for SUBSET (fused_lm.py:1932-1943)
-    if tier == "bsr":
-        ops = CgnrStepOps(program, options)
-    elif tier in ("dense_qr", "dense_normal_cholesky"):
-        ops = DenseStepOps(program, options, tier)
-    elif tier in _STEP_OPS:
-        jt_ops, flat_ops = _STEP_OPS[tier]
-        pm = pt.build_partition(bsr.build_meta(program), e_families)
-        cls = (jt_ops if not dogleg and fo.jt_refusal(pm, program, options) is None
-               else flat_ops)
-        ops = cls(program, options, e_families)
-    else:
-        raise NotImplementedError(f"fused tier {tier!r} is not ported")
+    try:
+        if tier == "bsr":
+            ops = CgnrStepOps(program, options)
+        elif tier in ("dense_qr", "dense_normal_cholesky"):
+            ops = DenseStepOps(program, options, tier)
+        elif tier == "schur_iterative" and options.use_explicit_schur_complement:
+            ops = ExplicitSchurStepOps(program, options, e_families)
+        elif tier in _STEP_OPS:
+            jt_ops, flat_ops = _STEP_OPS[tier]
+            pm = pt.build_partition(bsr.build_meta(program), e_families)
+            cls = (jt_ops if not dogleg and fo.jt_refusal(pm, program, options) is None
+                   else flat_ops)
+            ops = cls(program, options, e_families)
+        else:
+            raise NotImplementedError(f"fused tier {tier!r} is not ported")
+    except ValueError:
+        # outside the fused subset (fused_lm.py:1932-1950): CGNR with another
+        # preconditioner than IDENTITY, JACOBI or SCHUR_JACOBI, SUBSET, the
+        # explicit S with SPSE or CLUSTER_*
+        return None
     if dogleg:
         ops = DoglegStepOps(ops, options.dogleg_type == DoglegType.SUBSPACE_DOGLEG)
     return FusedTrustRegionMinimizer(program, options, ops)

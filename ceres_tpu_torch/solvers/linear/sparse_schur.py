@@ -20,7 +20,10 @@ sums written to their CSR positions by one static gather (kernel 7), with
 D_f^2 on the diagonal; no atomics; in float64 whatever the evaluation
 dtype (`solve`). The values travel to the host with the right-hand side, the host factors and solves (the
 symbolic analysis kept across steps), and the e-blocks are back-substituted
-on the device (implicit_schur.build_schur_system, back_substitute).
+on the device (implicit_schur.build_schur_system, back_substitute). With
+use_explicit_schur_complement the same values stay on the device and CG
+runs over them (`CSRMatvec`). `SchurPairs`, the plan of S's block products,
+also forms the cluster preconditioners' blocks (preconditioners.py).
 """
 from __future__ import annotations
 
@@ -117,17 +120,20 @@ def enumerate_schur_pairs(pm: pt.PartitionedMeta):
     return ftf_pairs, buckets, e_slot
 
 
-class SparseSchurSolver:
-    """The SPARSE_SCHUR step over a FlatSchurOps (its plans and device)."""
+class SchurPairs:
+    """The block products of S, planned once on the host and formed on the
+    device: per pair of f families, the F'F products of the rows and the
+    corrections -W_a' M^{-1} W_b of the observation pairs, each with its
+    block pair and chunk (its e-block), as `specs` for the plans of
+    ops/inner_product.py. `keep(fa, la, fb, lb)`, a (N,) bool mask over the
+    block pairs (partition f family, local block id) of a member, restricts
+    the products to the pairs a caller needs (the cluster preconditioners'
+    blocks); by default every pair of S is formed."""
 
-    def __init__(self, pm: pt.PartitionedMeta, flat: fo.FlatSchurOps):
+    def __init__(self, pm: pt.PartitionedMeta, flat: fo.FlatSchurOps, keep=None):
         self.pm = pm
         self.flat = flat
-        self._build_symbolic()
-        self.chol = native.SparseCholesky(pm.f_size, self.indptr, self.indices)
-
-    def _build_symbolic(self):
-        pm, dev = self.pm, self.flat.device
+        dev = flat.device
         meta = pm.base
         self._ftf_pairs, self._pair_buckets, self._e_slot = enumerate_schur_pairs(pm)
         f_fi = {fi: i for i, fi in enumerate(pm.f_family_indices)}
@@ -135,6 +141,12 @@ class SparseSchurSolver:
         def local(k, s):
             fam = meta.families[meta.kinds[k].slots[s].family_index]
             return meta.kinds[k].slots[s].block_ids - fam.block_id_offset
+
+        def kept(fa, fb, keys):
+            nv_b = pm.f_fams[fb][1]
+            if keep is None:
+                return np.ones(keys.size, bool)
+            return np.asarray(keep(fa, keys // nv_b, fb, keys % nv_b), bool)
 
         members = {}  # (fa, fb) partition family indices -> [(member, keys)]
         by_fam = {}
@@ -153,6 +165,12 @@ class SparseSchurSolver:
                 for m, keys in row_pair_members([(k, s1, local(k, s1))],
                                                 [(k, s2, local(k, s2))], nv_a, nv_b, dev):
                     rows = np.arange(meta.kinds[k].B) if m[3] is None else m[3].cpu().numpy()
+                    sel = kept(fa, fb, keys)
+                    if not sel.any():
+                        continue
+                    if not sel.all():
+                        rows, keys = rows[sel], keys[sel]
+                        m = m[:3] + (torch.as_tensor(rows, device=dev),)
                     members.setdefault((fa, fb), []).append(
                         (("ftf",) + m, keys, chunk_of[k][rows]))
         # the corrections: each observation's W = E'F block and M^{-1} W are
@@ -165,22 +183,22 @@ class SparseSchurSolver:
             fb = f_fi[meta.kinds[k2].slots[s2].family_index]
             nv_a, nv_b = pm.f_fams[fa][1], pm.f_fams[fb][1]
             la, lb = local(k1, s1)[ia], local(k2, s2)[ib]
-            keep = (la < nv_a) & (lb < nv_b)
-            if not keep.any():
+            sel = (la < nv_a) & (lb < nv_b)
+            sel[sel] = kept(fa, fb, la[sel] * nv_b + lb[sel])
+            if not sel.any():
                 continue
             member = ("corr", self._w_index[(k1, s1)], self._w_index[(k2, s2)],
-                      torch.as_tensor(ia[keep], device=dev),
-                      torch.as_tensor(ib[keep], device=dev))
-            members.setdefault((fa, fb), []).append((member, la[keep] * nv_b + lb[keep],
-                                                     eb[keep].astype(np.int64)))
-        self._e_plan = {k: next(p for p in self.flat.plans_e[k] if p.s == self._e_slot[k])
+                      torch.as_tensor(ia[sel], device=dev),
+                      torch.as_tensor(ib[sel], device=dev))
+            members.setdefault((fa, fb), []).append((member, la[sel] * nv_b + lb[sel],
+                                                     eb[sel].astype(np.int64)))
+        self._e_plan = {k: next(p for p in flat.plans_e[k] if p.s == self._e_slot[k])
                         for k, _ in self._w_slots}
-        specs = []
+        self.specs = []
         for fa, (off_a, nv_a, ta, _) in enumerate(pm.f_fams):
             for fb, (off_b, nv_b, tb, _) in enumerate(pm.f_fams):
-                specs.append(((off_a, nv_a, ta), (off_b, nv_b, tb), members.get((fa, fb), [])))
-        self.plan = BlockCSRPlan(pm.f_size, specs, dev)
-        self.indptr, self.indices, self.nnz = self.plan.indptr, self.plan.indices, self.plan.nnz
+                self.specs.append(((off_a, nv_a, ta), (off_b, nv_b, tb),
+                                   members.get((fa, fb), [])))
 
     def _rows(self, vflat, minv):
         """Per (kind, f slot) of a correction: (W (B, te*tf), M^{-1} W (B,
@@ -200,7 +218,7 @@ class SparseSchurSolver:
         return out
 
     def products(self, vflat, minv):
-        """products(member, t_a, t_b) of the plan: a row's F'F product, or
+        """products(member, t_a, t_b) of the plans: a row's F'F product, or
         a pair's correction -W_a' M^{-1} W_b from the rows' W and M^{-1} W
         gathered by kernel 7."""
         kinds = self.pm.base.kinds
@@ -218,10 +236,46 @@ class SparseSchurSolver:
 
         return products
 
+
+class CSRMatvec:
+    """matvec(values, z): S z for S in CSR with this pattern, the
+    use_explicit_schur_complement product (sparse_schur.py:202-217): z
+    gathered by column (kernel 7, `cols`), each entry's product summed by
+    row in the rows' order (kernel 6 over `rows`, sorted ids), so it
+    repeats bit for bit."""
+
+    def __init__(self, indptr: np.ndarray, indices: np.ndarray, device):
+        n = len(indptr) - 1
+        self.rows = fo.build_segment_plan(np.repeat(np.arange(n), np.diff(indptr)), n, device)
+        self.cols = torch.as_tensor(np.asarray(indices, np.int32), device=device)
+
+    def __call__(self, values: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        zc = kn.segment_block_expand(z.to(values.dtype)[:, None], self.cols)[:, 0]
+        return kn.segment_block_sum((values * zc)[:, None], self.rows)[:, 0]
+
+
+class SparseSchurSolver:
+    """The SPARSE_SCHUR step over a FlatSchurOps (its plans and device);
+    with factor=False only S's values and product (the explicit S of
+    ITERATIVE_SCHUR), without the host's symbolic factorization."""
+
+    def __init__(self, pm: pt.PartitionedMeta, flat: fo.FlatSchurOps, factor: bool = True):
+        self.pm = pm
+        self.flat = flat
+        self.pairs = SchurPairs(pm, flat)
+        self.plan = BlockCSRPlan(pm.f_size, self.pairs.specs, flat.device)
+        self.indptr, self.indices, self.nnz = self.plan.indptr, self.plan.indices, self.plan.nnz
+        self.chol = (native.SparseCholesky(pm.f_size, self.indptr, self.indices)
+                     if factor else None)
+
     def values(self, vflat, minv, D_f: torch.Tensor) -> torch.Tensor:
         """(nnz,) the CSR values of S, minv the per-e-family inverse
         blocks (E'E + D_e^2)^{-1} (nv, t*t)."""
-        return self.plan.values(self.products(vflat, minv), D_f * D_f)
+        return self.plan.values(self.pairs.products(vflat, minv), D_f * D_f)
+
+    def csr_matvec_fn(self) -> CSRMatvec:
+        """matvec(values, z) = S z over this solver's CSR pattern."""
+        return CSRMatvec(self.indptr, self.indices, self.flat.device)
 
     def solve(self, vflat, b: torch.Tensor, D: torch.Tensor, to_host: Callable):
         """The SPARSE_SCHUR step of min |J y - b|^2 + |D y|^2: (y in the

@@ -95,6 +95,9 @@ class Summary:
 
     device_kind: str = ""
     num_devices: int = 1
+    # Options.num_threads, and the one host thread the port drives the card with
+    num_threads_given: int = 1
+    num_threads_used: int = 1
 
     def is_solution_usable(self) -> bool:
         return self.termination_type in (

@@ -1,9 +1,9 @@
-"""Public enums of the slice (counterpart of ceres_tpu/types.py).
+"""Public enums (counterpart of ceres_tpu/types.py).
 
-Only the enums that the trust-region paths, the cost functions and the
-callbacks of the port read.
-Names and members match the JAX package, so options written for one
-package read the same in the other.
+The enums that the port's options, solvers, cost functions and callbacks
+read, the line-search ones included, which Options carries before a later
+slice runs them. Names and members match the JAX package, so options
+written for one package read the same in the other.
 """
 from __future__ import annotations
 
@@ -59,6 +59,30 @@ class DoglegType(_StrEnum):
     SUBSPACE_DOGLEG = enum.auto()
 
 
+class LineSearchDirectionType(_StrEnum):
+    STEEPEST_DESCENT = enum.auto()
+    NONLINEAR_CONJUGATE_GRADIENT = enum.auto()
+    LBFGS = enum.auto()
+    BFGS = enum.auto()
+
+
+class NonlinearConjugateGradientType(_StrEnum):
+    FLETCHER_REEVES = enum.auto()
+    POLAK_RIBIERE = enum.auto()
+    HESTENES_STIEFEL = enum.auto()
+
+
+class LineSearchType(_StrEnum):
+    ARMIJO = enum.auto()
+    WOLFE = enum.auto()
+
+
+class LineSearchInterpolationType(_StrEnum):
+    BISECTION = enum.auto()
+    QUADRATIC = enum.auto()
+    CUBIC = enum.auto()
+
+
 class TerminationType(_StrEnum):
     CONVERGENCE = enum.auto()
     NO_CONVERGENCE = enum.auto()
@@ -94,12 +118,16 @@ class NumericDiffMethodType(_StrEnum):
     RIDDERS = enum.auto()
 
 
+class VisibilityClusteringType(_StrEnum):
+    CANONICAL_VIEWS = enum.auto()
+    SINGLE_LINKAGE = enum.auto()
+
+
 # Later slices of the port, as ROADMAP.md numbers them. Features outside
 # this slice raise NotImplementedError naming the slice that brings them.
 LATER_SLICES = {
     4: "a device-resident LM loop (CUDA graphs)",
-    6: "the explicit Schur complement, the SCHUR_POWER_SERIES_EXPANSION and "
-       "CLUSTER_* preconditioners, line search and inner iterations",
+    6: "line search and inner iterations",
     9: "multi-device: the mesh half of parallel/sharded_ba.py, parallel/mesh.py "
        "and parallel/sharded_program.py",
 }

@@ -61,7 +61,17 @@ mixed-precision solves), BAL-16 built per block with CGNR + SUBSET, 3D and
 instance with SPARSE_SCHUR on the card against the CPU; rows 6 and 7 held
 against their plain versions and timed at the assembly's inputs; each run's
 host factorization time, bytes from the device, Cholesky tier and a repeat
-bit for bit.
+bit for bit. And the preconditioners and Schur options of ITERATIVE_SCHUR
+(precond_phase, precond_venice): BAL-16 with SCHUR_POWER_SERIES_EXPANSION,
+the power series' initial guess, CLUSTER_JACOBI under both clusterings,
+CLUSTER_TRIDIAGONAL and the explicit S in the fused and the host loop, in
+both dtypes, against the JAX package's answers
+(scripts/precond16_golden.py); the 2,048-camera instance with both cluster
+preconditioners and the host loop's explicit S on the card against the
+CPU, and the fused explicit S on the card; float32 SPSE at the Venice
+shape; rows 6 and 7 held against their plain versions and timed at the
+cluster assembly's and the CSR product's inputs; the clustering's host
+seconds, clusters and largest cluster.
 
     python3 chip_smoke.py
 
@@ -98,8 +108,9 @@ LIBMV16_GOLDEN_ROWS = 22
 # to 10 too, to keep the run within time beside the host loop's phase:
 # at the full depths their two CPU solves each took 66 and 76 s on the
 # chip machine's host. Cut again to 6 beside the sparse phase (port slice
-# 14), whose card-against-CPU solves take ~1.5 min of the host
-LIBMV16_CARD_VS_CPU_ITERATIONS = 6
+# 14), whose card-against-CPU solves take ~1.5 min of the host, and to 4
+# beside the precond phase (port slice 15)
+LIBMV16_CARD_VS_CPU_ITERATIONS = 3
 # scripts/specialized16_golden.py: the JAX package's lm_step_schur_k on
 # BAL-16 (rows sorted by point, radius 1e4) in float64, the cost after 5,
 # 10, 15 and 20 LM iterations
@@ -128,9 +139,10 @@ ROBUST_F32_REL = 5e-3
 CGNR16_GOLDEN = {"float64": 51931.26916069753, "float32": 51931.2734375}
 # the BAL-16 and libmv16 CGNR solves of card against CPU, cut in depth: the
 # CPU solves of libmv16 take 1-2 s an LM iteration on the card's host (cut
-# from 15 and 10 beside the sparse phase)
-CGNR16_CARD_VS_CPU_ITERATIONS = 8
-LIBMV16_CGNR_CARD_VS_CPU_ITERATIONS = 6
+# from 15 and 10 beside the sparse phase, and from 8 and 6 beside the
+# precond phase)
+CGNR16_CARD_VS_CPU_ITERATIONS = 4
+LIBMV16_CGNR_CARD_VS_CPU_ITERATIONS = 3
 # scripts/dogleg16_golden.py: the JAX package's BAL-16 DENSE_SCHUR solves
 # with DOGLEG in float64 (CONVERGENCE, 17 rows each; from the default radius
 # of 1e4 every step is the Gauss-Newton point, so the two agree)
@@ -229,7 +241,7 @@ MANIFOLD_GOLDEN = {
                                               -0.2989028583036928, 0.24908094557569405]),
 }
 # the host loop's card-against-CPU solves, cut in depth as the fused ones
-HOST_CARD_VS_CPU_ITERATIONS = 8  # 15 until the sparse phase came
+HOST_CARD_VS_CPU_ITERATIONS = 4  # 15 until the sparse phase came, 8 until the precond
 # the Venice shape in the host loop: LM iterations of each solve
 HOST_VENICE_LM_ITERATIONS = 3
 # the kernels of the host loop's block steps (solvers/bsr_kernels.py): the
@@ -267,11 +279,63 @@ POSE2D = (3500, 350, 0.02, 0, 50)
 # SUBSET leaves one observation of each point seen at least this often out
 # of the preconditioner's rows (tests/test_bal_golden.py:104-143)
 SUBSET_DROP_MIN = 6
-# libmv16 SPARSE_SCHUR on the card against the CPU: its first rows
-LIBMV16_SPARSE_CARD_VS_CPU_ITERATIONS = 6
+# libmv16 SPARSE_SCHUR on the card against the CPU: its first rows (6 until
+# the precond phase came)
+LIBMV16_SPARSE_CARD_VS_CPU_ITERATIONS = 3
+# 2,048-camera SPARSE_SCHUR on the card against the CPU (5 until the precond
+# phase came: its CPU solves factor an 18,432-column S, ~2 s a step)
+SPARSE_C2048_LM_ITERATIONS = 1
 # the sparse steps' flat products and their assembly of J'J or S: rows 6, 7
 # and 9; CGNR + SUBSET's matvec on a BAL program adds row 4
 SPARSE_PATH = HOST_PATH
+# scripts/precond16_golden.py: the JAX package's answers on BAL-16 with the
+# preconditioners and Schur options of ITERATIVE_SCHUR (default options
+# otherwise), (final cost, summary rows) per (path, loop, dtype): the JAX
+# fused loop ("ALWAYS") and host loop ("NEVER"); its host loop cannot run
+# the explicit S in float32 (a float64 S in a float32 CG loop), so that
+# path's float32 run is held to the float64 golden
+PRECOND16_GOLDEN = {
+    ("spse", "ALWAYS", "float64"): (51935.9798404648, 30),
+    ("spse", "ALWAYS", "float32"): (51936.015625, 30),
+    ("spse", "NEVER", "float64"): (51935.979840464825, 30),
+    ("spse", "NEVER", "float32"): (51935.9765625, 30),
+    ("spse_init", "ALWAYS", "float64"): (51931.15049740099, 29),
+    ("spse_init", "ALWAYS", "float32"): (51931.15625, 29),
+    ("spse_init", "NEVER", "float64"): (51931.15049740099, 29),
+    ("spse_init", "NEVER", "float32"): (51931.09765625, 30),
+    ("cj_cv", "ALWAYS", "float64"): (51931.10068031214, 17),
+    ("cj_cv", "ALWAYS", "float32"): (51931.140625, 19),
+    ("cj_cv", "NEVER", "float64"): (51931.10068031217, 17),
+    ("cj_cv", "NEVER", "float32"): (51931.1015625, 17),
+    ("cj_sl", "ALWAYS", "float64"): (51931.87165466735, 22),
+    ("cj_sl", "ALWAYS", "float32"): (51931.875, 22),
+    ("cj_sl", "NEVER", "float64"): (51931.87165466735, 22),
+    ("cj_sl", "NEVER", "float32"): (51931.87890625, 22),
+    ("ct", "ALWAYS", "float64"): (51931.10068031214, 17),
+    ("ct", "ALWAYS", "float32"): (51931.140625, 19),
+    ("ct", "NEVER", "float64"): (51931.10068031217, 17),
+    ("ct", "NEVER", "float32"): (51931.1015625, 17),
+    ("explicit", "ALWAYS", "float64"): (51931.87165466735, 22),
+    ("explicit", "ALWAYS", "float32"): (51931.8828125, 22),
+    ("explicit", "NEVER", "float64"): (51931.87165466737, 22),
+    ("explicit", "NEVER", "float32"): (51931.87165466737, 22),
+}
+# the options of each path of PRECOND16_GOLDEN (scripts/precond16_golden.py)
+PRECOND_PATHS = {
+    "spse": dict(preconditioner_type="SCHUR_POWER_SERIES_EXPANSION"),
+    "spse_init": dict(preconditioner_type="SCHUR_JACOBI", use_spse_initialization=True),
+    "cj_cv": dict(preconditioner_type="CLUSTER_JACOBI"),
+    "cj_sl": dict(preconditioner_type="CLUSTER_JACOBI",
+                  visibility_clustering_type="SINGLE_LINKAGE"),
+    "ct": dict(preconditioner_type="CLUSTER_TRIDIAGONAL"),
+    "explicit": dict(use_explicit_schur_complement=True),
+}
+# the precond phase's runs at 2,048 cameras and the Venice shape, and its
+# 2,048-camera runs on the card against the CPU, whose CPU solves take
+# 5-15 s an LM iteration on the chip machine's host (a batched Cholesky of
+# 13 blocks of up to 2,961 columns; 13 chain positions for the tridiagonal)
+PRECOND_LARGE_LM_ITERATIONS = 3
+PRECOND_CARD_VS_CPU_LM_ITERATIONS = {"cj_cv": 2, "ct": 1, "explicit": 2}
 SPECIALIZED_K = 20  # LM iterations per call, as bench.py:147
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # peak rate of each type (NVIDIA H100 SXM data sheet, dense): float32
@@ -465,6 +529,10 @@ CASES = {"eval_fused": "eval_fused", "post_eval_fused": "post_eval_fused",
          "segment_block_sum_jtj": "segment_block_sum",
          "segment_block_expand_schur": "segment_block_expand",
          "segment_block_expand_csr": "segment_block_expand",
+         "segment_block_sum_cluster": "segment_block_sum",
+         "segment_block_expand_cluster": "segment_block_expand",
+         "segment_block_expand_csr_matvec": "segment_block_expand",
+         "segment_block_sum_csr_matvec": "segment_block_sum",
          **{f"eval_fused_{model}_{loss}": "eval_fused"
             for model in ("angle_axis", "quat") for loss in ROBUST_LOSSES}}
 
@@ -616,6 +684,20 @@ def fresh(lp):
 
 class SmokeFailure(Exception):
     pass
+
+
+_BAL16 = {}
+
+
+def bal16(bal):
+    """A fresh copy of BAL-16's arrays (models/bal.bal16, bench.py:_bal16),
+    generated once (~1 s on the host each time): a solve writes its answer
+    into the cameras and points of the problem it was given."""
+    if "b" not in _BAL16:
+        _BAL16["b"] = bal.bal16()
+    b = _BAL16["b"]
+    return bal.BALProblem(b.cameras.copy(), b.points.copy(), b.camera_index.copy(),
+                          b.point_index.copy(), b.observations.copy())
 
 
 def check(cond, msg):
@@ -1004,12 +1086,12 @@ def main():
 
     # -- BAL-16: every kernel against its plain version ----------------------
     log("phase", f"BAL-16 kernel checks from {time.monotonic() - t_start:.1f} s")
-    b16 = bal.bal16()
+    b16 = bal16(bal)
     log("bal16", f"cameras {b16.num_cameras}, points {b16.num_points}, "
         f"observations {b16.num_observations}")
     rng = np.random.default_rng(7)
     for dtn in ("float64", "float32"):
-        prog = CompiledProgram(bal.build_problem_batched(bal.bal16())[0], dtn,
+        prog = CompiledProgram(bal.build_problem_batched(bal16(bal))[0], dtn,
                                device=dev)
         args = kernel_inputs(prog, ctt.Options(linear_solver_type=DS), True, rng)
         check_and_time("bal16", dtn, args, 100, 10)
@@ -1135,16 +1217,21 @@ def main():
         rounding-level change in S z far past 1e-9, and the card sums in
         another order than the CPU. Where rounding alone changes a row's
         CG count (the one-ulp solve's count differs from the CPU's), the
-        card's may be either. `solver` as drive's."""
+        card's may be either. With no `ulp_problem_fn` the one-ulp solve is
+        not run: each row within 1e-9 and the same CG counts. `solver` as
+        drive's."""
         s_card, _ = drive(path, opts, problem_fn(), flat=flat, kernels=kernels,
                           solver=solver)
         t0 = time.monotonic()
         s_cpu = (solver or ctt.solve)(opts, problem_fn(), device="cpu")
         cpu_s = time.monotonic() - t0
-        s_ulp = (solver or ctt.solve)(opts, ulp_problem_fn(), device="cpu")
         rows_card = [(r.linear_solver_iterations, r.cost) for r in s_card.iterations]
         rows_cpu = [(r.linear_solver_iterations, r.cost) for r in s_cpu.iterations]
-        rows_ulp = [(r.linear_solver_iterations, r.cost) for r in s_ulp.iterations]
+        if ulp_problem_fn is None:
+            rows_ulp = rows_cpu
+        else:
+            s_ulp = (solver or ctt.solve)(opts, ulp_problem_fn(), device="cpu")
+            rows_ulp = [(r.linear_solver_iterations, r.cost) for r in s_ulp.iterations]
         # a row a tolerance ends the host loop on holds cost 0 (as the JAX
         # package's): its gap is the absolute difference
         gaps = [abs(a[1] - b[1]) / (abs(b[1]) or 1.0) for a, b in zip(rows_card, rows_cpu)]
@@ -1187,7 +1274,7 @@ def main():
     for dtn in ("float64", "float32"):
         s, res = drive("bal16_dense_" + TAG[dtn],
                        ctt.Options(linear_solver_type=DS, evaluation_dtype=dtn),
-                       bal.build_problem_batched(bal.bal16())[0])
+                       bal.build_problem_batched(bal16(bal))[0])
         gap = (s.final_cost - GOLDEN_COST) / GOLDEN_COST
         res["gap_to_golden"] = gap
         if dtn == "float64":
@@ -1208,7 +1295,7 @@ def main():
                            preconditioner_type=ctt.PreconditionerType.SCHUR_JACOBI,
                            evaluation_dtype=dtn, max_num_iterations=30,
                            max_linear_solver_iterations=100)
-        s, res = drive(path, opts, bal.build_problem_batched(bal.bal16())[0])
+        s, res = drive(path, opts, bal.build_problem_batched(bal16(bal))[0])
         gap = (s.final_cost - GOLDEN_COST) / GOLDEN_COST
         res["gap_to_golden"] = gap
         check(s.is_solution_usable(), f"{path}: solution not usable: {s.message}")
@@ -1230,7 +1317,7 @@ def main():
                 max_num_iterations=30, max_linear_solver_iterations=100))):
         per_it = []
         for _ in range(5):
-            s = ctt.solve(opts, bal.build_problem_batched(bal.bal16())[0])
+            s = ctt.solve(opts, bal.build_problem_batched(bal16(bal))[0])
             torch.cuda.synchronize()
             per_it.append(1e3 * s.minimizer_time_in_seconds / (len(s.iterations) - 1))
         paths[path]["ms_per_iteration_runs"] = per_it
@@ -1245,7 +1332,7 @@ def main():
                            linear_solver_type=IS, max_num_iterations=30,
                            max_linear_solver_iterations=100))):
         paths[path]["profile"] = profile_solve(
-            lambda: ctt.solve(opts, bal.build_problem_batched(bal.bal16())[0]))
+            lambda: ctt.solve(opts, bal.build_problem_batched(bal16(bal))[0]))
         log(f"profile {path}", json.dumps(paths[path]["profile"]) + f"; {card}")
         log_row_passes(path, paths[path]["profile"], card)
 
@@ -1351,6 +1438,13 @@ def main():
                  check_and_time, lp16, ulp16)
     log("phase", f"the sparse solvers took {time.monotonic() - t_sparse:.1f} s")
 
+    # -- the preconditioners and Schur options of ITERATIVE_SCHUR ------------------
+    log("phase", f"the preconditioners from {time.monotonic() - t_start:.1f} s")
+    t_precond = time.monotonic()
+    precond_phase(ctt, bal, kn, dev, card, paths, drive, card_against_cpu, check_and_time)
+    log("phase", f"the preconditioners took {time.monotonic() - t_precond:.1f} s "
+        "(their Venice run comes in the Venice phase)")
+
     # -- the Venice shape ------------------------------------------------------
     log("phase", f"the Venice shape from {time.monotonic() - t_start:.1f} s")
     t0 = time.monotonic()
@@ -1398,6 +1492,11 @@ def main():
 
     # -- the host loop at the Venice shape through a logging callback -----------
     host_loop_venice(ctt, bal, card, paths, large_solves, lambda: copy_problem(venice))
+
+    # -- the power series at the Venice shape (the precond phase's) --------------
+    t0 = time.monotonic()
+    precond_venice(ctt, card, drive, lambda: copy_problem(venice))
+    log("phase", f"the preconditioners' Venice run took {time.monotonic() - t0:.1f} s")
 
     # -- the Venice shape with HuberLoss(1.0): rows 1L and 1Q at 4.4M rows, --
     # -- and quaternion cameras through ITERATIVE_SCHUR -------------------------
@@ -1576,7 +1675,7 @@ def cgnr_dogleg_mgh_phase(ctt, bal, libmv, kn, dev, card, paths, drive,
     # -- row 4 at the inputs of BAL-16 CGNR's first CG iteration: the lanes
     # -- of the flat evaluation and p = M^{-1} (s * g), at Jacobi scales
     for dtn in ("float64", "float32"):
-        prog = CompiledProgram(bal.build_problem_batched(bal.bal16())[0], dtn, device=dev)
+        prog = CompiledProgram(bal.build_problem_batched(bal16(bal))[0], dtn, device=dev)
         ops = CgnrStepOps(prog, ctt.Options(linear_solver_type=CGNR))
         fl = ops.flat
         _, vrep = ops.evaluate(prog.initial_state())
@@ -1601,7 +1700,7 @@ def cgnr_dogleg_mgh_phase(ctt, bal, libmv, kn, dev, card, paths, drive,
     for dtn in ("float64", "float32"):
         path = "bal16_cgnr_" + TAG[dtn]
         s, res = drive(path, ctt.Options(linear_solver_type=CGNR, evaluation_dtype=dtn),
-                       bal.build_problem_batched(bal.bal16())[0], kernels=CGNR_PATH)
+                       bal.build_problem_batched(bal16(bal))[0], kernels=CGNR_PATH)
         gap = (s.final_cost - CGNR16_GOLDEN["float64"]) / CGNR16_GOLDEN["float64"]
         gap_dt = (s.final_cost - CGNR16_GOLDEN[dtn]) / CGNR16_GOLDEN[dtn]
         res.update(gap_to_golden=gap, gap_to_golden_of_its_dtype=gap_dt)
@@ -1617,18 +1716,18 @@ def cgnr_dogleg_mgh_phase(ctt, bal, libmv, kn, dev, card, paths, drive,
             f"{res['ms_per_iteration']:.3f} ms per LM iteration; {card}")
     paths["bal16_cgnr_f64"]["profile"] = profile_solve(
         lambda: ctt.solve(ctt.Options(linear_solver_type=CGNR),
-                          bal.build_problem_batched(bal.bal16())[0]),
+                          bal.build_problem_batched(bal16(bal))[0]),
         anchor=SEGMENT_SUM_ANCHOR)
     log("profile bal16_cgnr_f64", json.dumps(paths["bal16_cgnr_f64"]["profile"])
         + f"; {card}")
     log_row_passes("bal16_cgnr_f64", paths["bal16_cgnr_f64"]["profile"], card)
-    ulp16b = bal.bal16()
+    ulp16b = bal16(bal)
     ulp16b.cameras[...] = np.nextafter(ulp16b.cameras, np.inf)
     card_against_cpu(
         "bal16_cgnr_card_vs_cpu",
         ctt.Options(linear_solver_type=CGNR,
                     max_num_iterations=CGNR16_CARD_VS_CPU_ITERATIONS),
-        lambda: bal.build_problem_batched(bal.bal16())[0],
+        lambda: bal.build_problem_batched(bal16(bal))[0],
         lambda: bal.build_problem_batched(bal.from_arrays(
             ulp16b.cameras, ulp16b.points, ulp16b.camera_index, ulp16b.point_index,
             ulp16b.observations))[0], kernels=CGNR_PATH)
@@ -1647,7 +1746,7 @@ def cgnr_dogleg_mgh_phase(ctt, bal, libmv, kn, dev, card, paths, drive,
         opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
                            trust_region_strategy_type=ctt.TrustRegionStrategyType.DOGLEG,
                            dogleg_type=ctt.DoglegType[dogleg])
-        s, res = drive(path, opts, bal.build_problem_batched(bal.bal16())[0],
+        s, res = drive(path, opts, bal.build_problem_batched(bal16(bal))[0],
                        kernels=FLAT_DENSE_PATH)
         gap = (s.final_cost - DOGLEG16_GOLDEN[dogleg]) / DOGLEG16_GOLDEN[dogleg]
         res["gap_to_golden"] = gap
@@ -1659,7 +1758,7 @@ def cgnr_dogleg_mgh_phase(ctt, bal, libmv, kn, dev, card, paths, drive,
             f"{res['host_syncs']} host syncs; {res['ms_per_iteration']:.3f} ms per LM "
             f"iteration; {card}")
         res["profile"] = profile_solve(
-            lambda: ctt.solve(opts, bal.build_problem_batched(bal.bal16())[0]),
+            lambda: ctt.solve(opts, bal.build_problem_batched(bal16(bal))[0]),
             anchor=SEGMENT_SUM_ANCHOR)
         log(f"profile {path}", json.dumps(res["profile"]) + f"; {card}")
         log_row_passes(path, res["profile"], card)
@@ -1832,7 +1931,7 @@ def host_loop_phase(ctt, bal, kn, dev, card, paths, drive, card_against_cpu):
     SJ = ctt.PreconditionerType.SCHUR_JACOBI
 
     def problem16():
-        return bal.build_problem_batched(bal.bal16())[0]
+        return bal.build_problem_batched(bal16(bal))[0]
 
     def gate_golden(path, s, dtn, golden_cost, golden_rows, extra=""):
         gap = (s.final_cost - golden_cost) / golden_cost
@@ -1891,7 +1990,7 @@ def host_loop_phase(ctt, bal, kn, dev, card, paths, drive, card_against_cpu):
     for ret, at, term in (("SOLVER_TERMINATE_SUCCESSFULLY", 5, "USER_SUCCESS"),
                           ("SOLVER_ABORT", 2, "USER_FAILURE")):
         path = "bal16_host_callbacks_" + term.lower()
-        b = bal.bal16()
+        b = bal16(bal)
         problem, cams, pts = bal.build_problem_batched(b)
         seen = []
 
@@ -1964,7 +2063,7 @@ def host_loop_phase(ctt, bal, kn, dev, card, paths, drive, card_against_cpu):
                         {"linear_solver_type": ctt.LinearSolverType[lst]}, MGH_MISSES)
 
     # -- (5) the card against the CPU -------------------------------------------------------
-    ulp16 = bal.bal16()
+    ulp16 = bal16(bal)
     ulp16.cameras[...] = np.nextafter(ulp16.cameras, np.inf)
 
     def ulp_problem16():
@@ -2045,7 +2144,7 @@ def sparse_kernel_inputs(ctt, bal, prog):
     vs = tuple(tuple(V.double() for V in jacs) for jacs in k.flat.scale_columns(J.vflat, scale))
     sss = k.sparse
     sys_ = build_schur_system(k.pm, vs, r.double(), pt.extract_e(k.pm, D), k.flat)
-    products = sss.products(vs, sys_.minv)
+    products = sss.pairs.products(vs, sys_.minv)
     plan = sss.plan
     g = max(plan.groups, key=lambda g: g.order.numel())
     corr = next(m for m in g.members if m[0] == "corr")
@@ -2059,7 +2158,7 @@ def sparse_kernel_inputs(ctt, bal, prog):
     return {
         "segment_block_sum_schur": (plan.group_products(g, products),
                                     g.seg if g.chunk is None else g.chunk),
-        "segment_block_expand_schur": (sss._rows(vs, sys_.minv)[corr[1]][0], corr[3]),
+        "segment_block_expand_schur": (sss.pairs._rows(vs, sys_.minv)[corr[1]][0], corr[3]),
         "segment_block_expand_csr": (flat[:, None].contiguous(), plan.src),
         "segment_block_sum_jtj": (ipc.plan.group_products(
             gj, lambda m, ta, tb: row_products(kinds, vs_j, m, ta, tb)), gj.seg),
@@ -2079,7 +2178,7 @@ def sparse_phase(ctt, bal, libmv, kn, dev, card, paths, drive, card_against_cpu,
     built per block with CGNR + SUBSET (1e-6; its CG counts logged beside
     the JAX package's); the pose graphs of 2,500 poses (3D) and 3,500 (2D)
     with the default options (1e-6, the same rows); libmv16 SPARSE_SCHUR
-    and the 2,048-camera instance with SPARSE_SCHUR for 5 LM iterations on
+    and the 2,048-camera instance with SPARSE_SCHUR for 3 LM iterations on
     the card against the CPU. Each run logs ms per LM iteration, the host's
     ms in factorizations and solves, the MB brought from the device per LM
     iteration, the host syncs, the Cholesky tier, and each float64 run a
@@ -2091,7 +2190,7 @@ def sparse_phase(ctt, bal, libmv, kn, dev, card, paths, drive, card_against_cpu,
     LS = ctt.LinearSolverType
     SS, SNC = LS.SPARSE_SCHUR, LS.SPARSE_NORMAL_CHOLESKY
     for dtn in ("float64", "float32"):
-        prog = CompiledProgram(bal.build_problem_batched(bal.bal16())[0], dtn, device=dev)
+        prog = CompiledProgram(bal.build_problem_batched(bal16(bal))[0], dtn, device=dev)
         check_and_time("bal16_sparse", dtn, sparse_kernel_inputs(ctt, bal, prog), 100, 10)
         del prog
     tiers = {}
@@ -2138,7 +2237,7 @@ def sparse_phase(ctt, bal, libmv, kn, dev, card, paths, drive, card_against_cpu,
         return s, res
 
     def problem16():
-        return bal.build_problem_batched(bal.bal16())[0]
+        return bal.build_problem_batched(bal16(bal))[0]
 
     # -- BAL-16: SPARSE_SCHUR and SPARSE_NORMAL_CHOLESKY ---------------------------
     for dtn in ("float64", "float32"):
@@ -2154,14 +2253,14 @@ def sparse_phase(ctt, bal, libmv, kn, dev, card, paths, drive, card_against_cpu,
                              max_num_iterations=25), problem16)
 
     # -- BAL-16 built per block: CGNR + SUBSET -------------------------------------
-    b16 = bal.bal16()
-    keep = subset_ids(bal.build_problem(bal.bal16())[0], b16)
+    b16 = bal16(bal)
+    keep = subset_ids(bal.build_problem(bal16(bal))[0], b16)
     opts = ctt.Options(linear_solver_type=LS.CGNR,
                        preconditioner_type=ctt.PreconditionerType.SUBSET,
                        residual_blocks_for_subset_preconditioner=keep, eta=1e-2,
                        max_num_iterations=35, fused_loop="NEVER")
     s, res = sparse_drive("bal16_cgnr_subset_f64", opts,
-                          lambda: bal.build_problem(bal.bal16())[0],
+                          lambda: bal.build_problem(bal16(bal))[0],
                           kernels=("normal_matvec",) + SPARSE_PATH)
     check(s.preconditioner_type_used == ctt.PreconditionerType.SUBSET,
           f"bal16_cgnr_subset_f64: preconditioner used {s.preconditioner_type_used}")
@@ -2203,13 +2302,213 @@ def sparse_phase(ctt, bal, libmv, kn, dev, card, paths, drive, card_against_cpu,
     native.reset_stats()
     card_against_cpu("c2048_sparse_schur_f64",
                      ctt.Options(linear_solver_type=SS,
-                                 max_num_iterations=SMALL_VENICE_LM_ITERATIONS),
+                                 max_num_iterations=SPARSE_C2048_LM_ITERATIONS),
                      small_problem, lambda: small_problem(ulp), kernels=SPARSE_PATH)
     st = dict(native.STATS)
     log("solve c2048_sparse_schur_f64", f"host factorizations {1e3 * st['factor_s']:.1f} ms "
         f"and solves {1e3 * st['solve_s']:.1f} ms over the card's and both CPU solves "
         f"({st['factorizations']} factorizations; tiers supernodal {st['supernodal']}, "
         f"simplicial {st['simplicial']}); {card}")
+
+
+def precond_options(ctt, path, loop, dtn, **kw):
+    """ITERATIVE_SCHUR with a PRECOND_PATHS path's options."""
+    o = dict(PRECOND_PATHS[path], **kw)
+    for name, enum in (("preconditioner_type", ctt.PreconditionerType),
+                       ("visibility_clustering_type", ctt.VisibilityClusteringType)):
+        if name in o:
+            o[name] = enum[o[name]]
+    return ctt.Options(linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR,
+                       evaluation_dtype=dtn, fused_loop=loop, **o)
+
+
+def precond_kernel_inputs(ctt, prog, opts_cluster):
+    """The kernel cases of the new paths at a program's first step (Jacobi
+    scales, an LM diagonal at radius 1e4), in float64 as the paths form
+    them: the cluster assembly's largest group of block-pair products (row
+    6) and the gather of the pair sums into the (C, m, m) layout (row 7),
+    under `opts_cluster`; the explicit S's product, z gathered by column
+    (row 7, 1 wide) and the products summed by row (row 6, 1 wide)."""
+    from ceres_tpu_torch.ops import partition as pt
+    from ceres_tpu_torch.solvers.bsr_kernels import BlockTrustRegionKernels
+    from ceres_tpu_torch.solvers.linear.implicit_schur import build_schur_system
+    from ceres_tpu_torch.utils import ordering
+
+    e_fams = ordering.eligible_e_sets(prog)
+    k = BlockTrustRegionKernels(prog, opts_cluster, "ITERATIVE_SCHUR", e_families=e_fams)
+    _, r, _, J, _, _ = k.eval_full(prog.initial_state())
+    scale = k.jacobi_scale(J)
+    D = torch.sqrt(k.lm_diagonal(J, scale) / 1e4).double()
+    vs = tuple(tuple(V.double() for V in jacs) for jacs in k.flat.scale_columns(J.vflat, scale))
+    asm, fl, pm = k.cluster_assembler, k.flat, k.pm
+    minv = fl.inverse_flats(pm.e_fams, fl.block_ete(vs), pt.extract_e(pm, D))
+    products = asm.pairs.products(vs, minv)
+    g = max(asm.plan.groups, key=lambda g: g.order.numel())
+    sums = asm.plan.sums(products)
+    sums = torch.cat([sums, sums.new_zeros((1,))])[:, None].contiguous()
+    args = {"segment_block_sum_cluster": (asm.plan.group_products(g, products),
+                                          g.seg if g.chunk is None else g.chunk),
+            "segment_block_expand_cluster": (sums, asm.src_d)}
+    kx = BlockTrustRegionKernels(prog, ctt.Options(
+        linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR,
+        use_explicit_schur_complement=True), "ITERATIVE_SCHUR", e_families=e_fams)
+    sys_ = build_schur_system(pm, vs, r.double(), pt.extract_e(pm, D), kx.flat)
+    svals = kx.sparse.values(vs, sys_.minv, pt.extract_f(pm, D))
+    mv = kx.matvec
+    zc = sys_.rhs[mv.cols.long()]
+    args["segment_block_expand_csr_matvec"] = (sys_.rhs[:, None].contiguous(), mv.cols)
+    args["segment_block_sum_csr_matvec"] = ((svals * zc)[:, None].contiguous(), mv.rows)
+    return args
+
+
+def precond_phase(ctt, bal, kn, dev, card, paths, drive, card_against_cpu,
+                  check_and_time):
+    """Port slice 15's paths: ITERATIVE_SCHUR with SCHUR_POWER_SERIES_EXPANSION,
+    SCHUR_JACOBI with the power series' initial guess, CLUSTER_JACOBI under
+    CANONICAL_VIEWS and SINGLE_LINKAGE, CLUSTER_TRIDIAGONAL and the explicit
+    S. Rows 6 and 7 held against their plain versions and timed at the
+    cluster assembly's and the CSR product's inputs (BAL-16); the
+    clustering's host seconds, cluster count and largest cluster, as each
+    cluster run made it; BAL-16 uncut on each path in the fused loop
+    and the host loop, float64 within 1e-6 of the JAX package's answer
+    (scripts/precond16_golden.py, PRECOND16_GOLDEN) in its rows and a
+    repeat bit for bit, float32 within 1e-5; at 2,048 cameras
+    CLUSTER_JACOBI and CLUSTER_TRIDIAGONAL (fused loop) and the host loop's
+    explicit S on the card against the CPU (PRECOND_CARD_VS_CPU_LM_ITERATIONS),
+    the fused explicit S on the card alone
+    (PRECOND_LARGE_LM_ITERATIONS; its CPU half would hold a dense A of
+    13 GB): costs finite and falling, a repeat bit for bit, peak memory. Each run logs ms per LM iteration, CG
+    iterations and host syncs."""
+    from ceres_tpu_torch.program import CompiledProgram
+    from ceres_tpu_torch.solvers.linear import preconditioners as tpc
+
+    small = bal.perturb(bal.synthetic_bal_large(**SMALL_VENICE), **VENICE_PERTURB)
+
+    def small_problem(b=small):
+        return bal.build_problem_batched(bal.from_arrays(
+            b.cameras, b.points, b.camera_index, b.point_index, b.observations))[0]
+
+    def log_clustering(path):
+        """The clustering the run `path` made (preconditioners.STATS)."""
+        st = dict(tpc.STATS)
+        paths[path]["clustering"] = st
+        log(f"clustering {path}", f"{st['clusters']} clusters, the largest m = "
+            f"{st['largest_m']} columns, {st['chains']} chains over {st['forest_edges']} "
+            f"forest edges; the visibility graph, clustering and forest took "
+            f"{st['host_seconds']:.3f} s on the host")
+
+    # -- the kernels at the new paths' inputs ------------------------------------------
+    # (the cluster blocks and S are float64 at either evaluation dtype: one
+    # check each)
+    prog = CompiledProgram(bal.build_problem_batched(bal16(bal))[0], device=dev)
+    args = precond_kernel_inputs(ctt, prog, precond_options(
+        ctt, "ct", "NEVER", "float64", visibility_clustering_type="SINGLE_LINKAGE"))
+    check_and_time("bal16_precond", "float64", args, 100, 10)
+    del prog, args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- BAL-16, every path in both loops and both dtypes ----------------------------
+    def problem16():
+        return bal.build_problem_batched(bal16(bal))[0]
+
+    for path in PRECOND_PATHS:
+        for loop in ("ALWAYS", "NEVER"):
+            for dtn in ("float64", "float32"):
+                opts = precond_options(ctt, path, loop, dtn)
+                name = f"bal16_{path}_{'fused' if loop == 'ALWAYS' else 'host'}_{TAG[dtn]}"
+                kernels = (FLAT_DENSE_PATH if path == "explicit" and loop == "ALWAYS"
+                           else FLAT_ITERATIVE_PATH)
+                tpc.STATS.clear()
+                s, res = drive(name, opts, problem16(), kernels=kernels)
+                if tpc.STATS and dtn == "float64" and loop == "ALWAYS":
+                    log_clustering(name)
+                cost, rows = PRECOND16_GOLDEN[(path, loop, dtn)]
+                gap = (s.final_cost - cost) / cost
+                res["gap_to_golden"] = gap
+                limit = 1e-6 if dtn == "float64" else 1e-5
+                check(s.is_solution_usable(), f"{name}: solution not usable: {s.message}")
+                check(abs(gap) <= limit, f"{name}: final cost off the JAX package's by "
+                      f"{gap:.3e}")
+                if dtn == "float64":
+                    check(len(s.iterations) == rows,
+                          f"{name}: {len(s.iterations)} rows, the JAX package's {rows}")
+                    again = ctt.solve(opts, problem16())
+                    res["repeat_bit_for_bit"] = ([r.cost for r in again.iterations]
+                                                 == [r.cost for r in s.iterations])
+                    check(res["repeat_bit_for_bit"], f"{name}: a repeated solve is not "
+                          f"bit for bit the first: {again.final_cost!r} against "
+                          f"{s.final_cost!r}")
+                log(f"solve {name}", f"final cost {s.final_cost!r} in {len(s.iterations)} "
+                    f"rows (JAX {cost!r} in {rows}), relative gap {gap:.3e} (limit "
+                    f"{limit:.0e}); {res['ms_per_iteration']:.3f} ms per LM iteration, "
+                    f"CG iterations {res['linear_solver_iterations']}, "
+                    f"{res['host_syncs_per_iteration']:.2f} host syncs per LM iteration, "
+                    f"repeat bit for bit {res.get('repeat_bit_for_bit', 'not run')}; {card}")
+
+    # -- 2,048 cameras ---------------------------------------------------------------
+    # card against CPU without the one-ulp CPU solve (each row within 1e-9,
+    # the same CG counts): the CPU solves take most of the phase
+    for path in ("cj_cv", "ct"):
+        tpc.STATS.clear()
+        card_against_cpu(f"c2048_{path}_f64", precond_options(
+            ctt, path, "AUTO", "float64",
+            max_num_iterations=PRECOND_CARD_VS_CPU_LM_ITERATIONS[path]),
+            small_problem, None, kernels=FLAT_ITERATIVE_PATH)
+        log_clustering(f"c2048_{path}_f64")  # the CPU solve's, the same clustering
+        gc.collect()
+        torch.cuda.empty_cache()
+    card_against_cpu("c2048_explicit_host_f64", precond_options(
+        ctt, "explicit", "NEVER", "float64",
+        max_num_iterations=PRECOND_CARD_VS_CPU_LM_ITERATIONS["explicit"]),
+        small_problem, None, kernels=FLAT_ITERATIVE_PATH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = "c2048_explicit_fused_f64"
+    opts = precond_options(ctt, "explicit", "ALWAYS", "float64",
+                           max_num_iterations=PRECOND_LARGE_LM_ITERATIONS)
+    s, res = drive(path, opts, small_problem(), kernels=FLAT_DENSE_PATH)
+    finite_falling_repeat(ctt, path, s, res, opts, small_problem, card)
+
+
+def finite_falling_repeat(ctt, path, s, res, opts, problem_fn, card):
+    """The gates of a run with no CPU half: every cost finite, falling over
+    successful steps, and a repeat bit for bit; logs the run's times and
+    its peak device memory."""
+    costs = [r.cost for r in s.iterations]
+    check(all(np.isfinite(c) for c in costs), f"{path}: a cost is not finite")
+    accepted = [s.iterations[0].cost] + [
+        r.cost for r in s.iterations[1:] if r.step_is_successful]
+    check(len(accepted) >= 2 and all(b < a for a, b in zip(accepted, accepted[1:])),
+          f"{path}: the cost did not decrease over successful steps: {accepted}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    again = ctt.solve(opts, problem_fn())
+    torch.cuda.synchronize()
+    res["repeat_bit_for_bit"] = [r.cost for r in again.iterations] == costs
+    res["repeat_ms_per_iteration"] = (1e3 * again.minimizer_time_in_seconds
+                                      / max(res["iterations"], 1))
+    check(res["repeat_bit_for_bit"], f"{path}: a repeated solve differs")
+    log(f"solve {path}", f"costs {costs}; {res['ms_per_iteration']:.3f} ms per LM "
+        f"iteration ({res['repeat_ms_per_iteration']:.3f} in the repeat), CG iterations "
+        f"{res['linear_solver_iterations']}, {res['host_syncs_per_iteration']:.2f} host "
+        f"syncs per LM iteration, peak device memory "
+        f"{res['peak_device_bytes'] / 2**30:.3f} GiB, repeat bit for bit; {card}")
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def precond_venice(ctt, card, drive, problem_fn):
+    """The precond phase's Venice run: float32 ITERATIVE_SCHUR with
+    SCHUR_POWER_SERIES_EXPANSION for PRECOND_LARGE_LM_ITERATIONS LM
+    iterations (the fused loop, on the flat path): costs finite and
+    falling, a repeat bit for bit."""
+    path = "venice_spse_f32"
+    opts = precond_options(ctt, "spse", "AUTO", "float32",
+                           max_num_iterations=PRECOND_LARGE_LM_ITERATIONS)
+    s, res = drive(path, opts, problem_fn(), kernels=FLAT_ITERATIVE_PATH)
+    finite_falling_repeat(ctt, path, s, res, opts, problem_fn, card)
 
 
 def host_loop_venice(ctt, bal, card, paths, large_solves, problem_fn):
@@ -2468,14 +2767,14 @@ def modeling_phase(ctt, bal, libmv, kn, dev, card, paths, drive, check_and_time,
         path = f"bal16_mixed_{name}"
         s, res = drive(path, ctt.Options(linear_solver_type=lst, preconditioner_type=SJ,
                                          evaluation_dtype="mixed"),
-                       bal.build_problem_batched(bal.bal16())[0], extra_evaluations=1)
+                       bal.build_problem_batched(bal16(bal))[0], extra_evaluations=1)
         res["phases"] = re.findall(r"\((\d+) its\)", s.message)
         gate(path, s, "float64", f"; {s.message[:60]}")
 
     # -- (d) mixed-precision solves: the flat dense-Schur step ------------------------
     path = "bal16_mixed_solves_dense_f64"
     s, _ = drive(path, ctt.Options(linear_solver_type=DS, use_mixed_precision_solves=True),
-                 bal.build_problem_batched(bal.bal16())[0], flat=True)
+                 bal.build_problem_batched(bal16(bal))[0], flat=True)
     gate(path, s, "float64")
 
     # -- (e) libmv16 with constant intrinsics ------------------------------------------
@@ -2494,12 +2793,12 @@ def modeling_phase(ctt, bal, libmv, kn, dev, card, paths, drive, check_and_time,
 
     # -- (f) the user ordering -----------------------------------------------------
     path = "bal16_ordering_dense_f64"
-    p = bal.build_problem_batched(bal.bal16())[0]
+    p = bal.build_problem_batched(bal16(bal))[0]
     arrays = p.parameter_block_arrays()
     s, _ = drive(path, ctt.Options(linear_solver_type=DS,
                                    linear_solver_ordering=[[arrays[1]], [arrays[0]]]), p)
     default = ctt.solve(ctt.Options(linear_solver_type=DS),
-                        bal.build_problem_batched(bal.bal16())[0])
+                        bal.build_problem_batched(bal16(bal))[0])
     same = [r.cost for r in s.iterations] == [r.cost for r in default.iterations]
     gate(path, s, "float64", f"; the rows of the default ordering bit for bit {same}")
     check(same, f"{path}: the rows differ from the default ordering's")

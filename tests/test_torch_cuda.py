@@ -1061,3 +1061,115 @@ def test_cgnr_subset_and_pose_graph_on_card_match_cpu(card):
         for a, c in zip(ref.iterations, out.iterations):
             assert c.cost == pytest.approx(a.cost, rel=1e-9, abs=1e-30)
             assert c.linear_solver_iterations == a.linear_solver_iterations
+
+
+def _precond_setup(dev, tridiagonal):
+    """The 6-camera problem's flat ops at its initial state on `dev`, four
+    clusters (camera i in cluster i % 4; a chain of them for
+    CLUSTER_TRIDIAGONAL), their block assembler, the Jacobian blocks and
+    a damping."""
+    from ceres_tpu_torch.ops import bsr
+    from ceres_tpu_torch.solvers.linear import preconditioners as tpc
+    from ceres_tpu_torch.utils import ordering
+
+    prog = CompiledProgram(tbal.build_problem_batched(small_bal())[0], device=dev)
+    pm = pt.build_partition(bsr.build_meta(prog), ordering.eligible_e_sets(prog))
+    flat = fo.FlatSchurOps(pm, prog)
+    vflat = flat.flatten(prog._eval_core(prog.initial_state())["block_jacs"])
+    num_f = sum(nv for (_, nv, _, _) in pm.f_fams)
+    cs = tpc.ClusterStructure(pm, np.arange(num_f) % 4,
+                              [(0, 1), (1, 2), (2, 3)] if tridiagonal else None, dev)
+    D = torch.as_tensor(np.random.default_rng(3).uniform(0.5, 1.5, pm.base.tangent_size),
+                        device=dev)
+    return pm, flat, vflat, cs, tpc.ClusterBlockAssembler(pm, cs, flat), D
+
+
+@pytest.mark.parametrize("tridiagonal", [False, True])
+def test_cluster_blocks_on_card_match_cpu(card, tridiagonal):
+    """The cluster preconditioner's blocks formed on the card (rows 6 and
+    7, float64) against the CPU's plain forms, 1e-12 of the largest entry;
+    a repeat on the card bit for bit; the apply against the CPU's, 1e-10."""
+    from ceres_tpu_torch.solvers.linear import preconditioners as tpc
+
+    outs = {}
+    for dev in (torch.device("cpu"), card):
+        pm, flat, vflat, cs, asm, D = _precond_setup(dev, tridiagonal)
+        D_e, D_f = pt.extract_e(pm, D), pt.extract_f(pm, D)
+        kn.reset_counts()
+        blocks = asm(vflat, D_e, D_f)
+        if dev.type == "cuda":
+            assert all(k.plain_calls == 0 for k in kn.KERNELS)
+            assert kn.segment_block_sum.launches > 0 and kn.segment_block_expand.launches > 0
+            again = asm(vflat, D_e, D_f)
+            for a, b in zip(*((blocks, again) if tridiagonal else ((blocks,), (again,)))):
+                assert torch.equal(a, b)
+        make = (tpc.make_cluster_tridiagonal_preconditioner if tridiagonal
+                else tpc.make_cluster_preconditioner)
+        v = torch.as_tensor(np.random.default_rng(5).standard_normal(pm.f_size), device=dev)
+        outs[dev.type] = ([x.cpu() for x in (blocks if tridiagonal else (blocks,))],
+                          make(cs, lambda: blocks)(v).cpu())
+    for a, b in zip(outs["cpu"][0], outs["cuda"][0]):
+        assert (a - b).abs().max() <= 1e-12 * max(a.abs().max(), 1.0)
+    a, b = outs["cpu"][1], outs["cuda"][1]
+    assert (a - b).abs().max() <= 1e-10 * max(a.abs().max(), 1.0)
+
+
+def test_csr_matvec_on_card_matches_cpu(card):
+    """The explicit S's CSR values and product (rows 7 and 6) on the card
+    against the CPU's plain forms, 1e-12 of the largest entry; a repeat on
+    the card bit for bit."""
+    from ceres_tpu_torch.solvers.linear import implicit_schur as tis
+    from ceres_tpu_torch.solvers.linear import sparse_schur as tss
+
+    outs = {}
+    for dev in (torch.device("cpu"), card):
+        pm, flat, vflat, _, _, D = _precond_setup(dev, False)
+        prog_r = torch.as_tensor(np.random.default_rng(7).standard_normal(
+            sum(k.B * k.r for k in pm.base.kinds)), device=dev)
+        sys = tis.build_schur_system(pm, vflat, prog_r, pt.extract_e(pm, D), flat)
+        sss = tss.SparseSchurSolver(pm, flat)
+        svals = sss.values(vflat, sys.minv, pt.extract_f(pm, D))
+        mv = sss.csr_matvec_fn()
+        z = torch.as_tensor(np.random.default_rng(8).standard_normal(pm.f_size), device=dev)
+        kn.reset_counts()
+        out = mv(svals, z)
+        if dev.type == "cuda":
+            assert all(k.plain_calls == 0 for k in kn.KERNELS)
+            assert kn.segment_block_sum.launches == kn.segment_block_expand.launches == 1
+            assert torch.equal(out, mv(svals, z))
+        outs[dev.type] = (svals.cpu(), out.cpu())
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        assert (a - b).abs().max() <= 1e-12 * max(a.abs().max(), 1.0)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(preconditioner_type="SCHUR_POWER_SERIES_EXPANSION"),
+    dict(use_spse_initialization=True),
+    dict(preconditioner_type="CLUSTER_JACOBI"),
+    dict(preconditioner_type="CLUSTER_TRIDIAGONAL"),
+    dict(use_explicit_schur_complement=True),
+], ids=["spse", "spse_init", "cluster_jacobi", "cluster_tridiagonal", "explicit"])
+@pytest.mark.parametrize("loop", ["NEVER", "ALWAYS"])
+def test_preconditioners_on_card_match_cpu(card, kw, loop):
+    """ITERATIVE_SCHUR with each new option on the card and the CPU, in
+    both loops: the same rows, each cost to 1e-9 relative, no plain
+    version on the card."""
+    if "preconditioner_type" in kw:
+        kw = dict(kw, preconditioner_type=ctt.PreconditionerType[kw["preconditioner_type"]])
+    b = small_bal()
+    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR,
+                       max_num_iterations=8, fused_loop=loop, **kw)
+
+    def problem():
+        return tbal.build_problem_batched(tbal.from_arrays(
+            b.cameras.copy(), b.points.copy(), b.camera_index, b.point_index,
+            b.observations))[0]
+
+    ref = ctt.solve(opts, problem(), device="cpu")
+    kn.reset_counts()
+    out = ctt.solve(opts, problem())
+    assert len(out.iterations) == len(ref.iterations)
+    for a, c in zip(ref.iterations, out.iterations):
+        assert c.cost == pytest.approx(a.cost, rel=1e-9, abs=1e-30)
+    assert all(k.plain_calls == 0 for k in kn.KERNELS)
+    assert kn.segment_block_sum.launches > 0 and kn.segment_block_expand.launches > 0

@@ -124,24 +124,25 @@ def _enums(pkg, kw):
     return kw
 
 
-_IS = ctt.LinearSolverType.ITERATIVE_SCHUR
-_PT = ctt.PreconditionerType
-
-
 @pytest.mark.parametrize("kw,slice_no", [
-    (dict(linear_solver_type=_IS,
-          preconditioner_type=_PT.SCHUR_POWER_SERIES_EXPANSION), 6),
-    (dict(linear_solver_type=ctt.LinearSolverType.CGNR,
-          preconditioner_type=_PT.CLUSTER_JACOBI), 6),
-    (dict(linear_solver_type=_IS, preconditioner_type=_PT.CLUSTER_JACOBI), 6),
-    (dict(linear_solver_type=_IS, preconditioner_type=_PT.CLUSTER_TRIDIAGONAL), 6),
-    (dict(linear_solver_type=_IS, use_spse_initialization=True), 6),
-    (dict(linear_solver_type=_IS, use_explicit_schur_complement=True), 6),
+    (dict(minimizer_type=ctt.MinimizerType.LINE_SEARCH), 6),
+    (dict(use_inner_iterations=True), 6),
+    (dict(max_lbfgs_rank=10), 6),
+    ("solve_ba over a mesh", 9),
 ])
 def test_unported_options_raise_naming_the_slice(kw, slice_no):
-    problem = tbal.build_problem_batched(tbal.from_arrays(*_arrays(small_bal())))[0]
+    """What the port does not run yet raises naming its slice: line search
+    and its fields, inner iterations (slice 6), a mesh (slice 9). The
+    preconditioners and Schur options this test once listed run now
+    (tests/test_torch_preconditioners.py)."""
+    b = tbal.from_arrays(*_arrays(small_bal()))
     with pytest.raises(NotImplementedError, match=f"port slice {slice_no}"):
-        ctt.solve(ctt.Options(**kw), problem, device="cpu")
+        if kw == "solve_ba over a mesh":
+            from ceres_tpu_torch.parallel import sharded_ba
+
+            sharded_ba.solve_ba(b, mesh=object(), device="cpu")
+        else:
+            ctt.solve(ctt.Options(**kw), tbal.build_problem_batched(b)[0], device="cpu")
 
 
 def _arrays(b):

@@ -26,7 +26,9 @@ def test_import_loads_no_jax_and_no_ceres_tpu():
         "ceres_tpu_torch.ops.build, ceres_tpu_torch.parallel.sharded_ba, "
         "ceres_tpu_torch.loss, ceres_tpu_torch.manifolds, ceres_tpu_torch.rotation, "
         "ceres_tpu_torch.models.pose_graph, ceres_tpu_torch.native, "
-        "ceres_tpu_torch.ops.inner_product, ceres_tpu_torch.solvers.linear.sparse_schur\n"
+        "ceres_tpu_torch.ops.inner_product, ceres_tpu_torch.solvers.linear.sparse_schur, "
+        "ceres_tpu_torch.solvers.linear.preconditioners, ceres_tpu_torch.utils.clustering, "
+        "ceres_tpu_torch.gradient_checker\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'ceres_tpu' or m.startswith('ceres_tpu.')]\n"
         "print(bad)\n"
