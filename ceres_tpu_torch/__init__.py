@@ -35,6 +35,7 @@ from .cost_function import (
     cost_function_to_functor,
 )
 from .gradient_checker import GradientChecker
+from .gradient_problem import GradientProblem, solve_gradient_problem
 from .loss import (
     ArctanLoss,
     CauchyLoss,
@@ -96,6 +97,7 @@ __all__ = [
     "EuclideanManifold",
     "EvaluationCallback",
     "GradientChecker",
+    "GradientProblem",
     "HuberLoss",
     "IterationCallback",
     "IterationSummary",
@@ -135,4 +137,5 @@ __all__ = [
     "VisibilityClusteringType",
     "cost_function_to_functor",
     "solve",
+    "solve_gradient_problem",
 ]

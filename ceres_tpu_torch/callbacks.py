@@ -14,7 +14,7 @@ from __future__ import annotations
 from typing import Optional
 
 from .summary import IterationSummary, Summary
-from .types import CallbackReturnType, LoggingType, TerminationType
+from .types import CallbackReturnType, LoggingType, MinimizerType, TerminationType
 
 
 class IterationCallback:
@@ -60,15 +60,19 @@ def run_callbacks(options, it_summary: IterationSummary, summary: Summary,
     """Logging, the state update and the user callbacks of one row
     (minimizer.cc RunCallbacks, the JAX callbacks.py:54); the termination
     type a callback asks for, else None. `x` is the solver state on the
-    device, read only to write it back."""
+    device, read only to write it back. A GradientProblem's program has
+    no Problem to watch and writes no state."""
     if (options.logging_type == LoggingType.PER_MINIMIZER_ITERATION
             and options.minimizer_progress_to_stdout):
-        print(trust_region_log_line(it_summary))
+        print(line_search_log_line(it_summary)
+              if options.minimizer_type == MinimizerType.LINE_SEARCH
+              else trust_region_log_line(it_summary))
     if options.update_state_every_iteration:
         program.write_state(x)
+    problem = getattr(program, "problem", None)
     for cb in options.callbacks:
         ret = cb(it_summary)
-        if program.problem.structure_version != program.structure_version:
+        if problem is not None and problem.structure_version != program.structure_version:
             # the reference leaves a mid-solve mutation undefined
             # (problem.h: "may not modify the problem while Solve is
             # running"); fail loudly rather than solve a stale structure

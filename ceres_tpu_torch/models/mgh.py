@@ -9,12 +9,11 @@ compare the SUM of squares (2 * final cost) to the certified optimum at
 >= 4 relative log digits.
 
 Each residual is one torch expression over the whole residual vector, x
-a single parameter block. The port has no per-block `add_residual_block`
-yet (port slice 6 of ROADMAP.md), so `build_problem` makes one
-ParameterBlockArray of one block and one batch of one residual block.
-Every problem here has one parameter block and so no eliminable block
-set: it solves with DENSE_QR (or DENSE_NORMAL_CHOLESKY). The constrained
-variants need bounds, port slice 6.
+a single parameter block: `build_problem` makes one ParameterBlockArray
+of one block and one batch of one residual block. Every problem here has
+one parameter block and so no eliminable block set: it solves with
+DENSE_QR (or DENSE_NORMAL_CHOLESKY). The constrained variants carry box
+bounds on that block.
 """
 from __future__ import annotations
 

@@ -2,14 +2,14 @@
 
 Every field of the JAX Options, with its name and default (the dump
 directory defaults to the temporary directory instead of "/tmp").
-`is_valid` mirrors the JAX validation; `check_supported` raises
-NotImplementedError for a request that a later slice of the port brings:
-the line search and its fields, and inner iterations. `spse_tolerance`
-and `num_threads` are read by nothing, as in the JAX package.
+`is_valid` mirrors the JAX validation. `spse_tolerance`, `num_threads`
+and `inner_iteration_ordering` are read by nothing, as in the JAX
+package.
 """
 from __future__ import annotations
 
 import dataclasses
+import enum
 import tempfile
 from typing import Any, Callable, List, Optional, Sequence
 
@@ -25,19 +25,7 @@ from .types import (
     PreconditionerType,
     TrustRegionStrategyType,
     VisibilityClusteringType,
-    not_ported,
 )
-
-# The fields of the line search (solver.h:81-260) that no trust-region
-# path reads; a value other than the default asks for slice 6.
-_LINE_SEARCH_FIELDS = (
-    "line_search_direction_type", "line_search_type",
-    "nonlinear_conjugate_gradient_type", "max_lbfgs_rank",
-    "use_approximate_eigenvalue_bfgs_scaling", "line_search_interpolation_type",
-    "max_line_search_step_contraction", "min_line_search_step_contraction",
-    "max_num_line_search_direction_restarts",
-    "line_search_sufficient_curvature_decrease", "max_line_search_step_expansion")
-
 
 @dataclasses.dataclass
 class Options:
@@ -151,6 +139,18 @@ class Options:
     trust_region_problem_dump_directory: str = dataclasses.field(
         default_factory=tempfile.gettempdir)
 
+    def fingerprint(self) -> tuple:
+        """The scalar and enum fields as a hashable key (the JAX package's
+        solver.py:106-119): what a fused minimizer bakes in. Fields that are
+        not hashable (callbacks, orderings) are left out; the fused gates
+        require them empty, and the e-families carry the ordering."""
+        parts = []
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if v is None or isinstance(v, (int, float, str, bool, enum.Enum)):
+                parts.append((f.name, v))
+        return tuple(parts)
+
     def is_valid(self) -> "tuple[bool, str]":
         for name, lo in [
             ("max_num_iterations", 0),
@@ -205,18 +205,3 @@ class Options:
                 and self.linear_solver_type != LinearSolverType.SPARSE_NORMAL_CHOLESKY):
             return False, "dynamic_sparsity is only supported with SPARSE_NORMAL_CHOLESKY"
         return True, ""
-
-    def check_supported(self) -> None:
-        """Raise NotImplementedError for what this slice does not run."""
-        if self.minimizer_type != MinimizerType.TRUST_REGION:
-            raise not_ported(f"minimizer_type={self.minimizer_type}", 6)
-        defaults = {f.name: f.default for f in dataclasses.fields(self)}
-        for name in _LINE_SEARCH_FIELDS:
-            if getattr(self, name) != defaults[name]:
-                raise not_ported(f"{name}={getattr(self, name)}", 6)
-        if self.use_inner_iterations:
-            raise not_ported("inner iterations", 6)
-        if self.inner_iteration_ordering is not None:
-            raise not_ported("inner_iteration_ordering", 6)
-        if self.inner_iteration_tolerance != defaults["inner_iteration_tolerance"]:
-            raise not_ported("inner_iteration_tolerance", 6)

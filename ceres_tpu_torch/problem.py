@@ -124,6 +124,8 @@ class Problem:
         self._batched_residuals: Dict[int, BatchedResidualBlocks] = {}
         self._next_rb_id = 0
         self.structure_version = 0  # bumped by every structural change
+        # CompiledProgram.cached: the programs of this structure, by key
+        self._compiled_cache: Dict[tuple, object] = {}
 
     def _bump(self):
         self.structure_version += 1

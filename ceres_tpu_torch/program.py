@@ -117,6 +117,13 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def scatter_add_rows(out: torch.Tensor, index: torch.Tensor, rows: torch.Tensor):
+    """out[index[i]] += rows[i], in place, in the same order on every call:
+    on a card `index_put_` with accumulate sorts by index where
+    `index_add_` adds by atomics, whose order changes from run to run."""
+    return out.index_put_((index,), rows, accumulate=True)
+
+
 def _family_key(blk: ParameterBlock):
     mkey = blk.manifold.batch_key() if blk.manifold is not None else ("Euclidean", blk.size)
     return (blk.size, mkey)
@@ -154,7 +161,34 @@ class CompiledProgram:
         self._dense = None  # (meta, dense index), built on first request
         self._grad_index = None
         self._box = None  # the bounds on the device, built on first request
+        # the fused minimizers built over this program, by tier, e-families
+        # and options (solver._maybe_build_fused, the fused line search)
+        self._minimizer_cache: Dict[object, object] = {}
         self._build()
+
+    @classmethod
+    def cached(cls, problem: Problem, apply_loss: bool = True,
+               compute_dtype: str = "float64", sort_rows: bool = False, device=None):
+        """The program of an unchanged Problem, reused across solves
+        (program.py:138-158): with it its device plans and its cached fused
+        minimizers. The key is the JAX one plus the device, so a program
+        built for a card never serves a CPU solve. Every structural
+        mutation bumps Problem.structure_version and makes a new program.
+        Parameter values are read live (initial_state); the cost of the
+        residual blocks whose parameters are all constant, the one value
+        a program computes at build, is computed anew on reuse."""
+        dev = resolve_device(device)
+        key = (bool(apply_loss), str(compute_dtype), bool(sort_rows), str(dev))
+        cache = problem._compiled_cache
+        prog = cache.get(key)
+        if prog is not None and prog.structure_version == problem.structure_version:
+            if prog._fixed_rbs or prog.batched_fixed:
+                prog.fixed_cost = prog._fixed_cost(prog._fixed_rbs)
+            return prog
+        prog = cls(problem, compute_dtype, device=dev, apply_loss=apply_loss,
+                   sort_rows=sort_rows)
+        cache[key] = prog
+        return prog
 
     # ------------------------------------------------------------------ build
 
@@ -279,6 +313,7 @@ class CompiledProgram:
                      for arr, idx in rec.slots]
             add_kind(rec.cost, rec.loss, slots, rec.data, rec.B)
         self.num_residuals = self._row_off
+        self._fixed_rbs = fixed
         self.fixed_cost = self._fixed_cost(fixed)
 
     def _fixed_cost(self, fixed) -> float:
@@ -359,7 +394,7 @@ class CompiledProgram:
         return out
 
     def _eval_core(self, x: torch.Tensor, dense_jac: bool = False,
-                   with_jac: bool = True):
+                   with_jac: bool = True, row_costs: bool = False):
         """Plain evaluation: {"cost": f64 scalar, "residuals": (N,),
         "block_jacs": [kind][slot] (B, r, t)} in the compute dtype, and with
         `dense_jac` "jacobian", the dense (N, tangent) float64 Jacobian
@@ -368,9 +403,12 @@ class CompiledProgram:
         loss applied by the corrector: the cost is 1/2 sum rho(|r|^2), the
         residuals and Jacobians the corrected ones (program.py:620-642).
         Without `with_jac`, the cost and residuals only (the line search's
-        probes). Rows are evaluated EVAL_CHUNK_ROWS at a time, which bounds
-        the memory of the batched forward-mode Jacobian and changes no
-        value."""
+        probes). With `row_costs` a kind's cost is the sum of its rows'
+        costs in the compute dtype, as the JAX evaluation adds them
+        (program.py:617-637; the line-search minimizers read it); else the
+        sum of the squared residuals in float64. Rows are evaluated
+        EVAL_CHUNK_ROWS at a time, which bounds the memory of the batched
+        forward-mode Jacobian and changes no value."""
         xc = x.to(self.compute_dtype)
         total = torch.zeros((), dtype=torch.float64, device=x.device)
         plus_jacs = self._plus_jacobians(xc) if with_jac else {}
@@ -410,7 +448,11 @@ class CompiledProgram:
                         for s in range(len(parts[0][1]))]
                 cost_b = None if parts[0][2] is None else torch.cat([p[2] for p in parts])
             block_jacs.append(list(jacs))
-            if cost_b is None:
+            if row_costs:
+                if cost_b is None:
+                    cost_b = 0.5 * torch.sum(res * res, dim=-1)
+                total = total + torch.sum(cost_b).to(torch.float64)
+            elif cost_b is None:
                 total = total + 0.5 * torch.sum((res * res).to(torch.float64))
             else:
                 total = total + torch.sum(cost_b.to(torch.float64))
@@ -435,9 +477,10 @@ class CompiledProgram:
         return bsr.to_dense(meta, block_jacs, index, self.num_residuals)
 
     def gradient(self, block_jacs, residuals) -> torch.Tensor:
-        """J'r (tangent,) in float64, each slot's (B, t) products added at
-        its blocks' tangent columns, a constant block's into a dropped
-        extra column (program.py:648-653)."""
+        """J'r (tangent,) in float64, each slot's (B, t) products, formed
+        in the compute dtype as the JAX evaluation forms them, added at its
+        blocks' tangent columns, a constant block's into a dropped extra
+        column (program.py:646-653)."""
         T = self.tangent_size
         if self._grad_index is None:
             idx = []
@@ -454,12 +497,22 @@ class CompiledProgram:
         g = torch.zeros((T + 1,), dtype=torch.float64, device=self.device)
         for kind, jacs, per in zip(self.kinds, block_jacs, self._grad_index):
             rows = residuals[kind.row_offset:kind.row_offset + kind.B * kind.r].reshape(
-                kind.B, kind.r).to(torch.float64)
+                kind.B, kind.r)
             for s, J, ix in zip(kind.slots, jacs, per):
                 if s.any_variable:
-                    g.index_add_(0, ix, torch.einsum("brt,br->bt", J.to(torch.float64),
-                                                     rows).reshape(-1))
+                    scatter_add_rows(g, ix, torch.einsum(
+                        "brt,br->bt", J, rows.to(J.dtype)).reshape(-1).to(torch.float64))
         return g[:T]
+
+    def evaluate_gradient(self, x):
+        """(cost, gradient) in float64, the cost summed as the JAX
+        evaluation sums it: what the line-search minimizers read."""
+        o = self._eval_core(x, row_costs=True)
+        return o["cost"], self.gradient(o["block_jacs"], o["residuals"])
+
+    def evaluate_line_cost(self, x):
+        """The cost as evaluate_gradient forms it."""
+        return self._eval_core(x, with_jac=False, row_costs=True)["cost"]
 
     def evaluate_cost(self, x):
         return self._eval_core(x, with_jac=False)["cost"]

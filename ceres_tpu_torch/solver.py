@@ -22,12 +22,19 @@ mixed-precision solves) and SPARSE_SCHUR, whose factorization runs on the
 host (ceres_tpu_torch/native), the SUBSET preconditioner, and CGNR with
 the power series or cluster preconditioners (as IDENTITY). DOGLEG with an iterative solver fails validation as in
 the JAX package; a Schur solver on a problem without eliminable blocks
-falls back as the JAX package's does. Anything else raises
-NotImplementedError naming the later slice (types.not_ported).
+falls back as the JAX package's does. Both loops run inner iterations
+(coordinate descent, solvers/coordinate_descent.py). minimizer_type=
+LINE_SEARCH runs the fused line search (solvers/fused_line_search.py)
+where its gate takes the configuration, else the host one
+(solvers/line_search.py); a bounded problem fails, as in the JAX
+package. Repeated solves of an unchanged Problem reuse its program
+(CompiledProgram.cached) and the fused minimizers cached on it.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -36,9 +43,12 @@ import torch
 from .options import Options
 from .problem import Problem
 from .program import CompiledProgram, resolve_device
+from .solvers.coordinate_descent import CoordinateDescentMinimizer
+from .solvers.fused_line_search import build_fused_line_search
 from .solvers.fused_lm import build_fused_minimizer
+from .solvers.line_search import LineSearchMinimizer
 from .summary import Summary
-from .types import LinearSolverType, PreconditionerType, TerminationType
+from .types import LinearSolverType, MinimizerType, PreconditionerType, TerminationType
 
 
 def _pick_linear_solver(options: Options, program: CompiledProgram,
@@ -100,7 +110,10 @@ def _schur_structure_string(program, e_fams) -> str:
 def _maybe_build_fused(options: Options, program: CompiledProgram, tier: str, e_fams):
     """The fused minimizer where the configuration is in its subset, None
     for the host loop (solver.py:122-171): the sparse tiers, which factor
-    on the host, always take the host loop."""
+    on the host, always take the host loop. A fused minimizer is reused
+    across solves of one cached program by (tier, e-families, options),
+    as the JAX package reuses its jitted loop; it keeps no state between
+    solves (each minimize takes its own Summary)."""
     mode = options.fused_loop.upper()
     if mode == "NEVER" or tier in ("bsr_sparse", "schur_sparse"):
         return None
@@ -111,7 +124,30 @@ def _maybe_build_fused(options: Options, program: CompiledProgram, tier: str, e_
             or options.trust_region_minimizer_iterations_to_dump
             or options.max_solver_time_in_seconds < 1e6):
         return None
-    return build_fused_minimizer(program, options, tier, e_families=e_fams)
+    key = (tier, tuple(e_fams) if e_fams is not None else None,
+           options.fingerprint())
+    fused = program._minimizer_cache.get(key)
+    if fused is None:
+        fused = build_fused_minimizer(program, options, tier, e_families=e_fams)
+        if fused is not None:
+            program._minimizer_cache[key] = fused
+    return fused
+
+
+def _inner_minimizer(options: Options, program: CompiledProgram, summary: Summary):
+    """The host loop's coordinate descent (solver.py:366-384), or None:
+    without an independent set it warns and runs without."""
+    if not options.use_inner_iterations:
+        return None
+    summary.inner_iterations_given = True
+    inner = CoordinateDescentMinimizer(program, options)
+    if not inner.sets:
+        warnings.warn("use_inner_iterations=True but no independent-set "
+                      "decomposition exists; inner iterations are disabled")
+        summary.message += " [inner iterations requested but no independent sets]"
+        return None
+    summary.inner_iterations_used = True
+    return inner
 
 
 def _host_minimizer(options: Options, program: CompiledProgram, tier: str, e_fams,
@@ -138,7 +174,8 @@ def _host_minimizer(options: Options, program: CompiledProgram, tier: str, e_fam
                        "bsr_sparse": "SPARSE_NORMAL_CHOLESKY",
                        "schur_sparse": "SPARSE_SCHUR"}[tier]
         kernels = BlockTrustRegionKernels(program, options, step_solver, e_families=e_fams)
-    return TrustRegionMinimizer(program, kernels, options, summary)
+    return TrustRegionMinimizer(program, kernels, options, summary,
+                                _inner_minimizer(options, program, summary))
 
 
 def _solve_mixed(options: Options, problem: Problem, summary: Summary,
@@ -152,8 +189,6 @@ def _solve_mixed(options: Options, problem: Problem, summary: Summary,
     row 0, counted as a successful step again); here the merged rows and
     step counts hold it once, and each phase keeps its own iteration
     numbers."""
-    import dataclasses
-
     s32 = solve(dataclasses.replace(options, evaluation_dtype="float32"), problem,
                 Summary(), device)
     if not s32.is_solution_usable():
@@ -179,6 +214,30 @@ def _solve_mixed(options: Options, problem: Problem, summary: Summary,
     return summary
 
 
+def _solve_line_search(options: Options, program: CompiledProgram, summary: Summary,
+                       t_start: float) -> Summary:
+    """The LINE_SEARCH minimizer (solver.py:283-306): the fused loop where
+    build_fused_line_search takes the configuration, else the host loop;
+    a bounded problem fails."""
+    if program.has_bounds():
+        summary.message = "LINE_SEARCH Minimizer does not support bounds."
+        summary.termination_type = TerminationType.FAILURE
+        return summary
+    summary.preprocessor_time_in_seconds = time.monotonic() - t_start
+    t_min = time.monotonic()
+    minimizer = build_fused_line_search(program, options)
+    if minimizer is None:
+        minimizer = LineSearchMinimizer(program, options)
+    x_final = minimizer.minimize(program.initial_state(), summary)
+    summary.minimizer_time_in_seconds = time.monotonic() - t_min
+    t_post = time.monotonic()
+    program.write_state(x_final)
+    summary.final_cost = float(program.evaluate_line_cost(x_final))
+    summary.postprocessor_time_in_seconds = time.monotonic() - t_post
+    summary.total_time_in_seconds = time.monotonic() - t_start
+    return summary
+
+
 def solve(options: Options, problem: Problem, summary: Optional[Summary] = None,
           device=None) -> Summary:
     """ceres::Solve (solver.h:1119): minimizes, writes the solution back
@@ -193,7 +252,6 @@ def solve(options: Options, problem: Problem, summary: Optional[Summary] = None,
         summary.message = msg
         summary.termination_type = TerminationType.FAILURE
         return summary
-    options.check_supported()
     if options.evaluation_dtype == "mixed":
         return _solve_mixed(options, problem, summary, t_start, dev)
 
@@ -224,7 +282,10 @@ def solve(options: Options, problem: Problem, summary: Optional[Summary] = None,
             summary.termination_type = TerminationType.FAILURE
             return summary
 
-    program = CompiledProgram(problem, options.evaluation_dtype, device=dev)
+    # repeated solves of an unchanged Problem reuse the program, its plans
+    # and its fused minimizers (solver.py:255-259)
+    program = CompiledProgram.cached(problem, compute_dtype=options.evaluation_dtype,
+                                     sort_rows=True, device=dev)
     summary.fixed_cost = program.fixed_cost
     summary.num_parameter_blocks_reduced = sum(f.count for f in program.families)
     summary.num_parameters_reduced = program.state_size
@@ -245,6 +306,9 @@ def solve(options: Options, problem: Problem, summary: Optional[Summary] = None,
         summary.total_time_in_seconds = time.monotonic() - t_start
         return summary
 
+    if options.minimizer_type == MinimizerType.LINE_SEARCH:
+        return _solve_line_search(options, program, summary, t_start)
+
     tier, e_fams = _pick_linear_solver(options, program, summary)
     summary.preconditioner_type_used = _preconditioner_used(
         summary.linear_solver_type_used, options)
@@ -252,6 +316,9 @@ def solve(options: Options, problem: Problem, summary: Optional[Summary] = None,
     host = minimizer is None
     if host:
         minimizer = _host_minimizer(options, program, tier, e_fams, summary)
+    elif options.use_inner_iterations:
+        # the JAX package leaves these False on its fused path
+        summary.inner_iterations_given = summary.inner_iterations_used = True
     summary.preprocessor_time_in_seconds = time.monotonic() - t_start
 
     t_min = time.monotonic()

@@ -36,8 +36,11 @@ backtracks each step by a projected Armijo line search on cost-only
 evaluations (fused_lm.py:1358-1378, :1494-1528). The iterative steps
 (ITERATIVE_SCHUR, CGNR) add one sync per CG iteration
 (solvers/linear/cg.py), dogleg one per test of its Gauss-Newton point, the
-line search one per probe. Every sync is counted in
-`Summary.num_host_syncs`. A loop that
+line search one per probe. Inner iterations (coordinate descent,
+solvers/coordinate_descent.py) run after the candidate's evaluation and
+before its fetch, as the JAX body's do, and add no sync: the fetch also
+reads whether their result was taken and whether they stay on. Every
+sync is counted in `Summary.num_host_syncs`. A loop that
 stays on the device is ROADMAP.md port slice 4.
 """
 from __future__ import annotations
@@ -59,6 +62,7 @@ from ..types import (
     TerminationType,
     TrustRegionStrategyType,
 )
+from .coordinate_descent import CoordinateDescentMinimizer
 from .linear.cg import conjugate_gradients
 from .linear.dense import (normal_cholesky_solve, normal_cholesky_solve_mixed,
                            qr_solve, reduced_solve)
@@ -107,6 +111,17 @@ class CgnrForm(NamedTuple):
     vflat: tuple
     r: torch.Tensor
     jt: object
+
+
+def _pick(c, a, b):
+    """torch.where(c, a, b) over a tree of tuples of tensors (an
+    evaluation's form); None stays None."""
+    if a is None:
+        return None
+    if isinstance(a, tuple):
+        parts = [_pick(c, u, v) for u, v in zip(a, b)]
+        return type(a)(*parts) if hasattr(a, "_fields") else tuple(parts)
+    return torch.where(c, a, b)
 
 
 def _cg_options(ops, options: Options) -> None:
@@ -863,11 +878,33 @@ class DoglegStepOps:
 class FusedTrustRegionMinimizer:
     """LM or dogleg over a step adapter with one host sync per iteration."""
 
-    def __init__(self, program, options: Options, ops):
+    def __init__(self, program, options: Options, ops, inner_minimizer=None):
         self.program = program
         self.options = options
         self.ops = ops
+        self.inner = inner_minimizer
         self.x_cost = float("nan")
+
+    def _inner_iterations(self, cand_x, cand_cost_t, cand_vrep, mcc_t, valid_t):
+        """Coordinate descent on a valid candidate of finite cost, under
+        the JAX loop's lax.cond (fused_lm.py:1534-1566): the candidate is
+        evaluated again at the sweep's point, and where that cost is finite
+        it replaces the candidate and its decrease joins the model cost
+        change. The sweep runs while the inner iterations are on; whether
+        its result is taken is decided on the device. Returns the
+        candidate, its cost, evaluation and model cost change, whether the
+        sweep was taken and whether the inner iterations stay on."""
+        take = valid_t & torch.isfinite(cand_cost_t) & (cand_cost_t < _DBL_MAX)
+        cc = torch.where(take, cand_cost_t, 1.0)
+        nx = self.inner.minimize(cand_x)
+        ic, ivrep = self.ops.evaluate(nx)
+        finite = torch.isfinite(ic)
+        use = take & finite
+        stays_on = finite & ((1.0 - ic / torch.clamp(cc, min=1e-300))
+                             > self.options.inner_iteration_tolerance)
+        return (torch.where(use, nx, cand_x), torch.where(use, ic, cand_cost_t),
+                _pick(use, ivrep, cand_vrep), torch.where(use, mcc_t + (cc - ic), mcc_t),
+                take, torch.where(take, stays_on, True))
 
     def _fetch(self, summary: Summary, *scalars):
         summary.num_host_syncs += 1
@@ -948,6 +985,7 @@ class FusedTrustRegionMinimizer:
         num_invalid = 0
         any_success = False
         min_cost, best_x = cost, x0
+        inner_on = self.inner is not None
         it = 0
 
         while term == _RUNNING and it < max_iters:
@@ -980,13 +1018,24 @@ class FusedTrustRegionMinimizer:
                 delta = self._line_search(x, cost, g, delta, valid_t, summary)
             cand_x = self.program.plus(x, delta)
             cand_cost_t, cand_vrep = ops.evaluate(cand_x)
+            step_norm_t = torch.linalg.vector_norm(x - cand_x)
+            if inner_on:
+                (cand_x, cand_cost_t, cand_vrep, mcc_t, took_t,
+                 inner_on_t) = self._inner_iterations(cand_x, cand_cost_t, cand_vrep,
+                                                      mcc_t, valid_t)
+                extra = extra + (took_t, inner_on_t)
             cand_g, cand_sqn, cand_aux = ops.post_eval(cand_vrep)
             cgnorm_t, cgmax_t = grad_norms(self.program, cand_x, cand_g)
             (valid_f, mcc, cand_cost, step_norm, x_norm, cgnorm,
-             cgmax, *dl_norm) = self._fetch(
-                summary, valid_t, mcc_t, cand_cost_t,
-                torch.linalg.vector_norm(x - cand_x),
+             cgmax, *rest) = self._fetch(
+                summary, valid_t, mcc_t, cand_cost_t, step_norm_t,
                 torch.linalg.vector_norm(x), cgnorm_t, cgmax_t, *extra)
+            if inner_on:
+                took, on = rest[-2:]
+                rest = rest[:-2]
+                summary.num_inner_iteration_steps += int(took != 0.0)
+                inner_on = on != 0.0
+            dl_norm = rest
             valid = valid_f != 0.0
             if not np.isfinite(cand_cost):
                 cand_cost = _DBL_MAX
@@ -1169,4 +1218,11 @@ def build_fused_minimizer(program, options: Options, tier: str, e_families=None)
         return None
     if dogleg:
         ops = DoglegStepOps(ops, options.dogleg_type == DoglegType.SUBSPACE_DOGLEG)
-    return FusedTrustRegionMinimizer(program, options, ops)
+    inner = None
+    if options.use_inner_iterations:
+        # no independent set: the host loop warns and runs without
+        # (fused_lm.py:1955-1963)
+        inner = CoordinateDescentMinimizer(program, options)
+        if not inner.sets:
+            return None
+    return FusedTrustRegionMinimizer(program, options, ops, inner)

@@ -21,9 +21,13 @@ Semantics kept from the JAX loop: Jacobi column scaling from iteration
 the radius rules; bounds by projection in Plus, the active-set mask of
 the scale (`_update_effective_scale`) and the projected Armijo line
 search (`_projected_line_search`); the callbacks, solve time limit and
-iteration dumps; the termination taxonomy and its messages. Inner
-iterations are ROADMAP.md port slice 6: Options.check_supported refuses
-them before a minimizer is built.
+iteration dumps; the termination taxonomy and its messages; inner
+iterations (trust_region.py:404-419): coordinate descent
+(solvers/coordinate_descent.py) on each candidate, its cost change folded
+into the model cost change, a step that the inner iterations made useful
+accepted, and the inner iterations turned off once their relative
+progress falls to inner_iteration_tolerance (one more sync per candidate
+they run on).
 """
 from __future__ import annotations
 
@@ -234,9 +238,11 @@ class DenseTrustRegionKernels(_CandidateMixin):
 class TrustRegionMinimizer:
     """The host-side outer loop (trust_region_minimizer.cc:68-160)."""
 
-    def __init__(self, program, kernels, options: Options, summary: Summary):
+    def __init__(self, program, kernels, options: Options, summary: Summary,
+                 inner_minimizer=None):
         self.program = program
         self.k = kernels
+        self.inner_minimizer = inner_minimizer
         if hasattr(kernels, "to_host"):  # the sparse steps bring values to the host
             kernels.to_host = self.to_host
         self.options = options
@@ -270,6 +276,7 @@ class TrustRegionMinimizer:
             strategy = DoglegStrategy(opts)
         self._strategy = strategy
         self._mask = active_set_mask(self.program)
+        inner_enabled = self.inner_minimizer is not None
 
         it = IterationSummary(iteration=0, step_is_valid=False, eta=opts.eta)
         iteration_start = start
@@ -400,6 +407,21 @@ class TrustRegionMinimizer:
             if not np.isfinite(candidate_cost):
                 candidate_cost = _DBL_MAX
 
+            # -- inner iterations (coordinate descent) --------------------------
+            inner_were_useful = False
+            if inner_enabled and candidate_cost < _DBL_MAX:
+                t0 = time.monotonic()
+                summary.num_inner_iteration_steps += 1
+                new_x = self.inner_minimizer.minimize(cand_x)
+                (inner_cost,) = self.fetch(self.k.cost_at(new_x, torch.zeros_like(delta)))
+                if np.isfinite(inner_cost):
+                    model_cost_change += candidate_cost - inner_cost
+                    inner_were_useful = inner_cost < min(self.x_cost, candidate_cost)
+                    inner_enabled = (1.0 - inner_cost / candidate_cost
+                                     > opts.inner_iteration_tolerance)
+                    cand_x, candidate_cost = new_x, inner_cost
+                summary.inner_iteration_time_in_seconds += time.monotonic() - t0
+
             # -- convergence checks -----------------------------------------------
             if atleast_one_successful_step:
                 step_size_tolerance = opts.parameter_tolerance * (
@@ -423,7 +445,7 @@ class TrustRegionMinimizer:
 
             # -- accept or reject ---------------------------------------------------
             it.relative_decrease = step_evaluator.step_quality(candidate_cost, model_cost_change)
-            if it.relative_decrease > opts.min_relative_decrease:
+            if inner_were_useful or it.relative_decrease > opts.min_relative_decrease:
                 atleast_one_successful_step = True
                 self.x = cand_x
                 self.x_cost = candidate_cost

@@ -9,7 +9,11 @@ search. `linear_solver_iterations` of a row is its CG iteration count (1
 for the exact steps). The host loop also fills the per-row and per-phase
 times and counts (`jacobian_evaluation_time_in_seconds`,
 `linear_solver_time_in_seconds`, the rows' `iteration_time_in_seconds`,
-`step_solver_time_in_seconds` and `cumulative_time_in_seconds`).
+`step_solver_time_in_seconds` and `cumulative_time_in_seconds`). The
+line-search minimizers count their probes (`num_line_search_steps`), the
+fused one its gradient evaluations; the host loop counts its inner
+iterations and their time. `residual_evaluation_time_in_seconds` is set
+by nothing, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -60,6 +64,8 @@ class Summary:
     iterations: List[IterationSummary] = dataclasses.field(default_factory=list)
     num_successful_steps: int = 0
     num_unsuccessful_steps: int = 0
+    num_inner_iteration_steps: int = 0
+    num_line_search_steps: int = 0
 
     preprocessor_time_in_seconds: float = 0.0
     minimizer_time_in_seconds: float = 0.0
@@ -67,9 +73,12 @@ class Summary:
     total_time_in_seconds: float = 0.0
     linear_solver_time_in_seconds: float = 0.0
     num_linear_solves: int = 0
+    residual_evaluation_time_in_seconds: float = 0.0
     num_residual_evaluations: int = 0
     jacobian_evaluation_time_in_seconds: float = 0.0
     num_jacobian_evaluations: int = 0
+    num_gradient_evaluations: int = 0  # the fused line search's
+    inner_iteration_time_in_seconds: float = 0.0
     # waits of the host for the device inside minimize()
     num_host_syncs: int = 0
 
@@ -90,6 +99,8 @@ class Summary:
     preconditioner_type_given: Optional[PreconditionerType] = None
     preconditioner_type_used: Optional[PreconditionerType] = None
     trust_region_strategy_type: Optional[TrustRegionStrategyType] = None
+    inner_iterations_given: bool = False
+    inner_iterations_used: bool = False
     schur_structure_given: str = ""
     schur_structure_used: str = ""
 

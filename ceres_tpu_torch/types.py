@@ -127,7 +127,6 @@ class VisibilityClusteringType(_StrEnum):
 # this slice raise NotImplementedError naming the slice that brings them.
 LATER_SLICES = {
     4: "a device-resident LM loop (CUDA graphs)",
-    6: "line search and inner iterations",
     9: "multi-device: the mesh half of parallel/sharded_ba.py, parallel/mesh.py "
        "and parallel/sharded_program.py",
 }

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+import numpy as np
+
 
 def eligible_e_sets(program) -> List[int]:
     """Greedy maximum-tangent-size independent family set (the greedy MIS
@@ -35,6 +37,49 @@ def eligible_e_sets(program) -> List[int]:
                        key=lambda fi: families[fi].num_var * families[fi].tsize)
         chosen.discard(smallest)
     return sorted(chosen)
+
+
+def color_family_blocks(program, fi: int):
+    """Greedy colouring of family fi's variable blocks over the residual
+    co-occurrence graph (ordering.py:61-112; the block-granular
+    independent sets of coordinate_descent_minimizer.h:84 CreateOrdering,
+    graph_algorithms.h:165): two blocks some residual touches together get
+    different colours, so each colour is an independent set even within
+    one family (a pose graph: one pose family, binary residuals). Blocks
+    are coloured in order of descending degree (Welsh-Powell), each with
+    the least colour its neighbours leave. Returns (colours (num_var,)
+    int32, number of colours); a family no kind touches twice is one
+    colour."""
+    fam = program.families[fi]
+    nv = fam.num_var
+    if nv == 0:
+        return np.zeros((0,), np.int32), 0
+    edges = []
+    for kind in program.kinds:
+        ours = [s for s in kind.slots if s.family is fam and s.any_variable]
+        for a in range(len(ours)):
+            for b in range(a + 1, len(ours)):
+                pa = np.asarray(ours[a].pos_in_family)
+                pb = np.asarray(ours[b].pos_in_family)
+                keep = (pa < nv) & (pb < nv) & (pa != pb)
+                if keep.any():
+                    edges.append(np.stack([pa[keep], pb[keep]], axis=1))
+    if not edges:
+        return np.zeros((nv,), np.int32), 1
+    e = np.concatenate(edges, axis=0)
+    e = np.unique(np.concatenate([e, e[:, ::-1]], axis=0), axis=0)
+    deg = np.bincount(e[:, 0], minlength=nv)
+    ptr = np.zeros(nv + 1, np.int64)
+    ptr[1:] = np.cumsum(deg)
+    adj = e[np.argsort(e[:, 0], kind="stable"), 1]
+    colors = np.full(nv, -1, np.int32)
+    for v in np.argsort(-deg, kind="stable"):
+        used = set(int(c) for c in colors[adj[ptr[v]:ptr[v + 1]]] if c >= 0)
+        c = 0
+        while c in used:
+            c += 1
+        colors[v] = c
+    return colors, int(colors.max()) + 1
 
 
 def e_set_from_user_ordering(program, ordering: Sequence[Sequence]) -> Optional[List[int]]:

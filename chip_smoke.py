@@ -109,8 +109,9 @@ LIBMV16_GOLDEN_ROWS = 22
 # at the full depths their two CPU solves each took 66 and 76 s on the
 # chip machine's host. Cut again to 6 beside the sparse phase (port slice
 # 14), whose card-against-CPU solves take ~1.5 min of the host, and to 4
-# beside the precond phase (port slice 15)
-LIBMV16_CARD_VS_CPU_ITERATIONS = 3
+# beside the precond phase (port slice 15), and to 2 beside the line-search
+# phase (port slice 16)
+LIBMV16_CARD_VS_CPU_ITERATIONS = 2
 # scripts/specialized16_golden.py: the JAX package's lm_step_schur_k on
 # BAL-16 (rows sorted by point, radius 1e4) in float64, the cost after 5,
 # 10, 15 and 20 LM iterations
@@ -209,6 +210,10 @@ MODELING_CARD_VS_CPU_ITERATIONS = 4
 # stops at the local minimum 48.98, #16 crawls (tests/test_mgh.py:10-17);
 # the JAX host loop misses the same two (scripts/hostloop16_golden.py d)
 MGH_MISSES = (2, 16)
+# MGH #16 crawls for 1,001 rows and amplifies rounding tenfold every five:
+# its card-against-CPU runs stop at this many iterations (1,000 until the
+# line-search phase came; they held only its first 40 rows and its end)
+MGH16_CARD_VS_CPU_ITERATIONS = 40
 # scripts/hostloop16_golden.py: the JAX package's answers in its host loop,
 # (final cost, summary rows): (a) BAL-16 with fused_loop="NEVER"; (b)
 # DENSE_SCHUR ended by an IterationCallback at iteration 5
@@ -333,9 +338,78 @@ PRECOND_PATHS = {
 # the precond phase's runs at 2,048 cameras and the Venice shape, and its
 # 2,048-camera runs on the card against the CPU, whose CPU solves take
 # 5-15 s an LM iteration on the chip machine's host (a batched Cholesky of
-# 13 blocks of up to 2,961 columns; 13 chain positions for the tridiagonal)
+# 13 blocks of up to 2,961 columns; 13 chain positions for the tridiagonal);
+# the card against the CPU cut to 1 LM iteration each beside the line-search
+# phase (port slice 16)
 PRECOND_LARGE_LM_ITERATIONS = 3
-PRECOND_CARD_VS_CPU_LM_ITERATIONS = {"cj_cv": 2, "ct": 1, "explicit": 2}
+PRECOND_CARD_VS_CPU_LM_ITERATIONS = {"cj_cv": 1, "ct": 1, "explicit": 1}
+# scripts/linesearch16_golden.py: the JAX package's answers on port slice
+# 16's paths, (termination, final cost, summary rows' costs, (probes,) or
+# (inner steps,)): (a) LINE_SEARCH on BAL-16 (each stops at its first
+# iteration: BAL-16's gradient max norm is 2.3e9) and on C120, LBFGS +
+# WOLFE fused (AUTO) and host (NEVER), nonlinear CG + ARMIJO fused, to
+# LS16_DEPTH iterations; (b) BAL-16 DENSE_SCHUR with inner iterations,
+# fused float32 and host float64, 25 iterations; (c) the sparse phase's
+# pose graphs with inner iterations in the host loop, INNER_POSE_DEPTH
+# iterations
+LS16_DEPTH = {"float64": 50, "float32": 8}
+INNER_POSE_DEPTH = 8
+LINESEARCH16_GOLDEN = {
+    ('bal16', 'lbfgs', 'AUTO', 'float64'): ('NO_CONVERGENCE', 19012078.580987826, [19012078.580987822], (3,)),
+    ('bal16', 'lbfgs', 'NEVER', 'float64'): ('CONVERGENCE', 19012078.580987826, [19012078.580987822], (2,)),
+    ('bal16', 'ncg_armijo', 'AUTO', 'float64'): ('NO_CONVERGENCE', 19012078.580987826, [19012078.580987822], (3,)),
+    ('bal16', 'lbfgs', 'AUTO', 'float32'): ('NO_CONVERGENCE', 19012080.0, [19012078.0], (3,)),
+    ('bal16', 'lbfgs', 'NEVER', 'float32'): ('CONVERGENCE', 19012080.0, [19012078.0], (2,)),
+    ('bal16', 'ncg_armijo', 'AUTO', 'float32'): ('NO_CONVERGENCE', 19012080.0, [19012078.0], (3,)),
+    ('c120', 'lbfgs', 'AUTO', 'float64'): ('NO_CONVERGENCE', 7558.463481863795, [169236.22607061584, 125393.40680106007, 103381.09885365612, 80925.97248877022, 66712.08118448686, 60193.16812622499, 57801.92300738161, 55070.58348220715, 52002.94594965664, 48684.87759075179, 45257.00713236689, 41552.294935381855, 37727.41542342949, 33716.24459049161, 29567.035833514074, 25614.24888459585, 21482.34039187654, 18592.665529549653, 17591.700839440575, 16381.442608140263, 15687.922960390926, 14928.466477653985, 14251.662149161828, 13437.68884089123, 12573.169553461199, 11745.235912017613, 10886.119508542812, 10545.055067994881, 9998.721753321928, 9810.615132096193, 9616.044122823823, 9411.750570674849, 9199.322265664126, 9046.952723126115, 8847.94297392841, 8702.352844013914, 8556.612486221102, 8404.302827360127, 8297.39814973667, 8182.414606502791, 8110.402614776973, 8044.642239672835, 7971.46719633762, 7896.147815677315, 7842.584030673315, 7789.018290308062, 7731.735073334845, 7672.88325353061, 7632.14131492242, 7587.891546678349, 7558.463481863796], (52,)),
+    ('c120', 'lbfgs', 'NEVER', 'float64'): ('NO_CONVERGENCE', 7558.4613523884045, [169236.22607061584, 125393.40665661165, 103381.09885263568, 80925.97279200063, 66712.08029360355, 60193.168857605204, 57801.92300685922, 55070.582690089315, 52002.94407561531, 48684.87440796662, 45257.0027351466, 41552.28907464372, 37727.40804166852, 33716.23575491837, 29567.025456024458, 25614.238261240025, 21482.32939744931, 18592.658508091572, 17591.698434849925, 16381.44098243177, 15687.921067223037, 14928.464227896524, 14251.660073814404, 13437.686342533441, 12573.166149342262, 11745.233529961339, 10886.117069859858, 10545.046853799247, 9998.718023890804, 9810.610804656182, 9616.03970780595, 9411.745633813563, 9199.317332024071, 9046.948310649637, 8847.939198958826, 8702.350851410665, 8556.611219620445, 8404.302928107887, 8297.397072556812, 8182.414083108969, 8110.401232685056, 8044.6412760708645, 7971.464690572354, 7896.146408308419, 7842.5804271516945, 7789.016009693594, 7731.733174434326, 7672.882332409326, 7632.137522567893, 7587.889644048197, 7558.461352388405], (51,)),
+    ('c120', 'ncg_armijo', 'AUTO', 'float64'): ('NO_CONVERGENCE', 15506.489248163769, [169236.22607061584, 125393.40680106007, 100288.13256135253, 85516.51569224514, 74501.21408630858, 68223.72180990406, 65473.75180699624, 63286.22191771304, 59427.02893614873, 55548.06416668503, 51975.905974173445, 48578.8454815499, 45805.20781651385, 44566.51385741522, 43262.74371058482, 41715.135178009725, 39806.124018608505, 37718.73710612367, 35772.29919981648, 34343.753831424045, 33540.608310498945, 32315.796944928938, 30833.687757944746, 29242.603001487405, 27604.247547281815, 25947.773626375743, 24286.16392579881, 22683.886934007336, 21453.12691312471, 21065.38601451807, 20703.295028210734, 20394.812275666118, 20217.724438844347, 20054.97808993775, 19775.730341027815, 19454.304462050604, 19109.883811161635, 18748.02229276301, 18371.405720364048, 17982.30849206538, 17583.323199736253, 17177.704011749527, 16770.77104740924, 16376.123617294059, 16040.9250280527, 15905.61664445121, 15841.440000204748, 15772.255226754827, 15695.601194309409, 15608.242598172717, 15506.489248163769], (61,)),
+    ('c120', 'lbfgs', 'AUTO', 'float32'): ('NO_CONVERGENCE', 52002.9140625, [169236.25, 125393.3984375, 103381.09375, 80925.984375, 66712.0625, 60193.17578125, 57801.91015625, 55070.55859375, 52002.9140625], (10,)),
+    ('c120', 'lbfgs', 'NEVER', 'float32'): ('NO_CONVERGENCE', 52002.91015625, [169236.25, 125393.3984375, 103381.09375, 80925.9765625, 66712.0625, 60193.1796875, 57801.91015625, 55070.55859375, 52002.91015625], (9,)),
+    ('c120', 'ncg_armijo', 'AUTO', 'float32'): ('NO_CONVERGENCE', 59427.19921875, [169236.25, 125393.3984375, 100288.171875, 85516.578125, 74501.2421875, 68223.7109375, 65473.76953125, 63286.30859375, 59427.19921875], (13,)),
+    ('inner_dense_schur', 'ALWAYS', 'float32'): ('CONVERGENCE', 51931.15234375, [19012080.0, 56666.9921875, 52849.87890625, 52163.66015625, 52089.125, 52068.0625, 52108.79296875, 52109.33984375, 52109.21875, 52111.86328125, 52074.93359375, 52007.0390625, 51947.2421875, 51932.55859375, 51931.328125, 51931.22265625, 51931.15234375, 51931.1015625], (0,)),
+    ('inner_dense_schur', 'NEVER', 'float64'): ('CONVERGENCE', 51931.09471504023, [19012078.580987826, 56981.49577472825, 52835.301466211706, 52156.68981154297, 52104.65263531323, 52043.75282394704, 51960.361461361594, 51931.09471504023, 0.0], (7,)),
+    ('pose3d', 'inner'): ('NO_CONVERGENCE', 63.72531105993943, [6249660.512011625, 63635.32800722724, 597.1208922489179, 92.16757402849588, 68.203063763539, 66.81945285436382, 66.00065323499967, 64.93433840901488, 63.72531105993943], (8,)),
+    ('pose2d', 'inner'): ('NO_CONVERGENCE', 5313.020600553212, [1905166.142383419, 214569.36483033598, 74060.91893770105, 8040.992579148058, 6032.707981756651, 5430.301718267772, 5351.848850142964, 5321.080302643298, 5313.020600553212], (7,)),
+}
+# (d): Rosenbrock from (-1.2, 1), 300 iterations, (direction, search, NCG
+# beta, loop) -> (termination, final cost, the first ROSEN_ROWS rows'
+# costs, the answer); the quaternion fit, 200 iterations -> (termination,
+# final cost, every row's cost, the answer). Nonlinear CG and steepest
+# descent part from the JAX runs by rounding after their first rows
+# (Rosenbrock's valley amplifies one-ulp differences): those rows are held
+# to the JAX ones, the rest of the 300 iterations to the JAX termination
+# (nonlinear CG + WOLFE) or to a fifth of the start's cost (the others),
+# as tests/test_torch_line_search.py holds them on the CPU
+ROSEN_ROWS = 6
+ROSEN16_GOLDEN = {
+    ('LBFGS', 'WOLFE', 'FLETCHER_REEVES', 'NEVER'): ('CONVERGENCE', 1.3964810174638379e-25, [24.199999999999992, 4.280493213725828, 4.128693836242695, 4.120150212898463, 4.115862962201533, 4.079298541918468], [1.000000000000262, 1.0000000000005507]),
+    ('BFGS', 'WOLFE', 'FLETCHER_REEVES', 'NEVER'): ('CONVERGENCE', 2.565652682834634e-21, [24.199999999999992, 4.280493213725828, 4.128693836242695, 4.120687989540179, 4.117297985667059, 4.087019763978363], [0.9999999999640444, 0.9999999999245212]),
+    ('NONLINEAR_CONJUGATE_GRADIENT', 'WOLFE', 'FLETCHER_REEVES', 'NEVER'): ('CONVERGENCE', 2.970637449858267e-12, [24.199999999999992, 4.280493213725828, 4.12241022876914, 3.156212689696727, 2.8661683405902596, 2.7476159090942676], [1.0000017230975289, 1.000003450163321]),
+    ('NONLINEAR_CONJUGATE_GRADIENT', 'ARMIJO', 'FLETCHER_REEVES', 'NEVER'): ('NO_CONVERGENCE', 0.009596722382770581, [24.199999999999992, 4.280493213725828, 4.12241022817601, 3.790458194654802, 3.7610833503459404, 3.7259568684511937], [0.9383620718501667, 0.8729092540396609]),
+    ('NONLINEAR_CONJUGATE_GRADIENT', 'WOLFE', 'POLAK_RIBIERE', 'NEVER'): ('NO_CONVERGENCE', 0.14378268966162774, [24.199999999999992, 4.280493213725828, 4.122851688895107, 3.3807033224687735, 3.106984766699731, 2.7047085065425422], [0.6338602408387857, 0.3919175846960705]),
+    ('NONLINEAR_CONJUGATE_GRADIENT', 'ARMIJO', 'POLAK_RIBIERE', 'NEVER'): ('NO_CONVERGENCE', 0.03760251445207041, [24.199999999999992, 4.280493213725828, 4.122851687900448, 3.791907844362598, 3.7739843855767963, 3.742688379063679], [0.8062767532016325, 0.6492230281379986]),
+    ('NONLINEAR_CONJUGATE_GRADIENT', 'WOLFE', 'HESTENES_STIEFEL', 'NEVER'): ('CONVERGENCE', 1.1525660877408917e-13, [24.199999999999992, 4.280493213725828, 3.5426578398219797, 3.428269690379302, 3.1442111335201948, 2.8807646322022107], [0.9999996608497626, 0.9999993201708327]),
+    ('NONLINEAR_CONJUGATE_GRADIENT', 'ARMIJO', 'HESTENES_STIEFEL', 'NEVER'): ('NO_CONVERGENCE', 0.019703319364708597, [24.199999999999992, 4.280493213725828, 3.5426329641281256, 3.424951465625532, 3.14034549046305, 2.877587442013013], [0.8600105572558853, 0.7385872595426854]),
+    ('STEEPEST_DESCENT', 'WOLFE', 'FLETCHER_REEVES', 'NEVER'): ('NO_CONVERGENCE', 0.022221076679635358, [24.199999999999992, 4.280493213725828, 4.122851688895107, 3.9133507098374185, 3.807516525946217, 3.782928547051545], [0.8513786743112354, 0.7259979414360386]),
+    ('STEEPEST_DESCENT', 'ARMIJO', 'FLETCHER_REEVES', 'NEVER'): ('NO_CONVERGENCE', 0.06907129172012087, [24.199999999999992, 4.280493213725828, 4.122851687900448, 3.911181014831911, 3.809586839992916, 3.78282976562386], [0.7377226294596377, 0.5425557717581295]),
+    ('quaternion', 'NEVER'): ('CONVERGENCE', 4.225674491090508e-22, [2.0, 0.18140514634863655, 0.025073930080192198, 9.672073096302525e-06, 1.6396420895903126e-10, 4.225674491090508e-22], [0.70710678117928, 0.0, -0.7071067811938153, 0.0]),
+    ('LBFGS', 'WOLFE', 'FLETCHER_REEVES', 'ALWAYS'): ('CONVERGENCE', 1.3964810174638379e-25, [24.199999999999992, 4.280493213706965, 4.128693836242194, 4.120150212898577, 4.115862962201498, 4.079298541918221], [1.000000000000262, 1.0000000000005507]),
+    ('BFGS', 'WOLFE', 'FLETCHER_REEVES', 'ALWAYS'): ('CONVERGENCE', 2.565247384134193e-21, [24.199999999999992, 4.280493213706965, 4.128693836242194, 4.120687989540292, 4.117297985667069, 4.0870197639781845], [0.9999999999640468, 0.9999999999245262]),
+    ('NONLINEAR_CONJUGATE_GRADIENT', 'WOLFE', 'FLETCHER_REEVES', 'ALWAYS'): ('CONVERGENCE', 2.911478343881093e-12, [24.199999999999992, 4.280493213706965, 4.122410228769329, 3.1562126907303973, 2.866168341771975, 2.7476159101603694], [1.0000017003687869, 1.000003414961693]),
+    ('NONLINEAR_CONJUGATE_GRADIENT', 'ARMIJO', 'FLETCHER_REEVES', 'ALWAYS'): ('NO_CONVERGENCE', 0.030692575717242324, [24.199999999999992, 4.280493213706965, 4.122410228176198, 3.7904581933148074, 3.7610833464715596, 3.725956870235944], [0.8297644097569279, 0.6843708365862857]),
+    ('NONLINEAR_CONJUGATE_GRADIENT', 'WOLFE', 'POLAK_RIBIERE', 'ALWAYS'): ('NO_CONVERGENCE', 0.14378270580447589, [24.199999999999992, 4.280493213706965, 4.122851688895255, 3.380703322460164, 3.1069847666928716, 2.704708506537052], [0.6338602612492468, 0.39191759480757565]),
+    ('NONLINEAR_CONJUGATE_GRADIENT', 'ARMIJO', 'POLAK_RIBIERE', 'ALWAYS'): ('NO_CONVERGENCE', 0.04317448668904104, [24.199999999999992, 4.280493213706965, 4.122851687900596, 3.7919078444445273, 3.7739843856902566, 3.7426883791950005], [0.7924307088663248, 0.6270005104546472]),
+    ('NONLINEAR_CONJUGATE_GRADIENT', 'WOLFE', 'HESTENES_STIEFEL', 'ALWAYS'): ('CONVERGENCE', 7.794098261376711e-12, [24.199999999999992, 4.280493213706965, 3.5426578398394306, 3.428269690381304, 3.1442111335218095, 2.880764632209634], [0.9999972109053192, 0.9999944095509308]),
+    ('NONLINEAR_CONJUGATE_GRADIENT', 'ARMIJO', 'HESTENES_STIEFEL', 'ALWAYS'): ('NO_CONVERGENCE', 0.006443410808090979, [24.199999999999992, 4.280493213706965, 3.5426329641455943, 3.424951465742257, 3.1403454905983463, 2.8775874421295518], [0.9197295843826883, 0.8458758279249233]),
+    ('STEEPEST_DESCENT', 'WOLFE', 'FLETCHER_REEVES', 'ALWAYS'): ('NO_CONVERGENCE', 0.00479427737802711, [24.199999999999992, 4.280493213706965, 4.122851688895255, 3.913350709616038, 3.807516526212307, 3.782928547081623], [0.9308464050700183, 0.8661277880386825]),
+    ('STEEPEST_DESCENT', 'ARMIJO', 'FLETCHER_REEVES', 'ALWAYS'): ('NO_CONVERGENCE', 0.06940500850277133, [24.199999999999992, 4.280493213706965, 4.122851687900596, 3.911181010026438, 3.809586844807004, 3.7828297654392857], [0.7366296002055485, 0.5419825352828785]),
+    ('quaternion', 'ALWAYS'): ('CONVERGENCE', 4.225674491090508e-22, [2.0, 0.18140514634863655, 0.025073930080192198, 9.672073096302525e-06, 1.6396420895903126e-10, 4.225674491090508e-22], [0.70710678117928, 0.0, -0.7071067811938153, 0.0]),
+}
+# the card against the CPU: C120 under LBFGS (LINE_SEARCH), and BAL-16
+# DENSE_SCHUR with inner iterations, these many iterations
+LS_CARD_VS_CPU_ITERATIONS = 10
+INNER_CARD_VS_CPU_ITERATIONS = 2
 SPECIALIZED_K = 20  # LM iterations per call, as bench.py:147
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # peak rate of each type (NVIDIA H100 SXM data sheet, dense): float32
@@ -354,7 +428,9 @@ SMALL_VENICE = dict(VENICE, num_cameras=2048, num_points=30_000)
 # schur_assembly at 120 cameras (tests/test_torch_cuda.py): an AtA of
 # 1080 x 1080, past the JAX package's t_full = 1024 for this path
 C120 = dict(num_cameras=120, num_points=2000, visibility=0.04, seed=6)
-SMALL_VENICE_LM_ITERATIONS = 5
+# the 2,048-camera ITERATIVE_SCHUR card against the CPU (5 until the
+# line-search phase came)
+SMALL_VENICE_LM_ITERATIONS = 3
 
 # one row per TPU kernel: (row, wrapper, source, replaces)
 ROWS = [
@@ -672,6 +748,34 @@ def sentinel_cases(dtype, device, constant=(0,), num_cameras=6, num_points=120):
                                                                     device=device)]),
                                  pcam.local),
     }
+
+
+def values_of(problem):
+    """Copies of a Problem's parameter values, to put back in place before a
+    repeated solve (a solve writes its answer into them)."""
+    return ([a.values.copy() for a in problem.parameter_block_arrays()],
+            [b.values.copy() for b in problem.parameter_blocks()])
+
+
+def restore_values(problem, saved):
+    arrays, blocks = saved
+    for a, v in zip(problem.parameter_block_arrays(), arrays):
+        a.values[...] = v
+    for b, v in zip(problem.parameter_blocks(), blocks):
+        b.values[...] = v
+
+
+def reused(problem_fn):
+    """problem_fn's Problem, built once: each call puts its starting values
+    back and returns it, so repeated solves (a profile's) reuse its
+    compiled program and plans (CompiledProgram.cached)."""
+    problem = problem_fn()
+    saved = values_of(problem)
+
+    def again():
+        restore_values(problem, saved)
+        return problem
+    return again
 
 
 def fresh(lp):
@@ -1173,10 +1277,19 @@ def main():
     def large_solves(path, opts, problem_fn, flat=False, variant="eval_fused",
                      kernels=None):
         """A solve at the Venice shape through drive, its gates (every cost
-        finite, falling over successful steps) and two more solves, which
-        must repeat it bit for bit and time the same work."""
-        s, res = drive(path, opts, problem_fn(), flat=flat, variant=variant,
+        finite, falling over successful steps) and two more solves of the
+        same Problem, its values put back in place, which must repeat it
+        bit for bit and time the same work: they reuse its compiled
+        program and fused minimizer (CompiledProgram.cached). Logs the
+        set-up outside the solves (building the Problem) and the repeats'
+        time to the first iteration."""
+        t0 = time.monotonic()
+        problem = problem_fn()
+        build_s = time.monotonic() - t0
+        saved = values_of(problem)
+        s, res = drive(path, opts, problem, flat=flat, variant=variant,
                        kernels=kernels)
+        res["problem_build_s"] = build_s
         costs = [r.cost for r in s.iterations]
         check(all(np.isfinite(c) for c in costs), f"{path}: a cost is not finite")
         accepted = [s.iterations[0].cost] + [
@@ -1186,11 +1299,16 @@ def main():
         cg = sum(res["linear_solver_iterations"])
         res["cg_iterations_per_lm_iteration"] = cg / max(res["iterations"], 1)
         minimizer_s = [res["minimizer_s"]]
+        res["repeat_preprocessor_s"] = []
         for _ in range(2):
-            s2 = ctt.solve(opts, problem_fn())
+            restore_values(problem, saved)
+            s2 = ctt.solve(opts, problem)
             torch.cuda.synchronize()
-            check(s2.final_cost == s.final_cost, f"{path}: a repeated solve differs")
+            check([r.cost for r in s2.iterations] == costs,
+                  f"{path}: a repeated solve differs")
             minimizer_s.append(s2.minimizer_time_in_seconds)
+            res["repeat_preprocessor_s"].append(s2.preprocessor_time_in_seconds)
+        del problem, saved
         med_s = statistics.median(minimizer_s)
         res["ms_per_iteration_runs"] = [1e3 * v / res["iterations"] for v in minimizer_s]
         res["ms_per_iteration_median"] = 1e3 * med_s / res["iterations"]
@@ -1202,7 +1320,9 @@ def main():
             + f"; {res['minimizer_ms_per_cg_iteration']:.4f} ms of minimizer time "
             f"per CG iteration (median), {res['host_syncs_per_iteration']:.2f} "
             f"host syncs per LM iteration, time to first iteration "
-            f"{res['preprocessor_s']:.3f} s, peak device memory "
+            f"{res['preprocessor_s']:.3f} s (the repeats' on the cached program "
+            f"{', '.join(f'{v:.3f}' for v in res['repeat_preprocessor_s'])} s; building "
+            f"the Problem {build_s:.3f} s outside the solves), peak device memory "
             f"{res['peak_device_bytes'] / 2**30:.3f} GiB; costs {costs}; {card}")
         gc.collect()
         torch.cuda.empty_cache()
@@ -1331,8 +1451,8 @@ def main():
                        ("bal16_iterative_f64", ctt.Options(
                            linear_solver_type=IS, max_num_iterations=30,
                            max_linear_solver_iterations=100))):
-        paths[path]["profile"] = profile_solve(
-            lambda: ctt.solve(opts, bal.build_problem_batched(bal16(bal))[0]))
+        same = reused(lambda: bal.build_problem_batched(bal16(bal))[0])
+        paths[path]["profile"] = profile_solve(lambda: ctt.solve(opts, same()))
         log(f"profile {path}", json.dumps(paths[path]["profile"]) + f"; {card}")
         log_row_passes(path, paths[path]["profile"], card)
 
@@ -1400,9 +1520,9 @@ def main():
             f"device memory {paths[path]['peak_device_bytes'] / 2**30:.3f} GiB; {card}")
     for path, opts in (("libmv16_dense_f64", ctt.Options(linear_solver_type=DS)),
                        ("libmv16_iterative_f64", ctt.Options(linear_solver_type=IS))):
-        paths[path]["profile"] = profile_solve(
-            lambda: ctt.solve(opts, libmv.build_problem(fresh(lp16))[0]),
-            anchor=SEGMENT_SUM_ANCHOR)
+        same = reused(lambda: libmv.build_problem(fresh(lp16))[0])
+        paths[path]["profile"] = profile_solve(lambda: ctt.solve(opts, same()),
+                                               anchor=SEGMENT_SUM_ANCHOR)
         log(f"profile {path}", json.dumps(paths[path]["profile"]) + f"; {card}")
         log_row_passes(path, paths[path]["profile"], card)
 
@@ -1445,6 +1565,16 @@ def main():
     log("phase", f"the preconditioners took {time.monotonic() - t_precond:.1f} s "
         "(their Venice run comes in the Venice phase)")
 
+    # -- the line search, inner iterations, GradientProblem, the cache ----------
+    log("phase", f"the line search and inner iterations from "
+        f"{time.monotonic() - t_start:.1f} s")
+    t0 = time.monotonic()
+    line_search_phase(ctt, bal, kn, dev, card, paths, drive, card_against_cpu)
+    cache_check(ctt, "bal16_dense_f64", ctt.Options(linear_solver_type=DS),
+                lambda: bal.build_problem_batched(bal16(bal)), card)
+    log("phase", f"the line search and inner iterations took "
+        f"{time.monotonic() - t0:.1f} s")
+
     # -- the Venice shape ------------------------------------------------------
     log("phase", f"the Venice shape from {time.monotonic() - t_start:.1f} s")
     t0 = time.monotonic()
@@ -1468,8 +1598,9 @@ def main():
         path = "venice_iterative_" + TAG[dtn]
         opts = ctt.Options(linear_solver_type=IS, evaluation_dtype=dtn,
                            max_num_iterations=2)
-        paths[path]["profile"] = profile_solve(
-            lambda: ctt.solve(opts, copy_problem(venice)))
+        same = reused(lambda: copy_problem(venice))
+        paths[path]["profile"] = profile_solve(lambda: ctt.solve(opts, same()))
+        del same
         log(f"profile {path} (2 LM iterations)",
             json.dumps(paths[path]["profile"]) + f"; {card}")
         log_row_passes(path, paths[path]["profile"], card)
@@ -1479,9 +1610,11 @@ def main():
     opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.CGNR,
                        evaluation_dtype="float32", max_num_iterations=VENICE_LM_ITERATIONS)
     large_solves(path, opts, lambda: copy_problem(venice), kernels=CGNR_PATH)
+    same = reused(lambda: copy_problem(venice))
     paths[path]["profile"] = profile_solve(
-        lambda: ctt.solve(dataclasses.replace(opts, max_num_iterations=2),
-                          copy_problem(venice)), anchor=SEGMENT_SUM_ANCHOR)
+        lambda: ctt.solve(dataclasses.replace(opts, max_num_iterations=2), same()),
+        anchor=SEGMENT_SUM_ANCHOR)
+    del same
     log(f"profile {path} (2 LM iterations)", json.dumps(paths[path]["profile"])
         + f"; normal_matvec (row 4) launches in the 5-iteration solve "
         f"{paths[path]['launches']['normal_matvec']} for "
@@ -1539,11 +1672,18 @@ def main():
                            max_num_iterations=VENICE_LM_ITERATIONS)
         large_solves("libmv_venice_iterative_" + TAG[dtn], opts,
                      lambda: libmv.build_problem(fresh(lpv))[0], flat=True)
+    # (e) at libmv-Venice: the time to the first iteration of a first and a
+    # repeated solve (2 LM iterations, float32)
+    cache_check(ctt, "libmv_venice_iterative_f32",
+                ctt.Options(linear_solver_type=IS, evaluation_dtype="float32",
+                            max_num_iterations=2),
+                lambda: libmv.build_problem(fresh(lpv)), card)
     opts = ctt.Options(linear_solver_type=IS, evaluation_dtype="float32",
                        max_num_iterations=2)
+    same = reused(lambda: libmv.build_problem(fresh(lpv))[0])
     paths["libmv_venice_iterative_f32"]["profile"] = profile_solve(
-        lambda: ctt.solve(opts, libmv.build_problem(fresh(lpv))[0]),
-        anchor=SEGMENT_SUM_ANCHOR)
+        lambda: ctt.solve(opts, same()), anchor=SEGMENT_SUM_ANCHOR)
+    del same
     log("profile libmv_venice_iterative_f32 (2 LM iterations)",
         json.dumps(paths["libmv_venice_iterative_f32"]["profile"]) + f"; {card}")
     log_row_passes("libmv_venice_iterative_f32", paths["libmv_venice_iterative_f32"]["profile"],
@@ -1659,6 +1799,329 @@ def main():
     return 0
 
 
+def c120_instance(bal):
+    """The 120-camera instance (C120) of the kernel checks, perturbed."""
+    return bal.perturb(bal.synthetic_bal(**C120), 0.01, 0.05, 0.05, seed=1)
+
+
+def rosenbrock(x):
+    return (1.0 - x[0]) ** 2 + 100.0 * (x[1] - x[0] * x[0]) ** 2
+
+
+def quaternion_fit_cost(q):
+    """Rotate the x axis onto the z axis (tests/test_satellite_apis.py:185)."""
+    from ceres_tpu_torch import rotation as rot
+
+    one = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64, device=q.device)
+    target = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float64, device=q.device)
+    return torch.sum((rot.unit_quaternion_rotate_point(q, one) - target) ** 2)
+
+
+def line_search_phase(ctt, bal, kn, dev, card, paths, drive, card_against_cpu):
+    """Port slice 16's paths on the card, each against the JAX package's
+    answer (scripts/linesearch16_golden.py, LINESEARCH16_GOLDEN,
+    ROSEN16_GOLDEN): (a) BAL-16 and C120 under minimizer_type=LINE_SEARCH,
+    LBFGS + WOLFE in the fused loop (AUTO) and the host loop (NEVER),
+    nonlinear CG + ARMIJO in the fused loop, to LS16_DEPTH iterations (from
+    BAL-16's start every one stops at its first iteration, as the JAX one
+    does; C120 makes progress): every row within
+    1e-6 of the JAX loop of its kind in float64, 1e-5 in float32, no kernel
+    launched (the line search evaluates plainly, as the JAX one does), at
+    most one host sync per probe and per iteration and one before the
+    first; a float64 repeat on the same Problem, its values put back, bit for
+    bit; (b) BAL-16 DENSE_SCHUR with inner iterations, the fused loop in
+    float32 for 25 iterations (within 1e-5 of the JAX final cost; rows 1-3
+    launched every LM iteration, eval_fused once more for each inner
+    sweep) and the host loop in float64 (every row within 1e-6), both
+    reporting inner_iterations_used; (c) the sparse phase's pose graphs
+    with inner iterations in the host loop (the block colouring), every row
+    within 1e-6; (d) Rosenbrock with each direction and search in both
+    loops for 300 iterations, the first ROSEN_ROWS rows within 1e-6, LBFGS
+    and BFGS at the JAX answer within 1e-9, nonlinear CG + WOLFE with the
+    JAX termination, the others below a fifth of the start's cost, and the quaternion fit at the JAX answer within
+    1e-9; (f) the card against the CPU: C120 under LBFGS in both loops
+    (LS_CARD_VS_CPU_ITERATIONS; each row within 1e-9 or 4x the CPU's
+    one-ulp sensitivity) and BAL-16 DENSE_SCHUR with inner
+    iterations in both loops (INNER_CARD_VS_CPU_ITERATIONS), each row
+    within 1e-9. Part (e), the cache, is cache_check's."""
+    from ceres_tpu_torch.models import pose_graph as pg
+    from ceres_tpu_torch.solvers.coordinate_descent import CoordinateDescentMinimizer
+
+    LS = ctt.MinimizerType.LINE_SEARCH
+    DS = ctt.LinearSolverType.DENSE_SCHUR
+
+    def problem16():
+        return bal.build_problem_batched(bal16(bal))
+
+    def summary_fields(s):
+        return {k: getattr(s, k) for k in (
+            "num_line_search_steps", "num_gradient_evaluations", "num_inner_iteration_steps",
+            "inner_iterations_given", "inner_iterations_used",
+            "inner_iteration_time_in_seconds", "residual_evaluation_time_in_seconds")}
+
+    def rows_held(path, s, key, limit, extra=""):
+        """Each row within `limit` of the JAX loop's."""
+        term, cost, rows, _ = LINESEARCH16_GOLDEN[key]
+        got = [r.cost for r in s.iterations]
+        gaps = [abs(a - b) / (abs(b) or 1.0) for a, b in zip(got, rows)]
+        paths[path]["relative_row_gaps_to_jax"] = gaps
+        log(f"solve {path}", f"{len(got)} rows, the JAX loop's {len(rows)}; final cost "
+            f"{s.final_cost!r}, the JAX loop's {cost!r}; {s.termination_type.name} "
+            f"({term}); largest relative row gap {max(gaps):.3e} (limit {limit:.0e}); "
+            f"{extra}{card}")
+        check(len(got) == len(rows), f"{path}: {len(got)} rows, the JAX loop {len(rows)}")
+        check(max(gaps) <= limit, f"{path}: rows off the JAX loop's by {max(gaps):.3e}")
+        check(s.termination_type.name == term, f"{path}: {s.termination_type.name}, "
+              f"the JAX loop {term}")
+
+    def ls_drive(path, opts, problem):
+        """A line-search solve with the counts set to 0 just before it and
+        read just after: it launches no kernel and no plain version (the
+        line search evaluates plainly, as the JAX one does)."""
+        kn.reset_counts()
+        s = ctt.solve(opts, problem)
+        torch.cuda.synchronize()
+        launches, plain_calls = counts(kn)
+        n_it = len(s.iterations) - 1
+        res = {"iterations": n_it, "summary_rows": len(s.iterations),
+               "termination": str(s.termination_type), "message": s.message,
+               "initial_cost": s.initial_cost, "final_cost": s.final_cost,
+               "host_syncs": s.num_host_syncs,
+               "host_syncs_per_iteration": s.num_host_syncs / max(n_it, 1),
+               "preprocessor_s": s.preprocessor_time_in_seconds,
+               "minimizer_s": s.minimizer_time_in_seconds,
+               "ms_per_iteration": 1e3 * s.minimizer_time_in_seconds / max(n_it, 1),
+               "probes": s.num_line_search_steps,
+               "probes_per_iteration": s.num_line_search_steps / max(n_it, 1),
+               "launches": launches, "plain_calls": plain_calls}
+        res.update(summary_fields(s))
+        log(f"solve {path}", json.dumps(res) + f"; {card}")
+        check(not any(launches.values()) and not any(plain_calls.values()),
+              f"{path}: a kernel or a plain version ran: {launches} {plain_calls}")
+        paths[path] = res
+        return s, res
+
+    # -- (a) BAL-16 and C120 under LINE_SEARCH --------------------------------------
+    for shape in ("bal16", "c120"):
+        for dtn in ("float64", "float32"):
+            limit = 1e-6 if dtn == "float64" else 1e-5
+            for name, loop, kw in (
+                    ("lbfgs", "AUTO", {}), ("lbfgs", "NEVER", {}),
+                    ("ncg_armijo", "AUTO", dict(
+                        line_search_type=ctt.LineSearchType.ARMIJO,
+                        line_search_direction_type=(
+                            ctt.LineSearchDirectionType.NONLINEAR_CONJUGATE_GRADIENT)))):
+                key = (shape, name, loop, dtn)
+                path = f"{shape}_ls_{name}_{'fused' if loop == 'AUTO' else 'host'}_{TAG[dtn]}"
+                opts = ctt.Options(minimizer_type=LS, fused_loop=loop, evaluation_dtype=dtn,
+                                   max_num_iterations=LS16_DEPTH[dtn], **kw)
+                problem, cams, pts = (problem16() if shape == "bal16"
+                                      else bal.build_problem_batched(c120_instance(bal)))
+                c0, p0 = cams.copy(), pts.copy()
+                s, res = ls_drive(path, opts, problem)
+                n_it = max(res["iterations"], 1)
+                probes, jax_probes = s.num_line_search_steps, LINESEARCH16_GOLDEN[key][3][0]
+                rows_held(path, s, key, limit,
+                          extra=f"{probes} probes ({jax_probes} in the JAX loop), "
+                          f"{s.num_host_syncs} host syncs "
+                          f"({res['host_syncs_per_iteration']:.2f} per iteration), "
+                          f"{res['ms_per_iteration']:.3f} ms per iteration; ")
+                check(s.num_host_syncs <= probes + n_it + 1,
+                      f"{path}: {s.num_host_syncs} host syncs for {probes} probes and "
+                      f"{n_it} iterations")
+                check(probes == jax_probes or dtn == "float32",
+                      f"{path}: {probes} probes, the JAX loop {jax_probes}")
+                if dtn == "float64":
+                    cams[...], pts[...] = c0, p0
+                    again = ctt.solve(opts, problem)
+                    res["repeat_bit_for_bit"] = ([r.cost for r in again.iterations]
+                                                 == [r.cost for r in s.iterations])
+                    check(res["repeat_bit_for_bit"], f"{path}: a repeated solve is not bit "
+                          f"for bit the first: {again.final_cost!r} against "
+                          f"{s.final_cost!r}")
+
+    # -- (b) BAL-16 DENSE_SCHUR with inner iterations --------------------------------
+    for loop, dtn in (("ALWAYS", "float32"), ("NEVER", "float64")):
+        path = f"bal16_inner_dense_{'fused' if loop == 'ALWAYS' else 'host'}_{TAG[dtn]}"
+        opts = ctt.Options(linear_solver_type=DS, use_inner_iterations=True, fused_loop=loop,
+                           evaluation_dtype=dtn, max_num_iterations=25)
+        s, res = drive(path, opts, problem16()[0],
+                       kernels=DENSE_PATH if loop == "ALWAYS" else HOST_PATH)
+        n_it = max(res["iterations"], 1)
+        res.update(summary_fields(s))
+        res["launches_per_iteration"] = {k: v / n_it for k, v in res["launches"].items() if v}
+        term, cost, rows, (inner_jax,) = LINESEARCH16_GOLDEN[("inner_dense_schur", loop, dtn)]
+        check(s.inner_iterations_used and s.inner_iterations_given,
+              f"{path}: inner iterations not reported used")
+        check(s.num_inner_iteration_steps >= 1, f"{path}: no inner iteration ran")
+        if loop == "ALWAYS":
+            gap = (s.final_cost - cost) / cost
+            res["gap_to_golden"] = gap
+            ev = res["launches"]["eval_fused"]
+            # one evaluation per row, one more per LM iteration the inner
+            # iterations were on for (at least those whose sweep was taken)
+            check(len(s.iterations) + s.num_inner_iteration_steps <= ev
+                  <= len(s.iterations) + res["iterations"],
+                  f"{path}: eval_fused launched {ev} times for {len(s.iterations)} rows and "
+                  f"{s.num_inner_iteration_steps} inner sweeps")
+            log(f"solve {path}", f"final cost {s.final_cost!r} in {len(s.iterations)} rows "
+                f"(JAX fused loop {cost!r} in {len(rows)}), relative gap {gap:.3e} (limit "
+                f"1e-5); {s.num_inner_iteration_steps} inner sweeps taken (the JAX loop "
+                f"counts none); launches per LM iteration "
+                f"{json.dumps(res['launches_per_iteration'])}; {card}")
+            check(abs(gap) <= 1e-5, f"{path}: final cost off the JAX loop's by {gap:.3e}")
+        else:
+            check(s.num_inner_iteration_steps == inner_jax,
+                  f"{path}: {s.num_inner_iteration_steps} inner steps, the JAX loop "
+                  f"{inner_jax}")
+            rows_held(path, s, ("inner_dense_schur", loop, dtn), 1e-6,
+                      f"{s.num_inner_iteration_steps} inner steps in "
+                      f"{s.inner_iteration_time_in_seconds:.3f} s, launches per LM iteration "
+                      f"{json.dumps(res['launches_per_iteration'])}; ")
+
+    # -- (c) the pose graphs with inner iterations ------------------------------------------
+    for name, dims, gen, build in (("pose3d", POSE3D, pg.synthetic_3d, pg.build_problem_3d),
+                                   ("pose2d", POSE2D, pg.synthetic_2d, pg.build_problem_2d)):
+        n, lc, noise, seed, _ = dims
+        path = f"{name}_{n}_inner_f64"
+        poses, cons, _ = gen(num_poses=n, loop_closures=lc, noise=noise, seed=seed)
+        opts = ctt.Options(use_inner_iterations=True, max_num_iterations=INNER_POSE_DEPTH)
+        problem = build(copy.deepcopy(poses), cons)[0]
+        s, res = drive(path, opts, problem, kernels=SPARSE_PATH)
+        res.update(summary_fields(s))
+        sets = len(CoordinateDescentMinimizer(
+            next(iter(problem._compiled_cache.values())), opts).sets)
+        res["independent_sets"] = sets
+        rows_held(path, s, (name, "inner"), 1e-6,
+                  f"{sets} independent sets, {s.num_inner_iteration_steps} inner steps in "
+                  f"{s.inner_iteration_time_in_seconds:.3f} s, {res['ms_per_iteration']:.1f} ms "
+                  f"per LM iteration; ")
+
+    # -- (d) Rosenbrock and the quaternion fit ------------------------------------------------
+    t0 = time.monotonic()
+    n_runs = 0
+    for key, (term, cost, rows, answer) in ROSEN16_GOLDEN.items():
+        if key[0] == "quaternion":
+            continue
+        d, srch, beta, loop = key
+        converging = d in ("LBFGS", "BFGS")
+        x = np.asarray([-1.2, 1.0])
+        s = ctt.solve_gradient_problem(ctt.Options(
+            minimizer_type=LS, fused_loop=loop, max_num_iterations=300,
+            line_search_direction_type=ctt.LineSearchDirectionType[d],
+            line_search_type=ctt.LineSearchType[srch],
+            nonlinear_conjugate_gradient_type=ctt.NonlinearConjugateGradientType[beta]),
+            ctt.GradientProblem(rosenbrock, 2), x)
+        n_runs += 1
+        got = [r.cost for r in s.iterations[:ROSEN_ROWS]]
+        gaps = [abs(a - b) / (abs(b) or 1.0) for a, b in zip(got, rows)]
+        tag = f"rosenbrock {d} {srch} {beta} {loop}"
+        check(len(got) == len(rows) and max(gaps) <= 1e-6,
+              f"{tag}: first rows off the JAX loop's by {max(gaps):.3e}")
+        if converging:
+            err = float(np.abs(x - np.asarray(answer)).max())
+            check(s.termination_type.name == term and err <= 1e-9,
+                  f"{tag}: {s.termination_type.name} at {x.tolist()}, the JAX loop {term} at "
+                  f"{answer}")
+        elif d == "NONLINEAR_CONJUGATE_GRADIENT" and srch == "WOLFE":
+            check(s.termination_type.name == term,
+                  f"{tag}: {s.termination_type.name}, the JAX loop {term}")
+        else:
+            check(s.final_cost < 0.2 * s.iterations[0].cost,
+                  f"{tag}: final cost {s.final_cost!r} not below a fifth of the start's")
+        log("gradient problem", f"{tag}: {len(s.iterations)} rows, final cost "
+            f"{s.final_cost!r} (JAX {cost!r} after 300 iterations at most), "
+            f"{s.termination_type.name} ({term}), first "
+            f"{ROSEN_ROWS} rows' largest gap {max(gaps):.3e} (limit 1e-6), answer "
+            f"{x.tolist()} (JAX {answer}); {s.num_host_syncs} host syncs")
+    for loop in ("NEVER", "ALWAYS"):
+        term, cost, rows, answer = ROSEN16_GOLDEN[("quaternion", loop)]
+        q = np.asarray([1.0, 0.0, 0.0, 0.0])
+        s = ctt.solve_gradient_problem(
+            ctt.Options(minimizer_type=LS, fused_loop=loop, max_num_iterations=200),
+            ctt.GradientProblem(quaternion_fit_cost, 4, manifold=ctt.QuaternionManifold()), q)
+        n_runs += 1
+        err = float(np.abs(q - np.asarray(answer)).max())
+        log("gradient problem", f"quaternion fit {loop}: {len(s.iterations)} rows (JAX "
+            f"{len(rows)}), final cost {s.final_cost!r} (JAX {cost!r}), answer {q.tolist()}, "
+            f"off the JAX one by {err:.3e} (limit 1e-9)")
+        check(s.final_cost < 1e-12 and err <= 1e-9, f"quaternion fit {loop}: answer off the "
+              f"JAX one by {err:.3e}, cost {s.final_cost}")
+    log("gradient problem", f"{n_runs} solves on the card in {time.monotonic() - t0:.1f} s; "
+        f"{card}")
+
+    # -- (f) the card against the CPU ---------------------------------------------------------
+    c120 = c120_instance(bal)
+
+    def c120_problem(nudge=False):
+        cams = np.nextafter(c120.cameras, np.inf) if nudge else c120.cameras.copy()
+        return bal.build_problem_batched(bal.from_arrays(
+            cams, c120.points.copy(), c120.camera_index, c120.point_index,
+            c120.observations))[0]
+
+    for loop in ("AUTO", "NEVER"):
+        # the host loop's interpolation (a least-squares cubic through probes
+        # close together) amplifies one-ulp differences: each row within 4x
+        # the CPU's own one-ulp sensitivity where that is larger than 1e-9
+        card_against_cpu(f"c120_ls_lbfgs_{'fused' if loop == 'AUTO' else 'host'}_card_vs_cpu",
+                         ctt.Options(minimizer_type=LS, fused_loop=loop,
+                                     max_num_iterations=LS_CARD_VS_CPU_ITERATIONS),
+                         c120_problem, lambda: c120_problem(nudge=True), kernels=())
+    for loop in ("ALWAYS", "NEVER"):
+        card_against_cpu(f"bal16_inner_dense_{'fused' if loop == 'ALWAYS' else 'host'}"
+                         "_card_vs_cpu",
+                         ctt.Options(linear_solver_type=DS, use_inner_iterations=True,
+                                     fused_loop=loop,
+                                     max_num_iterations=INNER_CARD_VS_CPU_ITERATIONS),
+                         lambda: problem16()[0], None,
+                         kernels=DENSE_PATH if loop == "ALWAYS" else HOST_PATH)
+
+
+def cache_check(ctt, path, opts, build, card):
+    """(e) The compiled-program cache: solve a Problem, put its values back
+    in place, solve it again, and solve a fresh Problem of the same
+    values. The repeat takes the same program and (in the fused loop) the
+    same fused minimizer objects, and all three solves' rows are equal bit
+    for bit. Logs the time to the first iteration (the preprocessor's) of
+    the first solve and of the repeat, and the set-up outside the solves:
+    building the Problem from the arrays."""
+    t0 = time.monotonic()
+    problem, *arrays = build()
+    build_s = time.monotonic() - t0
+    saved = [a.copy() for a in arrays]
+    s1 = ctt.solve(opts, problem)
+    torch.cuda.synchronize()
+    (prog,) = problem._compiled_cache.values()
+    fused = dict(prog._minimizer_cache)
+    for a, v in zip(arrays, saved):
+        a[...] = v
+    s2 = ctt.solve(opts, problem)
+    torch.cuda.synchronize()
+    same_program = next(iter(problem._compiled_cache.values())) is prog
+    same_minimizer = (prog._minimizer_cache == fused and bool(fused)
+                      == (opts.fused_loop != "NEVER"))
+    del problem, prog, fused, arrays
+    gc.collect()
+    torch.cuda.empty_cache()
+    s3 = ctt.solve(opts, build()[0])
+    torch.cuda.synchronize()
+    rows = [[(r.cost, r.gradient_max_norm) for r in s.iterations] for s in (s1, s2, s3)]
+    res = {"rows": len(rows[0]), "same_program": same_program,
+           "same_fused_minimizer": same_minimizer,
+           "repeat_equals_first_and_fresh": rows[0] == rows[1] == rows[2],
+           "time_to_first_iteration_first_s": s1.preprocessor_time_in_seconds,
+           "time_to_first_iteration_repeat_s": s2.preprocessor_time_in_seconds,
+           "time_to_first_iteration_fresh_s": s3.preprocessor_time_in_seconds,
+           "minimizer_s": [s.minimizer_time_in_seconds for s in (s1, s2, s3)],
+           "problem_build_s": build_s}
+    log(f"cache {path}", json.dumps(res) + f"; {card}")
+    check(same_program and same_minimizer, f"{path}: the repeat built a new program or "
+          f"fused minimizer")
+    check(res["repeat_equals_first_and_fresh"], f"{path}: the repeated solve's rows differ "
+          f"from the first's or a fresh one's")
+    return res
+
+
 def cgnr_dogleg_mgh_phase(ctt, bal, libmv, kn, dev, card, paths, drive,
                           card_against_cpu, check_and_time, lp16, ulp16):
     """Port slice 11's paths: row 4 at BAL-16 CGNR's first CG iteration;
@@ -1714,9 +2177,9 @@ def cgnr_dogleg_mgh_phase(ctt, bal, libmv, kn, dev, card, paths, drive,
             f"{res['linear_solver_iterations']}; normal_matvec (row 4) launches "
             f"{res['launches']['normal_matvec']}; {res['host_syncs']} host syncs; "
             f"{res['ms_per_iteration']:.3f} ms per LM iteration; {card}")
+    same = reused(lambda: bal.build_problem_batched(bal16(bal))[0])
     paths["bal16_cgnr_f64"]["profile"] = profile_solve(
-        lambda: ctt.solve(ctt.Options(linear_solver_type=CGNR),
-                          bal.build_problem_batched(bal16(bal))[0]),
+        lambda: ctt.solve(ctt.Options(linear_solver_type=CGNR), same()),
         anchor=SEGMENT_SUM_ANCHOR)
     log("profile bal16_cgnr_f64", json.dumps(paths["bal16_cgnr_f64"]["profile"])
         + f"; {card}")
@@ -1757,9 +2220,9 @@ def cgnr_dogleg_mgh_phase(ctt, bal, libmv, kn, dev, card, paths, drive,
             f"relative gap to the JAX package's {gap:.3e} (limit 1e-6); "
             f"{res['host_syncs']} host syncs; {res['ms_per_iteration']:.3f} ms per LM "
             f"iteration; {card}")
-        res["profile"] = profile_solve(
-            lambda: ctt.solve(opts, bal.build_problem_batched(bal16(bal))[0]),
-            anchor=SEGMENT_SUM_ANCHOR)
+        same = reused(lambda: bal.build_problem_batched(bal16(bal))[0])
+        res["profile"] = profile_solve(lambda: ctt.solve(opts, same()),
+                                       anchor=SEGMENT_SUM_ANCHOR)
         log(f"profile {path}", json.dumps(res["profile"]) + f"; {card}")
         log_row_passes(path, res["profile"], card)
 
@@ -1975,7 +2438,8 @@ def host_loop_phase(ctt, bal, kn, dev, card, paths, drive, card_against_cpu):
             check(s.final_cost <= GOLDEN_COST * (1 + 1e-4),
                   f"{path}: final cost {s.final_cost} above golden x (1 + 1e-4)")
         if dtn == "float64":
-            res["profile"] = profile_solve(lambda: ctt.solve(opts, problem16()),
+            same = reused(problem16)
+            res["profile"] = profile_solve(lambda: ctt.solve(opts, same()),
                                            anchor=SEGMENT_SUM_ANCHOR, repeats=3)
             log(f"profile {path}", json.dumps(res["profile"]) + f"; {card}")
 
@@ -2053,7 +2517,8 @@ def host_loop_phase(ctt, bal, kn, dev, card, paths, drive, card_against_cpu):
         s, res = drive(path, dogleg_opts(dogleg), problem16(), kernels=HOST_PATH,
                        solver=dogleg_solver)
         gate_golden(path, s, "float64", *HOSTLOOP16_GOLDEN[dogleg])
-        res["profile"] = profile_solve(lambda: dogleg_solver(dogleg_opts(dogleg), problem16()),
+        same = reused(problem16)
+        res["profile"] = profile_solve(lambda: dogleg_solver(dogleg_opts(dogleg), same()),
                                        anchor=SEGMENT_SUM_ANCHOR, repeats=3)
         log(f"profile {path}", json.dumps(res["profile"]) + f"; {card}")
 
@@ -2530,7 +2995,8 @@ def host_loop_venice(ctt, bal, card, paths, large_solves, problem_fn):
                        evaluation_dtype="float32", callbacks=[log_row],
                        max_num_iterations=HOST_VENICE_LM_ITERATIONS)
     large_solves(path, opts, problem_fn, kernels=HOST_PATH)
-    paths[path]["profile"] = profile_solve(lambda: ctt.solve(opts, problem_fn()),
+    same = reused(problem_fn)
+    paths[path]["profile"] = profile_solve(lambda: ctt.solve(opts, same()),
                                            anchor=SEGMENT_SUM_ANCHOR, repeats=1)
     log(f"profile {path}", json.dumps(paths[path]["profile"]) + f"; {card}")
 
@@ -2540,19 +3006,24 @@ def mgh_card_vs_cpu(ctt, kn, dev, card, paths, path, over, misses_want):
     `misses_want`, the same verdicts, each 2 x final cost within 1e-8 of
     the CPU's (both under 1e-20 at a zero optimum; #16, whose crawl
     amplifies rounding tenfold every five rows (tests/test_torch_mgh.py):
-    its first 40 rows to 1e-9 and its end within 5%), no kernel launched."""
+    run to MGH16_CARD_VS_CPU_ITERATIONS, its first 40 rows to 1e-9 and its
+    end within 5%), no kernel launched."""
     from ceres_tpu_torch.models import mgh
 
     lst = over["linear_solver_type"].name
     kn.reset_counts()
     t0 = time.monotonic()
-    card_runs = {p.number: mgh.solve_problem(p, options_overrides=over, device=dev)
+    def over_of(p):
+        return (dict(over, max_num_iterations=MGH16_CARD_VS_CPU_ITERATIONS)
+                if p.number == 16 else over)
+
+    card_runs = {p.number: mgh.solve_problem(p, options_overrides=over_of(p), device=dev)
                  for p in mgh.PROBLEMS}
     torch.cuda.synchronize()
     card_s = time.monotonic() - t0
     launches, plain_calls = counts(kn)
     t0 = time.monotonic()
-    cpu_runs = {p.number: mgh.solve_problem(p, options_overrides=over, device="cpu")
+    cpu_runs = {p.number: mgh.solve_problem(p, options_overrides=over_of(p), device="cpu")
                 for p in mgh.PROBLEMS}
     cpu_s = time.monotonic() - t0
     misses = sorted(n for n, (ok, _, _) in card_runs.items() if not ok)

@@ -1173,3 +1173,122 @@ def test_preconditioners_on_card_match_cpu(card, kw, loop):
         assert c.cost == pytest.approx(a.cost, rel=1e-9, abs=1e-30)
     assert all(k.plain_calls == 0 for k in kn.KERNELS)
     assert kn.segment_block_sum.launches > 0 and kn.segment_block_expand.launches > 0
+
+
+def _small_problem(b):
+    return tbal.build_problem_batched(tbal.from_arrays(
+        b.cameras.copy(), b.points.copy(), b.camera_index, b.point_index, b.observations))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(fused_loop="ALWAYS"), dict(fused_loop="NEVER"),
+    dict(fused_loop="ALWAYS", line_search_type="ARMIJO",
+         line_search_direction_type="NONLINEAR_CONJUGATE_GRADIENT"),
+], ids=["lbfgs_fused", "lbfgs_host", "ncg_armijo_fused"])
+def test_line_search_on_card_matches_cpu(card, kw):
+    """LINE_SEARCH on the card and the CPU, float64, 20 iterations: the
+    same rows, each cost to 1e-9 relative, the same probe count; no kernel
+    and no plain version launched (the line search evaluates plainly); at
+    most one host sync per probe and per iteration and one before the
+    first."""
+    kw = dict(kw)
+    if "line_search_type" in kw:
+        kw["line_search_type"] = ctt.LineSearchType[kw["line_search_type"]]
+        kw["line_search_direction_type"] = ctt.LineSearchDirectionType[
+            kw["line_search_direction_type"]]
+    b = small_bal()
+    opts = ctt.Options(minimizer_type=ctt.MinimizerType.LINE_SEARCH, max_num_iterations=20,
+                       **kw)
+    ref = ctt.solve(opts, _small_problem(b)[0], device="cpu")
+    kn.reset_counts()
+    out = ctt.solve(opts, _small_problem(b)[0])
+    assert len(out.iterations) == len(ref.iterations) > 5
+    for a, c in zip(ref.iterations, out.iterations):
+        assert c.cost == pytest.approx(a.cost, rel=1e-9, abs=1e-30)
+    assert out.num_line_search_steps == ref.num_line_search_steps
+    assert all(k.launches == 0 and k.plain_calls == 0 for k in kn.KERNELS)
+    assert out.num_host_syncs <= out.num_line_search_steps + len(out.iterations)
+
+
+@pytest.mark.parametrize("loop", ["ALWAYS", "NEVER"])
+def test_inner_iterations_on_card_match_cpu(card, loop):
+    """DENSE_SCHUR with inner iterations on the card and the CPU, float64,
+    10 iterations: the same rows, each cost to 1e-9 relative, the same
+    inner steps; the fused loop launches eval_fused once per row and once
+    more per inner sweep, the rows' kernels and no plain version."""
+    b = small_bal()
+    opts = ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
+                       use_inner_iterations=True, fused_loop=loop, max_num_iterations=10)
+    ref = ctt.solve(opts, _small_problem(b)[0], device="cpu")
+    kn.reset_counts()
+    out = ctt.solve(opts, _small_problem(b)[0])
+    assert len(out.iterations) == len(ref.iterations)
+    for a, c in zip(ref.iterations, out.iterations):
+        assert c.cost == pytest.approx(a.cost, rel=1e-9, abs=1e-30)
+    assert out.num_inner_iteration_steps == ref.num_inner_iteration_steps >= 1
+    assert out.inner_iterations_used
+    assert all(k.plain_calls == 0 for k in kn.KERNELS)
+    if loop == "ALWAYS":
+        n_rows, n_it = len(out.iterations), len(out.iterations) - 1
+        assert n_rows + out.num_inner_iteration_steps <= kn.eval_fused.launches <= n_rows + n_it
+        assert kn.post_eval_fused.launches >= n_it and kn.schur_assembly.launches >= n_it
+
+
+@pytest.mark.parametrize("kw", [
+    dict(linear_solver_type="DENSE_SCHUR", fused_loop="ALWAYS"),
+    dict(linear_solver_type="DENSE_SCHUR", fused_loop="ALWAYS", use_inner_iterations=True),
+    dict(minimizer_type="LINE_SEARCH", fused_loop="ALWAYS"),
+], ids=["dense_fused", "dense_fused_inner", "line_search_fused"])
+def test_repeated_solve_on_card_reuses_program(card, kw):
+    """Solve on the card, put the values back, solve again: the same
+    program and fused minimizer objects, the rows bit for bit the first
+    solve's and a fresh Problem's."""
+    kw = dict(kw)
+    if "linear_solver_type" in kw:
+        kw["linear_solver_type"] = ctt.LinearSolverType[kw["linear_solver_type"]]
+    if "minimizer_type" in kw:
+        kw["minimizer_type"] = ctt.MinimizerType[kw["minimizer_type"]]
+    opts = ctt.Options(max_num_iterations=10, **kw)
+    b = small_bal()
+    problem, cams, pts = _small_problem(b)
+    c0, p0 = cams.copy(), pts.copy()
+    s1 = ctt.solve(opts, problem)
+    (prog,) = problem._compiled_cache.values()
+    assert prog.device.type == "cuda"
+    fused = dict(prog._minimizer_cache)
+    assert fused
+    cams[...], pts[...] = c0, p0
+    s2 = ctt.solve(opts, problem)
+    assert next(iter(problem._compiled_cache.values())) is prog
+    assert prog._minimizer_cache == fused
+    s3 = ctt.solve(opts, _small_problem(b)[0])
+    rows = [[r.cost for r in s.iterations] for s in (s1, s2, s3)]
+    assert rows[0] == rows[1] == rows[2]
+
+
+def test_gradient_problem_on_card_matches_cpu(card):
+    """The quaternion fit and Rosenbrock (LBFGS) through
+    solve_gradient_problem on the card and the CPU: the answers within
+    1e-12."""
+    from ceres_tpu_torch import rotation as trot
+
+    def fit(q):
+        one = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64, device=q.device)
+        z = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float64, device=q.device)
+        return torch.sum((trot.unit_quaternion_rotate_point(q, one) - z) ** 2)
+
+    def rosen(x):
+        return (1.0 - x[0]) ** 2 + 100.0 * (x[1] - x[0] * x[0]) ** 2
+
+    for fn, x0, man in ((fit, [1.0, 0.0, 0.0, 0.0], ctt.QuaternionManifold()),
+                        (rosen, [-1.2, 1.0], None)):
+        for loop in ("NEVER", "ALWAYS"):
+            opts = ctt.Options(minimizer_type=ctt.MinimizerType.LINE_SEARCH, fused_loop=loop,
+                               max_num_iterations=200)
+            xc, xg = np.asarray(x0), np.asarray(x0)
+            ctt.solve_gradient_problem(opts, ctt.GradientProblem(fn, len(x0), manifold=man),
+                                       xc, device="cpu")
+            s = ctt.solve_gradient_problem(opts, ctt.GradientProblem(fn, len(x0),
+                                                                     manifold=man), xg)
+            assert s.is_solution_usable()
+            np.testing.assert_allclose(xg, xc, rtol=0, atol=1e-12)

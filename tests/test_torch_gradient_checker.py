@@ -140,8 +140,9 @@ def test_summary_thread_counts_match_jax():
 
 def test_line_search_validation_matches_jax():
     """LINE_SEARCH with LBFGS and ARMIJO fails both packages' validation
-    with one message; a valid line-search request raises naming slice 6
-    in the port."""
+    with one message; a valid line-search request (LBFGS and WOLFE, the
+    defaults) solves in the port as in the JAX package: the same final
+    cost within 1e-12 relative."""
     kw = dict(minimizer_type="LINE_SEARCH", line_search_type="ARMIJO")
     jo = ct.Options(minimizer_type=ct.MinimizerType.LINE_SEARCH,
                     line_search_type=ct.LineSearchType.ARMIJO)
@@ -153,3 +154,11 @@ def test_line_search_validation_matches_jax():
     s = ctt.solve(to, tp, device="cpu")
     assert s.termination_type == ctt.TerminationType.FAILURE
     assert s.message == jo.is_valid()[1]
+    jp, jx = _square_problem(ct, 2.0)
+    tp, tx = _square_problem(ctt, 2.0)
+    js = ct.solve(ct.Options(minimizer_type=ct.MinimizerType.LINE_SEARCH), jp)
+    ts = ctt.solve(ctt.Options(minimizer_type=ctt.MinimizerType.LINE_SEARCH), tp, device="cpu")
+    assert ts.termination_type.name == js.termination_type.name
+    assert ts.is_solution_usable()
+    assert ts.final_cost == pytest.approx(js.final_cost, rel=1e-12, abs=1e-20)
+    assert tx[0] == pytest.approx(jx[0], rel=1e-12)

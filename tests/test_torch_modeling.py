@@ -125,24 +125,38 @@ def _enums(pkg, kw):
 
 
 @pytest.mark.parametrize("kw,slice_no", [
-    (dict(minimizer_type=ctt.MinimizerType.LINE_SEARCH), 6),
+    (dict(minimizer_type="LINE_SEARCH"), 6),
     (dict(use_inner_iterations=True), 6),
     (dict(max_lbfgs_rank=10), 6),
     ("solve_ba over a mesh", 9),
 ])
 def test_unported_options_raise_naming_the_slice(kw, slice_no):
-    """What the port does not run yet raises naming its slice: line search
-    and its fields, inner iterations (slice 6), a mesh (slice 9). The
-    preconditioners and Schur options this test once listed run now
-    (tests/test_torch_preconditioners.py)."""
+    """What the port does not run yet raises naming its slice: a mesh
+    (slice 9). The requests of slice 6 run now, each against the JAX
+    package on the same start: the line search, inner iterations, and an
+    LBFGS rank that the trust-region solve reads nothing of. Each row's
+    cost within 1e-9 relative and the same number of rows (the host loop
+    in both: AUTO takes it below 8,192 residuals)."""
     b = tbal.from_arrays(*_arrays(small_bal()))
-    with pytest.raises(NotImplementedError, match=f"port slice {slice_no}"):
-        if kw == "solve_ba over a mesh":
-            from ceres_tpu_torch.parallel import sharded_ba
+    if slice_no == 9:
+        from ceres_tpu_torch.parallel import sharded_ba
 
+        with pytest.raises(NotImplementedError, match=f"port slice {slice_no}"):
             sharded_ba.solve_ba(b, mesh=object(), device="cpu")
-        else:
-            ctt.solve(ctt.Options(**kw), tbal.build_problem_batched(b)[0], device="cpu")
+        return
+    kw = dict(kw, max_num_iterations=10)
+    rows = []
+    copies = [[a.copy() for a in _arrays(b)] for _ in range(2)]
+    for pkg, problem in ((ct, jbal.build_problem_batched(jbal.BALProblem(*copies[0]))[0]),
+                         (ctt, tbal.build_problem_batched(tbal.from_arrays(*copies[1]))[0])):
+        opts = {k: pkg.MinimizerType[v] if k == "minimizer_type" else v
+                for k, v in kw.items()}
+        extra = {} if pkg is ct else dict(device="cpu")
+        s = pkg.solve(pkg.Options(**opts), problem, **extra)
+        assert s.is_solution_usable(), s.message
+        rows.append([r.cost for r in s.iterations])
+    assert len(rows[0]) == len(rows[1])
+    np.testing.assert_allclose(rows[1], rows[0], rtol=1e-9, atol=0)
 
 
 def _arrays(b):

@@ -28,7 +28,9 @@ def test_import_loads_no_jax_and_no_ceres_tpu():
         "ceres_tpu_torch.models.pose_graph, ceres_tpu_torch.native, "
         "ceres_tpu_torch.ops.inner_product, ceres_tpu_torch.solvers.linear.sparse_schur, "
         "ceres_tpu_torch.solvers.linear.preconditioners, ceres_tpu_torch.utils.clustering, "
-        "ceres_tpu_torch.gradient_checker\n"
+        "ceres_tpu_torch.gradient_checker, ceres_tpu_torch.gradient_problem, "
+        "ceres_tpu_torch.solvers.line_search, ceres_tpu_torch.solvers.fused_line_search, "
+        "ceres_tpu_torch.solvers.coordinate_descent\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'ceres_tpu' or m.startswith('ceres_tpu.')]\n"
         "print(bad)\n"
@@ -53,6 +55,8 @@ def test_sources_import_no_jax_and_no_ceres_tpu():
     assert len(files) > 10
     assert ROOT / "ceres_tpu_torch" / "parallel" / "sharded_ba.py" in files
     assert ROOT / "ceres_tpu_torch" / "manifolds.py" in files
+    assert ROOT / "ceres_tpu_torch" / "solvers" / "fused_line_search.py" in files
+    assert ROOT / "ceres_tpu_torch" / "gradient_problem.py" in files
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "ceres_tpu"}, path
