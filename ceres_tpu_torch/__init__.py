@@ -21,8 +21,10 @@ More-Garbow-Hillstrom corpus (models/mgh.py); in float64, float32 or the
 mixed schedule, with mixed-precision solves and box bounds; ITERATIVE_SCHUR
 takes every preconditioner (SCHUR_JACOBI, the power series, the cluster
 ones over visibility clustering) and the explicit Schur complement, and
-check_gradients tests the user's Jacobians before a solve. It imports
-torch and numpy only: nothing of jax and nothing of ceres_tpu.
+check_gradients tests the user's Jacobians before a solve. Cubic
+interpolation of sampled data sits inside autodiff functors, and
+examples/ holds the JAX package's example scripts over these modules. It
+imports torch and numpy only: nothing of jax and nothing of ceres_tpu.
 """
 from .callbacks import EvaluationCallback, IterationCallback
 from .cost_function import (
@@ -34,6 +36,7 @@ from .cost_function import (
     NumericDiffCostFunction,
     cost_function_to_functor,
 )
+from .cubic_interpolation import BiCubicInterpolator, CubicInterpolator, Grid1D, Grid2D
 from .gradient_checker import GradientChecker
 from .gradient_problem import GradientProblem, solve_gradient_problem
 from .loss import (
@@ -87,17 +90,21 @@ __all__ = [
     "ArctanLoss",
     "AutoDiffCostFunction",
     "AutoDiffManifold",
+    "BiCubicInterpolator",
     "CallbackReturnType",
     "CauchyLoss",
     "ComposedLoss",
     "ConditionedCostFunction",
     "CostFunction",
+    "CubicInterpolator",
     "DoglegType",
     "EigenQuaternionManifold",
     "EuclideanManifold",
     "EvaluationCallback",
     "GradientChecker",
     "GradientProblem",
+    "Grid1D",
+    "Grid2D",
     "HuberLoss",
     "IterationCallback",
     "IterationSummary",

@@ -13,7 +13,9 @@ times and counts (`jacobian_evaluation_time_in_seconds`,
 line-search minimizers count their probes (`num_line_search_steps`), the
 fused one its gradient evaluations; the host loop counts its inner
 iterations and their time. `residual_evaluation_time_in_seconds` is set
-by nothing, as in the JAX package.
+by nothing, as in the JAX package. `full_report` prints the JAX
+package's lines with the port's version and device and one more line,
+the host syncs.
 """
 from __future__ import annotations
 
@@ -123,3 +125,51 @@ class Summary:
             f"Initial cost: {self.initial_cost:e}, Final cost: {self.final_cost:e}, "
             f"Termination: {self.termination_type}"
         )
+
+    def full_report(self) -> str:
+        lines = [
+            "",
+            "Solver Summary (v ceres_tpu_torch)",
+            "",
+            f"{'':40}{'Original':>12}{'Reduced':>12}",
+            f"{'Parameter blocks':40}{self.num_parameter_blocks:>12}{self.num_parameter_blocks_reduced:>12}",
+            f"{'Parameters':40}{self.num_parameters:>12}{self.num_parameters_reduced:>12}",
+            f"{'Effective parameters':40}{self.num_effective_parameters:>12}{self.num_effective_parameters_reduced:>12}",
+            f"{'Residual blocks':40}{self.num_residual_blocks:>12}{self.num_residual_blocks_reduced:>12}",
+            f"{'Residuals':40}{self.num_residuals:>12}{self.num_residuals_reduced:>12}",
+            "",
+            f"Minimizer                 {self.minimizer_type}",
+        ]
+        if self.minimizer_type == MinimizerType.TRUST_REGION:
+            lines += [
+                f"Trust region strategy     {self.trust_region_strategy_type}",
+                f"Linear solver (given/used) {self.linear_solver_type_given} / {self.linear_solver_type_used}",
+                f"Preconditioner            {self.preconditioner_type_given} / {self.preconditioner_type_used}",
+            ]
+        if self.schur_structure_used:
+            lines.append(
+                f"Schur structure (given/used) {self.schur_structure_given} / {self.schur_structure_used}"
+            )
+        lines += [
+            f"Device                    {self.device_kind} x{self.num_devices}",
+            "",
+            f"Initial cost              {self.initial_cost:.6e}",
+            f"Final cost                {self.final_cost:.6e}",
+            f"Fixed cost                {self.fixed_cost:.6e}",
+            "",
+            f"Successful steps          {self.num_successful_steps}",
+            f"Unsuccessful steps        {self.num_unsuccessful_steps}",
+            "",
+            "Time (in seconds):",
+            f"  Preprocessor            {self.preprocessor_time_in_seconds:.6f}",
+            f"  Residual evaluation     {self.residual_evaluation_time_in_seconds:.6f}",
+            f"  Jacobian evaluation     {self.jacobian_evaluation_time_in_seconds:.6f}",
+            f"  Linear solver           {self.linear_solver_time_in_seconds:.6f}",
+            f"  Minimizer               {self.minimizer_time_in_seconds:.6f}",
+            f"  Postprocessor           {self.postprocessor_time_in_seconds:.6f}",
+            f"  Total                   {self.total_time_in_seconds:.6f}",
+            "",
+            f"Host syncs                {self.num_host_syncs}",
+            f"Termination:              {self.termination_type} ({self.message})",
+        ]
+        return "\n".join(lines)

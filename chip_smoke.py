@@ -71,7 +71,13 @@ preconditioners and the host loop's explicit S on the card against the
 CPU, and the fused explicit S on the card; float32 SPSE at the Venice
 shape; rows 6 and 7 held against their plain versions and timed at the
 cluster assembly's and the CSR product's inputs; the clustering's host
-seconds, clusters and largest cluster.
+seconds, clusters and largest cluster. And the example scripts of
+ceres_tpu_torch/examples/ (examples_phase): each through its main(argv) on
+the card against the JAX script's answer with the same arguments
+(scripts/examples_golden.py), bundle_adjuster.py at BAL-16's shape under
+SPARSE_SCHUR, DENSE_SCHUR, ITERATIVE_SCHUR and DENSE_SCHUR with
+--robustify and libmv_bundle_adjuster.py on libmv16 written to a file,
+each launching the kernels of its path, and one full_report.
 
     python3 chip_smoke.py
 
@@ -533,6 +539,112 @@ FLAT_ITERATIVE_PATH = ("segment_block_sum", "segment_block_expand",
 # chain alone (FLAT_ITERATIVE_PATH); DENSE_QR and DENSE_NORMAL_CHOLESKY run
 # no kernel (torch.linalg on the dense Jacobian, as the JAX package's)
 CGNR_PATH = ("normal_matvec",) + FLAT_ITERATIVE_PATH
+# the example scripts (port slice 17, examples_phase): each run of
+# ceres_tpu_torch/examples/ as "script arguments", bundle_adjuster.py at
+# BAL-16's shape (71,256 observations at its visibility of 0.2) under
+# SPARSE_SCHUR (its default), DENSE_SCHUR, ITERATIVE_SCHUR and DENSE_SCHUR
+# + HuberLoss, libmv_bundle_adjuster.py on libmv16 written to a file
+# (LIBMV16_FILE stands for its path), the others at the tests' arguments
+BA16_ARGS = "--num_cameras 16 --num_points 22106"
+LIBMV16_FILE = "LIBMV16_FILE"
+EXAMPLE_RUNS = (
+    "helloworld", "helloworld --diff analytic", "helloworld --diff numeric", "powell",
+    "curve_fitting", "curve_fitting --robust", "circle_fit",
+    "circle_fit --robust_threshold 1.0", "robot_pose_mle", "rosenbrock",
+    "rosenbrock --diff analytic", "rosenbrock --diff numeric", "callbacks_example",
+    "evaluation_callback_example", "libmv_homography", "ellipse_approximation",
+    "sampled_function", "bicubic_interpolation", "more_garbow_hillstrom --problem 1",
+    "more_garbow_hillstrom --problem 4 --trials 0,1", "pose_graph_2d", "pose_graph_3d",
+    "simple_bundle_adjuster", f"libmv_bundle_adjuster {LIBMV16_FILE}",
+    f"bundle_adjuster {BA16_ARGS}",
+    f"bundle_adjuster {BA16_ARGS} --linear_solver DENSE_SCHUR",
+    f"bundle_adjuster {BA16_ARGS} --linear_solver ITERATIVE_SCHUR",
+    f"bundle_adjuster {BA16_ARGS} --linear_solver DENSE_SCHUR --robustify",
+)
+# the kernels each bundle adjustment run must launch, under its path's name
+EXAMPLE_PATHS = {
+    f"bundle_adjuster {BA16_ARGS}": (
+        "examples_ba16_sparse_schur", ("segment_block_sum", "segment_block_expand")),
+    f"bundle_adjuster {BA16_ARGS} --linear_solver DENSE_SCHUR": (
+        "examples_ba16_dense_schur", DENSE_PATH),
+    f"bundle_adjuster {BA16_ARGS} --linear_solver ITERATIVE_SCHUR": (
+        "examples_ba16_iterative_schur", ("eval_fused", "post_eval_fused",
+                                          "schur_jacobi_blocks", "normal_matvec",
+                                          "isc_matvec")),
+    f"bundle_adjuster {BA16_ARGS} --linear_solver DENSE_SCHUR --robustify": (
+        "examples_ba16_dense_schur_huber",
+        ("eval_fused_loss",) + DENSE_PATH[1:]),
+    f"libmv_bundle_adjuster {LIBMV16_FILE}": (
+        "examples_libmv16", ("segment_block_sum", "segment_block_expand",
+                             "unsorted_segment_sum")),
+}
+# scripts/examples_golden.py: per run, one (termination, final cost, summary
+# rows, initial cost) per solve of the JAX script on the CPU
+EXAMPLES_GOLDEN = {
+    'helloworld':
+        [('CONVERGENCE', 5.012552151786674e-16, 4, 45.125)],
+    'helloworld --diff analytic':
+        [('CONVERGENCE', 5.012552151786674e-16, 4, 45.125)],
+    'helloworld --diff numeric':
+        [('CONVERGENCE', 5.012669139575181e-16, 4, 45.125)],
+    'powell':
+        [('CONVERGENCE', 1.1200286988691504e-15, 15, 107.50000000000001)],
+    'curve_fitting':
+        [('CONVERGENCE', 1.0936116841978245, 15, 129.07845432025718)],
+    'curve_fitting --robust':
+        [('CONVERGENCE', 5.775120749038229, 15, 20.649300874664092)],
+    'circle_fit':
+        [('CONVERGENCE', 68278.91167507549, 17, 307739.29099973425)],
+    'circle_fit --robust_threshold 1.0':
+        [('CONVERGENCE', 61.658899930830785, 26, 484.9489352491954)],
+    'robot_pose_mle':
+        [('CONVERGENCE', 2.902060294291427, 4, 2825.8888459721347)],
+    'rosenbrock':
+        [('CONVERGENCE', 1.3964810174638379e-25, 46, 24.199999999999992)],
+    'rosenbrock --diff analytic':
+        [('CONVERGENCE', 1.3964810174638379e-25, 46, 24.199999999999992)],
+    'rosenbrock --diff numeric':
+        [('CONVERGENCE', 3.989103929851951e-20, 46, 24.199999999999992)],
+    'callbacks_example':
+        [('CONVERGENCE', 1.0936116841978245, 15, 129.07845432025718)],
+    'evaluation_callback_example':
+        [('CONVERGENCE', 1.3029493255353997, 15, 123.15010826142512), ('CONVERGENCE', 1.3029493255353997, 15, 123.15010826142512)],
+    'libmv_homography':
+        [('USER_SUCCESS', 3.237330648928859, 4, 30329.156937811666)],
+    'ellipse_approximation':
+        [('CONVERGENCE', 0.00976802775477527, 27, 428.2189989252299), ('CONVERGENCE', 0.009768027754775269, 27, 428.2189989252299)],
+    'sampled_function':
+        [('CONVERGENCE', 1.041892696315879e-15, 15, 75.03125)],
+    'bicubic_interpolation':
+        [('CONVERGENCE', 1.1181922721803592e-22, 5, 249.19349011720215)],
+    'more_garbow_hillstrom --problem 1':
+        [('CONVERGENCE', 0.0, 39, 12.099999999999994)],
+    'more_garbow_hillstrom --problem 4 --trials 0,1':
+        [('CONVERGENCE', 5.383621143800467e-26, 23, 499999000001.5), ('CONVERGENCE', 1.8291932369418993e-24, 26, 499990004902.0)],
+    'pose_graph_2d':
+        [('CONVERGENCE', 1.8883560750444215, 8, 890.6858516991026)],
+    'pose_graph_3d':
+        [('CONVERGENCE', 0.6092367104451426, 7, 33.730747164310436)],
+    'simple_bundle_adjuster':
+        [('CONVERGENCE', 2369.1964639220805, 6, 804860.0365678342)],
+    'libmv_bundle_adjuster LIBMV16_FILE':
+        [('CONVERGENCE', 51910.426705318765, 22, 19022831.405149613)],
+    'bundle_adjuster --num_cameras 16 --num_points 22106':
+        [('CONVERGENCE', 39906.985626289534, 5, 71619.4320325047)],
+    'bundle_adjuster --num_cameras 16 --num_points 22106 --linear_solver DENSE_SCHUR':
+        [('CONVERGENCE', 39906.985626289534, 5, 71619.4320325047)],
+    'bundle_adjuster --num_cameras 16 --num_points 22106 --linear_solver ITERATIVE_SCHUR':
+        [('CONVERGENCE', 39907.03481618889, 9, 71619.4320325047)],
+    'bundle_adjuster --num_cameras 16 --num_points 22106 --linear_solver DENSE_SCHUR --robustify':
+        [('CONVERGENCE', 33844.55757257597, 44, 56542.2048463431)],
+}
+# the run whose full_report the phase prints
+FULL_REPORT_RUN = f"bundle_adjuster {BA16_ARGS} --linear_solver DENSE_SCHUR"
+# each final cost within EXAMPLES_REL of the JAX script's (or within
+# EXAMPLES_ABS_OF_INITIAL x the initial cost where the JAX one lies below
+# that), the same rows and termination
+EXAMPLES_REL = 1e-9
+EXAMPLES_ABS_OF_INITIAL = 1e-12
 # the kernel calls of the specialized pipeline, in the order of a k-call's
 # first iteration, each with its launches in a k-call, a * k + b: v1 gathers
 # the points at each of its k + 1 evaluations (7), sums the point rows (6),
@@ -670,6 +782,38 @@ def libmv16():
     b = bal.synthetic_bal(num_cameras=16, num_points=22106,
                           visibility=83718 / (16 * 22106), noise=1.0, seed=0)
     return libmv_instance(b, bal.perturb(b, 0.02, 0.2, 0.2, seed=1))
+
+
+def write_libmv_file(path, lp):
+    """Writes a LibmvProblem in the libmv bundle adjuster's binary problem
+    format, as models/libmv.read_libmv_file reads it: little-endian, float32
+    values, each camera's rotation as a column-major matrix (Rodrigues'
+    formula of its angle-axis), images and tracks numbered by position."""
+    import struct
+
+    aa = lp.cameras[:, :3]
+    theta = np.linalg.norm(aa, axis=1)
+    k = aa / np.where(theta > 0, theta, 1.0)[:, None]
+    K = np.zeros((len(aa), 3, 3))
+    K[:, 0, 1], K[:, 0, 2], K[:, 1, 2] = -k[:, 2], k[:, 1], -k[:, 0]
+    K = K - K.transpose(0, 2, 1)
+    c, s = np.cos(theta)[:, None, None], np.sin(theta)[:, None, None]
+    R = np.eye(3) + s * K + (1.0 - c) * (K @ K)
+    f32, i32 = np.dtype("<f4"), np.dtype("<i4")
+    cams = np.zeros(len(aa), [("image", i32), ("R", f32, 9), ("t", f32, 3)])
+    cams["image"] = np.arange(len(aa))
+    cams["R"] = R.transpose(0, 2, 1).reshape(-1, 9)
+    cams["t"] = lp.cameras[:, 3:6]
+    pts = np.zeros(len(lp.points), [("track", i32), ("X", f32, 3)])
+    pts["track"] = np.arange(len(lp.points))
+    pts["X"] = lp.points
+    marks = np.zeros(len(lp.markers), [("image", i32), ("track", i32), ("xy", f32, 2)])
+    marks["image"], marks["track"], marks["xy"] = lp.marker_cam, lp.marker_pt, lp.markers
+    with open(path, "wb") as fh:
+        fh.write(b"v" + struct.pack("<B", ord("P" if lp.is_image_space else "N")))
+        fh.write(np.asarray(lp.intrinsics, f32).tobytes())
+        for table in (cams, pts, marks):
+            fh.write(struct.pack("<i", len(table)) + table.tobytes())
 
 
 def libmv_venice():
@@ -1575,6 +1719,10 @@ def main():
     log("phase", f"the line search and inner iterations took "
         f"{time.monotonic() - t0:.1f} s")
 
+    # -- the example scripts ------------------------------------------------------
+    log("phase", f"the examples from {time.monotonic() - t_start:.1f} s")
+    log("phase", f"the examples took {examples_phase(kn, card, paths):.1f} s")
+
     # -- the Venice shape ------------------------------------------------------
     log("phase", f"the Venice shape from {time.monotonic() - t_start:.1f} s")
     t0 = time.monotonic()
@@ -2075,6 +2223,90 @@ def line_search_phase(ctt, bal, kn, dev, card, paths, drive, card_against_cpu):
                                      max_num_iterations=INNER_CARD_VS_CPU_ITERATIONS),
                          lambda: problem16()[0], None,
                          kernels=DENSE_PATH if loop == "ALWAYS" else HOST_PATH)
+
+
+def examples_phase(kn, card, paths):
+    """Every script of ceres_tpu_torch/examples/ through its main(argv) on
+    the card (EXAMPLE_RUNS, with --device cuda), its standard output kept
+    out of the log: each solve's final cost within EXAMPLES_REL of the JAX
+    script's (EXAMPLES_GOLDEN, scripts/examples_golden.py), the same rows
+    and termination; no plain version run on the card; each bundle
+    adjustment run (EXAMPLE_PATHS), with the counts set to 0 just before
+    it and read just after, launched each kernel of its path; the
+    full_report of FULL_REPORT_RUN printed, its Device line the card's.
+    Every run is made before a failure of the gates is raised. Returns the
+    phase's seconds."""
+    import contextlib
+    import importlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    t0 = time.monotonic()
+    kind = torch.cuda.get_device_name(0)
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        libmv_file = str(Path(tmp) / "libmv16.bin")
+        write_libmv_file(libmv_file, libmv16())
+        for key in EXAMPLE_RUNS:
+            name, *argv = key.split()
+            argv = [libmv_file if a == LIBMV16_FILE else a for a in argv]
+            mod = importlib.import_module(f"ceres_tpu_torch.examples.{name}")
+            out, stdin = io.StringIO(), sys.stdin
+            kn.reset_counts()
+            t1 = time.monotonic()
+            try:
+                sys.stdin = io.StringIO("")
+                with contextlib.redirect_stdout(out):
+                    ret = mod.main(argv + ["--device", "cuda"])
+            finally:
+                sys.stdin = stdin
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t1
+            launches, plain_calls = counts(kn)
+            summaries = ret if isinstance(ret, list) else [ret]
+            golden = EXAMPLES_GOLDEN[key]
+            check(len(summaries) == len(golden),
+                  f"{key}: {len(summaries)} solves, the JAX script {len(golden)}")
+            gaps = []
+            for s, (term, cost, rows, initial) in zip(summaries, golden):
+                floor = EXAMPLES_ABS_OF_INITIAL * abs(initial)
+                gap = abs(s.final_cost - cost)
+                tol = floor if abs(cost) < floor else EXAMPLES_REL * abs(cost)
+                gaps.append(gap if abs(cost) < floor else gap / abs(cost))
+                if (str(s.termination_type) != term or len(s.iterations) != rows
+                        or gap > tol):
+                    failures.append(
+                        f"{key}: {s.termination_type}, {len(s.iterations)} rows, final cost "
+                        f"{s.final_cost!r}; the JAX script {term}, {rows}, {cost!r}")
+                if s.device_kind not in ("", kind):
+                    failures.append(f"{key}: device {s.device_kind!r}")
+            if any(plain_calls.values()):
+                failures.append(f"{key}: a plain version ran on the card: {plain_calls}")
+            res = {"solves": len(summaries), "rows": [len(s.iterations) for s in summaries],
+                   "gaps": gaps, "wall_s": wall,
+                   "minimizer_s": sum(s.minimizer_time_in_seconds for s in summaries),
+                   "host_syncs": sum(s.num_host_syncs for s in summaries),
+                   "stdout_lines": len(out.getvalue().splitlines())}
+            if key in EXAMPLE_PATHS:
+                path, kernels = EXAMPLE_PATHS[key]
+                s = summaries[0]
+                res.update({"iterations": len(s.iterations) - 1, "launches": launches,
+                            "ms_per_iteration": 1e3 * s.minimizer_time_in_seconds
+                            / max(len(s.iterations) - 1, 1)})
+                if not all(launches[k] > 0 for k in kernels):
+                    failures.append(f"{key}: a kernel of its path launched no time: "
+                                    f"{launches}")
+                paths[path] = res
+            log(f"example {key}", json.dumps(res) + f"; {card}")
+            if key == FULL_REPORT_RUN:
+                report = summaries[0].full_report()
+                check(f"Device                    {kind} x1" in report.splitlines(),
+                      f"{key}: the report's Device line does not name the card")
+                for line in report.splitlines():
+                    log("full_report", line)
+    check(not failures, "the examples: " + "; ".join(failures))
+    return time.monotonic() - t0
 
 
 def cache_check(ctt, path, opts, build, card):

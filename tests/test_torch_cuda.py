@@ -1292,3 +1292,60 @@ def test_gradient_problem_on_card_matches_cpu(card):
                                                                      manifold=man), xg)
             assert s.is_solution_usable()
             np.testing.assert_allclose(xg, xc, rtol=0, atol=1e-12)
+
+
+# the example scripts at the arguments of the CPU tests
+# (test_torch_examples_small.py, _models.py, _ba.py); libmv_bundle_adjuster.py
+# on a file written as there
+CARD_EXAMPLES = [
+    ("helloworld", []), ("helloworld", ["--diff", "analytic"]),
+    ("helloworld", ["--diff", "numeric"]), ("powell", []), ("curve_fitting", []),
+    ("curve_fitting", ["--robust"]), ("circle_fit", []),
+    ("circle_fit", ["--robust_threshold", "1.0"]), ("robot_pose_mle", []),
+    ("rosenbrock", []), ("rosenbrock", ["--diff", "analytic"]),
+    ("rosenbrock", ["--diff", "numeric"]), ("callbacks_example", []),
+    ("evaluation_callback_example", []), ("libmv_homography", []),
+    ("sampled_function", []), ("bicubic_interpolation", []),
+    ("more_garbow_hillstrom", ["--problem", "1"]),
+    ("more_garbow_hillstrom", ["--problem", "4", "--trials", "0,1"]),
+    ("more_garbow_hillstrom", ["--problem", "7", "--constrained"]),
+    ("pose_graph_2d", []), ("pose_graph_3d", []),
+    ("ellipse_approximation", ["--num_points", "100", "--num_segments", "50"]),
+    ("simple_bundle_adjuster", []),
+    ("libmv_bundle_adjuster", ["LIBMV_FILE"]),
+] + [("bundle_adjuster", ["--num_points", "200", "--num_iterations", "10"] + a)
+     for a in ([], ["--linear_solver", "DENSE_SCHUR"], ["--linear_solver", "ITERATIVE_SCHUR"],
+               ["--robustify"], ["--inner_iterations"])]
+
+
+@pytest.mark.parametrize("name,argv", CARD_EXAMPLES,
+                         ids=[" ".join([n] + a) for n, a in CARD_EXAMPLES])
+def test_example_on_card_matches_cpu(card, monkeypatch, tmp_path, name, argv):
+    """Each example script with --device cuda against its run with
+    --device cpu: each solve's termination and rows the same, its final
+    cost within 1e-9 relative (or 1e-12 x the initial cost where the CPU's
+    lies below that)."""
+    import importlib
+    import io
+    import sys
+
+    import chip_smoke
+
+    if "LIBMV_FILE" in argv:
+        b = tbal.synthetic_bal(num_cameras=5, num_points=120, visibility=1.0, seed=0)
+        argv = [str(tmp_path / "problem.bin")]
+        chip_smoke.write_libmv_file(argv[0], chip_smoke.libmv_instance(
+            b, tbal.perturb(b, 0.02, 0.2, 0.2, seed=1)))
+    main = importlib.import_module(f"ceres_tpu_torch.examples.{name}").main
+    runs = []
+    for device in ("cpu", "cuda"):
+        monkeypatch.setattr(sys, "stdin", io.StringIO(""))
+        ret = main(argv + ["--device", device])
+        runs.append(ret if isinstance(ret, list) else [ret])
+    assert len(runs[1]) == len(runs[0])
+    for c, g in zip(*runs):
+        assert str(g.termination_type) == str(c.termination_type)
+        assert len(g.iterations) == len(c.iterations)
+        floor = 1e-12 * abs(c.initial_cost)
+        tol = floor if abs(c.final_cost) < floor else 1e-9 * abs(c.final_cost)
+        assert abs(g.final_cost - c.final_cost) <= tol, (g.final_cost, c.final_cost)
