@@ -23,10 +23,18 @@ takes every preconditioner (SCHUR_JACOBI, the power series, the cluster
 ones over visibility clustering) and the explicit Schur complement, and
 check_gradients tests the user's Jacobians before a solve. Cubic
 interpolation of sampled data sits inside autodiff functors, and
-examples/ holds the JAX package's example scripts over these modules. It
-imports torch and numpy only: nothing of jax and nothing of ceres_tpu.
+examples/ holds the JAX package's example scripts over these modules.
+After a solve, Covariance returns blocks of (J'J)^{-1} (dense SVD, the
+sparse QR of native/, with its camera core from the Schur complement on
+the card, or the normal equations); TinySolver solves many small dense
+problems in one batched LM loop; capi.py is the minimal functional API,
+utils/profiling.py the phase timers, models/nist.py and
+models/denoising.py the NIST StRD suite and Fields-of-Experts denoising.
+It imports torch, numpy and scipy only: nothing of jax and nothing of
+ceres_tpu.
 """
 from .callbacks import EvaluationCallback, IterationCallback
+from .covariance import Covariance, CovarianceOptions
 from .cost_function import (
     AnalyticCostFunction,
     AutoDiffCostFunction,
@@ -67,8 +75,10 @@ from .options import Options
 from .problem import ParameterBlock, ParameterBlockArray, Problem, ResidualBlock
 from .solver import solve
 from .summary import IterationSummary, Summary
+from .tiny_solver import TinySolver, TinySolverOptions, TinySolverSummary
 from .types import (
     CallbackReturnType,
+    CovarianceAlgorithmType,
     DoglegType,
     LineSearchDirectionType,
     LineSearchInterpolationType,
@@ -96,6 +106,9 @@ __all__ = [
     "ComposedLoss",
     "ConditionedCostFunction",
     "CostFunction",
+    "Covariance",
+    "CovarianceAlgorithmType",
+    "CovarianceOptions",
     "CubicInterpolator",
     "DoglegType",
     "EigenQuaternionManifold",
@@ -137,6 +150,9 @@ __all__ = [
     "SubsetManifold",
     "Summary",
     "TerminationType",
+    "TinySolver",
+    "TinySolverOptions",
+    "TinySolverSummary",
     "TolerantLoss",
     "TrivialLoss",
     "TrustRegionStrategyType",

@@ -6,5 +6,6 @@ of summaries where the script solves more than once.
 
     python -m ceres_tpu_torch.examples.helloworld --device cpu
 
-The nist and denoising examples wait for their models.
+nist.py and denoising.py read their data from files given by flags (the
+NIST StRD .dat files; a PGM image and an FoE model).
 """

@@ -1,9 +1,11 @@
-"""The host sparse Cholesky of the sparse direct solvers (counterpart of
-ceres_tpu/native/__init__.py): `sparse_cholesky.cc`, the port's own copy
-of the JAX package's source with the supernodal fast-path guard repaired,
-built with g++ at first use and bound through ctypes.
+"""The host sparse Cholesky of the sparse direct solvers and the sparse QR
+of the covariance (counterpart of ceres_tpu/native/__init__.py):
+`sparse_cholesky.cc`, the port's own copy of the JAX package's source with
+the supernodal fast-path guard repaired, and `sparse_qr.cc`, its copy of
+the George-Heath row-Givens QR; each built with g++ at first use and bound
+through ctypes.
 
-The library lands in `build/native/<key>/` at the root of the checkout
+Each library lands in `build/native/<key>/` at the root of the checkout
 (git-ignored). The key hashes the source, the compile flags, the
 compiler's path and version, and the host's instruction set as g++ sees it
 (`-march=native -Q --help=target`): `-march=native` code built on one host
@@ -17,9 +19,11 @@ compression, minimum-degree, nested-dissection and RCM candidates ranked
 by column counts, an elimination-tree postorder, and the simplicial or
 supernodal tier by the factor's density) and refactors new values on it;
 `RefinedSparseCholesky` factors in float32 and refines the solve in
-float64. `STATS` counts the factorizations and solves, their host
-seconds, the tier each factorization took and the bytes the sparse
-solvers brought from the device; `reset_stats()` zeroes it.
+float64; `solve_multi` solves many right-hand sides in one call.
+`STATS` counts the factorizations and solves, their host seconds, the
+tier each factorization took and the bytes the sparse solvers brought
+from the device; `reset_stats()` zeroes it. `SparseQR` holds R of a CSR
+matrix in the QR library's global state, one live factor at a time.
 """
 from __future__ import annotations
 
@@ -37,6 +41,8 @@ _DIR = pathlib.Path(__file__).resolve().parent
 SRC = _DIR / "sparse_cholesky.cc"
 BUILD_ROOT = _DIR.parent.parent / "build" / "native"
 LIB_NAME = "libct_sparse_cholesky.so"
+SRC_QR = _DIR / "sparse_qr.cc"
+QR_LIB_NAME = "libct_sparse_qr.so"
 FLAGS = ["-O3", "-march=native", "-funroll-loops", "-fPIC", "-shared", "-std=c++17"]
 
 STATS = {}
@@ -78,22 +84,30 @@ def build_key(source: bytes, flags, gxx: str, version: str, isa: str) -> str:
     return h.hexdigest()[:20]
 
 
-def build() -> pathlib.Path:
+def library_key(src: pathlib.Path, flags=FLAGS, source: bytes = None) -> str:
+    """The build directory's key of a library from `src` (its bytes, or
+    `source` in their place) built with `flags` by this host's g++."""
+    gxx = find_gxx()
+    return build_key(src.read_bytes() if source is None else source, flags, gxx,
+                     _run([gxx, "--version"]), host_isa(gxx))
+
+
+def build(src: pathlib.Path = SRC, lib_name: str = LIB_NAME, flags=FLAGS) -> pathlib.Path:
     """The library's path, built unless an identical build exists."""
     gxx = find_gxx()
-    key = build_key(SRC.read_bytes(), FLAGS, gxx, _run([gxx, "--version"]), host_isa(gxx))
+    key = library_key(src, flags)
     out_dir = BUILD_ROOT / key
-    lib = out_dir / LIB_NAME
+    lib = out_dir / lib_name
     if lib.is_file():
         return lib
     tmp = BUILD_ROOT / f"{key}.tmp{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir(parents=True)
     try:
-        res = subprocess.run([gxx, *FLAGS, str(SRC), "-o", str(tmp / LIB_NAME)],
+        res = subprocess.run([gxx, *flags, str(src), "-o", str(tmp / lib_name)],
                              capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"g++ failed on {SRC.name}:\n{res.stderr}")
+            raise RuntimeError(f"g++ failed on {src.name}:\n{res.stderr}")
         tmp.rename(out_dir)
     except OSError:  # another process finished the same build first
         if not lib.is_file():
@@ -130,6 +144,7 @@ def get_lib():
         "ct_super_factor_f32": (i32, [ptr, i64p, i32p, f64p, i32p, f32p]),
         "ct_chol_solve": (i32, [i32, i64p, i32p, f64p, f64p]),
         "ct_chol_solve_f32": (i32, [i32, i64p, i32p, f32p, f64p]),
+        "ct_chol_solve_multi": (i32, [i32, i32, i64p, i32p, f64p, f64p]),
         "ct_csr_matvec": (i32, [i32, i64p, i32p, f64p, f64p, f64p]),
         "ct_super_from_patterns": (ptr, [i32, i32, i32p, i64p, i32p, i64p]),
         "ct_super_guard_census": (None, [ptr, i64p]),
@@ -196,9 +211,7 @@ class SparseCholesky:
             score = int(np.sum(cc * gsize[bperm].astype(np.int64)))
             if best is None or score < best_score:
                 best, best_score = bperm, score
-        block_pos = np.zeros(nq, np.int64)
-        block_pos[best] = np.arange(nq)
-        return np.lexsort((np.arange(self.n), block_pos[gof])).astype(np.int32)
+        return _expand_ordering(gof, best)
 
     def _permuted_pattern(self, lib, perm, indptr, indices):
         """(pindptr, pindices, value_perm) of A'[iperm[i], iperm[j]] = A[i, j]."""
@@ -271,6 +284,17 @@ class SparseCholesky:
         STATS["solve_s"] += time.perf_counter() - t0
         return x[self.iperm]
 
+    def solve_multi(self, B) -> np.ndarray:
+        """Solves for the columns of B (n, m) in one call."""
+        t0 = time.perf_counter()
+        B = np.asarray(B, np.float64)
+        m = B.shape[1]
+        flat = np.ascontiguousarray(B[self.perm, :].T).reshape(-1)
+        self._lib.ct_chol_solve_multi(self.n, m, self.Lp, self.Li, self.Lx, flat)
+        STATS["solves"] += m
+        STATS["solve_s"] += time.perf_counter() - t0
+        return flat.reshape(m, self.n).T[self.iperm, :]
+
 
 class RefinedSparseCholesky:
     """Mixed-precision sparse direct solve: a float32 factorization and
@@ -310,6 +334,29 @@ class RefinedSparseCholesky:
         return x[b.iperm]
 
 
+def minimum_degree_ordering(n, indptr, indices) -> np.ndarray:
+    """The minimum-degree permutation (new -> old) of a symmetric pattern
+    with its diagonal: ordered on the quotient graph of its supervariables
+    (a block's columns, which share their adjacency, are one node) and
+    expanded to columns, each group's in its own order. Ordering the
+    columns themselves costs a dense column's degree at every elimination:
+    minutes at BAL-16's 66k columns."""
+    indptr = np.ascontiguousarray(indptr, np.int64)
+    indices = np.ascontiguousarray(indices, np.int32)
+    gof, qptr, qidx, _ = _compress_supervariables(n, indptr, indices)
+    bperm = np.zeros(int(qptr.shape[0]) - 1, np.int32)
+    get_lib().ct_mindeg(bperm.shape[0], qptr, qidx, bperm)
+    return _expand_ordering(gof, bperm)
+
+
+def _expand_ordering(gof, bperm) -> np.ndarray:
+    """The column permutation (new -> old) of a quotient-graph ordering
+    bperm: each group's columns together, in their own order."""
+    block_pos = np.zeros(bperm.shape[0], np.int64)
+    block_pos[bperm] = np.arange(bperm.shape[0])
+    return np.lexsort((np.arange(gof.shape[0]), block_pos[gof])).astype(np.int32)
+
+
 def _compress_supervariables(n, indptr, indices):
     """Columns of identical closed adjacency grouped (ct_compress) and the
     quotient graph: (group of each column (n,), qptr, qidx, group sizes)."""
@@ -321,3 +368,91 @@ def _compress_supervariables(n, indptr, indices):
     qptr = np.ascontiguousarray(qptr_full[:nq + 1])
     qidx = np.ascontiguousarray(qidx_full[:int(qptr[nq])])
     return gof, qptr, qidx, np.bincount(gof, minlength=nq).astype(np.int64)
+
+
+_qr_lib = None
+
+
+def get_qr_lib():
+    """The sparse QR library (sparse_qr.cc), built like the Cholesky's."""
+    global _qr_lib
+    if _qr_lib is not None:
+        return _qr_lib
+    lib = ctypes.CDLL(str(build(SRC_QR, QR_LIB_NAME)))
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    i32, i64 = ctypes.c_int32, ctypes.c_int64
+    sigs = {
+        "ct_qr_factor": (i64, [i32, i32, i64p, i32p, f64p]),
+        "ct_qr_factor_split": (i64, [i32, i32, i64p, i32p, f64p, i32]),
+        "ct_qr_set_dense": (None, [f64p]),
+        "ct_qr_diag": (None, [f64p]),
+        "ct_qr_solve_multi": (i32, [i32, f64p, f64p]),
+        "ct_qr_free": (None, []),
+    }
+    for name, (res, args) in sigs.items():
+        fn = getattr(lib, name)
+        fn.restype = res
+        fn.argtypes = args
+    _qr_lib = lib
+    return lib
+
+
+class SparseQR:
+    """R of the QR of a CSR matrix by row-Givens with sparse R rows
+    (native/__init__.py:339-443 of the JAX package). The factor lives in
+    the library's global state: ONE SparseQR is live at a time, and making
+    another invalidates the one before (its methods then raise)."""
+
+    _live = None
+
+    def __init__(self, nrows, ncols, indptr, indices, data,
+                 schur_tail_split: "int | None" = None):
+        """schur_tail_split: factor only the columns [0, split) by
+        row-Givens and drop what reaches [split, ncols): the caller installs
+        the trailing R_cc = chol(S)' by set_dense before diag() or a solve."""
+        lib = get_qr_lib()
+        self._lib = lib
+        self.ncols = int(ncols)
+        args = (int(nrows), int(ncols), np.ascontiguousarray(indptr, np.int64),
+                np.ascontiguousarray(indices, np.int32),
+                np.ascontiguousarray(data, np.float64))
+        t0 = time.perf_counter()
+        if schur_tail_split is None:
+            nnz = lib.ct_qr_factor(*args)
+        else:
+            nnz = lib.ct_qr_factor_split(*args, int(schur_tail_split))
+        self.factor_s = time.perf_counter() - t0
+        self.nnz_R = int(nnz)
+        SparseQR._live = self
+
+    def _check_live(self):
+        if SparseQR._live is not self:
+            raise RuntimeError("another SparseQR replaced this one")
+
+    def set_dense(self, Rcc: np.ndarray):
+        """Installs the (m, m) row-major upper-triangular trailing block."""
+        self._check_live()
+        self._lib.ct_qr_set_dense(np.ascontiguousarray(Rcc, np.float64))
+
+    def diag(self) -> np.ndarray:
+        """|diag(R)|; 0.0 marks a structurally empty (rank-deficient) row."""
+        self._check_live()
+        d = np.zeros(self.ncols, np.float64)
+        self._lib.ct_qr_diag(d)
+        return d
+
+    def solve_normal_multi(self, B) -> np.ndarray:
+        """(A'A)^{-1} B = R^{-1} R^{-T} B for an (ncols, k) B."""
+        self._check_live()
+        B = np.ascontiguousarray(B, np.float64)
+        X = np.zeros_like(B)
+        if self._lib.ct_qr_solve_multi(B.shape[1], B, X) != 0:
+            raise np.linalg.LinAlgError("rank-deficient R in sparse QR")
+        return X
+
+    def free(self):
+        if SparseQR._live is self:
+            self._lib.ct_qr_free()
+            SparseQR._live = None

@@ -174,8 +174,10 @@ def row_pair_members(slots_a, slots_b, nv_a: int, nv_b: int, device):
     out = []
     for k, sa, la in slots_a:
         for k2, sb, lb in slots_b:
+            if k2 != k:
+                continue
             keep = (la < nv_a) & (lb < nv_b)
-            if k2 != k or not keep.any():
+            if not keep.any():
                 continue
             idx = np.flatnonzero(keep)
             out.append(((k, sa, sb, None if keep.all() else torch.as_tensor(idx, device=device)),

@@ -18,7 +18,7 @@ import numpy as np
 
 from .cost_function import CostFunction
 from .loss import LossFunction
-from .manifolds import Manifold
+from .manifolds import EuclideanManifold, Manifold
 from .utils.tree import tree_leaves, tree_map
 
 
@@ -45,6 +45,10 @@ class ParameterBlock:
         if self.constant:
             return 0
         return self.manifold.tangent_size if self.manifold else self.size
+
+    def effective_manifold(self) -> Manifold:
+        """The block's manifold, Euclidean where it has none."""
+        return self.manifold if self.manifold is not None else EuclideanManifold(self.size)
 
     def set_lower_bound(self, coord: int, value: float):
         if self.lower_bounds is None:

@@ -6,9 +6,13 @@ small-angle branches keep their derivatives finite at the branch point.
 Quaternions are Hamilton, w first: [w, x, y, z] (as rotation.h). The
 Snavely and libmv camera models rotate by `angle_axis_rotate_point`, the
 quaternion-camera model by `unit_quaternion_rotate_point`; the libmv
-reader needs `rotation_matrix_to_angle_axis`.
+reader needs `rotation_matrix_to_angle_axis`. Users' cost functions also
+get the Rodrigues matrix, the cross-product matrix and Euler angles in
+degrees (rotation.h's legacy helper) or in any of the 24 conventions.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -141,3 +145,149 @@ def quaternion_to_angle_axis(q: torch.Tensor) -> torch.Tensor:
 
 def rotation_matrix_to_angle_axis(R: torch.Tensor) -> torch.Tensor:
     return quaternion_to_angle_axis(rotation_matrix_to_quaternion(R))
+
+
+def angle_axis_to_rotation_matrix(angle_axis: torch.Tensor) -> torch.Tensor:
+    """rotation.h AngleAxisToRotationMatrix (Rodrigues); below theta^2 <= eps
+    the first-order R = I + [w]_x, as the reference's small branch."""
+    theta, theta2 = _safe_sqrt_sum_sq(angle_axis)
+    eps = torch.finfo(angle_axis.dtype).eps
+    small = theta2[..., 0] <= eps
+    axis = angle_axis / torch.where(theta2 > eps, theta, torch.ones_like(theta))
+    wx, wy, wz = axis[..., 0], axis[..., 1], axis[..., 2]
+    ct = torch.cos(theta[..., 0])
+    st = torch.sin(theta[..., 0])
+    one_ct = 1.0 - ct
+    R_big = torch.stack([
+        torch.stack([ct + wx * wx * one_ct, wx * wy * one_ct - wz * st,
+                     wy * st + wx * wz * one_ct], -1),
+        torch.stack([wz * st + wx * wy * one_ct, ct + wy * wy * one_ct,
+                     -wx * st + wy * wz * one_ct], -1),
+        torch.stack([-wy * st + wx * wz * one_ct, wx * st + wy * wz * one_ct,
+                     ct + wz * wz * one_ct], -1),
+    ], -2)
+    ax, ay, az = angle_axis[..., 0], angle_axis[..., 1], angle_axis[..., 2]
+    one = torch.ones_like(ax)
+    R_small = torch.stack([
+        torch.stack([one, -az, ay], -1),
+        torch.stack([az, one, -ax], -1),
+        torch.stack([-ay, ax, one], -1),
+    ], -2)
+    return torch.where(small[..., None, None], R_small, R_big)
+
+
+def euler_angles_to_rotation_matrix(euler_deg: torch.Tensor) -> torch.Tensor:
+    """rotation.h EulerAnglesToRotationMatrix: three angles in degrees,
+    composed about Z, Y and X in the reference's layout."""
+    rad = euler_deg * (math.pi / 180.0)
+    c = torch.cos(rad)
+    s = torch.sin(rad)
+    c1, c2, c3 = c[..., 0], c[..., 1], c[..., 2]
+    s1, s2, s3 = s[..., 0], s[..., 1], s[..., 2]
+    return torch.stack([
+        torch.stack([c1 * c2, -s1 * c3 + c1 * s2 * s3, s1 * s3 + c1 * s2 * c3], -1),
+        torch.stack([s1 * c2, c1 * c3 + s1 * s2 * s3, -c1 * s3 + s1 * s2 * c3], -1),
+        torch.stack([-s2, c2 * s3, c2 * c3], -1),
+    ], -2)
+
+
+def cross_product_matrix(v: torch.Tensor) -> torch.Tensor:
+    """[v]_x, the skew-symmetric matrix of v x ."""
+    z = torch.zeros_like(v[..., 0])
+    return torch.stack([
+        torch.stack([z, -v[..., 2], v[..., 1]], -1),
+        torch.stack([v[..., 2], z, -v[..., 0]], -1),
+        torch.stack([-v[..., 1], v[..., 0], z], -1),
+    ], -2)
+
+
+# Generalized Euler angles (rotation.h:214-353 EulerAnglesToRotation /
+# RotationMatrixToEulerAngles over euler_angles.h's 24 EulerSystem tags):
+# conventions "IntrinsicZYX", "ExtrinsicXYX", ...; angles in radians,
+# ordered by the axis sequence.
+
+_EULER_AXES = {"X": 0, "Y": 1, "Z": 2}
+
+
+def _parse_euler_convention(convention: str):
+    c = convention.strip()
+    if c.startswith("Intrinsic"):
+        intrinsic, seq = True, c[len("Intrinsic"):]
+    elif c.startswith("Extrinsic"):
+        intrinsic, seq = False, c[len("Extrinsic"):]
+    else:
+        raise ValueError(f"convention must start with Intrinsic/Extrinsic: {convention}")
+    if len(seq) != 3 or any(a not in _EULER_AXES for a in seq):
+        raise ValueError(f"bad axis sequence {seq!r}")
+    axes = tuple(_EULER_AXES[a] for a in seq)
+    if axes[0] == axes[1] or axes[1] == axes[2]:
+        raise ValueError(f"consecutive axes must differ: {seq!r}")
+    return intrinsic, axes
+
+
+def _axis_rotation(axis: int, theta: torch.Tensor) -> torch.Tensor:
+    """The (3, 3) rotation by theta about one coordinate axis."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    one, zero = torch.ones_like(theta), torch.zeros_like(theta)
+    i, j = (axis + 1) % 3, (axis + 2) % 3
+    R = [[zero] * 3 for _ in range(3)]
+    R[axis][axis] = one
+    R[i][i], R[j][j] = c, c
+    R[i][j], R[j][i] = -s, s
+    return torch.stack([torch.stack(row) for row in R])
+
+
+def _is_even(i, j, k):
+    return (i, j, k) in ((0, 1, 2), (1, 2, 0), (2, 0, 1))
+
+
+def _as_float(a) -> torch.Tensor:
+    a = torch.as_tensor(a)
+    return a if a.is_floating_point() else a.to(torch.float64)
+
+
+def euler_angles_to_rotation(convention: str, angles) -> torch.Tensor:
+    """The rotation matrix of any of the 24 Euler conventions
+    (EulerAnglesToRotation, rotation.h:221). Intrinsic sequences rotate in
+    the body frame (R = R_a1(t1) R_a2(t2) R_a3(t3)), extrinsic ones in the
+    global frame (R = R_a3(t3) R_a2(t2) R_a1(t1))."""
+    intrinsic, (a1, a2, a3) = _parse_euler_convention(convention)
+    angles = _as_float(angles)
+    t1, t2, t3 = angles[0], angles[1], angles[2]
+    if intrinsic:
+        return _axis_rotation(a1, t1) @ _axis_rotation(a2, t2) @ _axis_rotation(a3, t3)
+    return _axis_rotation(a3, t3) @ _axis_rotation(a2, t2) @ _axis_rotation(a1, t1)
+
+
+def rotation_matrix_to_euler_angles(convention: str, R) -> torch.Tensor:
+    """The inverse of euler_angles_to_rotation (RotationMatrixToEulerAngles,
+    rotation.h:253): Tait-Bryan angles by the Shoemake index formulas,
+    proper Euler angles (first axis repeated last) by the arccos
+    mid-angle branch."""
+    intrinsic, axes = _parse_euler_convention(convention)
+    R = _as_float(R)
+    if not intrinsic:  # Extrinsic(a1 a2 a3)(t1, t2, t3) == Intrinsic(a3 a2 a1)(t3, t2, t1)
+        i, j, k = axes[2], axes[1], axes[0]
+    else:
+        i, j, k = axes
+    if i != k:  # Tait-Bryan
+        e = 1.0 if _is_even(i, j, k) else -1.0
+        t2 = torch.arcsin(torch.clamp(e * R[i, k], -1.0, 1.0))
+        t1 = torch.atan2(-e * R[j, k], R[k, k])
+        t3 = torch.atan2(-e * R[i, j], R[i, i])
+    else:  # proper Euler: i == k, free axis l
+        l = 3 - i - j
+        e = 1.0 if _is_even(i, j, l) else -1.0
+        t2 = torch.arccos(torch.clamp(R[i, i], -1.0, 1.0))
+        t1 = torch.atan2(R[j, i], -e * R[l, i])
+        t3 = torch.atan2(R[i, j], e * R[i, l])
+    out = torch.stack([t1, t2, t3])
+    return out if intrinsic else out.flip(0)
+
+
+EULER_CONVENTIONS = tuple(
+    f"{frame}{a}{b}{c}"
+    for frame in ("Intrinsic", "Extrinsic")
+    for a in "XYZ" for b in "XYZ" for c in "XYZ"
+    if a != b and b != c
+)

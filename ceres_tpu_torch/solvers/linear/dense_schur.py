@@ -58,8 +58,10 @@ def _pair_group(slots_a, slots_b, fam_a, fam_b, device) -> Optional[PairGroup]:
     members, keys = [], []
     for k, sa, la in slots_a:
         for k2, sb, lb in slots_b:
+            if k2 != k:
+                continue
             keep = (la < nv_a) & (lb < nv_b)
-            if k2 != k or not keep.any():
+            if not keep.any():
                 continue
             idx = np.flatnonzero(keep)
             members.append((k, sa, sb, None if keep.all()

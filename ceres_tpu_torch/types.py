@@ -112,6 +112,11 @@ class LoggingType(_StrEnum):
     PER_MINIMIZER_ITERATION = enum.auto()
 
 
+class CovarianceAlgorithmType(_StrEnum):
+    DENSE_SVD = enum.auto()
+    SPARSE_QR = enum.auto()
+
+
 class NumericDiffMethodType(_StrEnum):
     CENTRAL = enum.auto()
     FORWARD = enum.auto()

@@ -816,6 +816,501 @@ def write_libmv_file(path, lp):
             fh.write(struct.pack("<i", len(table)) + table.tobytes())
 
 
+# NIST-format problems of the five shapes of tests/test_nist.py's fast subset
+# (port slice 18): the model, its parameters (the StRD certified values),
+# the predictor's points, two starts (the StRD starting values) and the
+# responses' relative noise (Lanczos3's data are the model's values to
+# five digits: more noise leaves its six parameters unidentifiable)
+# the covariance phase's 400-camera core (the JAX slow test's instance) and
+# the camera blocks it asks for
+COV400 = dict(num_cameras=400, num_points=2500, mean_track=6.0, cam_window=40, seed=0)
+COV400_BLOCKS = 16  # 64 took 14.5 s of host column solves on the card, 13.4 on the CPU
+# the covariance paths of phase (a), by Covariance.stats["path"], and the
+# kernel rows each launches on the card (the pure QR none: its evaluation
+# is the plain one, its factor the host's); denoising's flat CGNR (one
+# pixel family, its rows sorted by it: row 6 sums, row 7 gathers, no row 9)
+COV16_PATHS = {"qr": {}, "schur_tail": dict(schur_tail_min_cols=128),
+               "normal_equations": dict(use_normal_equations=True)}
+COV_PATH_ROWS = {"qr": (), "schur_tail": ("segment_block_sum", "segment_block_expand",
+                                          "segment_spread_sum", "unsorted_segment_sum"),
+                 "normal_equations": ("segment_block_sum", "segment_block_expand"),
+                 "denoise": ("segment_block_sum", "segment_block_expand")}
+COV16_REL = 1e-8
+ROTATION_BATCH = 1 << 16
+TINY_LANES = 1 << 20  # TinySolver.solve_batch's lanes on the card
+TINY_GOLDEN_LANES = 4096  # the first lanes, held to the JAX solve_batch's
+# the golden's units: a lane's x - truth, its final cost over its initial
+TINY_X_QUANTUM = 5e-10
+TINY_COST_QUANTUM = 1e-13
+DENOISE_SIZE = 256  # examples/denoising.py's image, pixels a side
+DENOISE_ITERATIONS = 20
+NIST_SHAPES = {
+    "Misra1a": ("misra1a", (238.94212918, 5.5015643181e-04), np.linspace(77.6, 790.2, 14),
+                ((500.0, 1.0e-04), (250.0, 5.0e-04)), 2e-3),
+    "DanWood": ("danwood", (0.76886226176, 3.8604055871), np.linspace(1.309, 2.274, 6),
+                ((1.0, 5.0), (0.7, 4.0)), 2e-3),
+    "Lanczos3": ("lanczos", (0.086816414977, 0.95498101505, 0.84400777463, 2.9515951832,
+                             1.5825685901, 4.9863565084), 0.05 * np.arange(24),
+                 ((1.2, 0.3, 5.6, 5.5, 6.5, 7.6), (0.5, 0.7, 3.6, 4.2, 4.0, 6.3)), 1e-5),
+    "Rat42": ("rat42", (72.462237576, 2.6180768402, 0.067359200066),
+              np.array([9.0, 14.0, 21.0, 28.0, 42.0, 57.0, 63.0, 70.0, 79.0]),
+              ((100.0, 1.0, 0.1), (75.0, 2.5, 0.07)), 2e-3),
+    "Eckerle4": ("eckerle4", (1.5543827178, 4.0888321754, 451.54121844),
+                 np.linspace(400.0, 500.0, 35), ((1.0, 10.0, 500.0), (1.5, 5.0, 450.0)), 2e-3),
+}
+
+
+# The JAX package's answers on port slice 18's paths (satellite_phase):
+# scripts/tiny_solver_golden.py (TinySolver: the first TINY_GOLDEN_LANES
+# lanes' iterations, x - truth in TINY_X_QUANTUM units, final over initial
+# cost in TINY_COST_QUANTUM units, packed; Rosenbrock's x, final cost and
+# iterations) and scripts/nist_denoising_golden.py (each NIST start's final
+# cost; the denoising rows' costs and CG iterations)
+TINY_GOLDEN = {
+    "iterations": (
+        'eNqNl1kSwjAMQ2de7n9nGKY0XiQn5aO0BMeLJDtr7Yvv53dLj/sN71dY7SLd3rfBBm4V2QnebfpCwttqj7r5'
+        'Gw91S6KHaBP8/zb9O1nqoYmHFBQqZ4PxpdOP8MoajZEitoHnZ+JuVH8fA0j/kb761Hh3DVLQd6ylHW+rqnYf'
+        'B/QWR8EhPCAWFChUW/R6kZCZ005PAUgkoXKHc4i4A4rOICrWS4hkOHOd6XwlB01HFAfivKGA4Q+pYBPIpAi4'
+        'IBjX/JCBgDF1mdlBxh0j2DXkQKaY8815PLuWgGZxSitzBnCGrHYK91gVCImhEwoL1vBq0wQGX39DkBtoKE+3'
+        'UEGiYM8+ug9TwcTkgnGcCftwIeJ/dN20M2pMm79Y9bcunZpxTXTofJQ9D9mbBhsMjQW0jTLg+jt2SHjcp1Ej'
+        'zlmxK8wMTFJxGFsUS/D9yFMU0ViaLarsqJmRyUu6uPV5l0gluEf/a6mOUASxF5UrI+Nxwkl0lZUUpHLZsSPC'
+        'ylNU8M4ABjSvL69YU8ax2Uk+R9WjwktPyER0MJE2DDA47zgHLU4AEYBwGqUmlFzKtj4KNq6s5SSePKaw5Gmi'
+        'N0ragTTRKK0TiYALneZ40qpia0coLHdw6qOmwzWf7BCyxXg4kWHuJH4A+ZotoA=='),
+    "x_minus_truth": (
+        'eNq1XQmQHsV1nvn3QBI6kWSBgYAwlwAbsDjCYcDCnHbhCgECNokdOy4biA0GLAIURcAGx4BxMJAY20DA4igI'
+        'lzBnLAjIHLbAFCKAkNCiAwkJSauVtNr9r5nJPPbr2qe33T2v519NVdf/778z09frd3zv9eso8l9JlmXme6b4'
+        'nrLvZa4T8rJHXi4S74nzskNeHmC/9VrqorY02O/N/HtH/rlNXm6Io5av2FLvm/nfO+Wf5yVb/t6P+w7Bc9S2'
+        'umd8KnnpzMtqcQ89R8+3s7GmPt6dl//Ny4s0SflFz68Tc1HB9w34XY4Pnz96TRvaMdLyf9tYL83Lh3k5znGP'
+        'dsgvzMsz+Tveigfm+dC83IF+S7pqlcaKaFheNF5U53rPONjWi+ueFDQ5Pi8LPPWmmI+Nyr43B8ggW4NPGrsq'
+        'u7+uaFvWwj2y7WbuavhOzzXFe0bnn+Py8sv8+xfzz13zsh3ab54NaVvquYfGcVNe/oqtjXXi/S+gjYsFDzH9'
+        '2Szun5x/7pKXPUHrsYUGzFw0lH2hPn82/36jZ5xj1jbX+G+NtcCv/wM/m59u+WxcQG+utnW02LaVoKeLUAcV'
+        '4tWHgp8tyb93Yd6XpkPfE2M8uzH/c0RdhgbqyvZQPURrzzrok57dAJr8nYceYnavbC/R2gceuWxbdxoakPfv'
+        'npeD8nIpW5sJkyndDl5N/yPZ+y7JKXZPg7WN1tRErK2bC2g+ZnLVdk3N//cy8erY388K3kPydtu8vKMYn8Qy'
+        'tsSfl4tnt8vLfWJd2PpCda8S7+zE/yYwOpuXf9LfO+flNcWacvGf+jDJzaSELCA+S+P8vJJX87+7oV9d7aFz'
+        'WkM0D3OV80jrcmxebhbysQPt2lyCH7ouo1P1Yx5iIddi0fez8/L5/PvBFfv8avVtuU598yjlTw/45+FYlyNA'
+        'h0vw+3xFv7n+2Sn+t1de3ifepdAVM9RJF+kz20EXfgq/G12beD3pDz8oWHcZ+lckW1MPvRlZ0MSaJV3uN+xZ'
+        'at+xedk+L9cp7KYIdg/R8WOsjimibaflhXjl0fFAXRXoh4auNop37oQ2Hh7b7SONnPXRv5nXzdCPqf17OeRm'
+        'v+D/ZL/cn5en48E6XHW1KeyRVLzf3KfVe2tMXyhaX1KPNXTel39PQBNvWO6hzz7PeNIYkv3z97FOF0qg174r'
+        '3tmL/rzOxrXpsPsaSv5G94/KP19S8m3X9Tl8LlD0sWiNtnrZ9LEOyzriVxV22fueNULtIx7z74wOm2wuEvCy'
+        'qqA3/q56oE7SrrTZSQd+Utiz5j1cTzA0Ews8w1zfy8vpebnHwm/bPLYbX+uhOolcj8bm/dDxnn5Rr5yLEPso'
+        'ZjZCyLO07sfg2cNYO6Qe1cb4kKu/RTzEt3ZGwMa6g8211AESyJ2Nivc3Au07WZexcw9GW+i5BwJlUIX9ryls'
+        'EDNfDTHv7Xiuy6GDaWxq2Ueqg/jae0yX7PaMoblqXM6XxGGKZHob2vuxRS4bWuL28l/ychbZbKndHqR5XJYX'
+        'oqPb2dzVSuj2ITw/Y3TbcNiqvvfz/pZtp5YvcQxEYnE0fiOjcNlHNtRU6L28nncxbzvHA+1oCv02ZfTWD/on'
+        'PvBhoI0j+fZB0Hv/RvFsDfW3Qy4W3d+vsHfod8Ld3oPOXBH6sOGxO6LO0/MyHv2+lfGKpACL2xaYfMLoh3gH'
+        '/fbDdPA9Tay10dDjY4EfJ8Ku1Og39MxdsPsXxQNyhLCAc0rIrxGYrysZP2ygzZHANn02PvWN2vELBf1UxTs5'
+        'Hx4LXO7FtBijljK/B3Nzu7jf9GEnC7+1vX8qdPY7yW7Jv38qLx94bHPJTwjbOjwuln1pCUzY0G+/w77TYi82'
+        'udOw8Cuzrmm9rMg/71XyyZjhG5o1a76vEe9cCTlItDUZfoFjAn2RoXpZzfPsH2GjTon9mAmny3bgzLwOTTuN'
+        'fbheST/HYu3sLvwstrpihe3Q6eD1DaX9q6H/dvi77lHO3Ui0fb1j7fQG6p9xSX1D2kf9WPttaJvLV2XzB/no'
+        'lvjz2vy3rw+TD46uSbDFkrQ8hin1XtJzd4TtFxX0MWphzM3fNM+nYswrkD+ausya6gW/I3mz0IKTUNt3t+jF'
+        'ks7L6LQP5oUwwK6kuM11tpZf9ozVR/n/FkL/iJjO46J54qVH5eX8Ah4ufQTNraDDt+KjLHpX7OFXho7onsdE'
+        'H5cDb5/l6ItNdnd6eGkqeC/5Scl3M0FJ/xVh19r4cA10a8Mh6X+vMuzmYxZvsJi9t6qQEbzeNmA+++ZlTqzz'
+        'G2ov7hMpsiWNvdkdyHOqmd3nWwNPM7ETNr1Ryv1VGNPDPFiKzW5NoTuTDfJcXki/Ib/o22nYmkoL+p4W2JhZ'
+        'gC3smq9tHfK1Ymlnxnw15toO+vZd6aC91q/kLRXU12eZ39TznsRC87FlPJdifn8dD9otm4HXToQN5sPEDD3s'
+        'Fg3EtJyg1JcqjFe57qc4qa8RDu+hmYTpJN2we28Gr6M6rhfP/AX40K2iPTQG5EM4J6+L9HHC6xYz39dapa5l'
+        'fOWbHD6ItCCOIgbebnjeI8MoO3hbPoJ/8UKF3yETOENZ/4XkGxfmf/9nXm6DvU9687/BNvp9/nlLgMy18aWX'
+        'YT9/Px6sf43jPSMcukLVwifJFv4d7OhpZBcX6GYP5+WnBfqABm+PLf5B8qH9iWzZSrHu0fTQsPEvbHTE1Ml5'
+        'Hwme9kQ8OMcGR9qM/0ted7jF1rDZX67xMdiS8deb71w+Uv3/lH8uysuzbX6cLoYdIvG4EZbfXddRwCW70gF+'
+        'Q+/stugqJtaC+Azp56djfZNu+5RDtspx6ASfOt+xBs38tkPmuK6FiKU6E7b//vnnZRb/CM3JIuUa53ZED/yL'
+        'zyjHMEVdKywyohN6nW1dVR2YgEuv6/K0ZzHwoJ0csSJ1z7yQvCA/wUslcCof3/DpA+sYzdSUPJnu3WCJwaM5'
+        'I9/UFYExdakDE6Nrv2ggju6daMCPfhetg8rgu3sUPiNN/EYTsTBnEEaRthYLavr6cw+mRzjIjPz7b0XbdsWa'
+        'meKJ66gwHmPjsXS9Chx+msBaTfzjCA/Gshr2feqIUXTJmlj8j/COI0gHUtBVG3uuXhDvEQFP8eGKKXT1OBrq'
+        'I7bJZ9PH0fBHXIu1QXrtMcKmM34J0g2PAo//0TDF24dgAqkjxtWH9TUQW0gYx5tiXoz9u8Jh72SB+KELf0sU'
+        'PDZT3EPXcugI3B6MLTZMF3xernYuhz7/28D9OxlbgwmzfY1fZSViRyTvpTEbx2ReTTm2lYL5rVv8mO3QJUzs'
+        '9L6OOaqw8asq6JnHDyxCPbFFzrrm9CHM3dUFOL+UTSmTWT6Zwnmxdu3FSqw+VWJTpGdRrPRp6WCbpa1q+NSN'
+        'Fn9ZG9ZjyPoy8T2nkvxU2PXSD7UPxdRSuytD+2JivnYEnkF85ED0aa/Evq9ByvQLgL/OTXU4f8WBR+0NHjZL'
+        'PPs62rizx2Ycgzk83EIzBhfdHv6Af1Dathp9rI3JWNc9TbSdYldn5N/JNjxWEfuXWmSx8RvbZITPBqf19gTp'
+        'opGuXsPHGllxLHF1GGPFbX3X4LRNB39IA+VdBsyKfJiXicqmYI2sFPrkQdBjfgN9rIF4fRufn+zQtST/oTiw'
+        'r+afX00HaJ9k/HzH/Q1HbK18/yZgO2d7xr1isWuKfAH02WOxHVIPPkbXnsBJLgIvIpvuBvyvXennMvRBtvkr'
+        'zEfWo6TDcZjTeY444dhSF2ErD2JPCj17lIgT+3T++QfykcRuH6LrewweNcPyeyXy+981Mno7+M/2d/gaDA3Q'
+        'fCxQ1OXTJ9vAl6/x8BkjFzm9bSN4p0aPqjNd19XWEcCanmTz2nD41sluXwWe+aACx9TEgmrjQn26DMWfL3X4'
+        '1ouuj0W8kG2vnGxPNcDW0/j1JoAHcqymC/J9W4VeWst0e/CnQJf4YzrUTvHJCN+el07U//Ew2YOu+IqmYk9T'
+        'KnxqRbTkipttOnyL/YhvJL3wcuDjtB90e/Ee4hMkL8+DLmT04d3gU3me8fP5lraRLnMIw6ue8eAPpt3a2G/D'
+        'N9eJ359BjG+keE8seL9mnE2s535C96cxJEz+cqaT9gbGdPE43k0Wu9UVh2Z4Bdl1fyasqoCGOzE3nCe8AZzh'
+        'WYHrhrSft1WDRdjWqW/fhA0bbwKDNbQtbW3jJ95ZaYu56p0LP+Of02KfoHTLdEBWLrHUFaILuS6T22KDZY2Y'
+        '/alFOrZrXiKseerDpXn5DPpzp6WdCTBeI2/6AjAZ37qT8/4lyPuxlr20VOd4D8//RG4I7CgCjlhHTJOrbdtA'
+        'f/vbaCCOluZ0ZomYVamHx1G5uKN2zNW6wNwRTUucOc3rgnSoXmrzsxh9aFnBHjGJlZWJ8TNz0DuMdii1jfCW'
+        '++Ni+1S2ZT1s/AOwbjdAx3G1bRRoay7LZfCABculMsmxriUmMB485pcKOqHfD4NvZiru6RC6tE8vMj6MPodP'
+        'oQ6++IlNbcFGIo9fNVXyhxehry9z9C/x+M5848P9s7b4DZuN38d0oZ7A/elGdhMtE9b8FuTKpnQwhmSe6PvJ'
+        '0MFGBa5xzd75pmNfT8OBbU4t8KOZ/nKsZiz6fRiT2ZMdctOmPxLuMpsJ1H4PHco2GD2sD/N8pkIHSJE/gfS5'
+        'ywLlZhEu2gufqwa/csnEFfDdTwjEM43tbWz/SRizOaJjr4GnfUPJt/cEP3oddhmNM+UM+jTmalGg70nqhG34'
+        'bQN4bwKci9OYIY95gf4gM7607n8vfr8G8TUfVrd+DiLb3tvMgV249rn7fEBk51EM8B15OTcv387Lv6YDsnkU'
+        'MKMif2VRDFsD+13L+kxde4iqsOcIy5sOPZrG4Fwlnx+uXFKfx70/ZvRWFKvgwt86gWfa+FjKZO4KC+ZG/Xhc'
+        'zAuta8ItL/e0fzfI4dkt7GXgdugK6L+n5J83tg3wlQrwK987ub3jwwB9fGwUxrArcP9CIvjMHPh2Gi3sH5FY'
+        '+sz882mKUW+E+Sls2GkNe5E17RgB+niSjW0b8Bfi0VmBDhCX5Gkmr9BEJf0Ye+J5zzpdC578CNu7rd1bejR8'
+        'gNfHQzGAiPlEn8DczwBmdJR4/wTQ6suI5dwPtl+R7W/+9u2/88VXvAMZd2DgXto62+u6Ntty326RfV0G56xD'
+        '3pMfZBusxwUiBwhv42ToBpezNf+ggwY0dNiw2KTUhkWO8VnvkJuuGL+E0SHPp9eO8SX+fWVg7F/qiEWpKvCQ'
+        'TLFvl/9fuy/P5ws2uG0c2fcRROxZE4f/OPufD/9cgfd2OfgP91msbgFD0NyTKPzgNeDmZMvLfLBHAl9cItaH'
+        '9I9w+0XuGUnQ38nR0P2qGr4h8SVJ2/I93bDNvltiDHnuEbMmepX5RkLwYd86KsKoE0UMfKIYTy3/mY04+rNY'
+        'W3w5i4yNuj4bnv2G8iIbjGL13y3w79swc9d1P/jod2JdHieSxbQ/8FsePcfow7M9+frIliTf7qjKIA6zpmBO'
+        'Y4bZdkHeTwdue7IjH1QNe0+b8KNoeI4rbrmGOJGO/HMPYMZr0oE995SHd3Y6WG87cCXSL6YFYkqhe3MqHpv0'
+        'Vcj0mR7esk80sD/wYEXuKVsOHxff43GDvrjECH4O6sdzCgwzVeg/xg4hG+kdYCQZyy9n7GtfnvMUMdwuXboD'
+        'xWcz9oBepzH5RzrTgbC3rhI0YNtfVsa/I/EfwrZ/EA3mORvp4Xu2OZXrMXbYSiE2UZFNWrQ/OmP7HMvyfA12'
+        'zf07/WJeYkZLmrlopZ1dsEWvjIeOBc3nPwb2S34fD3r+ZosxS9Q3klM3iXt+lReyhfarFMtEE1dF/OuFtDU/'
+        'kcFTljt00dTB/2ue/Hvm2c3M/zJO1MnziBp+tFJ57oCJ1ZA43vHAmS5JB/5fRyxdCGaiof9Q3VvS83ToCtPj'
+        'oXW4cqRIHZLbPJtayHGRZuXz1NnWKek2iy36v81PIduQYR898ePj8vJjJr/rBWc6kI9gZ3FPO3wAo7FeCK99'
+        'nsmnjwL3yPP8WruKsTC+6cWe8fwM+NQxUXH+cx9NmrFYrbCdfb6wlejPfyMOjMapbbiSsZbAwPnvpBNQrv05'
+        'aZjP3dcG48e80NM2s5YOVtB/Q4m9mzimb2DuiNfOrOiwNdv/amw/8TLPGG4DLHAM6J36v9KxFybk3B9zfo18'
+        '1vhFSC59Of9+fjoUs5J5sWz5QMy+FJsOb+QKrd1bPDSfipgcG0Zh1nK3Y35rnjyQtt99+lgVutgbgXF6keCB'
+        'b+JslZuxF5vm+MsKHdLEJSceOZt48p+YPDYSP9wPWPySxG7vlDlPypZfIitxJhHxaPKlfd8Sf0Lz8V7gO0P2'
+        'NWcenKEOLP4jQQ9pSf9Uka2nec946GgXxDp+TnbxKXk5qWBOQ/aM2+yFBDxjvIWvPoMx/GJsx+u/Hm25P8s1'
+        'VsvAsy5mexM2iz0phIGT/P5nkSuJ538wPIMwlxPz38nXcq1iH5mxe9eJXASZMr+NjS+llrgsikm5Hnk6SC5c'
+        'Fdtpv2mJh2mAZsv6l9PAfIYan0JoDkBfO9sgd0Yr8OcGfGoxdBRXHFHRmq2Ld1Ib5rLz12JL342/vNbCOLti'
+        'I5uwQQknX5K6eddTWF/7sHoaiv7WmJ5QZXJ2E1tH/NyoPoeN0PTQgy2HTwqZR2VtasdzfPxzNfr7gJLHxg69'
+        '5WPoLKfFg+uqz4INFtk7Ghlh8h/V08F9ST3KfRlFstmWt78Gu41fGzGucwryrDYwN8Sjto0Gc/ZKXUIbT1Vh'
+        'tpVrPGkNvYR4Q41+YuhYMy9U51Lg+GPE/ybCd3Ssck53Nc8px2Et1u+5LdKPoZF1gfih3MtDuTo+yZMSu7E+'
+        'wwvOCtRbbH0gWjrCo1cvhp07Ix6c02WK+JxYMW5Nxb6PCPNPMX3ntGA7t4LnRAzr7vK0fy38prML/AhN+FFG'
+        'Q8+4DjYe8c0XhG+L6ns7L9e1QJ+JYr4a4v7d0b+/K+Hr1PBAjT6TMdn9KfCC7cXa6Uac2SKRN8yUp5U6BsVA'
+        'kh9uFwvGWIF/0bXWQs6soWsqbNDLWjyX0MZnUsV5iK5YDt88Pg1bek7+neKu6KzivR339mXFOoOtbZXInqe0'
+        'jI0WM9n2dgndOwMms9yyFztm2GxHtGXOfEMHozGeq4AfncT4SK945xLwgzOY/bahhL6xAFhZT6DOH+prC+E/'
+        'Pl0xxH7X+O9CbAqJiRIOv6+lfZ0emtSMSa8lzofo8v2APY+yrZp92ZIP9IL3f0GJM4+CPtoI9Inw/9UVZ8jK'
+        'y+Ck8gwLHvPKfze5iN8V7zH4heYs7yQQn3SNRVKQDyGznGnoeh/HY8kPQzbBfYo1m3lyDhdhES4+WnfkSPfx'
+        'kEnABx4F5kr+pucUe5ES5VqbhVyrD6VDY3X4/UTHv3LkRqa/vwu583ASzm9tuKuJ6W9Hn13XTOBdPU1dXNwe'
+        'sJFGirO9uB5flCOxqC8Sx8tgG1F8yeeUmGqCvVxXe+bU8MD1Fvo0PpH3Mb83KfuyJ8bnaU+sPtnbpNcmaRjG'
+        'XvH873/y5/+F9NPK4LtWMZtuoyWPBPd72vB/M44nWmxVotfbK26+sRw28M/hayC9eZoDb2lkWyeP9HDckzjO'
+        'nK07bBn6++L8k86T3F2Mz2eB1e8tcj/a6tLqS5PgK7llK5wTocEkQ33EdH0EP/F34MMzsWSL4Wt7FLpFZtnv'
+        'ppnTTsjvR5R9fxx1jgjI/8/n3ayVF8AvKO/0JmCEazyYOekWtMf/IpH3xuQH2MFjWxm8dZoY8x9GA2feHlnR'
+        '2W6xxT9o4rtpzRIWthr72v4EejXnGLbDv3OIcu/GTrif/KCTUO5SnAHdLLjHtvfcRcNGPr0mxrMXdLgKdhDx'
+        '54fjLfdvSls8Ve73zxQxWqnCTrFdtP9nnvJ+E++3wXEGeqt5vdrBi77giBcye9FH4T6zp31/gc+Qrkzx4Lc5'
+        'sB2+V6hqyY8xFjzGxJEtTcPj9o1tvRbyi+Jaz2Qxk+s8Y3U3/MNXBJypx88h5Xsj+PMp5PW+kOe7sHmkcdgb'
+        'bZc46gHgE6+JuejFWN+pyOUVB9JEGb26nWHnrljZHaDP/wL+LIr/3V6JO2UsZxGNyXzodrIdRXkR5bi0Q783'
+        'cfzyHGTCLq8g3Tnd8uzUMeBdR7QglznPWOHw83K7Vdod40EHP1Hq5q5x5ue6GnxgcwE/LLuvtgO23MJhyrWS'
+        'OXIpd7F9Q1VF/lV5/lcf+Ic845XOOSJ/7URPvI0rFl3mhZbPbC6Q9RIX1Z4JvgF61SzoOGRb3Voi5tC1Tzaz'
+        '4CoNlm/wa5bfDT+psbhDn1+syM+yGW0jjPQt6G7VdCDHpjkDNgS3lN/nwbebifNqq+D38twrorsuz3kEMbBv'
+        'oq97QLcTYQsazHkt86tuCNgrJM/4k3Kq7DjQNQXvvoHpYx849J8E+grpC3G8JY5Y5PfR8tKZ8HVeEg/wlprn'
+        'LHubPW5kQCf4+VJPftp9oVN/RdxDujb50u+MBs9j6A7IHSHxFpfPRfpE5uHcPdf5FKnlfFjiDd+y5LiLoi1z'
+        'HSQsluuUEny4A/WvYO2fXmD39Qn9J4LP46/Jd5a6Y1NNTGa1xRxQNqx1jmUuNiOfGY/rbsMzGy17xo1/hvMM'
+        '17ldMauf872RoO26MiZhFey8xWydTlXohL5zFsZBNz/AIadii95bR24tV12vgS5eT9zzsj/m1yUT2x26Turw'
+        'q4bqG82s3BmC8vd6C37JzJNnNfTZUB2V12fDhzWxEKkyTqMIW/O1uRs++FOV43wo/HVTHG2uw97tE3t1NfYg'
+        'zcv1iHO5JC2OpWxF7zVnClM7H47DeTUf58vxv2+n7hxEXH+z7ampQ/8iOX+G47ySRos6f8xkF9EKxRL/uoCG'
+        'U+H39GGhZk/q6sB9/WX2nBpbahWzEWoWzJ944AWWdlD/1znmqIpzAD5ZH+mgnOoFb6Z5ehZ45XEWXqr1+xif'
+        'lS3PmBl7GbfA+9chfjsS+Fgjda9Nm78+ycrn4JI4nsnD+E4LPNbEeCSWs5neQlzWLLE+2vE5wdPWNoYHhvQx'
+        'C7QL+Hur8Fk0cM7pKOh5i4GpkSy/26Fj+HwNl0DHuzfa0g/ej9KtWMvG7qmLMzHL5HKhMaX2bBOH8U9jJ5CN'
+        'dJ5DJynCbE2ek9mwOV9FTB/55K6OBuJz6GyI81P7e0zcNc3Tz0TfT4K8+2m6dXx26+DrHe/gEZInrIZefIsD'
+        'E9uoxLfjaOgZponFH7pGnIHSyuVrzzOwY+iMJ5pP0knuV+IYxOfJppvu2YPZD5tC5gTuh658guIc7UZBjJBN'
+        'z5kMe+zeFv2VZq2OYbj1enae1JpA325DIaMzSywEYZCXBMa9h9LGcJ1n1BymnFSJUpbZ5HjC8g29L343a36h'
+        'Qjfug+5B+sypTAfqZ7457RkNZo9aLfWfTam1U2x4ZtGZcT+DL2JKZXDt9Ch1kseRN+hssceNYpQpVv2GeDBX'
+        'zAqRcyBRnGfxMu6bCZuN+MvOHr1od/hpToZvj2T7aVsJqy9Lz7FCr0vFXmbjl1uNHDqEYf6YvS9xxLRUHLaH'
+        '5J9mLtZ7cnSY/eFtzJb+qOQevQqw2FBbPnbwAV/eIdm2RIFL1Bz5cLIAmb4QeYlauV4G3d/nqDdpga+6Yozb'
+        'lbS9EWv6qoC9uqGxebFFVrr8UDZcuqkcE9uZMjaeaughdtDAW9B9j4cuRLzoGkduwJ6CHDhy/CuetTQh2jJ3'
+        'lomtIV7xH8Qv4tb5mC2Wz+hCT7TAY7X3G5uxexjfvxY486xoMI/EXNjNNHZvC51TzrsvJ4xPjo/GOrvBsz96'
+        'PjCoA8XcjQf/PwI6LrXhHqb/aXPU+HhpFLnzVcqLZC7FnFxQArvjZ0bwe8y51OsUvtTUki+L6xUuvFfqaVKn'
+        'GgEZNZ/lRXnFkk/pQ/gm+rAe/pC5bVvb95qIYVuJOJT/ErRnO+My9eR22wyM4ZoW8oia9tFYzEqLMXCtDIot'
+        'OLnNJ74ndJKY0YlLP5H+HuK/uwX6DCaxuW0U5PMnXj/f8771sAl+ZPG3Uj82BfoI6Bpl5Framh9c8+zx6Mej'
+        'AfG3DZyRJuea+NWXAnhSiO/AhqfJdy4R5/e1QZc29a2y7E8nG/sI9o66JcZmGTtzpw8+Rlt7m57zO4rO9U4V'
+        '+w6alhiesfCD+Phkm7CFZb0ToYNSHylm+puE7QAUJlxoI8N7NyjiaU1cv1nLLj+g0cmqDtlUxo4zOuGmYdpf'
+        'mVn2vFAsyf2RPY+l5KlmzY+IBnMaSHtqMuTwg0JPMHxztFLOdmOMb2sBI8oUZ0jZ7qc+3ZQNH2Zr8NCFynOd'
+        'TJzWC1thnwLdczTwhrkV+/NLLDqMyblsG9taAbaTirPg+f/qkHtkD8wAfTSxb9lnRzQscXFEu1+Jtszr4vKb'
+        'V6GzEPZ7NtNbaiXyDLjuj0vqGw2Hr62M7WBskAXIhbxJnIHletb4dnaLivcL2HLRaPiSidvr8ayFsdBxtivB'
+        '9zowp+sduEETuuknZ5Fb9EMZA+wbZyMbPoYMmI9c4eMxjo/BV0P64d2VgTZNh60rcXqJMTYCfd+2vdJSH6iU'
+        'sD1t8d4Js+PqHr1rLXjaBYFroenYy2DzN8m51siLkLgsYz+NA1YyxuHraSLXAtHtxXG4rHDhPa65dvEKLX82'
+        'Ml2zvnZF3+8O7EsMvxzlHJ2hyO9dBm/hNJmxOIAYuvOlFt8Tv8fM7wewidssY1Vj50Sbfo3CnL/C1m/NkhPY'
+        'hpObM7amFeiArr3hNl30NdhyJ0T2WHe6lsHn8ZAjzipT+PukzGqFzk3fvtdCfIUGD2xgvtsjd44R13vGREPP'
+        'SQnVDU4U9aaWvXIUE313ACbG5a8NryY7lvIBX1sJW18+vGIV9jbsLe4hPfHKaOiZ2iHj5vPf/T+mIhfw'),
+    "cost_of_initial": (
+        'eNrtW9tOwzAMnZ2Ubh2bNpAQSDzyqXwcn4V4QEJVmziObx3LCyA1zonPsWMnYrdrGzD72TKQ+N1Lg81UwDnt'
+        'tjEmhv+lv5WYh8S5KLBWDfea3SzECyjoAALY4+jrTTAPSGCGjcQ9OnO9tv4YzE85CI5jh38hgM5AMQf8/r42'
+        '94uIMwnwf2rYEyzEgTVXYJA3wBBf6zgr4urFPgTKg2DAUzLEDoHqKGDYOhJzLirGNYVLEFiv9m1W5BCUfQeV'
+        'mgcUdK9ZL0rkiUTklZIfe7WRhbno0cpoFLvRe5I9oV/+nP19CFhLWWCZCNgkfZM6/YVOdWZ0jiFIj/q4gAkY'
+        'GkgbjClqvyfBdUscjQs+1fTb2Smm1u4SWntoK01dldf0iA3tNTGIHe37Ksr8B8HatVYvWXM6v58cnHSNHfyC'
+        'YxxuvT71GLlQg7Te50EhZoc/Z3JLHkrMOvrOeX88r8VydsTqwWlasD8Z6qnV/kWZC2D60Jo/FMYYJZe0vGMC'
+        'w8aegScZ7h8U+JDmcerQZHL0X8u8QTkewZg/MK5hoWMvXu/HoNif3kccTilx/ky0f2TqJQvcP/Rqc5jlZWmt'
+        'D4R7Dcuz9SCgL8t8gEHjC4lcTgbxLem36z/LqZJncelN8bVifzDivWW/3PvgtJHcwvER3ojuS+dw7XyXrnW9'
+        'eu+Tc58frVfm9GNZIEaSELale7zRSXcYSAfcWrP0dpcC+2JrfVpWxrMX5CoJ4OnJS9Z3RhLcr/n0wwjLewGf'
+        'VWyORjz96PPpRnrSKEP7/3XQISZ7c5L1njTfxrl9HgTSpIUtSq1ds/UNKQQFZg=='),
+    "rosenbrock": ([0.9999999960320636, 0.9999999920475379], 7.886019977753385e-18, 17),
+}
+# scripts/covariance16_golden.py: the JAX package's BAL-16 DENSE_SCHUR solve
+# (final cost, rows) and its QR's 135 x 135 variable-camera covariance: the
+# diagonal and the products with two default_rng(0) normal vectors. The JAX
+# Schur tail's and normal equations' digests are within 2.0e-13 and 4.4e-13
+# of these (relative to the largest entry), so every port path is held to
+# them
+COV16_GOLDEN = {
+    "solve": (1318740.8947217267, 6),
+    "digest": (
+        [
+            2.1600285956570057e-08, 2.702610352658657e-08, 1.4338285601496797e-08,
+            1.4220472567565354e-07, 1.188350151032991e-07, 2.5362459142352758e-05,
+            0.06242866679040943, 5.559032747643974e-07, 4.0670002560070745e-08,
+            3.441189877368651e-08, 2.62752849249448e-08, 1.622947632629078e-08,
+            1.3444379449390685e-07, 1.9903506869690649e-07, 2.9246497443179998e-05,
+            0.06819735262109923, 1.1525153062693777e-06, 3.3121643916102993e-07,
+            2.361391217968365e-08, 2.221945672972024e-08, 1.301355615411466e-08,
+            1.1588103100881504e-07, 1.275378142857903e-07, 1.7025777338005197e-05,
+            0.054372810125325154, 9.533175211116968e-07, 4.484736696124671e-07,
+            3.9577757617305645e-08, 2.4508405559277793e-08, 1.685184441835899e-08,
+            1.200587379467215e-07, 2.2532490089995625e-07, 3.126163522746615e-05,
+            0.07871120891500033, 2.642170495682027e-06, 2.8372790813107215e-06,
+            2.020999948043083e-08, 2.2001850085033607e-08, 1.3042566656939173e-08,
+            1.1216404488114484e-07, 1.1903042395226415e-07, 1.5382506615086744e-05,
+            0.0406019307063416, 2.4860821782838355e-07, 9.144474507753488e-10,
+            2.3445477384770883e-08, 3.030115414727191e-08, 1.4026893050106657e-08,
+            1.745867997685149e-07, 1.2158305427215732e-07, 1.929204687599369e-05,
+            0.056280581151773645, 5.341652453678095e-07, 1.4638119155974414e-07,
+            2.6650165357191342e-08, 1.9140368295201917e-08, 1.2998865346732462e-08,
+            1.0170110834801147e-07, 1.5660273115776054e-07, 1.6254216013124387e-05,
+            0.05208508708533411, 4.7645584218663706e-07, 7.80204937324949e-08,
+            2.488374937884551e-08, 2.5060779732254964e-08, 1.3757290133696203e-08,
+            1.2855684142277049e-07, 1.314969214584645e-07, 2.179575834019292e-05,
+            0.061047673021803944, 8.638873029935507e-07, 3.441605551576278e-07,
+            2.5494098023492295e-08, 2.158729294851612e-08, 1.3608349241175902e-08,
+            1.1273302033090713e-07, 1.5266780471994926e-07, 2.0838244119625294e-05,
+            0.056844969896369724, 1.3706620036741243e-06, 8.110808602008766e-07,
+            2.9185185035280334e-08, 2.0709548358115898e-08, 1.377052359329622e-08,
+            1.0880223291150064e-07, 1.6926957867209127e-07, 1.635447550211129e-05,
+            0.04833498839331189, 1.0760760506870338e-06, 4.99851290503382e-07,
+            2.2221005639319487e-08, 2.2655217887675378e-08, 1.262826706456084e-08,
+            1.1757149529545863e-07, 1.1193477032644422e-07, 1.6016979998562356e-05,
+            0.04517721947462887, 5.589610885728371e-07, 8.06563557356778e-08,
+            2.7335117712779112e-08, 2.078923308491661e-08, 1.4001673782527527e-08,
+            1.0862977293737791e-07, 1.6020598109024692e-07, 1.7319772311081076e-05,
+            0.05378451605252136, 8.728113176818358e-07, 4.2808230610461085e-07,
+            2.471639441704659e-08, 2.7240202256881574e-08, 1.3656648842638404e-08,
+            1.4225351873847987e-07, 1.31347585249537e-07, 1.7229228242834545e-05,
+            0.0555529328534923, 8.345783366488434e-07, 3.2044219513896396e-07,
+            2.348046843545367e-08, 2.109581954009208e-08, 1.227027519628072e-08,
+            1.093528896577555e-07, 1.226392692279504e-07, 1.5610085359482095e-05,
+            0.0496994216838338, 7.441086039395652e-07, 2.8292460383762994e-07,
+            2.4593278224138576e-08, 2.7754581027163594e-08, 1.4394560842527028e-08,
+            1.4917771359515807e-07, 1.3042293722869515e-07, 2.2184549959904158e-05,
+            0.060181277575479836, 1.4559945493785976e-06, 8.600502639964459e-07,],
+        [
+            [
+                -6.703374135853049e-06, 1.8036267964797078e-05, 7.122793598444838e-07,
+                1.2465673698369422e-05, 8.47947825423925e-06, -0.0025842571923233777,
+                -0.13600279433484447, -0.00013690940140667306, -1.593082826289059e-05,
+                -1.2630765102079739e-05, 4.671829837242152e-06, -1.3189895216394967e-06,
+                4.700878124196672e-06, 1.0727989952605334e-05, -0.0016556041276524173,
+                -0.0865558800305462, -6.140280628863364e-05, -1.7095941541129113e-06,
+                8.985700043400968e-06, -1.27919308335838e-06, -2.5164417719122077e-07,
+                5.625903972967976e-08, -5.7749948737907765e-06, 0.0009994134455213867,
+                0.06587785015454886, -4.7853115855294465e-05, 9.476935555855307e-05,
+                7.060208673234365e-06, 4.91312487619551e-07, -3.263922327952512e-07,
+                5.981109881180587e-07, -6.800250973978844e-06, 0.0016345349828172566,
+                0.09377149210468329, -0.00010629974454180141, 0.00020937310786725243,
+                -2.9841152225609784e-06, -4.048889497189405e-06, -1.0436446093587594e-07,
+                1.8447049389115566e-07, 5.249867989532942e-06, -0.0009334647993644273,
+                -0.05252997525303886, -4.936204735725237e-05, 8.102747373302531e-07,
+                -4.438455729161227e-06, -5.409152476366865e-06, -1.283827633914773e-06,
+                -4.070766006767087e-06, 3.88802204960786e-06, -0.000534194390672395,
+                -0.03210683645507334, -5.919529126558341e-06, -1.8755363936298526e-05,
+                -6.373884606030038e-07, 1.6284408666267914e-06, -3.2080832777369847e-07,
+                1.7104319874053648e-06, 5.244916662302215e-06, 0.00010705292241537334,
+                0.007971227788689639, -2.352989623537586e-05, 2.7503050092400704e-05,
+                -3.0713917425452985e-06, -1.4805362916630099e-05, 2.3659574723215888e-07,
+                -1.3996110570171138e-05, 3.805295714495291e-06, -0.00246374300592896,
+                -0.14030454135358827, -1.760649002687102e-05, -0.00011083451451223789,
+                1.9031197013368703e-06, -1.197378108454769e-06, -8.414734255093217e-07,
+                4.1506113591752404e-07, -8.32443162669805e-07, -4.829052268636454e-05,
+                -0.0028840677096214525, 2.7016690187046767e-06, -2.117053887259622e-06,
+                2.1527513062780175e-06, 1.6890726657171823e-06, -5.152356885754872e-07,
+                2.8321938745091864e-07, -7.843369362550672e-07, 0.00022643261847175996,
+                0.01544400136969885, -2.2893163064824046e-05, 2.9129622439167572e-05,
+                -1.5891115709096305e-07, 3.3620952307358904e-07, -5.880516863718782e-07,
+                -1.6726376213390475e-06, 4.681063940636192e-07, 0.00026282355383249557,
+                0.01570784613344996, 8.62364082109354e-06, -1.9280818682328876e-07,
+                2.3076518609576985e-06, -1.7744078873444539e-07, -4.06527558820016e-07,
+                3.3044406297403877e-07, -3.14078954546142e-06, -9.604547591346985e-05,
+                -0.002818467462541726, -5.005752582929774e-05, 4.7922881354793e-05,
+                2.876382185319275e-06, 4.15484886376416e-06, 1.8268947379389854e-07,
+                3.4474312392458633e-06, -1.852096498650723e-06, -0.0006877187323354279,
+                -0.042326314149318915, -2.415881382329254e-05, -9.353461041447266e-06,
+                1.197426702280207e-06, 1.1674656055881097e-06, -7.531628709542349e-07,
+                2.036903338982438e-06, -5.316970758684269e-07, -0.0006782059524267065,
+                -0.04167167912683891, -2.6048298709416786e-05, -5.132406787880316e-07,
+                2.9785118021690654e-06, -8.389397804564758e-08, -1.8628766641887569e-06,
+                -6.278950112851e-07, -1.5510229692659392e-06, -0.0003092825808606489,
+                -0.016924061962552445, -1.5797884611147763e-05, -7.124743347218243e-06,],
+            [
+                3.4279564038636936e-06, -1.3650461261821497e-05, 6.239419174543221e-07,
+                -8.679096269447313e-06, -4.783226679542268e-06, 0.0016362161593417436,
+                0.08889802187948777, 6.724659355439025e-05, -8.340651279547726e-07,
+                1.989840673305116e-05, 3.026581856705044e-06, -1.486597029491665e-07,
+                3.09968143775679e-07, -1.2794996616778034e-05, 0.0015454942926988028,
+                0.08347143366485729, 2.7873221124485715e-05, 3.611038505871019e-05,
+                6.965198204017652e-06, -1.42778417629817e-05, -4.6001871246356316e-08,
+                -8.731763527451914e-07, -9.122418619705271e-06, 0.0026446400060444663,
+                0.16040662291818678, 5.404180429569018e-05, 8.966774424144027e-05,
+                -4.402334683791077e-06, 2.2120758996267406e-07, 1.0941058551138791e-06,
+                3.5722682999325117e-06, -9.358813612431224e-06, 0.0036327350215399753,
+                0.19604587296320586, 2.1695857010633806e-06, 0.00021465652330384158,
+                7.811350747179685e-06, 1.6050831173510858e-06, -7.354622795365725e-07,
+                5.581419912600712e-06, -9.31177346337538e-06, 0.0020610696091408445,
+                0.11119090078681931, 0.00012827679728573345, -4.747001062662369e-06,
+                9.814539451338949e-06, 1.8843932462459303e-05, -6.442165111023913e-07,
+                9.910308900542483e-06, -4.934933594141908e-06, 0.000927651596538231,
+                0.05386392333711494, 4.140434160084428e-05, -2.5557759882282236e-06,
+                2.4398484822492648e-05, 1.2351440815188211e-05, -9.019198226699548e-07,
+                1.1745991229489993e-05, -7.089203169340404e-06, 0.0019687199098040774,
+                0.12027798715283154, 8.213959849231093e-05, 7.723372245702663e-06,
+                1.062407166577943e-05, 2.2544917651520997e-05, -1.2298511441651705e-06,
+                2.0030151837219894e-05, -3.641144669137412e-06, 0.002793125982854634,
+                0.15867525896672213, 4.253638327214926e-05, 8.647439828169307e-05,
+                -1.3894066852189511e-05, 9.337671113614897e-06, 7.569229366970864e-07,
+                1.1374601625095518e-05, 8.215299395716259e-06, 0.001776633953904859,
+                0.10124074375063906, 5.005250214943169e-05, 4.5477743845711804e-05,
+                -1.920052609233699e-05, 8.800207471766152e-06, 4.208015705283465e-07,
+                1.083967964970448e-05, 1.0664881262412211e-05, 0.0017276023605946995,
+                0.09925466374358131, 6.640538825152858e-05, 1.746480965262674e-05,
+                -8.18177734455496e-06, 9.284075668180673e-06, -3.60896891413942e-08,
+                8.135070934437089e-06, 6.976221373714828e-06, 0.001607362983850108,
+                0.09416426855111464, 5.310905871557064e-05, 1.7774714460811083e-05,
+                -2.6228553602519373e-05, 3.412012252207932e-06, 4.64171834443235e-07,
+                1.6069180880325826e-06, 2.3462739138406947e-05, 0.003337445409159189,
+                0.20075302693668298, -2.139556234411459e-05, 0.0001766472800118932,
+                6.790516916558844e-06, -1.4692030324975291e-05, 7.24077707607358e-08,
+                -3.850196394462144e-06, 9.656963380497259e-07, 0.0009117050938464436,
+                0.05572325310924823, 2.0554426182777965e-05, 1.8123668301198912e-05,
+                3.1189940739177365e-07, -6.533922374085953e-06, -4.186419623726213e-07,
+                -7.31586519784994e-06, 9.794394409503055e-06, 0.0030494831344304715,
+                0.18997864571045928, 7.78397515512142e-05, 4.5134737477510577e-05,
+                -1.0656476042874902e-05, -6.010612419377356e-07, -8.57908128223286e-07,
+                -3.781581729656692e-06, 8.738488328373437e-06, 0.002483531893603864,
+                0.13946989777613214, 4.867852327133663e-05, 6.472799084730922e-05,],
+        ]),
+}
+NIST_GOLDEN = {
+    'Misra1a': [0.06647540342411101, 0.06647540342411644],
+    'DanWood': [0.00019793938663888595, 0.00019793938663887454],
+    'Lanczos3': [1.6315627097921691e-10, 1.6315627098006894e-10],
+    'Rat42': [0.021114386290802433, 0.02111438629080212],
+    'Eckerle4': [4.021679662772893e-08, 4.0216796627730125e-08],
+}
+DENOISE_GOLDEN = {"rows": [
+    431562.58317104273,
+    186907.96017477138,
+    87182.27673208609,
+    59946.98949321753,
+    52398.53657143663,
+    49760.255320577715,
+    48682.475144667216,
+    47987.3527649889,
+    47630.14239091113,
+    47355.000038572216,
+    47178.783365068346,
+    47025.41726515547,
+    46896.42285821621,
+    46786.92984894953,
+    46717.17661463896,
+    46668.45099969786,
+    46639.34490220223,
+    46612.08186531421,
+    46592.95115462536,
+    46577.541982065144,
+    46565.27560171059,
+],
+                  "cg": [0, 10, 23, 39, 40, 34, 14, 39, 14, 39, 14, 35, 13, 37, 15, 44, 21, 42, 17, 43, 21]}
+# the denoising rows held to the JAX rows: all of them (the CPU port's are
+# within 6.6e-12 of the JAX rows, the same CG counts, no row parts)
+DENOISE_ROWS_HELD = 21
+
+
+def write_nist_file(path, name, seed=0):
+    """Writes a problem of NIST_SHAPES[name] in the StRD .dat layout that
+    models/nist.parse_nist_file reads: responses the model at its
+    parameters times (1 + noise N(0, 1)) from default_rng(seed); as
+    certified values the least-squares minimum by scipy's
+    Levenberg-Marquardt from the model's parameters, and its residual sum
+    of squares."""
+    from scipy.optimize import least_squares
+
+    from ceres_tpu_torch.models import nist
+
+    model_name, truth, x, starts, noise = NIST_SHAPES[name]
+    model = getattr(nist, model_name)
+
+    def f(b):
+        return model(torch.as_tensor(b, dtype=torch.float64), torch.as_tensor(x)).numpy()
+
+    y = f(truth) * (1.0 + noise * np.random.default_rng(seed).standard_normal(len(x)))
+    cert = least_squares(lambda b: y - f(b), np.asarray(truth), method="lm",
+                         xtol=1e-15, ftol=1e-15, gtol=1e-15).x
+    rss = float(np.sum((y - f(cert)) ** 2))
+    p = len(truth)
+    lines = ["NIST/ITL StRD format (synthetic)", f"Dataset Name:  {name}"] + [""] * 22
+    lines += ["Data:          1 Response Variable  (y)",
+              "               1 Predictor Variable (x)",
+              f"               {len(x)} Observations"] + [""] * 4
+    lines += [f"               {p} Parameters (b1 to b{p})"] + [""] * 8
+    lines += [f"  b{i + 1} = " + "  ".join(repr(float(st[i])) for st in starts)
+              + f"  {float(cert[i])!r}  0.0" for i in range(p)]
+    lines += ["", f"Residual Sum of Squares:   {rss!r}", ""]
+    lines += [""] * (60 - len(lines)) + ["Data:   y               x"]
+    lines += [f"  {float(a)!r}  {float(b)!r}" for a, b in zip(y, x)]
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def write_foe_file(path, num_filters=3, seed=0):
+    """Writes a 2x2 Fields-of-Experts model in the layout that
+    models/denoising.read_foe_file reads (size, filters, x and y offsets,
+    alphas, filter coefficients): zero-mean filters of unit norm and
+    alphas in [0.5, 1.5] from default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    filters = rng.standard_normal((num_filters, 4))
+    filters -= filters.mean(axis=1, keepdims=True)
+    filters /= np.linalg.norm(filters, axis=1, keepdims=True)
+    alpha = rng.uniform(0.5, 1.5, num_filters)
+    words = ["2", str(num_filters), "0 1 0 1", "0 0 1 1", " ".join(repr(float(a)) for a in alpha)]
+    words += [" ".join(repr(float(v)) for v in row) for row in filters]
+    with open(path, "w") as fh:
+        fh.write("\n".join(words) + "\n")
+
+
+def noisy_image(size=256, sigma=20.0, seed=0):
+    """A size x size 8-bit image (smooth shading and a checkerboard) with
+    N(0, sigma^2) noise from default_rng(seed), rounded and clipped as a
+    PGM holds it."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float64)
+    clean = (108.0 + 60.0 * np.sin(xx / 17.0) * np.cos(yy / 23.0)
+             + 40.0 * ((xx // 32 + yy // 32) % 2))
+    noisy = clean + sigma * np.random.default_rng(seed).standard_normal(clean.shape)
+    return np.clip(np.round(noisy), 0, 255)
+
+
+def triangulations(n, seed=0):
+    """n independent triangulation problems for TinySolver (port slice
+    18): a point X ~ N((0, 0, 5), 0.5^2 I), seen by 4 cameras (an
+    angle-axis rotation N(0, 0.1^2) per coordinate and a translation
+    N(0, 1), the last coordinate 0), each observation the exact projection
+    (R X + t)[:2] / (R X + t)[2]; the start X + N(0, 0.1^2). Lane i's draws
+    are row i of one (n, 30) standard normal array from default_rng(seed),
+    so the first lanes do not depend on n. Returns (truth (n, 3), start
+    (n, 3), cameras (n, 4, 6), observations (n, 4, 2)), float64."""
+    g = np.random.default_rng(seed).standard_normal((n, 30))
+    X = 0.5 * g[:, 0:3] + np.array([0.0, 0.0, 5.0])
+    aa = 0.1 * g[:, 3:15].reshape(n, 4, 3)
+    t = g[:, 15:27].reshape(n, 4, 3).copy()
+    t[..., 2] = 0.0
+    x0 = X + 0.1 * g[:, 27:30]
+    theta = np.linalg.norm(aa, axis=-1, keepdims=True)
+    w = aa / theta
+    Xb = np.broadcast_to(X[:, None, :], aa.shape)
+    ct, st = np.cos(theta), np.sin(theta)
+    p = (Xb * ct + np.cross(w, Xb) * st
+         + w * (np.sum(w * Xb, -1, keepdims=True) * (1.0 - ct)) + t)
+    return X, x0, np.concatenate([aa, t], -1), p[..., :2] / p[..., 2:3]
+
+
+def triangulation_residual(rot):
+    """The reprojection residual (8,) of one point x (3,) over its data
+    (cameras (4, 6), observations (4, 2)), with `rot` the port's or the
+    JAX package's rotation module."""
+    def residual(x, d):
+        cams, obs = d
+        p = rot.angle_axis_rotate_point(cams[:, :3], x[None, :]) + cams[:, 3:]
+        return (p[:, :2] / p[:, 2:3] - obs).reshape(-1)
+    return residual
+
+
+def unpack_ints(text, dtype):
+    """The integer array that scripts/tiny_solver_golden.py packed."""
+    import base64
+    import zlib
+
+    return np.frombuffer(zlib.decompress(base64.b64decode(text)), dtype).astype(np.int64)
+
+
 def libmv_venice():
     """libmv-Venice: the Venice shape as a libmv problem: 13,696 cameras,
     1M points, 4,397,236 markers, one shared camera model."""
@@ -834,6 +1329,36 @@ def gauge_fixed_problem(bal, b, constant=(0,)):
         b.cameras, b.points, b.camera_index, b.point_index, b.observations))
     for c in constant:
         p.set_parameter_block_constant(cams[c])
+    return p, cams, pts
+
+
+def covariance_gauge(b):
+    """The points the covariance phase holds constant on a BAL problem
+    (port slice 18): point 0, which with camera 0 fixes the 7-dof gauge,
+    and every point fewer than three cameras see. A point one camera sees
+    has no depth along its ray (J loses a column's rank to each: at BAL-16
+    1,720 of them, and every covariance path returns False, the JAX
+    package's pure QR after 25 minutes of ordering on a CPU); after the
+    DENSE_SCHUR solve a two-view point of BAL-16 leaves R a squared pivot
+    1.7e-15 of the largest, under min_reciprocal_condition_number's 1e-14.
+    Without both kinds, 1.7e-10: 17k points stay variable."""
+    seen = np.bincount(b.point_index, minlength=b.num_points)
+    return np.union1d([0], np.flatnonzero(seen < 3))
+
+
+def anchored_problem(ctt, bal, b, w=1e-2):
+    """Phase (b) of the covariance phase: b built one block at a time
+    (bal.build_problem) with a Tikhonov anchor of weight w on every camera
+    and point at its start (the JAX Schur-tail tests' gauge,
+    tests/test_satellite_apis.py:368-374). Returns (problem, cameras,
+    points)."""
+    p, cams, pts = bal.build_problem(bal.from_arrays(
+        b.cameras, b.points, b.camera_index, b.point_index, b.observations))
+    anchor_c = ctt.AutoDiffCostFunction(lambda c, d: w * (c - d), 9, [9])
+    anchor_p = ctt.AutoDiffCostFunction(lambda q, d: w * (q - d), 3, [3])
+    for blocks, cost in ((cams, anchor_c), (pts, anchor_p)):
+        for v in blocks:
+            p.add_residual_block(cost, None, [v], data=v.copy())
     return p, cams, pts
 
 
@@ -1723,6 +2248,12 @@ def main():
     log("phase", f"the examples from {time.monotonic() - t_start:.1f} s")
     log("phase", f"the examples took {examples_phase(kn, card, paths):.1f} s")
 
+    # -- port slice 18: covariance, TinySolver, capi, rotation, NIST, denoising ----
+    log("phase", f"slice 18 from {time.monotonic() - t_start:.1f} s")
+    log("phase", f"slice 18 took {satellite_phase(ctt, bal, kn, dev, card, paths):.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- the Venice shape ------------------------------------------------------
     log("phase", f"the Venice shape from {time.monotonic() - t_start:.1f} s")
     t0 = time.monotonic()
@@ -1945,6 +2476,271 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def satellite_phase(ctt, bal, kn, dev, card, paths):
+    """Port slice 18 on the card: (a) Covariance at BAL-16 (built one block
+    at a time, camera 0 and the points of covariance_gauge constant,
+    solved with DENSE_SCHUR) over the 15 x 15 variable camera pairs by the
+    pure QR, the Schur tail (schur_tail_min_cols=128: S on the card) and
+    the normal equations, each against the JAX package's digest
+    (COV16_GOLDEN, scripts/covariance16_golden.py) and the others; (b) the
+    400-camera core (COV400) at the default options (the Schur tail), card
+    against CPU and against the normal equations, COV400_BLOCKS camera
+    blocks; (c) TinySolver.solve_batch on TINY_LANES triangulations, the
+    first TINY_GOLDEN_LANES against the JAX solve_batch (TINY_GOLDEN,
+    scripts/tiny_solver_golden.py) and the port's CPU, and Rosenbrock by
+    solve; (d) the capi surface and the five rotation functions of the
+    slice, card against CPU; (e) examples/nist.py on NIST_SHAPES written to
+    files and examples/denoising.py on a DENOISE_SIZE image and an FoE
+    model written to files, against NIST16_GOLDEN and DENOISE_GOLDEN
+    (scripts/nist_denoising_golden.py). Each run's launches are counted
+    from 0; no plain version runs on the card. Returns the phase's
+    seconds."""
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from ceres_tpu_torch import capi
+    from ceres_tpu_torch import rotation as rot
+    from ceres_tpu_torch.examples import denoising as den_example
+    from ceres_tpu_torch.examples import nist as nist_example
+    from ceres_tpu_torch.models import denoising
+
+    t_phase = time.monotonic()
+    DS = ctt.LinearSolverType.DENSE_SCHUR
+
+    def counted(path, fn, on_card=True):
+        """fn() with the counts set to 0 just before it and read just after:
+        (its value, launches, wall seconds); no plain version runs in a run
+        on the card, no kernel in one on the CPU."""
+        kn.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches, plain_calls = counts(kn)
+        check(not any((plain_calls if on_card else launches).values()),
+              f"{path}: a {'plain version' if on_card else 'kernel'} ran: "
+              f"{plain_calls if on_card else launches}")
+        return out, launches, wall
+
+    def record(path, launches, wall, **kw):
+        paths[path] = dict(iterations=kw.pop("iterations", 1), launches=launches,
+                           wall_s=wall, **kw)
+        log(f"slice18 {path}", json.dumps(paths[path], default=str) + f"; {card}")
+
+    # -- (a) covariance at BAL-16 -------------------------------------------------
+    b16 = bal16(bal)
+    p, cams, pts = gauge_fixed_problem(bal, b16)
+    for i in covariance_gauge(b16):
+        p.set_parameter_block_constant(pts[i])
+    s, launches, wall = counted("cov16_solve", lambda: ctt.solve(
+        ctt.Options(linear_solver_type=DS), p))
+    cost, rows = COV16_GOLDEN["solve"]
+    gap = abs(s.final_cost - cost) / cost
+    record("cov16_solve", launches, wall, iterations=len(s.iterations) - 1,
+           final_cost=s.final_cost, rows=len(s.iterations), gap_to_golden=gap)
+    check(str(s.termination_type) == "CONVERGENCE" and len(s.iterations) == rows
+          and gap <= 1e-6, f"cov16_solve: {s.termination_type}, {len(s.iterations)} rows, "
+          f"{s.final_cost!r}; the JAX package's {rows} rows, {cost!r}")
+    var = cams[1:]
+    pairs = [(a, b) for a in var for b in var]
+    mats = {}
+    for name, kw in COV16_PATHS.items():
+        cov = ctt.Covariance(ctt.CovarianceOptions(**kw))
+        ok, launches, wall = counted(f"cov16_{name}", lambda: cov.compute(pairs, p))
+        check(ok, f"cov16_{name}: compute() returned False; the JAX package's True")
+        C = np.block([[cov.get_covariance_block(a, b) for b in var] for a in var])
+        mats[name] = C
+        diag, probes = COV16_GOLDEN["digest"]
+        V = np.random.default_rng(0).standard_normal((C.shape[0], len(probes)))
+        gaps = (float(np.abs(np.diag(C) - diag).max() / np.abs(C).max()),
+                float(np.abs(C @ V - np.asarray(probes).T).max()
+                      / np.abs(np.asarray(probes)).max()))
+        record(f"cov16_{name}", launches, wall, stats=cov.stats, gaps_to_jax=gaps)
+        check(max(gaps) <= COV16_REL, f"cov16_{name}: {gaps} from the JAX package's "
+              f"digest (limit {COV16_REL:.0e})")
+        check(all(launches[k] > 0 for k in COV_PATH_ROWS[name]),
+              f"cov16_{name}: a row of its path launched no time: {launches}")
+        check(cov.stats["path"] == name, f"cov16_{name}: took the {cov.stats['path']} path")
+    for a in mats:
+        for b in mats:
+            if a < b:
+                gap = float(np.abs(mats[a] - mats[b]).max() / np.abs(mats[b]).max())
+                log("slice18 cov16", f"{a} against {b}: {gap:.3e} (limit 1e-06)")
+                check(gap <= 1e-6, f"cov16: {a} and {b} {gap:.3e} apart")
+    del p, cams, pts, mats
+    gc.collect()
+
+    # -- (b) the 400-camera core: the Schur tail on the card ------------------------
+    b400 = bal.synthetic_bal_large(**COV400)
+    p, cams, _ = anchored_problem(ctt, bal, b400)
+    pairs = [(cams[i], cams[i]) for i in range(COV400_BLOCKS)]
+    out = {}
+    for name, kw, device in (("card", {}, None), ("cpu", {}, "cpu"),
+                             ("normal_equations", dict(use_normal_equations=True), None)):
+        cov = ctt.Covariance(ctt.CovarianceOptions(**kw))
+        ok, launches, wall = counted(f"cov400_{name}",
+                                     lambda: cov.compute(pairs, p, device=device),
+                                     on_card=device is None)
+        check(ok, f"cov400_{name}: compute() returned False")
+        out[name] = cov._cov_cols
+        record(f"cov400_{name}", launches, wall, stats=cov.stats)
+        if name == "card":
+            check(cov.stats["path"] == "schur_tail" and all(
+                launches[k] > 0 for k in COV_PATH_ROWS["schur_tail"]),
+                f"cov400: the card's path {cov.stats['path']}, launches {launches}")
+    gaps = {k: float(np.abs(out["card"] - out[k]).max() / np.abs(out[k]).max())
+            for k in ("cpu", "normal_equations")}
+    paths["cov400_card"]["gaps"] = gaps
+    log("slice18 cov400", f"card against CPU {gaps['cpu']:.3e} (limit 1e-09), against the "
+        f"normal equations {gaps['normal_equations']:.3e} (limit 1e-06); {card}")
+    check(gaps["cpu"] <= 1e-9 and gaps["normal_equations"] <= 1e-6,
+          f"cov400: the card's covariance {gaps}")
+    del p, cams, out
+    gc.collect()
+
+    # -- (c) TinySolver -------------------------------------------------------------
+    X, x0, tcams, tobs = triangulations(TINY_LANES)
+    resid = triangulation_residual(rot)
+    ts = ctt.TinySolver(resid)
+    data = (torch.as_tensor(tcams, device=dev), torch.as_tensor(tobs, device=dev))
+    x0_d = torch.as_tensor(x0, device=dev)
+    (x, s), launches, wall = counted("tiny_batch", lambda: ts.solve_batch(x0_d, data))
+    x = x.cpu().numpy()
+    loops = ts.last_host_syncs
+    near = float(np.mean(np.abs(x - X).max(axis=1) <= 1e-6))
+    n = TINY_GOLDEN_LANES
+    its = s.iterations[:n].cpu().numpy()
+    x_jax = X[:n] + unpack_ints(TINY_GOLDEN["x_minus_truth"], np.int32).reshape(n, 3) \
+        * TINY_X_QUANTUM
+    cost_ratio = (s.final_cost[:n] / s.initial_cost[:n]).cpu().numpy()
+    cost_gap = float(np.abs(cost_ratio - unpack_ints(TINY_GOLDEN["cost_of_initial"], np.int32)
+                            * TINY_COST_QUANTUM).max())
+    jax_gap = float(np.abs(x[:n] - x_jax).max())
+    same_its = bool(np.array_equal(its, unpack_ints(TINY_GOLDEN["iterations"], np.int8)))
+    cpu = ctt.TinySolver(resid, device="cpu")
+    (xc, sc), _, cpu_wall = counted("tiny_batch_cpu", lambda: cpu.solve_batch(
+        x0[:n], (tcams[:n], tobs[:n])), on_card=False)
+    cpu_gap = float(np.abs(x[:n] - xc.numpy()).max())
+    cpu_its = bool(np.array_equal(its, sc.iterations.numpy()))
+    record("tiny_batch", launches, wall, iterations=loops, lanes=TINY_LANES,
+           ms_per_iteration=1e3 * wall / max(loops, 1), host_syncs=loops,
+           share_within_1e6=near, lanes_within_1e6=int(round(near * TINY_LANES)),
+           jax_x_gap=jax_gap, jax_cost_gap_of_initial=cost_gap, jax_same_iterations=same_its,
+           cpu_x_gap=cpu_gap, cpu_same_iterations=cpu_its, cpu_wall_s=cpu_wall,
+           max_iterations=int(s.iterations.max()))
+    check(near >= 0.999, f"tiny_batch: {near:.5f} of the lanes within 1e-6 of their truth")
+    check(jax_gap <= 1e-9 and same_its and cost_gap <= 1e-12,
+          f"tiny_batch: against the JAX solve_batch x {jax_gap:.3e}, cost {cost_gap:.3e}, "
+          f"the same iterations {same_its}")
+    check(cpu_gap <= 1e-12 and cpu_its, f"tiny_batch: against the CPU x {cpu_gap:.3e}, "
+          f"the same iterations {cpu_its}")
+    check(loops == int(s.iterations.max()), f"tiny_batch: {loops} host syncs for "
+          f"{int(s.iterations.max())} iterations")
+    del x, s, data, x0_d
+
+    def rosen(x, d):
+        return torch.stack([10.0 * (x[1] - x[0] ** 2), 1.0 - x[0]])
+
+    (xr, sr), launches, wall = counted("tiny_rosenbrock", lambda: ctt.TinySolver(rosen).solve(
+        [-1.2, 1.0]))
+    xr = xr.cpu().numpy()
+    gx, gcost, git = TINY_GOLDEN["rosenbrock"]
+    record("tiny_rosenbrock", launches, wall, iterations=int(sr.iterations), x=xr.tolist(),
+           final_cost=float(sr.final_cost), jax_x_gap=float(np.abs(xr - gx).max()))
+    check(np.abs(xr - 1.0).max() <= 1e-6 and float(sr.final_cost) < 1e-12
+          and int(sr.iterations) == git and np.abs(xr - gx).max() <= 1e-9,
+          f"tiny_rosenbrock: x {xr}, cost {float(sr.final_cost)}, {int(sr.iterations)} "
+          f"iterations; the JAX package's {gx}, {gcost}, {git}")
+
+    # -- (d) the capi and the rotation functions ---------------------------------------
+    def capi_run():
+        prob = capi.ceres_create_problem()
+        x = np.zeros(2)
+        rid = capi.ceres_problem_add_residual_block(
+            prob, lambda v: v - torch.tensor([1.0, 2.0], dtype=v.dtype, device=v.device), 2,
+            [2], [x], loss_function_name="huber", loss_function_parameter=1.0)
+        summary = capi.ceres_solve(prob, max_num_iterations=20)
+        capi.ceres_free_problem(prob)
+        return x, rid, summary, prob.num_residual_blocks()
+
+    (x, rid, s, left), launches, wall = counted("capi", capi_run)
+    record("capi", launches, wall, iterations=len(s.iterations) - 1, x=x.tolist(),
+           device=s.device_kind)
+    check(isinstance(rid, int) and s.is_solution_usable() and np.abs(x - [1.0, 2.0]).max()
+          <= 1e-6 and left == 0 and s.device_kind == torch.cuda.get_device_name(0),
+          f"capi: x {x}, usable {s.is_solution_usable()}, {left} blocks left, device "
+          f"{s.device_kind!r}")
+    rng = np.random.default_rng(18)
+    aa = rng.standard_normal((ROTATION_BATCH, 3))
+    aa[0] = 0.0
+    conv = ["IntrinsicZYX", "ExtrinsicXYX"]
+    cases = {
+        "angle_axis_to_rotation_matrix": (rot.angle_axis_to_rotation_matrix, aa),
+        "cross_product_matrix": (rot.cross_product_matrix, aa),
+        "euler_angles_to_rotation_matrix": (rot.euler_angles_to_rotation_matrix, 57.0 * aa),
+        **{f"euler_angles_to_rotation_{c}": (torch.func.vmap(
+            lambda v, c=c: rot.euler_angles_to_rotation(c, v)), aa) for c in conv},
+        **{f"rotation_matrix_to_euler_angles_{c}": (torch.func.vmap(
+            lambda R, c=c: rot.rotation_matrix_to_euler_angles(c, R)),
+            rot.angle_axis_to_rotation_matrix(torch.as_tensor(0.5 * aa)).numpy())
+           for c in conv},
+    }
+    rot_gaps = {}
+    for name, (fn, arg) in cases.items():
+        on_card = fn(torch.as_tensor(arg, device=dev)).cpu()
+        on_cpu = fn(torch.as_tensor(arg))
+        rot_gaps[name] = float((on_card - on_cpu).abs().max() / on_cpu.abs().max())
+    log("slice18 rotation", f"{ROTATION_BATCH} inputs, card against CPU, max |diff| / max "
+        f"|value|: {json.dumps(rot_gaps)} (limit 1e-12); {card}")
+    check(max(rot_gaps.values()) <= 1e-12, f"rotation: card against CPU {rot_gaps}")
+
+    # -- (e) NIST and denoising through the examples -----------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in NIST_SHAPES:
+            write_nist_file(Path(tmp) / f"{name}.dat", name)
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                summaries, launches, wall = counted(f"nist_{name}", lambda: nist_example.main(
+                    ["--nist_data_dir", tmp, "--problem", f"{name}.dat", "--device", "cuda"]))
+            costs = [s.final_cost for s in summaries]
+            gaps = [abs(c - g) / g for c, g in zip(costs, NIST_GOLDEN[name])]
+            record(f"nist_{name}", launches, wall,
+                   iterations=sum(len(s.iterations) - 1 for s in summaries),
+                   rows=[len(s.iterations) for s in summaries], final_costs=costs,
+                   gaps_to_jax=gaps, printed=text.getvalue().splitlines()[-1])
+            check(len(costs) == len(NIST_GOLDEN[name]) and max(gaps) <= 1e-10
+                  and "Total: 2/2" in text.getvalue(),
+                  f"nist {name}: final costs {costs}, the JAX package's {NIST_GOLDEN[name]}; "
+                  f"{text.getvalue().splitlines()[-1]}")
+        write_foe_file(Path(tmp) / "model.foe")
+        denoising.write_pgm(Path(tmp) / "noisy.pgm", noisy_image(DENOISE_SIZE))
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            s, launches, wall = counted("denoise", lambda: den_example.main(
+                ["--input", str(Path(tmp) / "noisy.pgm"), "--foe_file",
+                 str(Path(tmp) / "model.foe"), "--output", str(Path(tmp) / "out.pgm"),
+                 "--num_iterations", str(DENOISE_ITERATIONS), "--device", "cuda"]))
+        out_image = denoising.read_pgm(Path(tmp) / "out.pgm")
+    costs = [r.cost for r in s.iterations]
+    gaps = [abs(c - g) / abs(g) for c, g in zip(costs, DENOISE_GOLDEN["rows"])]
+    n_it = len(s.iterations) - 1
+    record("denoise", launches, wall, iterations=n_it, rows=len(costs), gaps_to_jax=gaps,
+           cg=[r.linear_solver_iterations for r in s.iterations],
+           ms_per_iteration=1e3 * s.minimizer_time_in_seconds / max(n_it, 1),
+           preprocessor_s=s.preprocessor_time_in_seconds, host_syncs=s.num_host_syncs,
+           final_cost=s.final_cost)
+    check(len(costs) == len(DENOISE_GOLDEN["rows"])
+          and max(gaps[:DENOISE_ROWS_HELD]) <= 1e-8 and gaps[-1] <= 1e-8,
+          f"denoise: {len(costs)} rows, the gaps to the JAX rows {gaps}")
+    check(out_image.shape == (DENOISE_SIZE, DENOISE_SIZE), "denoise: the written image")
+    check(all(launches[k] > 0 for k in COV_PATH_ROWS["denoise"]),
+          f"denoise: a row of the flat CGNR path launched no time: {launches}")
+    return time.monotonic() - t_phase
 
 
 def c120_instance(bal):

@@ -1349,3 +1349,116 @@ def test_example_on_card_matches_cpu(card, monkeypatch, tmp_path, name, argv):
         floor = 1e-12 * abs(c.initial_cost)
         tol = floor if abs(c.final_cost) < floor else 1e-9 * abs(c.final_cost)
         assert abs(g.final_cost - c.final_cost) <= tol, (g.final_cost, c.final_cost)
+
+
+# -- port slice 18: covariance, TinySolver, capi, rotation, NIST, denoising -----
+
+
+def _anchored_bal(w=1.0):
+    """The 32-camera anchored BA of tests/test_torch_covariance.py."""
+    b = tbal.synthetic_bal(num_cameras=32, num_points=150, visibility=0.15, noise=0.5, seed=0)
+    prob, cams, pts = tbal.build_problem_batched(b)
+    arr_c, arr_p = prob._block_arrays
+    prob.add_residual_block_batch(ctt.AutoDiffCostFunction(lambda c, d: w * (c - d), 9, [9]),
+                                  None, [(arr_c, np.arange(b.num_cameras))], data=cams.copy())
+    prob.add_residual_block_batch(ctt.AutoDiffCostFunction(lambda p, d: w * (p - d), 3, [3]),
+                                  None, [(arr_p, np.arange(b.num_points))], data=pts.copy())
+    return prob
+
+
+@pytest.mark.parametrize("kw", [dict(schur_tail_min_cols=128), dict(schur_tail_min_cols=0),
+                                dict(use_normal_equations=True),
+                                dict(algorithm_type=ctt.CovarianceAlgorithmType.DENSE_SVD)],
+                         ids=["schur_tail", "qr", "normal_equations", "dense_svd"])
+def test_covariance_on_card_matches_cpu(card, kw):
+    """Each covariance path with J (and S, J'J) formed on the card against
+    the same path on the CPU (1e-12 of the largest entry), the Schur tail
+    and the normal equations launching their rows, no plain version."""
+    prob = _anchored_bal()
+    out = []
+    for device in ("cpu", None):
+        kn.reset_counts()
+        cov = ctt.Covariance(ctt.CovarianceOptions(**kw))
+        assert cov.compute([], prob, device=device)
+        out.append(cov._cov)
+    plain = {k.__name__: k.plain_calls for k in kn.KERNELS}
+    launches = {k.__name__: k.launches for k in kn.KERNELS}
+    assert not any(plain.values())
+    if "schur_tail_min_cols" in kw and kw["schur_tail_min_cols"]:
+        assert launches["segment_spread_sum"] > 0 and launches["segment_block_sum"] > 0
+    if kw.get("use_normal_equations"):
+        assert launches["segment_block_sum"] > 0 and launches["segment_block_expand"] > 0
+    assert np.abs(out[1] - out[0]).max() <= 1e-12 * np.abs(out[0]).max()
+
+
+def test_tiny_solver_on_card_matches_cpu(card):
+    """solve_batch on 4,096 triangulations and solve on Rosenbrock: x within
+    1e-13 and the iterations of the CPU's."""
+    import chip_smoke
+    from ceres_tpu_torch import rotation
+
+    X, x0, cams, obs = chip_smoke.triangulations(4096)
+    res = chip_smoke.triangulation_residual(rotation)
+    (xg, sg), (xc, sc) = (ctt.TinySolver(res, device=d).solve_batch(x0, (cams, obs))
+                          for d in (None, "cpu"))
+    assert np.abs(xg.cpu().numpy() - xc.numpy()).max() <= 1e-13
+    assert torch.equal(sg.iterations.cpu(), sc.iterations)
+
+    def rosen(x, d):
+        return torch.stack([10.0 * (x[1] - x[0] ** 2), 1.0 - x[0]])
+
+    (xg, sg), (xc, sc) = (ctt.TinySolver(rosen, device=d).solve([-1.2, 1.0])
+                          for d in (None, "cpu"))
+    assert np.abs(xg.cpu().numpy() - xc.numpy()).max() <= 1e-13
+    assert int(sg.iterations) == int(sc.iterations)
+
+
+def test_capi_and_rotation_on_card(card):
+    """The capi surface solves on the card; the five rotation functions of
+    the slice on the card against the CPU (1e-13)."""
+    from ceres_tpu_torch import capi
+    from ceres_tpu_torch import rotation as rot
+
+    p = capi.ceres_create_problem()
+    x = np.zeros(2)
+    capi.ceres_problem_add_residual_block(
+        p, lambda v: v - torch.tensor([1.0, 2.0], dtype=v.dtype, device=v.device), 2, [2], [x],
+        loss_function_name="cauchy")
+    s = capi.ceres_solve(p)
+    assert s.is_solution_usable() and s.device_kind == torch.cuda.get_device_name(card)
+    np.testing.assert_allclose(x, [1.0, 2.0], atol=1e-6)
+    aa = torch.as_tensor(np.random.default_rng(3).standard_normal((512, 3)))
+    for fn in (rot.angle_axis_to_rotation_matrix, rot.cross_product_matrix,
+               rot.euler_angles_to_rotation_matrix,
+               torch.func.vmap(lambda v: rot.euler_angles_to_rotation("ExtrinsicZXZ", v))):
+        g, c = fn(aa.to(card)).cpu(), fn(aa)
+        assert (g - c).abs().max() <= 1e-13 * c.abs().max()
+    R = rot.angle_axis_to_rotation_matrix(0.5 * aa)
+    inv = torch.func.vmap(lambda M: rot.rotation_matrix_to_euler_angles("IntrinsicYXZ", M))
+    assert (inv(R.to(card)).cpu() - inv(R)).abs().max() <= 1e-13
+
+
+def test_nist_and_denoising_on_card_match_cpu(card, tmp_path):
+    """examples/nist.py on one NIST-format file and examples/denoising.py
+    on a 24x24 image (5 CGNR iterations, the flat path's rows 6 and 7) on
+    the card against the CPU: final costs within 1e-10, the same rows."""
+    import chip_smoke
+    from ceres_tpu_torch.examples import denoising as den_example
+    from ceres_tpu_torch.examples import nist as nist_example
+    from ceres_tpu_torch.models import denoising
+
+    chip_smoke.write_nist_file(tmp_path / "Rat42.dat", "Rat42")
+    runs = [nist_example.main(["--nist_data_dir", str(tmp_path), "--problem", "Rat42.dat",
+                               "--device", d]) for d in ("cpu", "cuda")]
+    for c, g in zip(*runs):
+        assert abs(g.final_cost - c.final_cost) <= 1e-10 * c.final_cost
+    chip_smoke.write_foe_file(tmp_path / "m.foe")
+    denoising.write_pgm(tmp_path / "n.pgm", chip_smoke.noisy_image(24))
+    kn.reset_counts()
+    runs = [den_example.main(["--input", str(tmp_path / "n.pgm"), "--foe_file",
+                              str(tmp_path / "m.foe"), "--output", str(tmp_path / "o.pgm"),
+                              "--num_iterations", "5", "--device", d]) for d in ("cpu", "cuda")]
+    assert len(runs[0].iterations) == len(runs[1].iterations)
+    for c, g in zip(runs[0].iterations, runs[1].iterations):
+        assert abs(g.cost - c.cost) <= 1e-10 * runs[0].initial_cost
+    assert kn.segment_block_sum.launches > 0 and kn.segment_block_expand.launches > 0
