@@ -8,9 +8,15 @@ steps is scattered from the blocks through an index built once
 (`dense_index`, `to_dense`); Problem.evaluate's CRS Jacobian is built
 from the blocks on the host without it (`to_crs`).
 
-The linear-operator ops over the block values (bsr.py:138-293: J v, J'u,
+The solvers' linear-operator ops over the block values (J v, J'u,
 diag(J'J), column scaling, the block-Jacobi blocks of J'J and their
-inverse) are ops/flatops.FlatJacobianOps's, over its kernels.
+inverse) are ops/flatops.FlatJacobianOps's, over its kernels. The plain
+forms of the first four (bsr.py:138-208) are here too, with their
+`*_args` twins (bsr.py:294-370), which read each slot's tangent columns
+from a CompiledProgram.make_args shard (`tangent_idx`, the tangent size
+for a constant block or a padding row): the generic multi-device kernels
+(parallel/mesh.py) run them over a rank's rows. The scatter-adds go
+through program.scatter_add_rows, in the same order on every call.
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+
+from ..program import scatter_add_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +129,93 @@ def _block_columns(meta: BlockJacobianMeta, slot: SlotMeta) -> np.ndarray:
     return np.where((local < fm.num_var)[:, None],
                     fm.tangent_offset + local[:, None] * fm.t
                     + np.arange(fm.t, dtype=np.int64), meta.tangent_size)
+
+
+# --------------------------------------------------------------------------
+# Linear-operator ops over the block values [kind][slot] (B, r, t)
+# --------------------------------------------------------------------------
+
+
+def tangent_index(meta: BlockJacobianMeta, device):
+    """Per kind and slot, the (B, t) tangent columns of its blocks (the
+    tangent size for a constant block), as the args' `tangent_idx`."""
+    return [[torch.as_tensor(_block_columns(meta, slot), device=device)
+             for slot in kind.slots] for kind in meta.kinds]
+
+
+def _shapes(meta: BlockJacobianMeta):
+    return [(kind.B, kind.r) for kind in meta.kinds]
+
+
+def _meta_args(meta: BlockJacobianMeta, values):
+    """The meta's tangent columns in the args' layout."""
+    dev = values[0][0].device
+    return [{"tangent_idx": idx} for idx in tangent_index(meta, dev)]
+
+
+def right_multiply(meta: BlockJacobianMeta, values, v):
+    """y = J v (BlockSparseMatrix::RightMultiplyAndAccumulate)."""
+    return right_multiply_args(_shapes(meta), _meta_args(meta, values), values, v)
+
+
+def left_multiply(meta: BlockJacobianMeta, values, u):
+    """g = J'u (LeftMultiplyAndAccumulate)."""
+    return left_multiply_args(_shapes(meta), _meta_args(meta, values), values, u,
+                              meta.tangent_size)
+
+
+def squared_column_norm(meta: BlockJacobianMeta, values):
+    """diag(J'J) (SquaredColumnNorm)."""
+    return squared_column_norm_args(_shapes(meta), _meta_args(meta, values), values,
+                                    meta.tangent_size)
+
+
+def scale_columns(meta: BlockJacobianMeta, values, scale):
+    """J diag(scale) (ScaleColumns)."""
+    return scale_columns_args(_meta_args(meta, values), values, scale)
+
+
+def right_multiply_args(kind_shapes, args, values, v):
+    """y = J v over the args' rows; kind_shapes: (B, r) of each kind's
+    (padded) rows. Rows are kind-major."""
+    vp = torch.cat([v, v.new_zeros((1,))])  # the sentinel column reads 0
+    outs = []
+    for k, (B, r) in enumerate(kind_shapes):
+        acc = vp.new_zeros((B, r))
+        for s, idx in enumerate(args[k]["tangent_idx"]):
+            V = values[k][s]
+            acc = acc + torch.sum(V * vp[idx][:, None, :].to(V.dtype), dim=2)
+        outs.append(acc.reshape(-1))
+    return torch.cat(outs) if outs else vp[:0]
+
+
+def left_multiply_args(kind_shapes, args, values, u, tangent_size):
+    """g = J'u over the args' rows."""
+    g = u.new_zeros((tangent_size + 1,))
+    off = 0
+    for k, (B, r) in enumerate(kind_shapes):
+        rows = u[off:off + B * r].reshape(B, r)
+        off += B * r
+        for s, idx in enumerate(args[k]["tangent_idx"]):
+            contrib = torch.sum(values[k][s] * rows[:, :, None].to(values[k][s].dtype),
+                                dim=1)
+            scatter_add_rows(g, idx.reshape(-1), contrib.reshape(-1).to(g.dtype))
+    return g[:tangent_size]
+
+
+def squared_column_norm_args(kind_shapes, args, values, tangent_size):
+    out = values[0][0].new_zeros((tangent_size + 1,))
+    for k in range(len(kind_shapes)):
+        for s, idx in enumerate(args[k]["tangent_idx"]):
+            V = values[k][s]
+            scatter_add_rows(out, idx.reshape(-1), torch.sum(V * V, dim=1).reshape(-1))
+    return out[:tangent_size]
+
+
+def scale_columns_args(args, values, scale):
+    sp = torch.cat([scale, scale.new_zeros((1,))])
+    return [[V * sp[args[k]["tangent_idx"][s]][:, None, :].to(V.dtype)
+             for s, V in enumerate(slots)] for k, slots in enumerate(values)]
 
 
 @dataclasses.dataclass

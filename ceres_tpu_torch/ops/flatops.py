@@ -819,6 +819,41 @@ class _FlatOpsBase:
                                          seg.order is None, seg))
         return plans
 
+    def with_env(self, locs, padded_B):
+        """The view of these ops over a rank's rows (flatops.py:409): locs
+        {(k, s): (B',) block ids within the family, the sentinel nv for a
+        constant block or a padding row} of every planned slot, padded_B
+        each kind's rows on this rank. Each slot gets a segment plan of its
+        own over those rows (kernel 6 and 7 where the ids are sorted, as a
+        contiguous block of point-sorted rows is, else kernel 9); the view
+        takes no normal_matvec plan."""
+        import copy
+
+        clone = copy.copy(self)
+        kinds, off = [], 0
+        for kind, B in zip(self.kinds, padded_B):
+            kinds.append(dataclasses.replace(kind, row_offset=off, B=int(B)))
+            off += int(B) * kind.r
+        clone.kinds = kinds
+
+        def remap(plans):
+            out = []
+            for k, pl in enumerate(plans):
+                row = []
+                for pe in pl:
+                    seg = build_segment_plan(np.asarray(locs[(k, pe.s)], np.int64), pe.nv + 1,
+                                             self.device)
+                    row.append(pe._replace(local=seg.ids, srt=seg.order is None, seg=seg))
+                out.append(row)
+            return out
+
+        for name in ("plans", "plans_e", "plans_f"):
+            if hasattr(self, name):
+                setattr(clone, name, remap(getattr(self, name)))
+        if hasattr(self, "kernel_slots"):
+            clone.kernel_slots, clone.plan = None, None
+        return clone
+
     @staticmethod
     def _reduce_rows(table, pe: SlotPlanFlat, contrib):
         """table + the segment sum of contrib (B, w) by pe's block ids:

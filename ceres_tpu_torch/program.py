@@ -393,8 +393,40 @@ class CompiledProgram:
                     self.family_table(xc, fam))
         return out
 
+    def make_args(self, pad_to: int = 1, rank: Optional[int] = None):
+        """The per-kind observation arrays as arguments of _eval_core
+        (program.py:531): [kind] {"pos": [slot] (B',) block rows in the
+        family, "tangent_idx": [slot] (B', t) tangent columns, the tangent
+        size for a constant block, "data": the data tree, "w": (B',) 1 or
+        0}. Each kind is padded to a multiple of `pad_to` rows by repeating
+        its last row with weight 0, and a padding row's tangent_idx is the
+        sentinel. With `rank`, only that rank's shard of each kind: rows
+        [rank B'/pad_to, (rank + 1) B'/pad_to)."""
+        T = self.tangent_size
+        args = []
+        for k, kind in enumerate(self.kinds):
+            B = kind.B
+            Bp = B + (-B) % pad_to
+            lo, hi = (0, Bp) if rank is None else (rank * Bp // pad_to,
+                                                   (rank + 1) * Bp // pad_to)
+            idx = np.minimum(np.arange(lo, hi), B - 1)
+            real = np.arange(lo, hi) < B
+            pos, tidx = [], []
+            for s in kind.slots:
+                fam, t = s.family, s.family.tsize
+                p = s.pos_in_family[idx]
+                cols = np.where((real & (p < fam.num_var))[:, None],
+                                fam.tangent_offset + p[:, None] * t + np.arange(t), T)
+                pos.append(torch.as_tensor(p, device=self.device))
+                tidx.append(torch.as_tensor(cols.astype(np.int64), device=self.device))
+            ix = torch.as_tensor(idx, device=self.device)
+            args.append({"pos": pos, "tangent_idx": tidx,
+                         "data": tree_map(lambda d: d[ix], kind.data),
+                         "w": torch.as_tensor(real.astype(np.float64), device=self.device)})
+        return args
+
     def _eval_core(self, x: torch.Tensor, dense_jac: bool = False,
-                   with_jac: bool = True, row_costs: bool = False):
+                   with_jac: bool = True, row_costs: bool = False, args=None):
         """Plain evaluation: {"cost": f64 scalar, "residuals": (N,),
         "block_jacs": [kind][slot] (B, r, t)} in the compute dtype, and with
         `dense_jac` "jacobian", the dense (N, tangent) float64 Jacobian
@@ -408,7 +440,14 @@ class CompiledProgram:
         (program.py:617-637; the line-search minimizers read it); else the
         sum of the squared residuals in float64. Rows are evaluated
         EVAL_CHUNK_ROWS at a time, which bounds the memory of the batched
-        forward-mode Jacobian and changes no value."""
+        forward-mode Jacobian and changes no value.
+
+        With `args` (make_args, a rank's shard), the rows are the args':
+        each row's residuals and Jacobians are multiplied by its weight
+        before the loss (padding rows add 0), and the cost is the rows'
+        own, without fixed_cost, which the caller adds once after summing
+        over the ranks (program.py:565-570)."""
+        assert args is None or not dense_jac
         xc = x.to(self.compute_dtype)
         total = torch.zeros((), dtype=torch.float64, device=x.device)
         plus_jacs = self._plus_jacobians(xc) if with_jac else {}
@@ -416,22 +455,35 @@ class CompiledProgram:
         for k, kind in enumerate(self.kinds):
             tables = [self.family_table(xc, s.family) for s in kind.slots]
             trivial = kind.loss is None or isinstance(kind.loss, TrivialLoss)
+            if args is None:
+                pos_all, data_all, w_all, B = None, kind.data, None, kind.B
+            else:
+                pos_all, data_all = args[k]["pos"], args[k]["data"]
+                w_all = args[k]["w"].to(self.compute_dtype)
+                B = w_all.shape[0]
             parts = []
-            for a in range(0, kind.B, EVAL_CHUNK_ROWS):
-                rows = slice(a, min(a + EVAL_CHUNK_ROWS, kind.B))
-                index = [self._slot_index(k, s)[rows] for s in range(len(tables))]
+            for a in range(0, B, EVAL_CHUNK_ROWS):
+                rows = slice(a, min(a + EVAL_CHUNK_ROWS, B))
+                index = [(self._slot_index(k, s) if pos_all is None else pos_all[s])[rows]
+                         for s in range(len(tables))]
                 params = tuple(tab[i] for tab, i in zip(tables, index))
-                data = tree_map(lambda d: d[rows], kind.data)
+                data = tree_map(lambda d: d[rows], data_all)
+                w = None if w_all is None else w_all[rows]
                 if not with_jac:
                     res = torch.func.vmap(
                         lambda ps, d: kind.cost.residuals(list(ps), d),
                         in_dims=(0, None if data is None else 0))(params, data)
+                    if w is not None:
+                        res = res * w[:, None]
                     cost_b = None
                     if not trivial:
                         cost_b, res, _ = correct_residuals_and_jacobians(kind.loss, res, [])
                     parts.append((res, [], cost_b))
                     continue
                 res, jacs = kind.cost.batched_residuals_and_jacobians(params, data)
+                if w is not None:
+                    res = res * w[:, None]
+                    jacs = [J * w[:, None, None] for J in jacs]
                 jacs = [J if s.family_index not in plus_jacs else torch.einsum(
                     "bra,bat->brt", J, plus_jacs[s.family_index][i])
                     for s, i, J in zip(kind.slots, index, jacs)]
@@ -457,7 +509,7 @@ class CompiledProgram:
             else:
                 total = total + torch.sum(cost_b.to(torch.float64))
             res_chunks.append(res.reshape(-1))
-        out = {"cost": total + self.fixed_cost,
+        out = {"cost": total + (self.fixed_cost if args is None else 0.0),
                "residuals": torch.cat(res_chunks) if res_chunks
                else torch.zeros((0,), dtype=self.compute_dtype, device=x.device),
                "block_jacs": block_jacs}

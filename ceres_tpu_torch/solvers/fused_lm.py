@@ -876,14 +876,18 @@ class DoglegStepOps:
 
 
 class FusedTrustRegionMinimizer:
-    """LM or dogleg over a step adapter with one host sync per iteration."""
+    """LM or dogleg over a step adapter with one host sync per iteration.
+    `args` (CompiledProgram.make_args, a rank's shard): handed to the
+    step adapter's evaluate, post_eval and compute_step, as the JAX loop
+    takes its sharded arguments (fused_lm.py:1333-1347)."""
 
-    def __init__(self, program, options: Options, ops, inner_minimizer=None):
+    def __init__(self, program, options: Options, ops, inner_minimizer=None, args=None):
         self.program = program
         self.options = options
         self.ops = ops
         self.inner = inner_minimizer
         self.x_cost = float("nan")
+        self._args = {} if args is None else {"args": args}
 
     def _inner_iterations(self, cand_x, cand_cost_t, cand_vrep, mcc_t, valid_t):
         """Coordinate descent on a valid candidate of finite cost, under
@@ -897,7 +901,7 @@ class FusedTrustRegionMinimizer:
         take = valid_t & torch.isfinite(cand_cost_t) & (cand_cost_t < _DBL_MAX)
         cc = torch.where(take, cand_cost_t, 1.0)
         nx = self.inner.minimize(cand_x)
-        ic, ivrep = self.ops.evaluate(nx)
+        ic, ivrep = self.ops.evaluate(nx, **self._args)
         finite = torch.isfinite(ic)
         use = take & finite
         stays_on = finite & ((1.0 - ic / torch.clamp(cc, min=1e-300))
@@ -953,8 +957,9 @@ class FusedTrustRegionMinimizer:
             x0 = self.program.plus(x0, torch.zeros(self.program.tangent_size,
                                                    dtype=torch.float64, device=x0.device))
 
-        cost_t, vrep = ops.evaluate(x0)
-        g, sqn_c, aux = ops.post_eval(vrep)
+        kw = self._args
+        cost_t, vrep = ops.evaluate(x0, **kw)
+        g, sqn_c, aux = ops.post_eval(vrep, **kw)
         sqn = sqn_c.to(torch.float64)
         if opts.jacobi_scaling:
             scale = 1.0 / (1.0 + torch.sqrt(sqn))
@@ -1009,7 +1014,7 @@ class FusedTrustRegionMinimizer:
             else:
                 D2_c = (diag / radius).to(cdt)
                 step, mcc_c, lin_iters = ops.compute_step(vrep, aux, g, escale_c, D2_c,
-                                                          fetch)
+                                                          fetch, **kw)
                 extra = ()
             mcc_t = mcc_c.to(torch.float64)
             valid_t = torch.isfinite(step).all() & (mcc_t > 0.0)
@@ -1017,14 +1022,14 @@ class FusedTrustRegionMinimizer:
             if active_mask is not None and opts.max_num_line_search_step_size_iterations > 0:
                 delta = self._line_search(x, cost, g, delta, valid_t, summary)
             cand_x = self.program.plus(x, delta)
-            cand_cost_t, cand_vrep = ops.evaluate(cand_x)
+            cand_cost_t, cand_vrep = ops.evaluate(cand_x, **kw)
             step_norm_t = torch.linalg.vector_norm(x - cand_x)
             if inner_on:
                 (cand_x, cand_cost_t, cand_vrep, mcc_t, took_t,
                  inner_on_t) = self._inner_iterations(cand_x, cand_cost_t, cand_vrep,
                                                       mcc_t, valid_t)
                 extra = extra + (took_t, inner_on_t)
-            cand_g, cand_sqn, cand_aux = ops.post_eval(cand_vrep)
+            cand_g, cand_sqn, cand_aux = ops.post_eval(cand_vrep, **kw)
             cgnorm_t, cgmax_t = grad_norms(self.program, cand_x, cand_g)
             (valid_f, mcc, cand_cost, step_norm, x_norm, cgnorm,
              cgmax, *rest) = self._fetch(
@@ -1175,6 +1180,104 @@ class FusedTrustRegionMinimizer:
             summary.message = (
                 f"Maximum number of iterations reached. Number of iterations: {n_it}.")
             summary.termination_type = TerminationType.NO_CONVERGENCE
+
+
+class ShardedCgnrStepOps(CgnrStepOps):
+    """The CGNR step over a rank's shard of the observations, the state
+    and CG's vectors replicated (fused_lm.py:1811): each rank runs the
+    flat products J x and J'u and the post-evaluation over its own rows,
+    through the per-rank plans of FlatJacobianOps.with_env (kernels 6 and
+    7 on the sorted point side, 9 on the camera side), and the gradient,
+    column norms and J'J blocks (one psum), each J'u of CG and the model
+    cost change close with a psum. The JAX step runs under GSPMD, which
+    inserts those psums."""
+
+    def __init__(self, program, options: Options, padded_B, mesh):
+        super().__init__(program, options)
+        self.padded_B = tuple(int(b) for b in padded_B)
+        self.mesh = mesh
+        self._view = None
+
+    def _bound(self, args):
+        """The flat ops over the args' rows, built once."""
+        if self._view is None or self._view[0] is not args:
+            T = self.program.tangent_size
+            locs = {}
+            for k in range(len(self.program.kinds)):
+                for pe in self.flat.plans[k]:
+                    is_var = (args[k]["tangent_idx"][pe.s][:, 0] < T).cpu().numpy()
+                    locs[(k, pe.s)] = np.where(is_var, args[k]["pos"][pe.s].cpu().numpy(),
+                                               pe.nv)
+            self._view = (args, self.flat.with_env(locs, self.padded_B))
+        return self._view[1]
+
+    def evaluate(self, x, args=None):
+        o = self.program._eval_core(x, args=args)
+        cost = self.mesh.psum(o["cost"]) + self.program.fixed_cost
+        return cost, CgnrForm(fo.FlatJacobianOps.flatten(o["block_jacs"]), o["residuals"],
+                              None)
+
+    def post_eval(self, vrep: CgnrForm, args=None):
+        g, sqn, blocks = self._bound(args).fused_post_eval_all(vrep.vflat, vrep.r)
+        parts = [g, sqn] + (list(blocks) if self.precond else [])
+        flat = self.mesh.psum(torch.cat([p.reshape(-1) for p in parts]))
+        out, off = [], 0
+        for p in parts:
+            out.append(flat[off:off + p.numel()].reshape(p.shape))
+            off += p.numel()
+        return out[0], out[1], tuple(out[2:]) if self.precond else ()
+
+    def compute_step(self, vrep: CgnrForm, aux, g, scale_c, D2_c, fetch, args=None):
+        fl = self._bound(args)
+
+        def lhs(x):
+            return scale_c * self.mesh.psum(fl.left(vrep.vflat, fl.right(vrep.vflat,
+                                                                         scale_c * x))) \
+                + D2_c * x
+
+        precond = None
+        if self.precond:
+            invs = fl.scaled_block_inverses(fl.fams, aux, scale_c, D2_c)
+
+            def precond(v):
+                return fl.apply_inverse_rows(fl.fams, invs, v)
+
+        res = _cg(self, lhs, scale_c * g, precond, fetch)
+        step = -res.x
+        mr = fl.right(vrep.vflat, scale_c * step)
+        return step, self.mesh.psum(-torch.dot(mr, vrep.r + mr / 2.0)), res.num_iterations
+
+
+def solve_sharded_fused(options: Options, problem, mesh=None, summary=None):
+    """The fused LM loop with the observations sharded over the mesh and
+    the state replicated (fused_lm.py:1843): the program sorted by point
+    and padded to the world size, each rank's rows its make_args shard,
+    the CGNR step ShardedCgnrStepOps. Every rank runs it on the same
+    problem and options and returns the same Summary."""
+    import time
+
+    from ..parallel.mesh import make_mesh
+    from ..program import CompiledProgram
+
+    if summary is None:
+        summary = Summary()
+    if mesh is None:
+        mesh = make_mesh()
+    t0 = time.monotonic()
+    program = CompiledProgram(problem, compute_dtype=options.evaluation_dtype,
+                              device=mesh.device, sort_rows=True)
+    args = program.make_args(pad_to=mesh.size, rank=mesh.rank)
+    ops = ShardedCgnrStepOps(program, options, [a["w"].shape[0] for a in args], mesh)
+    fused = FusedTrustRegionMinimizer(program, options, ops, args=args)
+    summary.num_devices = mesh.size
+    summary.fixed_cost = program.fixed_cost
+    summary.preprocessor_time_in_seconds = time.monotonic() - t0
+    x = fused.minimize(program.initial_state(), summary)
+    program.write_state(x)
+    if np.isfinite(fused.x_cost):
+        summary.final_cost = fused.x_cost
+    summary.total_time_in_seconds = time.monotonic() - t0
+    return summary
 
 
 # Schur tier -> (jt step, flat step)

@@ -53,19 +53,26 @@ def conjugate_gradients(
     r_tolerance: float = -1.0,
     q_tolerance: float = -1.0,
     host_variant: bool = False,
+    dot: Optional[Callable] = None,
+    norm: Optional[Callable] = None,
 ) -> CGResult:
     """Solve lhs(x) = rhs. `fetch(*scalars) -> list of floats` brings device
     scalars to the host; every call is one host sync. `host_variant`:
-    conjugate_gradients_host's semantics (below)."""
+    conjugate_gradients_host's semantics (below). `dot` and `norm`
+    replace the inner product and the 2-norm (cg.py's injectable ones,
+    conjugate_gradients_solver.h:109): over vectors sharded across ranks,
+    closed by a psum, so that every rank takes the same decisions."""
     if preconditioner is None:
         preconditioner = lambda v: v
+    dot = dot or torch.dot
+    norm = norm or torch.linalg.vector_norm
 
-    norm_rhs = torch.linalg.vector_norm(rhs)
+    norm_rhs = norm(rhs)
     tol_r = r_tolerance * norm_rhs
     r = rhs - lhs(x0)
-    norm_r = torch.linalg.vector_norm(r)
+    norm_r = norm(r)
     init_done = (norm_r <= tol_r) & (min_num_iterations == 0)
-    Q0 = -torch.dot(x0, rhs + r)
+    Q0 = -dot(x0, rhs + r)
     x, p = x0, torch.zeros_like(x0)
     rho = torch.ones((), dtype=rhs.dtype, device=rhs.device)
     codes = torch.tensor([CG_NO_CONVERGENCE, CG_SUCCESS, CG_FAILURE],
@@ -76,7 +83,7 @@ def conjugate_gradients(
         it += 1
         z = preconditioner(r)
         last_rho = rho
-        rho = torch.dot(r, z)
+        rho = dot(r, z)
         rho_bad = (rho == 0.0) | torch.isinf(rho)
         if it == 1:
             p = z
@@ -86,7 +93,7 @@ def conjugate_gradients(
             p = z + beta * p
             beta_bad = (beta == 0.0) | torch.isinf(beta)
         q = lhs(p)
-        pq = torch.dot(p, q)
+        pq = dot(p, q)
         indefinite = (pq <= 0.0) | torch.isinf(pq)
         alpha = rho / pq
         alpha_bad = torch.isinf(alpha)
@@ -95,11 +102,11 @@ def conjugate_gradients(
             r = rhs - lhs(x)
         else:
             r = r - alpha * q
-        Q1 = -torch.dot(x, rhs + r)
+        Q1 = -dot(x, rhs + r)
         zeta = it * (Q1 - Q0) / Q1
         if host_variant:
             zeta = torch.where(Q1 != 0.0, zeta, torch.zeros_like(zeta))
-        norm_r = torch.linalg.vector_norm(r)
+        norm_r = norm(r)
         conv = (((zeta < q_tolerance) | (norm_r <= tol_r))
                 & (it >= min_num_iterations))
         failure = rho_bad | beta_bad | alpha_bad

@@ -132,8 +132,6 @@ class VisibilityClusteringType(_StrEnum):
 # this slice raise NotImplementedError naming the slice that brings them.
 LATER_SLICES = {
     4: "a device-resident LM loop (CUDA graphs)",
-    9: "multi-device: the mesh half of parallel/sharded_ba.py, parallel/mesh.py "
-       "and parallel/sharded_program.py",
 }
 
 

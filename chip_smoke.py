@@ -115,9 +115,9 @@ LIBMV16_GOLDEN_ROWS = 22
 # at the full depths their two CPU solves each took 66 and 76 s on the
 # chip machine's host. Cut again to 6 beside the sparse phase (port slice
 # 14), whose card-against-CPU solves take ~1.5 min of the host, and to 4
-# beside the precond phase (port slice 15), and to 2 beside the line-search
-# phase (port slice 16)
-LIBMV16_CARD_VS_CPU_ITERATIONS = 2
+# beside the precond phase (port slice 15), to 2 beside the line-search
+# phase (port slice 16), and to 1 beside the mesh phase (port slice 19)
+LIBMV16_CARD_VS_CPU_ITERATIONS = 1
 # scripts/specialized16_golden.py: the JAX package's lm_step_schur_k on
 # BAL-16 (rows sorted by point, radius 1e4) in float64, the cost after 5,
 # 10, 15 and 20 LM iterations
@@ -146,10 +146,10 @@ ROBUST_F32_REL = 5e-3
 CGNR16_GOLDEN = {"float64": 51931.26916069753, "float32": 51931.2734375}
 # the BAL-16 and libmv16 CGNR solves of card against CPU, cut in depth: the
 # CPU solves of libmv16 take 1-2 s an LM iteration on the card's host (cut
-# from 15 and 10 beside the sparse phase, and from 8 and 6 beside the
-# precond phase)
-CGNR16_CARD_VS_CPU_ITERATIONS = 4
-LIBMV16_CGNR_CARD_VS_CPU_ITERATIONS = 3
+# from 15 and 10 beside the sparse phase, from 8 and 6 beside the precond
+# phase, and from 4 and 3 beside the mesh phase)
+CGNR16_CARD_VS_CPU_ITERATIONS = 2
+LIBMV16_CGNR_CARD_VS_CPU_ITERATIONS = 2
 # scripts/dogleg16_golden.py: the JAX package's BAL-16 DENSE_SCHUR solves
 # with DOGLEG in float64 (CONVERGENCE, 17 rows each; from the default radius
 # of 1e4 every step is the Gauss-Newton point, so the two agree)
@@ -210,8 +210,9 @@ MGH_CONSTRAINED_GOLDEN = {
                                     18: 0.0005320986590782357},
 }
 # the card against the CPU on the modeling paths, cut in depth: a BAL-16
-# DENSE_SCHUR LM iteration takes seconds on the card's host
-MODELING_CARD_VS_CPU_ITERATIONS = 4
+# DENSE_SCHUR LM iteration takes seconds on the card's host (4 until the
+# mesh phase came)
+MODELING_CARD_VS_CPU_ITERATIONS = 2
 # the MGH problems that miss the optimum at trial 0, in both packages: #2
 # stops at the local minimum 48.98, #16 crawls (tests/test_mgh.py:10-17);
 # the JAX host loop misses the same two (scripts/hostloop16_golden.py d)
@@ -252,7 +253,8 @@ MANIFOLD_GOLDEN = {
                                               -0.2989028583036928, 0.24908094557569405]),
 }
 # the host loop's card-against-CPU solves, cut in depth as the fused ones
-HOST_CARD_VS_CPU_ITERATIONS = 4  # 15 until the sparse phase came, 8 until the precond
+HOST_CARD_VS_CPU_ITERATIONS = 2  # 15 until the sparse phase came, 8 until the precond,
+# 4 until the mesh phase
 # the Venice shape in the host loop: LM iterations of each solve
 HOST_VENICE_LM_ITERATIONS = 3
 # the kernels of the host loop's block steps (solvers/bsr_kernels.py): the
@@ -291,8 +293,8 @@ POSE2D = (3500, 350, 0.02, 0, 50)
 # of the preconditioner's rows (tests/test_bal_golden.py:104-143)
 SUBSET_DROP_MIN = 6
 # libmv16 SPARSE_SCHUR on the card against the CPU: its first rows (6 until
-# the precond phase came)
-LIBMV16_SPARSE_CARD_VS_CPU_ITERATIONS = 3
+# the precond phase came, 3 until the mesh phase)
+LIBMV16_SPARSE_CARD_VS_CPU_ITERATIONS = 1
 # 2,048-camera SPARSE_SCHUR on the card against the CPU (5 until the precond
 # phase came: its CPU solves factor an 18,432-column S, ~2 s a step)
 SPARSE_C2048_LM_ITERATIONS = 1
@@ -413,9 +415,10 @@ ROSEN16_GOLDEN = {
     ('quaternion', 'ALWAYS'): ('CONVERGENCE', 4.225674491090508e-22, [2.0, 0.18140514634863655, 0.025073930080192198, 9.672073096302525e-06, 1.6396420895903126e-10, 4.225674491090508e-22], [0.70710678117928, 0.0, -0.7071067811938153, 0.0]),
 }
 # the card against the CPU: C120 under LBFGS (LINE_SEARCH), and BAL-16
-# DENSE_SCHUR with inner iterations, these many iterations
-LS_CARD_VS_CPU_ITERATIONS = 10
-INNER_CARD_VS_CPU_ITERATIONS = 2
+# DENSE_SCHUR with inner iterations, these many iterations (10 and 2 until
+# the mesh phase came)
+LS_CARD_VS_CPU_ITERATIONS = 5
+INNER_CARD_VS_CPU_ITERATIONS = 1
 SPECIALIZED_K = 20  # LM iterations per call, as bench.py:147
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # peak rate of each type (NVIDIA H100 SXM data sheet, dense): float32
@@ -435,8 +438,259 @@ SMALL_VENICE = dict(VENICE, num_cameras=2048, num_points=30_000)
 # 1080 x 1080, past the JAX package's t_full = 1024 for this path
 C120 = dict(num_cameras=120, num_points=2000, visibility=0.04, seed=6)
 # the 2,048-camera ITERATIVE_SCHUR card against the CPU (5 until the
-# line-search phase came)
-SMALL_VENICE_LM_ITERATIONS = 3
+# line-search phase came, 3 until the mesh phase)
+SMALL_VENICE_LM_ITERATIONS = 2
+
+# the mesh phase (port slice 19): every multi-device tier on BAL-16 at
+# world sizes 1 (NCCL) and 2 and 4 (gloo, the ranks sharing the card), the
+# CG budget pinned where the step's CG stops adaptively, as
+# tests/test_sharding.py:441-447 pins it; scripts/sharded16_golden.py
+# runs the same cases of the JAX package on the CPU's 8-device mesh. The
+# two dense-Schur tiers run 4 LM iterations: after 2, a one-ulp change of
+# the cameras moves the cost by 1.2e-10 (the phase logs it), above the
+# gate, so world sizes could not be told apart from rounding there
+MESH_PIN = dict(eta=1e-30, max_linear_solver_iterations=8)
+MESH16_CASES = [
+    dict(name="evaluator", tier="evaluator"),
+    dict(name="solve_sharded", tier="solve_sharded", max_num_iterations=4, **MESH_PIN),
+    dict(name="solve_sharded_fused", tier="solve_sharded_fused", max_num_iterations=4,
+         **MESH_PIN),
+    dict(name="solve_ba_cg", tier="solve_ba", num_iterations=2, step="cg", cg_iters=8),
+    dict(name="solve_ba_schur", tier="solve_ba", num_iterations=4, step="schur"),
+    dict(name="point", tier="point", num_iterations=4, k=4),
+    dict(name="camera", tier="camera", num_iterations=2, k=1, cg_iters=8),
+    dict(name="halo", tier="halo", num_iterations=2, k=1, cg_iters=8),
+    dict(name="halo_ceres", tier="halo_ceres", k=4, max_num_iterations=4, options=MESH_PIN),
+    dict(name="program_halo", tier="program_halo", k=2, max_num_iterations=3,
+         options=MESH_PIN),
+    dict(name="program_halo_quat", tier="program_halo", quat=True, k=2, max_num_iterations=3,
+         options=MESH_PIN),
+]
+# the largest group first: its ranks start before the others' cases load the host
+MESH_WORLD = {4: "gloo", 2: "gloo", 1: "nccl"}
+MESH_COST_REL = 1e-10
+MESH_STATE_REL = 1e-8
+# the halo tier at the 2,048-camera instance, world size 4: its LM
+# iterations (CG budget 10), against the same steps on one device
+MESH_C2048_ITERATIONS = 2
+MESH_DEADLINE_S = 300
+# the kernels each tier must launch on every rank
+MESH_ROWS = {"point": ("segment_block_sum", "segment_block_expand", "segment_spread_ftf"),
+             "solve_sharded_fused": ("segment_block_sum", "segment_block_expand",
+                                     "unsorted_segment_sum")}
+MESH16_GOLDEN = {
+    "evaluator": {
+        "cost": 19012078.580987826,
+        "g_sq": 5.133747025022723e+18,
+        "g_first": [1875223.583560792, 496022.1384760955, 718783.2440297533,
+            1714359.7184897913, 2879861.635556071, -254509.52608500427, 4058.1110666316463,
+            588096.7139155021, 349252.9900666651, -730372.3512992808, 2316122.7677341304,
+            1281122.88354554, -2494188.0370636135, 1982513.3019864417, -242977.2595719219,
+            4940.290647783995, 314822.14384449605, -735691.6333234163],
+    },
+    "solve_sharded": {
+        "cost": 55065.625536399995,
+        "rows": 5,
+        "cams_sq": [0.1861590803157892, 0.08024200254290238, 0.10449577376141103,
+            2.014078330083395, 2.00979402711339, 1545.0345175085265, 4009343.926040612,
+            0.00038479444052099386, 2.6073327959219287e-05],
+        "cams_first": [0.0089056725606041, -0.01560960679822119, 0.06484248191412376,
+            0.5167408028542526, 0.018952564600370814, 9.555693069911921, 487.4738437106342,
+            -0.001140635354417778, -0.00038566190560549547, 0.006164991209950631,
+            -0.055469455280823914, 0.0369384649859554, 0.4808469317673337,
+            0.21109069936230676, 10.26528914195705, 504.1042961106103,
+            -0.0008918033250354947, -0.0004895495657555062],
+        "pts_sq": [90581.18375893311, 89245.2111587998, 7190512.263998144],
+        "pts_sample": [-1.1860722608558756, 0.20075939962483152, -0.16128158479277857,
+            0.9789483006612703, -1.6768997361631788, 0.6665660903891225, 2.198599915790008,
+            -1.46788824927184, -0.4738326476719059, -5.872480559042958, -1.7205783193900221,
+            3.861358215823871, -1.6437431133720506, 0.6241500296906106, 1.2466547999638742,
+            -0.13859922964732016, 1.5323523649845543, -2.165320044139118, 2.3019311567390894,
+            2.8067500333190916, 1.2562466379067598, 0.991571443192211, 0.43045131527342895,
+            -0.3932182335468205],
+    },
+    "solve_sharded_fused": {
+        "cost": 52886.539618677096,
+        "rows": 5,
+        "cams_sq": [0.18677256876668952, 0.0805741430191505, 0.10443118587730965,
+            2.030240590975617, 2.007404218634436, 1541.857649585959, 4022194.51468329,
+            0.00033466184302771387, 3.954767955909339e-05],
+        "cams_first": [0.011234908206318757, -0.015912175007635893, 0.06482922268273746,
+            0.5226529572829058, 0.018137169832823208, 9.51723495955395, 487.01412727269303,
+            -0.004050696854486658, 0.0010496246047882792, 0.008727549159806811,
+            -0.05591489299280353, 0.03703293973194683, 0.490660514085126,
+            0.21169079560908388, 10.258162941968335, 504.84428887649915,
+            -0.004090033595388302, 0.0009519762773685101],
+        "pts_sq": [91921.98952138615, 90603.18202325863, 6151785.769075619],
+        "pts_sample": [-1.195617202329821, 0.20418039302428626, -0.056430576207082056,
+            0.9858772252022645, -1.684638293111188, 0.7724432710271261, 2.308111736659146,
+            -1.5355442667390764, -0.08460227748741242, -5.951091382010848,
+            -1.728760301142193, 4.075835247153739, -1.655680503383803, 0.633753700410545,
+            1.3576754197835053, -0.13909267296010228, 1.5416715693496574, -2.071625477448111,
+            2.3131577238757326, 2.8257976175568946, 1.3318609807019388, 0.9995958204028649,
+            0.435620203334112, -0.28896802650698755],
+    },
+    "solve_ba_cg": {
+        "cost": 88562.47634825992,
+        "cams_sq": [0.18387330789235298, 0.07919911186672096, 0.10456344241802026,
+            2.0170737428642656, 2.007728279022056, 1545.355038431247, 4007808.4755273466,
+            0.000662155603031746, 0.00015414346547018082],
+        "cams_first": [0.008332258635046039, -0.014810279111219984, 0.06477714122454122,
+            0.5177229649451499, 0.020006649802488757, 9.591315701246552, 489.26379202064123,
+            0.0026241188446639724, 0.0011856738056605118, 0.00582441895398251,
+            -0.05449296923687964, 0.03694504645435373, 0.48120687009063656,
+            0.2119749162703676, 10.264926854755581, 504.28910062975916,
+            -0.0017268224449786497, 0.0003902777607705285],
+        "pts_sq": [90453.25222055864, 89075.66655516939, 122755.58641735344],
+        "pts_sample": [-1.1868137864285007, 0.20048216285286713, -0.15647522559088883,
+            0.9811449102047699, -1.6823573021811002, 0.6945134226205898, 2.160328978118018,
+            -1.4429307282723973, -0.5877374133803516, -5.856713438589191,
+            -1.7218254024936428, 3.8236898527329957, -1.6445456304461903, 0.6250404849934819,
+            1.2425983369484224, -0.1356165252456656, 1.5300812266217438, -2.1793268037917612,
+            2.3340734993484484, 2.8512835179922518, 1.423612530665417, 0.9901100816044419,
+            0.4287574373956498, -0.40430646882649257],
+    },
+    "solve_ba_schur": {
+        "cost": 53609.10841754373,
+        "cams_sq": [0.18867749834273792, 0.08238881775999436, 0.10425112232084371,
+            1.9773188993210085, 1.9646493776940699, 1529.1179074594643, 4062774.243399286,
+            4.2450593995017386e-05, 1.1304923907781553e-05],
+        "cams_first": [0.01022525972631811, -0.021372287380694358, 0.06479330656113784,
+            0.5140861450764391, 0.018671083834935518, 9.47693940385344, 489.29870782211134,
+            -0.0014195620201812866, 0.0006316343156503699, 0.007840824244389102,
+            -0.061561219191371745, 0.03697847884437793, 0.48011642175374647,
+            0.20934114279283209, 10.218173378453203, 507.6379899209242,
+            -0.0010005176803546997, 0.000312303735062034],
+        "pts_sq": [89142.60391644877, 87939.89420033261, 8930679.061178861],
+        "pts_sample": [-1.1784612664021812, 0.19967686732325374, -0.11059230437924708,
+            0.9727145659175942, -1.6597659595564893, 0.6876460055439304, 2.270885742339067,
+            -1.5130464701621973, -0.15827787926431205, -5.813020785612696,
+            -1.7002062484571832, 3.9392361508500886, -1.6223313272038813, 0.620051128735446,
+            1.2749476807209463, -0.14776102020908785, 1.5225383263159054, -2.091028035193439,
+            2.278916205627823, 2.774508269603369, 1.2322231197380242, 0.9823800349949177,
+            0.42798563890768, -0.34857910746788867],
+    },
+    "point": {
+        "cost": 53609.108417551535,
+        "cams_sq": [0.1886774983427341, 0.08238881775997728, 0.10425112232084642,
+            1.9773188993211965, 1.9646493776933696, 1529.1179074594802, 4062774.2433992643,
+            4.245059399518854e-05, 1.1304923907817111e-05],
+        "cams_first": [0.010225259726537832, -0.02137228738063273, 0.06479330656114106,
+            0.5140861450768293, 0.018671083834162782, 9.476939403853535, 489.29870782211015,
+            -0.0014195620201841418, 0.0006316343156511583, 0.007840824244609437,
+            -0.06156121919131306, 0.03697847884438555, 0.4801164217540699,
+            0.20934114279202692, 10.218173378453223, 507.6379899209226,
+            -0.0010005176803579863, 0.00031230373506313237],
+        "pts_sq": [89142.60391643082, 87939.89420031747, 8930679.062243244],
+        "pts_sample": [-1.1784612664024643, 0.19967686732399362, -0.11059230438054918,
+            0.9727145659170205, -1.6597659595553613, 0.6876460055430672, 2.2708857423383892,
+            -1.5130464701612736, -0.15827787926504377, -5.813020785612686,
+            -1.7002062484553309, 3.939236150848517, -1.6223313272041893, 0.6200511287364453,
+            1.2749476807193727, -0.1477610202093812, 1.522538326316052, -2.0910280351947566,
+            2.278916205627074, 2.7745082696041115, 1.2322231197361877, 0.9823800349943993,
+            0.42798563890833946, -0.3485791074690991],
+    },
+    "camera": {
+        "cost": 88562.47634826282,
+        "cams_sq": [0.18387330789235304, 0.07919911186672104, 0.10456344241802026,
+            2.0170737428642664, 2.007728279022056, 1545.3550384312468, 4007808.475527345,
+            0.0006621556030318375, 0.00015414346547019752],
+        "cams_first": [0.008332258635045551, -0.014810279111219985, 0.06477714122454119,
+            0.5177229649451501, 0.02000664980248936, 9.59131570124655, 489.26379202064106,
+            0.002624118844663821, 0.0011856738056600087, 0.00582441895398206,
+            -0.054492969236879664, 0.03694504645435369, 0.481206870090637,
+            0.2119749162703683, 10.264926854755577, 504.28910062975905,
+            -0.0017268224449788145, 0.00039027776077042915],
+        "pts_sq": [90453.25222055858, 89075.66655516933, 122755.58641735374],
+        "pts_sample": [-1.1868137864285009, 0.20048216285286638, -0.1564752255908898,
+            0.98114491020477, -1.6823573021811011, 0.6945134226205885, 2.1603289781180166,
+            -1.442930728272397, -0.5877374133803549, -5.85671343858919, -1.7218254024936457,
+            3.8236898527329926, -1.6445456304461903, 0.6250404849934809, 1.2425983369484186,
+            -0.13561652524566495, 1.5300812266217443, -2.1793268037917577,
+            2.3340734993484475, 2.8512835179922518, 1.4236125306654193, 0.9901100816044416,
+            0.42875743739564975, -0.4043064688264917],
+    },
+    "halo": {
+        "cost": 88562.47634826294,
+        "cams_sq": [0.18387330789235307, 0.07919911186672103, 0.10456344241802026,
+            2.0170737428642664, 2.007728279022056, 1545.3550384312468, 4007808.475527345,
+            0.0006621556030318406, 0.00015414346547019633],
+        "cams_first": [0.008332258635045553, -0.014810279111219963, 0.0647771412245412,
+            0.5177229649451501, 0.02000664980248942, 9.59131570124655, 489.26379202064106,
+            0.0026241188446638882, 0.0011856738056599517, 0.005824418953982049,
+            -0.05449296923687964, 0.03694504645435369, 0.481206870090637,
+            0.21197491627036835, 10.264926854755577, 504.28910062975905,
+            -0.001726822444978757, 0.0003902777607704123],
+        "pts_sq": [90453.25222055858, 89075.66655516933, 122755.58641735394],
+        "pts_sample": [-1.1868137864285007, 0.20048216285286627, -0.1564752255908904,
+            0.9811449102047696, -1.682357302181101, 0.6945134226205861, 2.1603289781180166,
+            -1.442930728272397, -0.5877374133803548, -5.85671343858919, -1.721825402493646,
+            3.8236898527329917, -1.64454563044619, 0.6250404849934806, 1.2425983369484177,
+            -0.1356165252456648, 1.530081226621744, -2.1793268037917577, 2.3340734993484475,
+            2.8512835179922518, 1.4236125306654195, 0.9901100816044418, 0.42875743739564975,
+            -0.40430646882649085],
+    },
+    "halo_ceres": {
+        "cost": 55065.62553639945,
+        "cams_sq": [0.18615908031579034, 0.0802420025429027, 0.10449577376141098,
+            2.014078330083391, 2.009794027113391, 1545.0345175085256, 4009343.9260406117,
+            0.0003847944405210333, 2.607332795920551e-05],
+        "cams_first": [0.008905672560604296, -0.01560960679822184, 0.06484248191412376,
+            0.5167408028542522, 0.018952564600370626, 9.555693069911909, 487.4738437106337,
+            -0.0011406353544195732, -0.0003856619056062539, 0.006164991209950558,
+            -0.055469455280824496, 0.036938464985955294, 0.480846931767334,
+            0.21109069936230676, 10.265289141957044, 504.1042961106102,
+            -0.000891803325034976, -0.000489549565755624],
+        "pts_sq": [90581.18375893295, 89245.21115879972, 7190512.263995402],
+        "pts_sample": [-1.186072260855875, 0.2007593996248315, -0.16128158479278576,
+            0.97894830066127, -1.6768997361631783, 0.6665660903891212, 2.198599915790022,
+            -1.4678882492718504, -0.4738326476718745, -5.872480559042963,
+            -1.7205783193900204, 3.8613582158238793, -1.6437431133720513, 0.6241500296906087,
+            1.2466547999638766, -0.1385992296473214, 1.5323523649845554, -2.165320044139113,
+            2.301931156739083, 2.80675003331908, 1.2562466379067228, 0.9915714431922119,
+            0.4304513152734299, -0.3932182335468156],
+    },
+    "program_halo": {
+        "cost": 55065.62553639945,
+        "cams_sq": [0.18615908031579034, 0.0802420025429027, 0.10449577376141098,
+            2.014078330083391, 2.009794027113391, 1545.0345175085256, 4009343.9260406117,
+            0.0003847944405210333, 2.607332795920551e-05],
+        "cams_first": [0.008905672560604296, -0.01560960679822184, 0.06484248191412376,
+            0.5167408028542522, 0.018952564600370626, 9.555693069911909, 487.4738437106337,
+            -0.0011406353544195732, -0.0003856619056062539, 0.006164991209950558,
+            -0.055469455280824496, 0.036938464985955294, 0.480846931767334,
+            0.21109069936230676, 10.265289141957044, 504.1042961106102,
+            -0.000891803325034976, -0.000489549565755624],
+        "pts_sq": [90581.18375893295, 89245.21115879972, 7190512.263995402],
+        "pts_sample": [-1.186072260855875, 0.2007593996248315, -0.16128158479278576,
+            0.97894830066127, -1.6768997361631783, 0.6665660903891212, 2.198599915790022,
+            -1.4678882492718504, -0.4738326476718745, -5.872480559042963,
+            -1.7205783193900204, 3.8613582158238793, -1.6437431133720513, 0.6241500296906087,
+            1.2466547999638766, -0.1385992296473214, 1.5323523649845554, -2.165320044139113,
+            2.301931156739083, 2.80675003331908, 1.2562466379067228, 0.9915714431922119,
+            0.4304513152734299, -0.3932182335468156],
+    },
+    "program_halo_quat": {
+        "cost": 55074.76390512653,
+        "cams_sq": [15.907596383965533, 0.04638890925034711, 0.019997356553592333,
+            0.02601735023052937, 2.014092826822154, 2.0098184074330336, 1545.0579015304713,
+            4009380.4244659725, 0.00038472757557519126, 2.61800378143321e-05],
+        "cams_first": [0.9994340239671498, 0.004438274707279444, -0.007795568471960858,
+            0.032421637322193234, 0.5167496455058016, 0.018955775446548973, 9.55581382006084,
+            487.47825970942944, -0.0011328750056470744, -0.0003799541203393919,
+            0.9994402790866078, 0.0030677178843085315, -0.0277214360790519,
+            0.018472672464506183, 0.48085702454188395, 0.2110939633138799, 10.26537327994188,
+            504.10614968465364, -0.000893286846429146, -0.0004894171483457801],
+        "pts_sq": [90581.5461207807, 89245.75217323765, 7204588.5817093635],
+        "pts_sample": [-1.1860785363318485, 0.20076732520580592, -0.16131544143582033,
+            0.9789223557376416, -1.6769423131753063, 0.6665559702708833, 2.198500627112327,
+            -1.4678644603727136, -0.4741345728003256, -5.872384715067037,
+            -1.7206899717418564, 3.860828311463977, -1.6437800342241087, 0.6241247283631411,
+            1.2466679102604357, -0.13858406338339446, 1.5324429938766637, -2.16530207572394,
+            2.3019502210829548, 2.80669948821422, 1.256482038996804, 0.9915661388734313,
+            0.4304670243258809, -0.393127110245953],
+    },
+}
 
 # one row per TPU kernel: (row, wrapper, source, replaces)
 ROWS = [
@@ -1621,6 +1875,11 @@ def main():
             if any(w in line for w in ("Compiling entry", "registers", "spill")):
                 log(f"ptxas {src}", line.strip())
     build.load()
+    paths = {}
+
+    # -- the mesh phase (port slice 19) ---------------------------------------
+    log("phase", f"the mesh tiers from {time.monotonic() - t_start:.1f} s")
+    log("phase", f"the mesh tiers took {mesh_phase(bal, kn, card, paths):.1f} s")
 
     def copy_problem(b):
         return bal.build_problem_batched(bal.from_arrays(
@@ -1875,8 +2134,6 @@ def main():
         args = kernel_inputs(prog, ctt.Options(linear_solver_type=DS), True, rng)
         check_and_time("c120", dtn, {"schur_assembly": args["schur_assembly"]}, 100, 10)
         del prog, args
-
-    paths = {}
 
     def drive(path, opts, problem, device=None, flat=False, variant="eval_fused",
               kernels=None, extra_evaluations=0, solver=None):
@@ -5037,6 +5294,186 @@ def work(case, args):
     es = JT.element_size()
     byts = nbytes(JT, xc, xp) + idx + es * (9 * C + 3 * P)
     return byts, 96 * B  # jv, J_f'jv, J_e'jv per row
+
+
+def mesh_digest(cams, pts):
+    """scripts/sharded16_golden.py's digest of a state: each table's
+    column sums of squares, the first two cameras, eight points spread
+    over the table."""
+    cams, pts = np.asarray(cams, np.float64), np.asarray(pts, np.float64)
+    idx = np.linspace(0, pts.shape[0] - 1, 8).astype(np.int64)
+    return {"cams_sq": np.sum(cams * cams, axis=0), "cams_first": cams[:2].reshape(-1),
+            "pts_sq": np.sum(pts * pts, axis=0), "pts_sample": pts[idx].reshape(-1)}
+
+
+def group_gap(got, ref):
+    """max |got - ref| / max |ref| over one group of a digest."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    check(got.shape == ref.shape, f"shape {got.shape} != {ref.shape}")
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-300))
+
+
+def mesh_gaps(r, ref):
+    """{group: gap} of a result against a golden or another result's
+    digest: the cost, the state's digest (the gradient's for the
+    evaluator)."""
+    gaps = {"cost": abs(r["cost"] - ref["cost"]) / abs(ref["cost"])}
+    for k, v in result_digest(r).items():
+        gaps[k] = group_gap(v, ref[k])
+    return gaps
+
+
+def result_digest(r):
+    """A tier's result's digest: its state's, the gradient's for the
+    evaluator."""
+    if "gradient" in r:
+        g = np.asarray(r["gradient"], np.float64)
+        return {"g_sq": float(np.sum(g * g)), "g_first": g[:18]}
+    return mesh_digest(r["cams"], r["pts"])
+
+
+def mesh_phase(bal, kn, card, paths):
+    """Port slice 19 on the card: every multi-device tier on BAL-16
+    (MESH16_CASES) at world size 1 over NCCL and at 2 and 4 over gloo, the
+    ranks sharing the card, the three groups spawned at once by
+    parallel.mesh.launch (the kernels built before, so the ranks load
+    build/); the halo tier at the 2,048-camera instance at world size 4.
+    Gates: each case's cost within MESH_COST_REL and its state's digest
+    within MESH_STATE_REL of the JAX package's (MESH16_GOLDEN) and of world
+    size 1's; every rank's answer the same bits and each case's repeat the
+    same bits; the point-sharded tier and the sharded CGNR launch their
+    kernels (MESH_ROWS) on every rank, no plain version on the card; the
+    2,048-camera halo within the same bounds of the same steps on one
+    device, each rank's cut (the rows it needs from other ranks) under
+    half the rows it does not own; the exchange's size (n * Hs rows a
+    rank) is logged, not gated. Returns
+    the phase's seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ceres_tpu_torch.parallel import mesh as pm
+    from ceres_tpu_torch.parallel import sharded_ba as tsb
+    from ceres_tpu_torch.parallel import tiers
+
+    t0 = time.monotonic()
+    b = bal16(bal)
+    small = bal.perturb(bal.synthetic_bal_large(**SMALL_VENICE), **VENICE_PERTURB)
+
+    def arrays(x):
+        return (x.cameras, x.points, x.camera_index, x.point_index, x.observations)
+
+    cases = [dict(c, problem="bal16") for c in MESH16_CASES]
+    c2048 = dict(name="halo_c2048", tier="halo", problem="c2048",
+                 num_iterations=MESH_C2048_ITERATIONS, k=MESH_C2048_ITERATIONS, cg_iters=10)
+    jobs = {n: (backend, {"bal16": arrays(b)}, cases) for n, backend in MESH_WORLD.items()}
+    jobs[4] = ("gloo", {"bal16": arrays(b), "c2048": arrays(small)}, cases + [c2048])
+    def timed_launch(n, backend, problems, cs):
+        t = time.time()
+        ranks = pm.launch(tiers.run_cases, n, backend, None, MESH_DEADLINE_S, (problems, cs))
+        return ranks, (t, time.time())
+
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        futs = {n: ex.submit(timed_launch, n, *job) for n, job in jobs.items()}
+        # the 2,048-camera halo's one-device steps while the ranks run, and
+        # how far a one-ulp change of BAL-16's cameras moves the dense-Schur
+        # steps' cost after 2 LM iterations and after the phase's depth
+        ref = tsb.solve_ba(small, num_iterations=MESH_C2048_ITERATIONS, cg_iters=10,
+                           step="cg")
+        ulp = bal.from_arrays(np.nextafter(b.cameras, np.inf), b.points, b.camera_index,
+                              b.point_index, b.observations)
+        depth = next(c["num_iterations"] for c in MESH16_CASES if c["name"] == "solve_ba_schur")
+        sens = {}
+        for k in (2, depth):
+            c0, c1 = (float(tsb.solve_ba(x, num_iterations=k, step="schur").cost)
+                      for x in (bal16(bal), ulp))
+            sens[k] = abs(c1 - c0) / c0
+        ref_digest = {"cost": float(ref.cost), **mesh_digest(ref.cams.cpu().numpy(),
+                                                             ref.pts.cpu().numpy())}
+        launched = {n: f.result() for n, f in futs.items()}
+    wall = time.monotonic() - t0
+    log("mesh sensitivity", f"solve_ba's dense-Schur step on one device: a one-ulp change of "
+        f"the cameras moves the cost by {json.dumps(sens)} (relative, by LM iterations); "
+        f"{card}")
+    out = {n: ranks for n, (ranks, _) in launched.items()}
+    for n, (ranks, (t_in, t_out)) in launched.items():
+        log(f"mesh w{n}", f"{MESH_WORLD[n]}: the group's launch {t_out - t_in:.1f} s: the "
+            f"ranks' start (spawn, imports, the process group) "
+            f"{max(r['entered_at'] for r in ranks) - t_in:.1f} s, the card's context "
+            f"{max(r['context_seconds'] for r in ranks):.1f} s, the cases (each run twice) "
+            f"{max(r['seconds'] for r in ranks):.1f} s on the slowest rank, the ranks' exit "
+            f"{t_out - max(r['left_at'] for r in ranks):.1f} s; {card}")
+    names = [k.__name__ for k in kn.KERNELS]
+    called = set()
+    for n, ranks in out.items():
+        check([r["rank"] for r in ranks] == list(range(n)), f"world size {n}: ranks {ranks}")
+        for rank in ranks:
+            check(rank["backend"] == MESH_WORLD[n] and rank["device"].startswith("cuda"),
+                  f"world size {n}: rank {rank['rank']} on {rank['backend']}, "
+                  f"{rank['device']}")
+        for case in jobs[n][2]:
+            name = case["name"]
+            first = ranks[0]["cases"][name]
+            for rank in ranks:
+                r = rank["cases"][name]
+                called |= {c for c, v in r["collectives"].items() if v}
+                check(r["repeat_bitwise"], f"mesh {name} w{n}: rank {rank['rank']}'s "
+                      "repeat gave other bits")
+                check(not r["plain_calls"], f"mesh {name} w{n}: plain versions ran on the "
+                      f"card: {r['plain_calls']}")
+                for k in MESH_ROWS.get(name, ()):
+                    check(r["launches"].get(k, 0) > 0, f"mesh {name} w{n}: rank "
+                          f"{rank['rank']} launched no {k}: {r['launches']}")
+                check(r["cost"] == first["cost"] and all(
+                    np.array_equal(r[f], first[f]) for f in ("cams", "pts", "gradient")
+                    if f in r), f"mesh {name} w{n}: rank {rank['rank']} differs from rank 0")
+            paths[f"mesh_{name}_w{n}"] = {
+                "launches": {k: sum(rk["cases"][name]["launches"].get(k, 0) for rk in ranks)
+                             for k in names},
+                "plain_calls": {k: 0 for k in names},
+                "launches_by_rank": [rk["cases"][name]["launches"] for rk in ranks],
+                "seconds_by_rank": [rk["cases"][name]["seconds"] for rk in ranks],
+                "collectives_rank0": first["collectives"], "cost": first["cost"]}
+            if name == "halo_c2048":
+                continue
+            gaps = mesh_gaps(first, MESH16_GOLDEN[name])
+            w1 = out[1][0]["cases"][name]
+            to_w1 = mesh_gaps(first, {"cost": w1["cost"], **result_digest(w1)})
+            paths[f"mesh_{name}_w{n}"].update(gaps_to_jax=gaps, gaps_to_w1=to_w1)
+            log(f"mesh {name} w{n}", f"{MESH_WORLD[n]}: cost {first['cost']!r}, gaps to the "
+                f"JAX package's {json.dumps(gaps)}, to world size 1 {json.dumps(to_w1)}; "
+                f"{max(rk['cases'][name]['seconds'] for rk in ranks):.3f} s; launches "
+                f"{json.dumps(first['launches'])}; collectives {json.dumps(first['collectives'])}")
+            for what, g in (("the JAX package", gaps), ("world size 1", to_w1)):
+                check(g["cost"] <= MESH_COST_REL and all(
+                    v <= MESH_STATE_REL for k, v in g.items() if k != "cost"),
+                    f"mesh {name} w{n}: off {what}'s answer: {g}")
+    # the 2,048-camera halo against the same steps on one device
+    r = out[4][0]["cases"]["halo_c2048"]
+    gaps = mesh_gaps(r, ref_digest)
+    cuts = [rk["cases"]["halo_c2048"]["cut_rows"] for rk in out[4]]
+    log("mesh halo_c2048 w4", f"{small.num_cameras} cameras, {small.num_points} points, "
+        f"{small.num_observations} observations, {MESH_C2048_ITERATIONS} LM iterations: "
+        f"plan {r['plan']}, {r['Pl']} points owned a rank, the cut (rows from other ranks) "
+        f"by rank {cuts}; each exchange moves {4 * r['Hs']} rows a rank (n * Hs, Hs the "
+        f"largest request, a rank's request of its own rows included) where a gather "
+        f"moves {4 * r['Pl']} (n * Pl); cost {r['cost']!r}, gaps to one device "
+        f"{json.dumps(gaps)}; "
+        f"{max(rk['cases']['halo_c2048']['seconds'] for rk in out[4]):.3f} s")
+    # a rank's cut is under half the rows it does not own: the halo needs
+    # few of the other ranks' points (the exchange's size is only logged:
+    # n * Hs <= n * Pl always holds)
+    others = 3 * r["Pl"]
+    check(r["plan"] == "CameraHaloPlan" and max(cuts) < others / 2,
+          f"halo_c2048: the cut {cuts} is not under half the {others} rows a rank "
+          "does not own")
+    check(gaps["cost"] <= MESH_COST_REL and all(v <= MESH_STATE_REL for v in gaps.values()),
+          f"halo_c2048: off the one-device steps: {gaps}")
+    paths["mesh_halo_c2048_w4"].update(gaps_to_one_device=gaps, cut_rows=cuts,
+                                       exchange_rows=4 * r["Hs"], gather_rows=4 * r["Pl"])
+    log("mesh collectives", f"called on CUDA tensors as they are, none staged through "
+        f"the host by the mesh: {sorted(called)}; NCCL at world size 1, gloo at 2 and 4 "
+        f"(PyTorch {torch.__version__}); {card}")
+    log("mesh", f"the three groups ran in {wall:.1f} s of wall time (spawn included); {card}")
+    return time.monotonic() - t0
 
 
 if __name__ == "__main__":

@@ -131,18 +131,25 @@ def _enums(pkg, kw):
     ("solve_ba over a mesh", 9),
 ])
 def test_unported_options_raise_naming_the_slice(kw, slice_no):
-    """What the port does not run yet raises naming its slice: a mesh
-    (slice 9). The requests of slice 6 run now, each against the JAX
+    """The requests of slices 6 and 9 run now, each against the JAX
     package on the same start: the line search, inner iterations, and an
-    LBFGS rank that the trust-region solve reads nothing of. Each row's
+    LBFGS rank that the trust-region solve reads nothing of, each row's
     cost within 1e-9 relative and the same number of rows (the host loop
-    in both: AUTO takes it below 8,192 residuals)."""
+    in both: AUTO takes it below 8,192 residuals); and solve_ba over a
+    mesh (slice 9), on a 1-rank gloo group against the JAX solve_ba, its
+    cost within 1e-10 relative."""
     b = tbal.from_arrays(*_arrays(small_bal()))
     if slice_no == 9:
-        from ceres_tpu_torch.parallel import sharded_ba
+        from ceres_tpu.parallel import sharded_ba as jsb
 
-        with pytest.raises(NotImplementedError, match=f"port slice {slice_no}"):
-            sharded_ba.solve_ba(b, mesh=object(), device="cpu")
+        from ceres_tpu_torch.parallel import mesh, tiers
+
+        arrays = tuple(np.array(a) for a in _arrays(b))
+        case = dict(name="ba", tier="solve_ba", problem="b", num_iterations=3, step="schur")
+        (out,) = mesh.launch(tiers.run_cases, 1, "gloo", device="cpu", timeout_s=240,
+                             args=({"b": arrays}, [case]))
+        ref = jsb.solve_ba(jbal.BALProblem(*(a.copy() for a in arrays)), 3, step="schur")
+        assert out["cases"]["ba"]["cost"] == pytest.approx(float(ref.cost), rel=1e-10)
         return
     kw = dict(kw, max_num_iterations=10)
     rows = []

@@ -254,7 +254,7 @@ def test_point_solves_run_in_float64(arrays, monkeypatch, pipeline):
 
 def test_entry_points_need_a_card_or_the_cpu(monkeypatch):
     """solve_ba and the plan builders run on the card unless asked for the
-    CPU, and raise without one; a mesh is multi-device work (port slice 9)."""
+    CPU, and raise without one; a mesh needs an initialized process group."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     b = jbal.synthetic_bal(num_cameras=3, num_points=20, visibility=0.6, seed=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -263,8 +263,10 @@ def test_entry_points_need_a_card_or_the_cpu(monkeypatch):
         tsb.build_point_plan(b.camera_index, b.point_index, 20, 3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tsb.state_from_arrays(b.cameras, b.points, 1e4, torch.float64)
-    with pytest.raises(NotImplementedError, match="port slice 9"):
-        tsb.solve_ba(b, num_iterations=1, mesh=object(), device="cpu")
+    from ceres_tpu_torch.parallel import mesh
+
+    with pytest.raises(RuntimeError, match="process group"):
+        mesh.make_mesh(device="cpu")
 
 
 def test_observations_by_point_sorts_stably():
