@@ -3,7 +3,8 @@ ceres_tpu/ops/pallas_kernels.py).
 
 Each wrapper takes tensors on one device. On the CPU it runs the kernel's
 plain PyTorch version; on a CUDA device it launches the hand-written CUDA
-kernel (csrc/*.cu, built by ops/build.py) on the current stream, or raises:
+kernel (csrc/*.cu, built by ops/build.py) on that device's current stream,
+with that device made current for the launch (_launch), or raises:
 there is no fallback from one to the other. Each wrapper carries two plain
 integers: `launches`, counted where the CUDA kernel is launched, and
 `plain_calls`, counted where the plain version runs.
@@ -163,8 +164,19 @@ def _entry(name: str, dtype):
     return getattr(load(), f"{name}_{_SUFFIX[dtype]}")
 
 
-def _launch(fn, *args) -> None:
-    rc = fn(*args)
+def _device_guard(dev):
+    """Makes dev the current device: a C entry point launches on the calling
+    thread's current device, whatever device its stream belongs to, and
+    the occupancy queries ask the current device. The emulated CPU route
+    (tests/test_torch_kernels_emulated.py) has no current device."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def _launch(fn, dev, *args) -> None:
+    """Calls the C entry point fn with the tensors' device dev current:
+    every launch and occupancy query goes through here."""
+    with _device_guard(dev):
+        rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} failed to launch: CUDA error {rc}")
 
@@ -333,7 +345,7 @@ def _eval_fused_launch(cams, pts, obs, plan, rows_fn, loss):
     JT = torch.empty((LANES, B), dtype=dt, device=dev)
     partial, done = _eval_workspace(max(1, -(-B // EVAL_THREADS[dt])), dev)
     cost = torch.empty((1,), dtype=torch.float64, device=dev)
-    _launch(fn, _ptr(cams), _ptr(pts), _ptr(obs), _ptr(plan.cam_idx), _ptr(plan.pt_idx),
+    _launch(fn, dev, _ptr(cams), _ptr(pts), _ptr(obs), _ptr(plan.cam_idx), _ptr(plan.pt_idx),
             B, model, desc, _ptr(rT), _ptr(JT), _ptr(partial), _ptr(done), _ptr(cost),
             _stream(dev))
     return cost, rT, JT
@@ -364,7 +376,7 @@ def eval_fused_occupancy(dev, dt, model: int, with_loss: bool) -> dict:
     the card's SMs."""
     out = (ctypes.c_int * 5)()
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    _launch(_entry("ct_eval_fused_occupancy", dt), index, model, int(with_loss), out)
+    _launch(_entry("ct_eval_fused_occupancy", dt), dev, index, model, int(with_loss), out)
     return dict(zip(("threads", "registers", "local_bytes", "blocks_per_sm", "sms"), out))
 
 
@@ -405,7 +417,7 @@ def post_eval_fused(JT, rT, plan):
     work = torch.empty((max(1, sum(plan.run_level_sizes)), _CAM_OUT), dtype=dt,
                        device=dev)
     cam = torch.empty((C, _CAM_OUT), dtype=dt, device=dev)
-    _launch(fn, _ptr(JT), _ptr(rT), B, C, _ptr(plan.pt_start), _ptr(plan.pt_block),
+    _launch(fn, dev, _ptr(JT), _ptr(rT), B, C, _ptr(plan.pt_start), _ptr(plan.pt_block),
             *_runs_args(plan), _ptr(ptab), _ptr(w), _ptr(work), _ptr(cam), _stream(dev))
     post_eval_fused.launches += 1
     return ptab, cam
@@ -473,7 +485,7 @@ def schur_assembly(JT, sc, sp, K, u, plan):
     ata = torch.empty((t_full, t_full), dtype=dt, device=dev)
     ftf = torch.empty((C, TF * TF), dtype=dt, device=dev)
     U = torch.empty((t_full,), dtype=dt, device=dev)
-    _launch(fn, _ptr(JT), B, C, _ptr(plan.cam_idx), _ptr(plan.pt_idx), _ptr(sc),
+    _launch(fn, dev, _ptr(JT), B, C, _ptr(plan.cam_idx), _ptr(plan.pt_idx), _ptr(sc),
             _ptr(sp), _ptr(K), _ptr(u), _ptr(plan.pt_start), _ptr(plan.pt_block),
             *_runs_args(plan), _ptr(pairs.pair_a), _ptr(pairs.pair_b), len(psizes),
             ctypes.cast(pairs.pair_level_ptrs, ctypes.c_void_p),
@@ -521,7 +533,7 @@ def normal_matvec(JT, xc, xp, plan):
     xcp = torch.empty((max(1, C), _PAD[dt][TF]), dtype=dt, device=dev)
     work = torch.empty((max(1, sum(sizes)), TF), dtype=dt, device=dev)
     cam_out = torch.empty((C, TF), dtype=dt, device=dev)
-    _launch(fn, _ptr(JT), B, C, _ptr(plan.cam_idx), _ptr(plan.pt_idx),
+    _launch(fn, dev, _ptr(JT), B, C, _ptr(plan.cam_idx), _ptr(plan.pt_idx),
             _ptr(plan.cam_pos), _ptr(plan.pt_start), _ptr(plan.pt_block),
             plan.n_pt_blocks, _ptr(xc), _ptr(xp), len(sizes),
             ctypes.cast(plan.cam_level_ptrs, ctypes.c_void_p),
@@ -572,7 +584,7 @@ def isc_matvec(JT, z, minv, plan, emit_u=False):
     zp = torch.empty((max(1, C), _PAD[dt][TF]), dtype=dt, device=dev)
     work = torch.empty((max(1, sum(sizes)), TF), dtype=dt, device=dev)
     cam_out = torch.empty((C, TF), dtype=dt, device=dev)
-    _launch(fn, _ptr(JT), B, C, _ptr(plan.cam_idx), _ptr(plan.cam_pos),
+    _launch(fn, dev, _ptr(JT), B, C, _ptr(plan.cam_idx), _ptr(plan.cam_pos),
             _ptr(plan.pt_start), _ptr(plan.pt_block), plan.n_pt_blocks, _ptr(z),
             _ptr(minv), int(bool(emit_u)), len(sizes),
             ctypes.cast(plan.cam_level_ptrs, ctypes.c_void_p),
@@ -622,7 +634,7 @@ def schur_jacobi_blocks(JT, se, minv, plan):
     w = torch.empty((max(1, plan.n_runs), _UPPER), dtype=dt, device=dev)
     work = torch.empty((max(1, sum(plan.run_level_sizes)), _UPPER), dtype=dt, device=dev)
     out = torch.empty((C, TF * TF), dtype=dt, device=dev)
-    _launch(fn, _ptr(JT), B, C, _ptr(plan.pt_idx), _ptr(se), _ptr(minv),
+    _launch(fn, dev, _ptr(JT), B, C, _ptr(plan.pt_idx), _ptr(se), _ptr(minv),
             _ptr(plan.pt_start), _ptr(plan.pt_block), *_runs_args(plan), _ptr(w),
             _ptr(work), _ptr(out), _stream(dev))
     schur_jacobi_blocks.launches += 1
@@ -659,7 +671,7 @@ def _segment_sum(fn_name, contrib, plan, sorted_ids):
         _check(plan.key_first, "plan.key_first", i32, (K + 1,), dev)
         sizes = plan.level_sizes  # the levels themselves: checked by SegmentPlan
         work = torch.empty((max(1, sum(sizes)), w), dtype=dt, device=dev)
-        _launch(fn, _ptr(contrib), B, w, _ptr(plan.order), len(sizes),
+        _launch(fn, dev, _ptr(contrib), B, w, _ptr(plan.order), len(sizes),
                 ctypes.cast(plan.level_ptrs, ctypes.c_void_p),
                 ctypes.cast(plan.level_counts, ctypes.c_void_p),
                 _ptr(plan.key_first), K, _ptr(work), _ptr(out), _stream(dev))
@@ -673,7 +685,7 @@ def _segment_sum(fn_name, contrib, plan, sorted_ids):
     sizes = plan.run_level_sizes  # the levels themselves: checked by SegmentPlan
     work = torch.empty((max(1, plan.n_partials + sum(sizes)), w), dtype=dt, device=dev)
     on = staged(plan, w, contrib.element_size(), _resident_blocks(dev, dt, w))
-    _launch(fn, _ptr(contrib), B, w, int(on),
+    _launch(fn, dev, _ptr(contrib), B, w, int(on),
             _ptr(plan.tile_run), _ptr(plan.run_start), _ptr(plan.run_dest),
             plan.n_partials, _ptr(plan.empty_keys), plan.n_empty, len(sizes),
             ctypes.cast(plan.run_level_ptrs, ctypes.c_void_p),
@@ -694,7 +706,7 @@ def _resident_blocks(dev, dt, w: int) -> int:
     if key not in _RESIDENT:
         n = ctypes.c_int(0)
         index = dev.index if dev.index is not None else torch.cuda.current_device()
-        _launch(_entry("ct_segment_block_sum_resident", dt), index, w, ctypes.byref(n))
+        _launch(_entry("ct_segment_block_sum_resident", dt), dev, index, w, ctypes.byref(n))
         _RESIDENT[key] = n.value
     return _RESIDENT[key]
 
@@ -767,7 +779,7 @@ def segment_block_expand(vals, ids):
     _check(vals, "vals", dt, (K, t), dev)
     _check(ids, "ids", torch.int32, (N,), dev)
     out = torch.empty((N, t), dtype=dt, device=dev)
-    _launch(fn, _ptr(vals), K, t, _ptr(ids), N, _ptr(out), _stream(dev))
+    _launch(fn, dev, _ptr(vals), K, t, _ptr(ids), N, _ptr(out), _stream(dev))
     segment_block_expand.launches += 1
     return out
 
@@ -826,7 +838,7 @@ def segment_spread_sum(Y, cam_ids, pt_start, C, te, tf, Jc=None, r=2, plan=None)
     dt, B, P = _check_spread(Y, cam_ids, pt_start, te, tf)
     fn = _entry("ct_segment_spread_sum", dt)
     out = torch.empty((P, te * C * tf), dtype=dt, device=dev)
-    _launch(fn, _ptr(Y), _ptr(cam_ids), _ptr(pt_start), P, C, te, tf, _ptr(out),
+    _launch(fn, dev, _ptr(Y), _ptr(cam_ids), _ptr(pt_start), P, C, te, tf, _ptr(out),
             _stream(dev))
     segment_spread_sum.launches += 1
     return out
@@ -873,10 +885,9 @@ def segment_spread_ftf(Y, cam_ids, pt_start, C, te, tf, Jc, r, plan):
     work = torch.empty((max(1, sum(plan.run_level_sizes)), _UPPER), dtype=dt, device=dev)
     ftf = torch.empty((C, TF * TF), dtype=dt, device=dev)
     # the kernel forks onto a second stream of the current device
-    with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
-        _launch(fn, _ptr(Y), _ptr(cam_ids), _ptr(pt_start), P, C, te, tf, _ptr(out),
-                _ptr(Jc), _ptr(plan.pt_start), _ptr(plan.pt_block), *_runs_args(plan),
-                _ptr(w), _ptr(work), _ptr(ftf), _stream(dev))
+    _launch(fn, dev, _ptr(Y), _ptr(cam_ids), _ptr(pt_start), P, C, te, tf, _ptr(out),
+            _ptr(Jc), _ptr(plan.pt_start), _ptr(plan.pt_block), *_runs_args(plan),
+            _ptr(w), _ptr(work), _ptr(ftf), _stream(dev))
     segment_spread_ftf.launches += 1
     return out, ftf
 

@@ -13,7 +13,12 @@ norms, J'u and the model cost change each close with one `psum`.
 
 Backends. The caller names one, and nothing switches it on an error:
 `nccl` when each rank has a card of its own, `gloo` when ranks share a
-card or run on the CPU (NCCL refuses two ranks on one card). gloo takes
+card or run on the CPU (NCCL refuses two ranks on one card, and `launch`
+refuses, before it spawns a rank, any world size or device that would
+ask it to). `launch` binds each rank to its card (torch.cuda.set_device)
+before anything else runs there, so that every tensor a rank makes
+without naming a device, and every kernel it launches, lands on its own
+card. gloo takes
 every collective the mesh calls on CUDA tensors as they are (it stages
 them through the host itself): scripts/gloo_cuda_probe.py found
 all_reduce, all_gather_into_tensor, all_to_all_single, broadcast and
@@ -30,6 +35,7 @@ deadline and kills the group when the deadline passes.
 from __future__ import annotations
 
 import os
+import pickle
 import queue
 import shutil
 import tempfile
@@ -51,7 +57,10 @@ class Mesh:
     """One axis over the ranks of an initialized process group (the
     default group, or `group`, one made by torch.distributed.new_group):
     the rank, the world size, the rank's device and the collectives the
-    sharded tiers use. `calls` counts each collective's calls."""
+    sharded tiers use. `calls` counts each collective's calls, `largest`
+    the largest leading dimension of any operand of each (the tensor a
+    rank passes in; 1 for a scalar). `start_seconds`: the rank's start as
+    `launch` split it, empty where the process group was made otherwise."""
 
     def __init__(self, axis: str = "obs", device=None, group=None):
         if not dist.is_initialized():
@@ -69,13 +78,17 @@ class Mesh:
         self.device = resolve_device(device)
         if self.backend == "nccl" and self.device.type != "cuda":
             raise ValueError("the nccl backend needs the ranks on cards")
-        self.calls = {c: 0 for c in COLLECTIVES}
+        self.calls = dict.fromkeys(COLLECTIVES, 0)
+        self.largest = dict.fromkeys(COLLECTIVES, 0)
+        self.start_seconds = {}
 
     def axis_index(self) -> int:
         return self.rank
 
     def _call(self, name, fn, out, *inputs):
         self.calls[name] += 1
+        rows = max(t.shape[0] if t.dim() else 1 for t in inputs or (out,))
+        self.largest[name] = max(self.largest[name], rows)
         fn(out, *inputs)
         return out
 
@@ -145,14 +158,43 @@ def _to_host(obj):
     return obj
 
 
-def _rank_main(fn, rank, world_size, backend, device, store, timeout_s, results, args):
+def _rank_device(rank: int, device) -> torch.device:
+    """The device of rank `rank`: device=None its own card, rank modulo
+    the cards; else the device named."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass device='cpu'")
+        return torch.device("cuda", rank % torch.cuda.device_count())
+    return resolve_device(device)
+
+
+def _rank_main(call_path, rank, world_size, backend, device, store, timeout_s, results,
+               spawned_at):
     try:
+        with open(call_path, "rb") as f:
+            fn, args = pickle.load(f)
+        start = {"spawn_to_entry": time.time() - spawned_at}
         # the ranks share the host's cores
         torch.set_num_threads(1)
+        dev = _rank_device(rank, device)
+        if dev.type == "cuda":
+            t = time.perf_counter()
+            torch.cuda.init()
+            start["cuda_init"] = time.perf_counter() - t
+            # the rank's card current before anything touches a card
+            t = time.perf_counter()
+            torch.cuda.set_device(dev)
+            torch.cuda.synchronize(dev)
+            start["context"] = time.perf_counter() - t
+        t = time.perf_counter()
+        # under NCCL device_id builds the communicator now, on the rank's card
         dist.init_process_group(backend, init_method=store, rank=rank,
-                                world_size=world_size, timeout=timedelta(seconds=timeout_s))
+                                world_size=world_size, timeout=timedelta(seconds=timeout_s),
+                                device_id=dev if backend == "nccl" else None)
+        start["process_group"] = time.perf_counter() - t
         try:
-            mesh = make_mesh(device=device)
+            mesh = make_mesh(device=dev)
+            mesh.start_seconds = start
             out = fn(mesh, *args)
             results.put((rank, "ok", _to_host(out)))
         finally:
@@ -160,6 +202,29 @@ def _rank_main(fn, rank, world_size, backend, device, store, timeout_s, results,
     except BaseException:
         results.put((rank, "error", traceback.format_exc()))
         raise
+
+
+def _refuse(world_size: int, backend: str, device) -> None:
+    """Raises, before any rank is spawned, for a backend, world size or
+    device the ranks could not run on: NCCL takes one rank per card."""
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "nccl":
+        if device is not None:
+            dev = torch.device(device)
+            if dev.type != "cuda":
+                raise ValueError(f"the nccl backend needs the ranks on cards, not on {dev}")
+            if world_size > 1:
+                raise ValueError(
+                    f"the nccl backend takes one rank per card: device={device!r} names "
+                    f"one card for {world_size} ranks (device=None gives rank r card r; "
+                    "gloo shares a card)")
+        cards = torch.cuda.device_count()
+        if world_size > cards:
+            raise ValueError(f"the nccl backend takes one rank per card: {world_size} "
+                             f"ranks, {cards} cards")
+    elif device is None and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu'")
 
 
 def launch(fn: Callable, world_size: int, backend: str = "gloo", device=None,
@@ -174,22 +239,34 @@ def launch(fn: Callable, world_size: int, backend: str = "gloo", device=None,
     collective) fails the call with RuntimeError or TimeoutError, and the
     whole group is killed. `fn` must be importable (a module-level function
     of an importable module). device: None for each rank's card
-    (rank % device_count), or "cpu", "cuda:0" ...; the backend is the
-    caller's: nothing falls back to another on an error."""
-    if backend not in ("gloo", "nccl"):
-        raise ValueError(f"unknown backend {backend!r}")
+    (rank % device_count), or "cpu", "cuda:0" ... for every rank; each
+    rank makes its card current before anything else, and under NCCL
+    builds its communicator there at once. The backend is the caller's:
+    nothing falls back to another on an error. NCCL takes one rank per
+    card: ValueError, before any rank starts, for more ranks than cards,
+    for one card named for several ranks, or for the CPU. Each rank's
+    mesh.start_seconds splits its start: spawn to entry (the interpreter,
+    import torch, the rank's modules, fn and args), CUDA's initialization
+    in torch, its card's first context, init_process_group."""
+    _refuse(world_size, backend, device)
     ctx = torch.multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="ct_mesh_")
     store = "file://" + os.path.join(tmp, "store")
+    # the ranks read fn and args from a file: a spawned process's own
+    # arguments go through a pipe that blocks start() until the child has
+    # imported its modules and read them, which started the ranks one
+    # after another
+    call_path = os.path.join(tmp, "call.pkl")
+    with open(call_path, "wb") as f:
+        pickle.dump((fn, args), f, protocol=pickle.HIGHEST_PROTOCOL)
     results = ctx.Queue()
-    procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(fn, r, world_size, backend, device, store, timeout_s,
-                               results, args))
-             for r in range(world_size)]
-    out, err = {}, None
+    procs, out, err = [], {}, None
     try:
-        for p in procs:
-            p.start()
+        for r in range(world_size):
+            procs.append(ctx.Process(target=_rank_main, daemon=True, args=(
+                call_path, r, world_size, backend, device, store, timeout_s, results,
+                time.time())))
+            procs[-1].start()
         deadline = time.monotonic() + timeout_s
         while len(out) < world_size and err is None:
             left = deadline - time.monotonic()

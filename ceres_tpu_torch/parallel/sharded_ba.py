@@ -1557,10 +1557,12 @@ def run_halo_ceres(mesh, plan: CameraHaloPlan, cams, pts, opts, max_num_iteratio
 
 
 def solve_ba_camera_halo_ceres(b, options=None, mesh=None, k=4, radius0=1e4,
-                               max_num_iterations=None):
+                               max_num_iterations=None, info: Optional[dict] = None):
     """The halo-sharded LM under the Ceres options (sharded_ba.py:2163).
     `options`: an Options, a ShardedLMOptions or None (Ceres's defaults).
-    Returns (BAState with this rank's shards, the plan, TerminationType)."""
+    Returns (BAState with this rank's shards, the plan, TerminationType);
+    `info`, a dict when given, receives "iterations", the LM iterations
+    run."""
     from .mesh import make_mesh
 
     opts, max_iters = _sharded_lm_options(options, max_num_iterations)
@@ -1569,6 +1571,8 @@ def solve_ba_camera_halo_ceres(b, options=None, mesh=None, k=4, radius0=1e4,
                             b.observations, mesh.size)
     dt = torch.as_tensor(plan.cams[:1]).dtype
     c = run_halo_ceres(mesh, plan, plan.cams, plan.pts, opts, max_iters, k, radius0, dt)
+    if info is not None:
+        info["iterations"] = c.it
     state = BAState(c.cams, c.pts, torch.tensor(c.radius, dtype=dt, device=mesh.device),
                     c.cost)
     return state, plan, _halo_terminal(c.term)

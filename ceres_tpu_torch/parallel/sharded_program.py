@@ -142,8 +142,9 @@ def solve_program_camera_halo(program, options=None, mesh=None, k=4, radius0=1e4
     """The halo-sharded LM over a program (sharded_program.py:164):
     qualification, plan, the loop, the solution written back into the
     program's arrays on every rank. Returns (x (numpy state vector),
-    {"final_cost", "iterations", "termination"}, TerminationType). The
-    program must live on the mesh's device."""
+    {"final_cost", "iterations", "termination", "plan"}, TerminationType),
+    "plan" the CameraHaloPlan the ranks ran. The program must live on the
+    mesh's device."""
     from .mesh import make_mesh
 
     q = qualify_program_halo(program, e_families)
@@ -175,4 +176,5 @@ def solve_program_camera_halo(program, options=None, mesh=None, k=4, radius0=1e4
         x[fam.state_offset:fam.state_offset + fam.count * fam.asize] = tab.reshape(-1)
     program.write_state(torch.as_tensor(x))
     term = sb._halo_terminal(c.term)
-    return x, {"final_cost": float(c.cost), "iterations": c.it, "termination": term}, term
+    return x, {"final_cost": float(c.cost), "iterations": c.it, "termination": term,
+               "plan": plan}, term

@@ -80,9 +80,14 @@ SPARSE_SCHUR, DENSE_SCHUR, ITERATIVE_SCHUR and DENSE_SCHUR with
 each launching the kernels of its path, and one full_report.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase mesh --cards 4
 
-Exits nonzero on any failure, and before printing any result when no CUDA
-device is available. Its last line is {"ok": true, "device": {...}}; the
+The second builds the kernels and runs only the mesh phase (port slices
+19 and 20): the tiers on card 0 as the first runs them, then the NCCL
+group of 4 ranks, one per card, at world sizes 4, 2 and 1 (--cards 2:
+2 and 1), and BAL-16 DENSE_SCHUR solved on cuda:1 in this process; it
+needs that many cards. Exits nonzero on any failure, and before printing
+any result when no CUDA device is available. Its last line is {"ok": true, "device": {...}}; the
 line before it lists every ported TPU kernel with its launches, error and
 times. Imports nothing of jax and nothing of ceres_tpu.
 """
@@ -468,6 +473,9 @@ MESH16_CASES = [
 ]
 # the largest group first: its ranks start before the others' cases load the host
 MESH_WORLD = {4: "gloo", 2: "gloo", 1: "nccl"}
+# --cards N (port slice 20): the NCCL group of N ranks, one per card, at
+# world size N and over subgroups at the smaller sizes
+MESH_NCCL_SIZES = {4: (4, 2, 1), 2: (2, 1)}
 MESH_COST_REL = 1e-10
 MESH_STATE_REL = 1e-8
 # the halo tier at the 2,048-camera instance, world size 4: its LM
@@ -1832,9 +1840,22 @@ def first_iteration_args(pipeline, run, start):
     return {c: args for (c, _, _), (_, args) in zip(cases, seen)}
 
 
-def main():
+def main(argv=()):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="The port's smoke run on the card.")
+    ap.add_argument("--phase", choices=("all", "mesh"), default="all",
+                    help="mesh: build the kernels and run only the mesh phase")
+    ap.add_argument("--cards", type=int, choices=(2, 4), default=0,
+                    help="add the NCCL group of this many ranks, one per card, and "
+                    "BAL-16 solved on cuda:1 in this process")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    if torch.cuda.device_count() < args.cards:
+        print(f"chip_smoke: --cards {args.cards} needs {args.cards} cards, this machine "
+              f"has {torch.cuda.device_count()}", file=sys.stderr)
         return 2
     import ceres_tpu_torch as ctt
     from ceres_tpu_torch.models import bal, libmv
@@ -1877,9 +1898,18 @@ def main():
     build.load()
     paths = {}
 
-    # -- the mesh phase (port slice 19) ---------------------------------------
+    # -- the mesh phase (port slices 19 and 20) --------------------------------
     log("phase", f"the mesh tiers from {time.monotonic() - t_start:.1f} s")
-    log("phase", f"the mesh tiers took {mesh_phase(bal, kn, card, paths):.1f} s")
+    log("phase", f"the mesh tiers took {mesh_phase(bal, kn, card, paths, args.cards):.1f} s")
+    if args.cards:
+        second_card_solve(ctt, bal, kn, card, paths)
+    if args.phase == "mesh":
+        log("total", f"chip_smoke --phase mesh ran {time.monotonic() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     def copy_problem(b):
         return bal.build_problem_batched(bal.from_arrays(
@@ -5332,22 +5362,28 @@ def result_digest(r):
     return mesh_digest(r["cams"], r["pts"])
 
 
-def mesh_phase(bal, kn, card, paths):
+def mesh_phase(bal, kn, card, paths, cards=0):
     """Port slice 19 on the card: every multi-device tier on BAL-16
     (MESH16_CASES) at world size 1 over NCCL and at 2 and 4 over gloo, the
-    ranks sharing the card, the three groups spawned at once by
+    ranks sharing card 0, the three groups spawned at once by
     parallel.mesh.launch (the kernels built before, so the ranks load
     build/); the halo tier at the 2,048-camera instance at world size 4.
-    Gates: each case's cost within MESH_COST_REL and its state's digest
-    within MESH_STATE_REL of the JAX package's (MESH16_GOLDEN) and of world
-    size 1's; every rank's answer the same bits and each case's repeat the
-    same bits; the point-sharded tier and the sharded CGNR launch their
-    kernels (MESH_ROWS) on every rank, no plain version on the card; the
+    With cards = N (port slice 20), then the NCCL group of N ranks, one
+    per card, at world size N over every rank and at the smaller sizes
+    of MESH_NCCL_SIZES over subgroups (tiers.run_world_sizes), the
+    2,048-camera halo at world size 4. Gates, on every group: each case's
+    cost within MESH_COST_REL and its state's digest within
+    MESH_STATE_REL of the JAX package's (MESH16_GOLDEN) and of the same
+    setting's world size 1; every rank's answer the same bits and each
+    case's repeat the same bits; the point-sharded tier and the sharded
+    CGNR launch their kernels (MESH_ROWS) on every rank, no plain version
+    on the card; each rank's current card its own and every tensor a
+    tier returned on it; each audited tier's collectives per LM
+    iteration within the JAX package's audit (tiers.audit); the
     2,048-camera halo within the same bounds of the same steps on one
     device, each rank's cut (the rows it needs from other ranks) under
     half the rows it does not own; the exchange's size (n * Hs rows a
-    rank) is logged, not gated. Returns
-    the phase's seconds."""
+    rank) is logged, not gated. Returns the phase's seconds."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ceres_tpu_torch.parallel import mesh as pm
@@ -5364,15 +5400,19 @@ def mesh_phase(bal, kn, card, paths):
     cases = [dict(c, problem="bal16") for c in MESH16_CASES]
     c2048 = dict(name="halo_c2048", tier="halo", problem="c2048",
                  num_iterations=MESH_C2048_ITERATIONS, k=MESH_C2048_ITERATIONS, cg_iters=10)
+    both = {"bal16": arrays(b), "c2048": arrays(small)}
     jobs = {n: (backend, {"bal16": arrays(b)}, cases) for n, backend in MESH_WORLD.items()}
-    jobs[4] = ("gloo", {"bal16": arrays(b), "c2048": arrays(small)}, cases + [c2048])
-    def timed_launch(n, backend, problems, cs):
+    jobs[4] = ("gloo", both, cases + [c2048])
+
+    def timed_launch(fn, n, backend, device, problems, *rest):
         t = time.time()
-        ranks = pm.launch(tiers.run_cases, n, backend, None, MESH_DEADLINE_S, (problems, cs))
+        ranks = pm.launch(fn, n, backend, device, MESH_DEADLINE_S, (problems,) + rest)
         return ranks, (t, time.time())
 
     with ThreadPoolExecutor(len(jobs)) as ex:
-        futs = {n: ex.submit(timed_launch, n, *job) for n, job in jobs.items()}
+        # the ranks of every group share card 0
+        futs = {n: ex.submit(timed_launch, tiers.run_cases, n, backend, "cuda:0", *job)
+                for n, (backend, *job) in jobs.items()}
         # the 2,048-camera halo's one-device steps while the ranks run, and
         # how far a one-ulp change of BAL-16's cameras moves the dense-Schur
         # steps' cost after 2 LM iterations and after the phase's depth
@@ -5395,86 +5435,218 @@ def mesh_phase(bal, kn, card, paths):
         f"{card}")
     out = {n: ranks for n, (ranks, _) in launched.items()}
     for n, (ranks, (t_in, t_out)) in launched.items():
-        log(f"mesh w{n}", f"{MESH_WORLD[n]}: the group's launch {t_out - t_in:.1f} s: the "
-            f"ranks' start (spawn, imports, the process group) "
-            f"{max(r['entered_at'] for r in ranks) - t_in:.1f} s, the card's context "
-            f"{max(r['context_seconds'] for r in ranks):.1f} s, the cases (each run twice) "
-            f"{max(r['seconds'] for r in ranks):.1f} s on the slowest rank, the ranks' exit "
-            f"{t_out - max(r['left_at'] for r in ranks):.1f} s; {card}")
-    names = [k.__name__ for k in kn.KERNELS]
+        log(f"mesh w{n}", f"{MESH_WORLD[n]}, the ranks on card 0: "
+            + launch_times(ranks, t_in, t_out) + f"; {card}")
     called = set()
     for n, ranks in out.items():
-        check([r["rank"] for r in ranks] == list(range(n)), f"world size {n}: ranks {ranks}")
-        for rank in ranks:
-            check(rank["backend"] == MESH_WORLD[n] and rank["device"].startswith("cuda"),
-                  f"world size {n}: rank {rank['rank']} on {rank['backend']}, "
-                  f"{rank['device']}")
-        for case in jobs[n][2]:
-            name = case["name"]
-            first = ranks[0]["cases"][name]
-            for rank in ranks:
-                r = rank["cases"][name]
-                called |= {c for c, v in r["collectives"].items() if v}
-                check(r["repeat_bitwise"], f"mesh {name} w{n}: rank {rank['rank']}'s "
-                      "repeat gave other bits")
-                check(not r["plain_calls"], f"mesh {name} w{n}: plain versions ran on the "
-                      f"card: {r['plain_calls']}")
-                for k in MESH_ROWS.get(name, ()):
-                    check(r["launches"].get(k, 0) > 0, f"mesh {name} w{n}: rank "
-                          f"{rank['rank']} launched no {k}: {r['launches']}")
-                check(r["cost"] == first["cost"] and all(
-                    np.array_equal(r[f], first[f]) for f in ("cams", "pts", "gradient")
-                    if f in r), f"mesh {name} w{n}: rank {rank['rank']} differs from rank 0")
-            paths[f"mesh_{name}_w{n}"] = {
-                "launches": {k: sum(rk["cases"][name]["launches"].get(k, 0) for rk in ranks)
-                             for k in names},
-                "plain_calls": {k: 0 for k in names},
-                "launches_by_rank": [rk["cases"][name]["launches"] for rk in ranks],
-                "seconds_by_rank": [rk["cases"][name]["seconds"] for rk in ranks],
-                "collectives_rank0": first["collectives"], "cost": first["cost"]}
-            if name == "halo_c2048":
-                continue
-            gaps = mesh_gaps(first, MESH16_GOLDEN[name])
-            w1 = out[1][0]["cases"][name]
-            to_w1 = mesh_gaps(first, {"cost": w1["cost"], **result_digest(w1)})
-            paths[f"mesh_{name}_w{n}"].update(gaps_to_jax=gaps, gaps_to_w1=to_w1)
-            log(f"mesh {name} w{n}", f"{MESH_WORLD[n]}: cost {first['cost']!r}, gaps to the "
-                f"JAX package's {json.dumps(gaps)}, to world size 1 {json.dumps(to_w1)}; "
-                f"{max(rk['cases'][name]['seconds'] for rk in ranks):.3f} s; launches "
-                f"{json.dumps(first['launches'])}; collectives {json.dumps(first['collectives'])}")
-            for what, g in (("the JAX package", gaps), ("world size 1", to_w1)):
-                check(g["cost"] <= MESH_COST_REL and all(
-                    v <= MESH_STATE_REL for k, v in g.items() if k != "cost"),
-                    f"mesh {name} w{n}: off {what}'s answer: {g}")
-    # the 2,048-camera halo against the same steps on one device
-    r = out[4][0]["cases"]["halo_c2048"]
-    gaps = mesh_gaps(r, ref_digest)
-    cuts = [rk["cases"]["halo_c2048"]["cut_rows"] for rk in out[4]]
-    log("mesh halo_c2048 w4", f"{small.num_cameras} cameras, {small.num_points} points, "
-        f"{small.num_observations} observations, {MESH_C2048_ITERATIONS} LM iterations: "
-        f"plan {r['plan']}, {r['Pl']} points owned a rank, the cut (rows from other ranks) "
-        f"by rank {cuts}; each exchange moves {4 * r['Hs']} rows a rank (n * Hs, Hs the "
-        f"largest request, a rank's request of its own rows included) where a gather "
-        f"moves {4 * r['Pl']} (n * Pl); cost {r['cost']!r}, gaps to one device "
-        f"{json.dumps(gaps)}; "
-        f"{max(rk['cases']['halo_c2048']['seconds'] for rk in out[4]):.3f} s")
-    # a rank's cut is under half the rows it does not own: the halo needs
-    # few of the other ranks' points (the exchange's size is only logged:
-    # n * Hs <= n * Pl always holds)
-    others = 3 * r["Pl"]
-    check(r["plan"] == "CameraHaloPlan" and max(cuts) < others / 2,
-          f"halo_c2048: the cut {cuts} is not under half the {others} rows a rank "
-          "does not own")
-    check(gaps["cost"] <= MESH_COST_REL and all(v <= MESH_STATE_REL for v in gaps.values()),
-          f"halo_c2048: off the one-device steps: {gaps}")
-    paths["mesh_halo_c2048_w4"].update(gaps_to_one_device=gaps, cut_rows=cuts,
-                                       exchange_rows=4 * r["Hs"], gather_rows=4 * r["Pl"])
+        called |= gate_mesh_group(kn, "", MESH_WORLD[n], n, ranks, jobs[n][2],
+                                  out[1][0]["cases"], paths, [0] * n)
+    gate_halo_c2048("", out[4], ref_digest, small, paths)
     log("mesh collectives", f"called on CUDA tensors as they are, none staged through "
         f"the host by the mesh: {sorted(called)}; NCCL at world size 1, gloo at 2 and 4 "
         f"(PyTorch {torch.__version__}); {card}")
     log("mesh", f"the three groups ran in {wall:.1f} s of wall time (spawn included); {card}")
+    if cards:
+        nccl_phase(kn, tiers, card, paths, cards, cases, c2048, both, out, ref_digest, small,
+                   timed_launch)
     return time.monotonic() - t0
 
 
+def launch_times(ranks, t_in, t_out):
+    """A group's launch: its seconds, the ranks' start split as
+    parallel.mesh.launch records it (the slowest rank's each), the cases,
+    the exit."""
+    start = {k: max(r["start_seconds"].get(k, 0.0) for r in ranks)
+             for k in ("spawn_to_entry", "cuda_init", "context", "process_group")}
+    return (f"the group's launch {t_out - t_in:.1f} s: the ranks' start "
+            f"{max(r['entered_at'] for r in ranks) - t_in:.1f} s (spawn to entry, the "
+            f"interpreter, import torch, the rank's modules and arguments, "
+            f"{start['spawn_to_entry']:.2f} s; CUDA's initialization in torch "
+            f"{start['cuda_init']:.2f} s; the card's first context {start['context']:.2f} s; "
+            f"init_process_group {start['process_group']:.2f} s: the slowest rank's each), "
+            f"the cases (each run twice) {max(r['seconds'] for r in ranks):.1f} s on the "
+            f"slowest rank, the ranks' exit {t_out - max(r['left_at'] for r in ranks):.1f} s")
+
+
+def gate_mesh_group(kn, tag, backend, n, ranks, cases, w1, paths, cards):
+    """The mesh phase's gates on one group of n ranks over `backend`:
+    `ranks` their run_cases results in rank order, `cards` each rank's
+    card, `w1` the cases' results at world size 1 in the same setting;
+    the results go to paths["mesh_<tag><case>_w<n>"]. Returns the
+    collectives the group called."""
+    from ceres_tpu_torch.parallel import tiers
+
+    names = [k.__name__ for k in kn.KERNELS]
+    called = set()
+    check([r["rank"] for r in ranks] == list(range(n)), f"world size {n}: ranks {ranks}")
+    for rank, c in zip(ranks, cards):
+        check(rank["backend"] == backend and rank["device"] == f"cuda:{c}"
+              and rank["current_device"] == c,
+              f"{tag}w{n}: rank {rank['rank']} on {rank['backend']}, {rank['device']}, "
+              f"current card {rank['current_device']}, not {backend} on card {c}")
+    for case in cases:
+        name = case["name"]
+        if n not in case.get("sizes", (n,)):
+            continue
+        first = ranks[0]["cases"][name]
+        for rank, c in zip(ranks, cards):
+            r = rank["cases"][name]
+            called |= {k for k, v in r["collectives"].items() if v}
+            check(r["repeat_bitwise"], f"mesh {tag}{name} w{n}: rank {rank['rank']}'s "
+                  "repeat gave other bits")
+            check(not r["plain_calls"], f"mesh {tag}{name} w{n}: plain versions ran on the "
+                  f"card: {r['plain_calls']}")
+            check(set(r["devices"]) <= {f"cuda:{c}"}, f"mesh {tag}{name} w{n}: rank "
+                  f"{rank['rank']} returned tensors on {r['devices']}, not card {c}")
+            for k in MESH_ROWS.get(name, ()):
+                check(r["launches"].get(k, 0) > 0, f"mesh {tag}{name} w{n}: rank "
+                      f"{rank['rank']} launched no {k}: {r['launches']}")
+            check(r["cost"] == first["cost"] and all(
+                np.array_equal(r[f], first[f]) for f in ("cams", "pts", "gradient")
+                if f in r), f"mesh {tag}{name} w{n}: rank {rank['rank']} differs from rank 0")
+            if case["tier"] in tiers.AUDITED:
+                bad = tiers.audit(case["tier"], r)[1]
+                check(not bad, f"mesh {tag}{name} w{n}: rank {rank['rank']} over the JAX "
+                      f"package's collective audit: {bad}")
+        per = (tiers.audit(case["tier"], first)[0] if case["tier"] in tiers.AUDITED else
+               {k: v / first["iterations"] for k, v in first["collectives"].items()})
+        paths[f"mesh_{tag}{name}_w{n}"] = {
+            "launches": {k: sum(rk["cases"][name]["launches"].get(k, 0) for rk in ranks)
+                         for k in names},
+            "plain_calls": {k: 0 for k in names},
+            "launches_by_rank": [rk["cases"][name]["launches"] for rk in ranks],
+            "seconds_by_rank": [rk["cases"][name]["seconds"] for rk in ranks],
+            "peak_bytes_by_rank": [rk["cases"][name]["peak_bytes"] for rk in ranks],
+            "collectives_rank0": first["collectives"],
+            "collectives_per_iteration": per, "iterations": first["iterations"],
+            "cost": first["cost"]}
+        if name == "halo_c2048":
+            continue
+        gaps = mesh_gaps(first, MESH16_GOLDEN[name])
+        to_w1 = mesh_gaps(first, {"cost": w1[name]["cost"], **result_digest(w1[name])})
+        paths[f"mesh_{tag}{name}_w{n}"].update(gaps_to_jax=gaps, gaps_to_w1=to_w1)
+        log(f"mesh {tag}{name} w{n}", f"{backend}: cost {first['cost']!r}, gaps to the "
+            f"JAX package's {json.dumps(gaps)}, to world size 1 {json.dumps(to_w1)}; "
+            f"{max(rk['cases'][name]['seconds'] for rk in ranks):.3f} s; launches "
+            f"{json.dumps(first['launches'])}; collectives {json.dumps(first['collectives'])}, "
+            f"per LM iteration ({first['iterations']}) {json.dumps(per)}")
+        for what, g in (("the JAX package", gaps), ("world size 1", to_w1)):
+            check(g["cost"] <= MESH_COST_REL and all(
+                v <= MESH_STATE_REL for k, v in g.items() if k != "cost"),
+                f"mesh {tag}{name} w{n}: off {what}'s answer: {g}")
+    return called
+
+
+def gate_halo_c2048(tag, ranks, ref_digest, small, paths):
+    """The 2,048-camera halo at world size 4 against the same steps on one
+    device; a rank's cut under half the rows it does not own: the halo
+    needs few of the other ranks' points (the exchange's size is only
+    logged: n * Hs <= n * Pl always holds)."""
+    r = ranks[0]["cases"]["halo_c2048"]
+    gaps = mesh_gaps(r, ref_digest)
+    cuts = [rk["cases"]["halo_c2048"]["cut_rows"] for rk in ranks]
+    peaks = [rk["cases"]["halo_c2048"]["peak_bytes"] for rk in ranks]
+    log(f"mesh {tag}halo_c2048 w4", f"{small.num_cameras} cameras, {small.num_points} "
+        f"points, {small.num_observations} observations, {MESH_C2048_ITERATIONS} LM "
+        f"iterations: plan {r['plan']}, {r['Pl']} points owned a rank, the cut (rows from "
+        f"other ranks) by rank {cuts}; each exchange moves {4 * r['Hs']} rows a rank (n * "
+        f"Hs, Hs the largest request, a rank's request of its own rows included) where a "
+        f"gather moves {4 * r['Pl']} (n * Pl); cost {r['cost']!r}, gaps to one device "
+        f"{json.dumps(gaps)}; {max(rk['cases']['halo_c2048']['seconds'] for rk in ranks):.3f}"
+        f" s; peak device bytes by rank {peaks}")
+    others = 3 * r["Pl"]
+    check(r["plan"] == "CameraHaloPlan" and max(cuts) < others / 2,
+          f"{tag}halo_c2048: the cut {cuts} is not under half the {others} rows a rank "
+          "does not own")
+    check(gaps["cost"] <= MESH_COST_REL and all(v <= MESH_STATE_REL for v in gaps.values()),
+          f"{tag}halo_c2048: off the one-device steps: {gaps}")
+    paths[f"mesh_{tag}halo_c2048_w4"].update(gaps_to_one_device=gaps, cut_rows=cuts,
+                                             exchange_rows=4 * r["Hs"],
+                                             gather_rows=4 * r["Pl"])
+
+
+def nccl_phase(kn, tiers, card, paths, cards, cases, c2048, problems, shared, ref_digest,
+               small, timed_launch):
+    """The NCCL group of `cards` ranks, one per card (port slice 20): one
+    launch, world size `cards` over every rank, then the smaller sizes of
+    MESH_NCCL_SIZES over subgroups; the 2,048-camera halo at world size 4.
+    Gated as the shared card's groups, each rank on its own card; the
+    tiers' seconds logged beside the same tiers' on the shared card
+    (`shared`: {world size: ranks})."""
+    sizes = MESH_NCCL_SIZES[cards]
+    cs = cases + ([dict(c2048, sizes=(4,))] if cards == 4 else [])
+    ranks, (t_in, t_out) = timed_launch(tiers.run_world_sizes, cards, "nccl", None,
+                                        problems, cs, sizes)
+    out = {n: [r[n] for r in ranks if n in r] for n in sizes}
+    # a rank's start from its largest group, its cases and exit over every size
+    merged = [dict(r[cards], seconds=sum(x["seconds"] for x in r.values()),
+                   left_at=max(x["left_at"] for x in r.values())) for r in ranks]
+    log("mesh nccl", f"one rank per card, {cards} cards, world sizes {list(sizes)} from one "
+        f"launch: " + launch_times(merged, t_in, t_out) + f"; {card}")
+    called = set()
+    for n in sizes:
+        # run_world_sizes' subgroups: consecutive ranks from rank 0, the
+        # sizes after the largest side by side
+        first = sum(sizes[1:sizes.index(n)]) if n != cards else 0
+        called |= gate_mesh_group(kn, "nccl_", "nccl", n, out[n], cs, out[1][0]["cases"],
+                                  paths, list(range(first, first + n)))
+    if cards == 4:
+        gate_halo_c2048("nccl_", out[4], ref_digest, small, paths)
+    for case in cs:
+        name = case["name"]
+        nccl = {n: max(r["cases"][name]["seconds"] for r in out[n]) for n in sizes
+                if name in out[n][0]["cases"]}
+        one = {f"{MESH_WORLD[n]} w{n}": max(r["cases"][name]["seconds"] for r in shared[n])
+               for n in sorted(shared) if name in shared[n][0]["cases"]}
+        log(f"mesh seconds {name}", "NCCL, one rank per card: " + ", ".join(
+            f"w{n} {v:.3f} s" for n, v in sorted(nccl.items())) + "; on card 0 shared: "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in one.items()) + f" (first run, slowest "
+            f"rank); {card}")
+    log("mesh nccl collectives", f"over NCCL across cards: {sorted(called)}; {card}")
+
+
+def second_card_solve(ctt, bal, kn, card, paths):
+    """Port slice 20: BAL-16 DENSE_SCHUR float64 through solve() in this
+    process on cuda:0, then on cuda:1 with card 0 current. Gates: the
+    cuda:1 solve within 1e-6 of GOLDEN_COST, its kernels' launches those
+    of the cuda:0 solve, no plain version, nothing of it allocated on
+    card 0, card 0 current after it."""
+    runs = {}
+    for d in ("cuda:0", "cuda:1"):
+        dev = torch.device(d)
+        problem = bal.build_problem_batched(bal16(bal))[0]
+        torch.cuda.synchronize(0)
+        base0 = torch.cuda.memory_allocated(0)
+        torch.cuda.reset_peak_memory_stats(0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kn.reset_counts()
+        t = time.perf_counter()
+        s = ctt.solve(ctt.Options(linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR),
+                      problem, device=d)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t
+        launches, plain = counts(kn)
+        runs[d] = {"cost": s.final_cost, "iterations": len(s.iterations) - 1,
+                   "termination": str(s.termination_type), "seconds": seconds,
+                   "launches": launches, "plain_calls": plain,
+                   "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+                   "card0_bytes_over_start": torch.cuda.max_memory_allocated(0) - base0}
+    r0, r1 = runs["cuda:0"], runs["cuda:1"]
+    gap = (r1["cost"] - GOLDEN_COST) / GOLDEN_COST
+    log("solve bal16_dense_f64 cuda:1", f"cost {r1['cost']!r} (relative gap to golden "
+        f"{gap:.3e}, limit 1e-6), {r1['iterations']} LM iterations, {r1['seconds']:.2f} s "
+        f"(cuda:0: {r0['cost']!r}, {r0['iterations']} iterations, {r0['seconds']:.2f} s); "
+        f"launches {json.dumps({k: v for k, v in r1['launches'].items() if v})}; peak "
+        f"{r1['peak_device_bytes']} bytes on card 1, {r1['card0_bytes_over_start']} on "
+        f"card 0 over its start; {card}")
+    check(abs(gap) <= 1e-6, f"the cuda:1 solve is off golden by {gap:.3e}")
+    check(r1["launches"] == r0["launches"] and not any(r1["plain_calls"].values()),
+          f"the cuda:1 solve launched {r1['launches']}, cuda:0's {r0['launches']}")
+    check(r1["card0_bytes_over_start"] == 0 and r1["peak_device_bytes"] > 0,
+          f"the cuda:1 solve allocated {r1['card0_bytes_over_start']} bytes on card 0")
+    check(torch.cuda.current_device() == 0, "card 0 is no longer current")
+    paths["bal16_dense_f64_cuda1"] = dict(r1, gap_to_golden=gap)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

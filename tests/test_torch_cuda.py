@@ -1462,3 +1462,33 @@ def test_nist_and_denoising_on_card_match_cpu(card, tmp_path):
     for c, g in zip(runs[0].iterations, runs[1].iterations):
         assert abs(g.cost - c.cost) <= 1e-10 * runs[0].initial_cost
     assert kn.segment_block_sum.launches > 0 and kn.segment_block_expand.launches > 0
+
+
+@pytest.mark.parametrize("solver", ["DENSE_SCHUR", "ITERATIVE_SCHUR"])
+def test_solve_on_a_second_card_matches_the_first(card, solver):
+    """solve(..., device="cuda:1") with card 0 current: every kernel
+    launches on card 1 (kernels._launch makes the tensors' card current),
+    the same costs as on card 0 bit for bit, the same launches, and
+    nothing allocated on card 0. Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    b = small_bal()
+    arrays = (b.cameras, b.points, b.camera_index, b.point_index, b.observations)
+    opts = ctt.Options(fused_loop="ALWAYS",
+                       linear_solver_type=getattr(ctt.LinearSolverType, solver))
+    runs = []
+    for d in ("cuda:0", "cuda:1"):
+        problem = tbal.build_problem_batched(tbal.from_arrays(*arrays))[0]
+        torch.cuda.synchronize(0)
+        base = torch.cuda.memory_allocated(0)
+        torch.cuda.reset_peak_memory_stats(0)
+        kn.reset_counts()
+        s = ctt.solve(opts, problem, device=d)
+        torch.cuda.synchronize(d)
+        runs.append((s, {k.__name__: k.launches for k in kn.KERNELS},
+                     torch.cuda.max_memory_allocated(0) - base))
+    (s0, l0, _), (s1, l1, card0_bytes) = runs
+    assert torch.cuda.current_device() == 0
+    assert [r.cost for r in s1.iterations] == [r.cost for r in s0.iterations]
+    assert l1 == l0 and any(l1.values())
+    assert card0_bytes == 0

@@ -193,6 +193,61 @@ def test_camera_tiers_exchange_what_they_should(runs, n):
         assert halo["collectives"]["all_gather_into_tensor"] == 2  # the result's tables
 
 
+AUDITED = [c["name"] for c in CASES if c["tier"] in tiers.AUDITED]
+
+
+@pytest.mark.parametrize("n", WORLD)
+@pytest.mark.parametrize("name", AUDITED)
+def test_mesh_tier_collectives_within_the_jax_audit(runs, name, n):
+    """Each tier's collectives per LM iteration within the bounds of the
+    JAX package's audit of its compiled step (tests/test_collective_audit.py,
+    tiers.audit): point-sharded no all-to-all, 1-10 all-reduces, no
+    all-gather inside the iterations; camera-sharded no all-to-all, 1-2
+    all-gathers, at most 8 + 4 cg all-reduces; halo and halo-Ceres no
+    all-gather inside the iterations, 1 to 6 + 2 cg all-to-alls of at most
+    the cut's rows, no all-reduce of P_pad rows."""
+    tier = next(c["tier"] for c in CASES if c["name"] == name)
+    for rank in runs[n]:
+        r = rank["cases"][name]
+        per, bad = tiers.audit(tier, r)
+        assert not bad, bad
+        if tier != "point":
+            assert r["cg"] == 8
+
+
+@pytest.mark.parametrize("name,breach", [
+    ("point", {"all_to_all_single": 1}), ("point", {"all_gather_into_tensor": 1}),
+    ("point", {"all_reduce": 40}), ("camera", {"all_gather_into_tensor": 4}),
+    ("camera", {"all_reduce": 200}), ("halo", {"all_gather_into_tensor": 1}),
+    ("halo", {"all_to_all_single": 60}), ("halo_ceres", {"all_to_all_single": 100})])
+def test_audit_flags_a_tier_over_its_bounds(runs, name, breach):
+    """tiers.audit on a world size 4 result given extra calls."""
+    tier = next(c["tier"] for c in CASES if c["name"] == name)
+    r = dict(runs[4][0]["cases"][name])
+    r["collectives"] = {k: v + breach.get(k, 0) for k, v in r["collectives"].items()}
+    assert tiers.audit(tier, r)[1]
+
+
+def test_audit_flags_an_exchange_over_the_cut(runs):
+    r = dict(runs[4][0]["cases"]["halo"])
+    assert r["n"] * r["Hs"] < r["P_pad"]  # the instance has a cut at 4 ranks
+    r["largest"] = dict(r["largest"], all_to_all_single=r["P_pad"])
+    assert tiers.audit("halo", r)[1]
+
+
+@pytest.mark.parametrize("n", WORLD)
+def test_ranks_report_their_start_and_devices(runs, n):
+    """On the CPU: no current card, every tensor a tier returned on the
+    CPU, and the rank's start split into spawn to entry and the process
+    group (a card's initialization and context only on a card)."""
+    for rank in runs[n]:
+        assert rank["device"] == "cpu" and rank["current_device"] is None
+        assert set(rank["start_seconds"]) == {"spawn_to_entry", "process_group"}
+        assert all(v >= 0 for v in rank["start_seconds"].values())
+        for name in NAMES:
+            assert rank["cases"][name]["devices"] == ["cpu"], name
+
+
 @pytest.mark.parametrize("n", (2, 4, 8))
 def test_plan_point_sharding_matches_jax(n):
     b = _point_problem()
@@ -248,3 +303,72 @@ def test_launch_fails_when_a_rank_never_joins():
 def test_launch_takes_only_named_backends():
     with pytest.raises(ValueError, match="backend"):
         tmesh.launch(tiers.run_cases, 1, "mpi", device="cpu")
+
+
+@pytest.mark.parametrize("world_size,backend,device,cards,error,match", [
+    (1, "nccl", "cpu", 4, ValueError, "needs the ranks on cards"),
+    (2, "nccl", "cuda:0", 4, ValueError, "one card for 2 ranks"),
+    (4, "nccl", "cuda", 4, ValueError, "one card for 4 ranks"),
+    (4, "nccl", None, 2, ValueError, "4 ranks, 2 cards"),
+    (1, "nccl", None, 0, ValueError, "1 ranks, 0 cards"),
+    (2, "gloo", None, 0, RuntimeError, "no CUDA device")])
+def test_launch_refuses_before_spawning(monkeypatch, world_size, backend, device, cards,
+                                        error, match):
+    """NCCL takes one rank per card: launch refuses a world size or a
+    device that would put two NCCL ranks on one card, or one on the CPU,
+    before it spawns any rank."""
+    import torch
+    import torch_mesh_fns
+
+    def no_spawn(*args, **kwargs):
+        raise AssertionError("a rank was spawned")
+
+    monkeypatch.setattr(torch.multiprocessing, "get_context", no_spawn)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: cards > 0)
+    with pytest.raises(error, match=match):
+        tmesh.launch(torch_mesh_fns.raising_rank, world_size, backend, device=device)
+
+
+def _describe_mesh(mesh):
+    return str(mesh.device), sorted(mesh.start_seconds)
+
+
+@pytest.mark.parametrize("backend,device,rank,card", [
+    ("nccl", None, 2, 2), ("gloo", None, 3, 3), ("gloo", "cuda:1", 3, 1)])
+def test_rank_binds_its_card_before_the_process_group(monkeypatch, tmp_path, backend,
+                                                      device, rank, card):
+    """A rank makes its card current (device=None: rank r card r % the
+    cards) before init_process_group, and under NCCL passes it as
+    device_id, so that the communicator is built there at once. The rank
+    runs in this process here, torch.cuda and the process group stubbed."""
+    import pickle
+    import time
+    import types
+
+    import torch
+
+    events, results = [], []
+    cuda = {"is_available": lambda: True, "device_count": lambda: 4,
+            "init": lambda: events.append("init"),
+            "set_device": lambda d: events.append(("set_device", torch.device(d))),
+            "synchronize": lambda d=None: events.append(("synchronize", d))}
+    for name, fn in cuda.items():
+        monkeypatch.setattr(torch.cuda, name, fn)
+    monkeypatch.setattr(torch, "set_num_threads", lambda n: None)
+    monkeypatch.setattr(tmesh.dist, "init_process_group", lambda *a, **k: events.append(
+        ("init_process_group", a[0], k["device_id"])))
+    monkeypatch.setattr(tmesh.dist, "destroy_process_group", lambda: events.append("destroy"))
+    monkeypatch.setattr(tmesh, "make_mesh", lambda device: types.SimpleNamespace(
+        device=device))
+    queue = types.SimpleNamespace(put=results.append)
+    call = tmp_path / "call.pkl"
+    call.write_bytes(pickle.dumps((_describe_mesh, ())))
+    tmesh._rank_main(str(call), rank, 4, backend, device, "file:///unused", 10, queue,
+                     time.time())
+    dev = torch.device("cuda", card)
+    assert results == [(rank, "ok", (str(dev), ["context", "cuda_init", "process_group",
+                                                  "spawn_to_entry"]))]
+    assert events == ["init", ("set_device", dev), ("synchronize", dev),
+                      ("init_process_group", backend, dev if backend == "nccl" else None),
+                      "destroy"]

@@ -193,6 +193,25 @@ def test_sharded_cgnr_runs_rows_6_7_9_on_every_rank(runs, n):
         assert "normal_matvec" not in r["plain_calls"]
 
 
+@pytest.mark.parametrize("n", WORLD)
+@pytest.mark.parametrize("name", ("evaluator", "program_halo", "program_halo_quat"))
+def test_program_tier_collectives_within_the_jax_audit(runs, name, n):
+    """The generic evaluator: no all-to-all, at least one all-reduce
+    (tests/test_collective_audit.py:141-157); the program-halo tier, as
+    the halo tier (:160-221, :242): no all-gather inside the iterations
+    (the two it makes gather the result's tables), 1 to 6 + 2 cg
+    all-to-alls an LM iteration of at most the cut's rows, no all-reduce
+    of P_pad rows (tiers.audit)."""
+    tier = next(c["tier"] for c in CASES if c["name"] == name)
+    for rank in runs[n]:
+        r = rank["cases"][name]
+        per, bad = tiers.audit(tier, r)
+        assert not bad, bad
+        if tier == "program_halo":
+            assert r["cg"] == 8 and r["result_gathers"] == 2
+            assert r["collectives"]["all_gather_into_tensor"] == 2
+
+
 @pytest.mark.parametrize("name", ("solve_sharded", "solve_sharded_fused"))
 def test_sharded_solves_report_the_world_size(runs, name):
     for n in WORLD:
